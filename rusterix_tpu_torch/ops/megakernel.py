@@ -1,0 +1,735 @@
+"""The opaque-frame megakernel: visibility + attributes + texel + lighting
++ compose for one screen tile per CUDA block (torch side of
+`rusterix_tpu/ops/megakernel.py`).
+
+This module holds the kernel's preparation (the per-candidate table, the
+Morton + front-to-back super order, the parameter packs), its launch
+wrapper `mega_render` and its plain torch version `mega_render_reference`.
+The kernel itself is `rusterix_tpu_torch/csrc/megakernel.cu`.
+
+`mega_render` launches the CUDA kernel for CUDA tensors and runs the plain
+version for CPU tensors; nothing else chooses between them.
+
+Mega attr-table layout (f32 columns, the JAX package's layout):
+  0-17  attribute planes (inv_w, u, v, nx, ny, nz) x (a, b, c)
+  18 kind | 19 repeat (+4 = fullbright) | 20 has_normals
+  21-24 rgba (SRC_PIXEL color) | 25-27 batch ambient rgb
+  28-31 anim-resolved atlas rect (rx, ry, rw, rh)
+  material, matmap and blend extensions follow (see the JAX module); the
+  kernel refuses them for now.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .._host import SRC_PIXEL, SRC_TEXTURE
+from .setup_pass import _fma
+from .visibility import DEAD_PLANE, scan_candidates
+from .visibility_pallas import CHUNK, SUPER, TILE_H, TILE_W, _group_boxes, morton_perm
+
+GROUP = CHUNK * SUPER  # candidate slots per super-chunk
+N_PARAMS = 80
+EMPTY_BOX = (1e9, 1e9, -1e9, -1e9)
+
+#: launches of the CUDA kernel (one per mega_render call on CUDA tensors)
+launches = 0
+
+
+def pack_mega_table(attr_planes, tri_id, meta, atlas, anim_frame,
+                    has_blend: bool, has_material: bool = False,
+                    has_matmap: bool = False):
+    """Per-candidate rows for the megakernel (layout in the module header).
+
+    meta: the packed d3 fields as tensors; atlas: dict with `rects`,
+    `tile_first`, `tile_count` tensors. The texture rect is anim-resolved
+    here, per candidate, so the kernel never touches the tile tables."""
+    if has_matmap and not has_material:
+        raise ValueError("has_matmap implies has_material (fixed column layout)")
+
+    def resolve_rect(slot_col):
+        slot = torch.clamp(slot_col.long(), min=0)
+        count = torch.clamp(atlas["tile_count"][slot], min=1)
+        tex_id = atlas["tile_first"][slot] + torch.remainder(
+            torch.as_tensor(anim_frame, device=count.device), count
+        )
+        return atlas["rects"][tex_id.long()].float()
+
+    # receives_light=False rides the repeat column as +4 (decoded in-kernel)
+    repeat_enc = meta["repeat"].float() + 4.0 * (meta["receives_light"] < 0.5).float()
+    tri_cols = [
+        meta["kind"].float()[:, None],
+        repeat_enc[:, None],
+        meta["has_normals"].float()[:, None],
+        meta["rgba"].float(),
+        meta["ambient"].float(),
+        resolve_rect(meta["tex_slot"]),
+    ]
+    if has_material:
+        tri_cols += [meta["rough"][:, None], meta["metal"][:, None]]
+    if has_matmap:
+        tri_cols += [
+            resolve_rect(meta["m1_slot"]),
+            resolve_rect(meta["m2_slot"]),
+            meta["em_scale"][:, None],
+            meta["nmap"][:, None],
+            (meta["m1_slot"] >= 0).float()[:, None],
+        ]
+    if has_blend:
+        tri_cols += [
+            meta["kind2"].float()[:, None],
+            meta["rgba2"].float(),
+            resolve_rect(meta["tex_slot2"]),
+        ]
+    g = torch.cat(tri_cols, dim=1)[tri_id.long()]
+    n_front = 14 + (2 if has_material else 0) + (11 if has_matmap else 0)
+    cols = [attr_planes[:, :18], g[:, :n_front]]
+    if has_blend:
+        cols += [
+            attr_planes[:, 18:21],
+            g[:, n_front:],
+            torch.zeros((attr_planes.shape[0], 4), device=g.device),
+        ]
+    return torch.cat(cols, dim=1)
+
+
+def _tri_near_bound(vis_planes, bbox, alive, width, y0g, rows_local):
+    """Conservative per-candidate nearest invz: the invz plane evaluated at
+    the screen-clipped bbox corners (the max over the box bounds the max
+    over the triangle). Each corner is `fma(pa, x, pb*y) + pc`, the rounding
+    the JAX package's CPU build gives the same expression."""
+    bx0 = torch.clamp(bbox[:, 0], 0.0, float(width))
+    by0 = torch.clamp(bbox[:, 1], float(y0g), float(y0g + rows_local))
+    bx1 = torch.clamp(bbox[:, 2], 0.0, float(width))
+    by1 = torch.clamp(bbox[:, 3], float(y0g), float(y0g + rows_local))
+    pa, pb, pc = vis_planes[:, 9], vis_planes[:, 10], vis_planes[:, 11]
+
+    def corner(x, y):
+        return _fma(pa, x, pb * y) + pc
+
+    tri_near = torch.maximum(
+        torch.maximum(corner(bx0, by0), corner(bx1, by0)),
+        torch.maximum(corner(bx0, by1), corner(bx1, by1)),
+    )
+    return torch.where(alive > 0.5, tri_near, float("-inf"))
+
+
+def morton_ftb_sort(vis_planes, bbox, alive, table, width: int, height: int,
+                    return_perm: bool = False):
+    """Morton + front-to-back super ordering in one row gather.
+
+    Pads every array to a multiple of GROUP rows, orders candidates along
+    the Morton curve, then orders the super-chunks nearest-first by their
+    near bound. Returns (vis_s, bbox_s, alive_s, table_s, s_near) and, with
+    `return_perm`, the sorted position -> original slot permutation."""
+    t2 = vis_planes.shape[0]
+    pad = (-t2) % GROUP
+    if pad:
+        vis_planes = torch.nn.functional.pad(vis_planes, (0, 0, 0, pad))
+        bbox = torch.nn.functional.pad(bbox, (0, 0, 0, pad))
+        alive = torch.nn.functional.pad(alive, (0, pad))
+        table = torch.nn.functional.pad(table, (0, 0, 0, pad))
+        t2 += pad
+    ns = t2 // GROUP
+    p1 = morton_perm(bbox, alive, width, height).long()
+    tri_near = _tri_near_bound(vis_planes, bbox, alive, width, 0.0, float(height))
+    s_near = tri_near[p1].reshape(ns, GROUP).amax(dim=1)
+    # stable: dead supers tie at -inf and must keep their index order
+    order = torch.argsort(-s_near, stable=True)
+    s_near = torch.clamp(s_near[order], min=-1e30)
+    perm = p1.reshape(ns, GROUP)[order].reshape(-1)
+    nv = vis_planes.shape[1]
+    combined = torch.cat([vis_planes, bbox, alive[:, None], table], dim=1)[perm]
+    out = (
+        combined[:, :nv],
+        combined[:, nv : nv + 4],
+        combined[:, nv + 4],
+        combined[:, nv + 5 :],
+        s_near,
+    )
+    if return_perm:
+        return out + (perm.to(torch.int32),)
+    return out
+
+
+def light_spec_from(lights) -> tuple:
+    """(row, type) pairs of the VALID light rows (host numpy lights)."""
+    types = np.asarray(lights["type"])
+    valid = np.asarray(lights["valid"])
+    return tuple((i, int(t)) for i, t in enumerate(types) if float(valid[i]) > 0.5)
+
+
+def pack_light_params(lights, device) -> torch.Tensor:
+    """SoA host light dict -> (L, 24) f32 rows (the JAX package's layout;
+    the one-hot type columns 3/21/22/23 stay for layout parity)."""
+    L = lights["position"].shape[0]
+    t = np.asarray(lights["type"]).astype(np.int32)
+    out = np.zeros((L, 24), np.float32)
+    out[:, 0:3] = lights["position"]
+    out[:, 3] = t == 0
+    out[:, 21] = (t == 1) | (t == 2)
+    out[:, 22] = t == 3
+    out[:, 23] = t == 4
+    out[:, 4] = lights["start"]
+    out[:, 5] = lights["end"]
+    out[:, 6] = np.asarray(lights["intensity"], np.float32) * np.asarray(
+        lights["flicker_factor"], np.float32
+    )
+    out[:, 7:10] = lights["color"]
+    out[:, 10:13] = lights["direction"]
+    out[:, 13] = np.cos(np.asarray(lights["cone_angle"], np.float32))
+    out[:, 14] = lights["width"]
+    out[:, 15] = lights["height"]
+    out[:, 16:19] = lights["normal"]
+    out[:, 19] = lights["from_linedef"]
+    out[:, 20] = lights["valid"]
+    return torch.from_numpy(out).to(device)
+
+
+def pack_occ_params(uniforms, device) -> torch.Tensor:
+    """Occluded-sector boxes -> (B, 5) [x0 z0 x1 z1 value] (mini.rs:57)."""
+    if "occ_box" in uniforms:
+        box = np.asarray(uniforms["occ_box"], np.float32)
+        val = np.asarray(uniforms["occ_val"], np.float32)[:, None]
+        return torch.from_numpy(np.concatenate([box, val], axis=1)).to(device)
+    # one inverted dummy box (matches no pixel)
+    return torch.tensor([[1e9, 1e9, -1e9, -1e9, 1.0]], device=device)
+
+
+def pack_mega_params(uniforms, width: int, height: int, atlas_w, device,
+                     has_fog: bool = False, y0: int = 0) -> torch.Tensor:
+    """Camera/ambient/sun scalars, fog at 48-53, the atlas width at 54, the
+    sun color at 55-57, bump strength at 75, fog mode/density at 76-77 ->
+    (80,) f32. Shadow parameters (59-74) and a row offset (58) belong to
+    variants the port does not take yet."""
+    if y0 != 0:
+        raise NotImplementedError("row-sharded frames (y0 != 0) are not ported yet")
+    p = np.zeros(N_PARAMS, np.float32)
+    p[75] = uniforms.get("bump_strength", 1.0)
+    p[0:16] = np.asarray(uniforms["inv_proj"], np.float32).reshape(-1)
+    p[16:32] = np.asarray(uniforms["inv_view"], np.float32).reshape(-1)
+    p[32:35] = uniforms["camera_pos"]
+    p[35] = uniforms["has_ambient"]
+    p[36:39] = np.asarray(uniforms["ambient"])[:3]
+    p[41] = width
+    p[42] = height
+    p[43] = uniforms["has_sun"]
+    p[44:47] = uniforms["sun_dir"]
+    p[47] = uniforms["day_factor"]
+    p[48] = 1.0 if has_fog else 0.0
+    p[49:52] = np.asarray(uniforms["fog_color"])[:3]
+    p[52] = uniforms["fog_end"]
+    p[53] = uniforms["fog_fade"]
+    p[54] = atlas_w
+    p[55:58] = uniforms.get("sun_color", np.ones(3, np.float32))
+    p[76] = uniforms.get("fog_mode", 0.0)
+    p[77] = uniforms.get("fog_density", 0.0)
+    return torch.from_numpy(p).to(device)
+
+
+def pack_background_u32(background) -> torch.Tensor:
+    """(H,W,4) f32 0..1 -> (H,W) i32 holding packed RGBA8 (lib.rs:63-68;
+    little-endian r,g,b,a)."""
+    q = torch.floor(torch.clamp(background, 0.0, 1.0) * 255.0 + 0.5)
+    return q.to(torch.uint8).contiguous().view(torch.int32)[..., 0]
+
+
+def unpack_frame_u32(rgba_u32) -> torch.Tensor:
+    """(H,W) packed i32 -> (H,W,4) u8 (byte order r,g,b,a)."""
+    h, w = rgba_u32.shape
+    return rgba_u32.contiguous().view(torch.uint8).reshape(h, w, 4)
+
+
+# ---------------------------------------------------------------- the call
+
+
+def _check_variants(has_blend, has_material, has_matmap, brdf_ggx, tonemap,
+                    shadow_rows, shadow_spec, ao_img, light_spec, s_near):
+    refused = {
+        "has_blend (vertex blend)": has_blend,
+        "has_material": has_material,
+        "has_matmap": has_matmap,
+        "brdf_ggx": brdf_ggx,
+        "tonemap (scenevm)": tonemap,
+        "shadow_rows/shadow_spec (shadow maps)": (
+            shadow_rows is not None or shadow_spec is not None
+        ),
+        "ao_img (ambient occlusion)": ao_img is not None,
+        "light_spec=None (generic one-hot light blend)": light_spec is None,
+    }
+    for name, on in refused.items():
+        if on:
+            raise NotImplementedError(
+                f"megakernel variant {name} is not ported to rusterix_tpu_torch yet"
+            )
+    if s_near is None:
+        raise ValueError("mega_render takes inputs presorted by morton_ftb_sort (s_near)")
+
+
+def _prepare(vis_planes, alive, bbox, attr):
+    """Dead candidates -> impossible planes, empty boxes, zero attributes;
+    the merged super (GROUP) and chunk (CHUNK) boxes as (n, 4) i32."""
+    if vis_planes.shape[0] % GROUP:
+        raise ValueError(
+            f"presorted inputs must be padded to {GROUP}-row groups "
+            f"(got {vis_planes.shape[0]}); use morton_ftb_sort"
+        )
+    live = (alive > 0.5)[:, None]
+    dev = vis_planes.device
+    planes = torch.where(live, vis_planes, _device_table(DEAD_PLANE, torch.float32, dev))
+    bbox = torch.where(live, bbox, _device_table(EMPTY_BOX, torch.float32, dev))
+    attr = torch.where(live, attr, 0.0)
+    return (
+        planes.float().contiguous(),
+        attr.float().contiguous(),
+        _group_boxes(bbox, GROUP).contiguous(),
+        _group_boxes(bbox, CHUNK).contiguous(),
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(rows: tuple, dtype, device) -> torch.Tensor:
+    """A small constant table, uploaded once per (rows, dtype, device), so
+    that a launch makes no host-to-device copy in steady state. Read only."""
+    return torch.tensor(rows, dtype=dtype, device=device)
+
+
+def _light_list(light_spec, device) -> torch.Tensor:
+    """light_spec -> (n, 2) i32 [row, type code] for the kernel's loop."""
+    rows = tuple((int(r), int(t)) for r, t in light_spec)
+    return _device_table(rows, torch.int32, device).reshape(-1, 2)
+
+
+def mega_render(
+    vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params, lights_packed,
+    occ_packed, width: int, height: int, sample_mode: int = 0,
+    has_blend: bool = False, has_material: bool = False,
+    has_matmap: bool = False, light_spec: tuple = None, sun_off: bool = False,
+    s_near=None, shadow_rows=None, shadow_spec: tuple = None, ao_img=None,
+    brdf_ggx: bool = False, tonemap: bool = False,
+):
+    """One composed opaque frame -> (rgba_u32 (H,W) i32, z_eff (H,W) f32).
+
+    Inputs come from morton_ftb_sort (planes, bbox, alive, table and
+    s_near, padded to GROUP rows and in front-to-back super order); the
+    atlas is the flat u32 texel array as (N,) i32; bg_u32 from
+    pack_background_u32; params, lights and occlusion boxes from the pack_*
+    helpers. z_eff is 1.0 where the opaque pass did not write.
+
+    CUDA tensors launch the hand-written kernel (csrc/megakernel.cu); CPU
+    tensors run mega_render_reference."""
+    _check_variants(has_blend, has_material, has_matmap, brdf_ggx, tonemap,
+                    shadow_rows, shadow_spec, ao_img, light_spec, s_near)
+    if vis_planes.device.type != "cuda":
+        return mega_render_reference(
+            vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
+            lights_packed, occ_packed, width, height, sample_mode,
+            light_spec=light_spec, sun_off=sun_off, s_near=s_near,
+        )
+    return _launch(
+        vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
+        lights_packed, occ_packed, width, height, sample_mode, light_spec,
+        sun_off, s_near,
+    )
+
+
+def _launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
+            lights_packed, occ_packed, width, height, sample_mode, light_spec,
+            sun_off, s_near):
+    global launches
+    from .. import _cuda
+
+    dev = vis_planes.device
+    planes, attr, sboxes, cboxes = _prepare(vis_planes, alive, bbox, attr)
+    inputs = {
+        "s_near": s_near.float().contiguous(),
+        "atlas": atlas_u32.contiguous(),
+        "bg": bg_u32.contiguous(),
+        "params": params.float().contiguous(),
+        "lights": lights_packed.float().contiguous(),
+        "occ": occ_packed.float().contiguous(),
+    }
+    for name, t in inputs.items():
+        if t.device != dev:
+            raise ValueError(f"mega_render: {name} is on {t.device}, planes on {dev}")
+    if inputs["atlas"].dtype != torch.int32 or inputs["bg"].dtype != torch.int32:
+        raise TypeError("mega_render: atlas and bg_u32 must be int32 (u32 bits)")
+    if tuple(inputs["bg"].shape) != (height, width):
+        raise ValueError(f"mega_render: bg_u32 is {tuple(inputs['bg'].shape)}, not {(height, width)}")
+    if inputs["params"].numel() != N_PARAMS or inputs["lights"].shape[1] != 24:
+        raise ValueError("mega_render: params must be (80,) and lights (L, 24)")
+    if attr.shape[1] < 32:
+        raise ValueError(f"mega_render: attr table has {attr.shape[1]} columns, needs 32")
+    if sample_mode not in (0, 1):
+        raise ValueError(f"mega_render: sample_mode {sample_mode} is not 0 or 1")
+    if any(int(r) >= inputs["lights"].shape[0] for r, _t in light_spec):
+        raise ValueError("mega_render: light_spec names a row past the light table")
+    llist = _light_list(light_spec, dev)
+
+    rgba = torch.empty((height, width), dtype=torch.int32, device=dev)
+    zeff = torch.empty((height, width), dtype=torch.float32, device=dev)
+    lib = _cuda.library()
+    ptr = ctypes.c_void_p
+    err = lib.rx_mega_render(
+        ptr(planes.data_ptr()), ptr(attr.data_ptr()), ptr(sboxes.data_ptr()),
+        ptr(cboxes.data_ptr()), ptr(inputs["s_near"].data_ptr()),
+        ptr(inputs["atlas"].data_ptr()), ptr(inputs["bg"].data_ptr()),
+        ptr(inputs["params"].data_ptr()), ptr(inputs["lights"].data_ptr()),
+        ptr(llist.data_ptr()), ptr(inputs["occ"].data_ptr()),
+        ptr(rgba.data_ptr()), ptr(zeff.data_ptr()),
+        planes.shape[0] // GROUP, attr.shape[1], inputs["atlas"].numel(),
+        llist.shape[0], inputs["occ"].shape[0], height, width,
+        int(sample_mode), int(bool(sun_off)),
+        ptr(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"megakernel launch failed: CUDA error {err} ({_cuda.error_string(err)})")
+    launches += 1
+    return rgba, zeff
+
+
+# -------------------------------------------------- the plain torch version
+
+
+def _srgb_to_linear(x):
+    return (0.6975 * x * x + 0.3025) * x
+
+
+def _linear_to_srgb(x):
+    sq = torch.sqrt(torch.clamp(x, min=0.0))
+    return 1.055 * sq - 0.055 * (sq * sq)
+
+
+def _smoothstep(edge0, edge1, x):
+    t = torch.clamp((x - edge0) / (edge1 - edge0), 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def _apply_repeat(u, v, repeat):
+    """texture.rs:203-232 select form (repeat 1 both, 2 u, 3 v, else clamp)."""
+    ur = (repeat == 1.0) | (repeat == 2.0)
+    vr = (repeat == 1.0) | (repeat == 3.0)
+    return (
+        torch.where(ur, u - torch.floor(u), torch.clamp(u, 0.0, 1.0)),
+        torch.where(vr, v - torch.floor(v), torch.clamp(v, 0.0, 1.0)),
+    )
+
+
+def _texel_lookup(atlas, u, v, rect, kind, rgba_cols, repeat, sample_mode,
+                  atlas_w):
+    """Texel resolve -> (r, g, b, a) f32 0..1, a direct gather on the flat
+    u32 atlas; out-of-range and non-texture pixels read 0."""
+    is_tex = kind == float(SRC_TEXTURE)
+    is_pix = kind == float(SRC_PIXEL)
+    uu, vv = _apply_repeat(u, v, repeat)
+    uu = torch.where(is_tex, uu, 0.0)
+    vv = torch.where(is_tex, vv, 0.0)
+    rx, ry, rw, rh = rect
+    n = atlas.shape[0]
+
+    def fetch(x, y):
+        flat = (ry + y).to(torch.int32) * atlas_w + (rx + x).to(torch.int32)
+        ok = is_tex & (flat >= 0) & (flat < n)
+        t32 = torch.where(ok, atlas[torch.where(ok, flat, 0).long()], 0)
+        return [((t32 >> s) & 0xFF).float() for s in (0, 8, 16, 24)]
+
+    if sample_mode == 0:
+        tx = torch.clamp(torch.floor(uu * (rw - 1.0) + 0.5), torch.zeros_like(rw), rw - 1.0)
+        ty = torch.clamp(torch.floor(vv * (rh - 1.0) + 0.5), torch.zeros_like(rh), rh - 1.0)
+        tex = fetch(tx, ty)
+    else:
+        x = uu * (rw - 1.0)
+        y = vv * (rh - 1.0)
+        x0 = torch.clamp(torch.floor(x), torch.zeros_like(rw), rw - 1.0)
+        y0 = torch.clamp(torch.floor(y), torch.zeros_like(rh), rh - 1.0)
+        x1 = torch.minimum(x0 + 1.0, rw - 1.0)
+        y1 = torch.minimum(y0 + 1.0, rh - 1.0)
+        dx = x - torch.floor(x)
+        dy = y - torch.floor(y)
+        taps = [
+            (fetch(x0, y0), (1 - dx) * (1 - dy)),
+            (fetch(x1, y0), dx * (1 - dy)),
+            (fetch(x0, y1), (1 - dx) * dy),
+            (fetch(x1, y1), dx * dy),
+        ]
+        tex = []
+        for c in range(4):
+            acc = taps[0][0][c] * taps[0][1]
+            for chans, w in taps[1:]:
+                acc = acc + chans[c] * w
+            tex.append(torch.floor(acc + 0.5))
+    is_tex_f = is_tex.float()
+    is_pix_f = is_pix.float()
+    other = 1.0 - is_tex_f - is_pix_f
+    out = []
+    for c in range(4):
+        val = is_tex_f * tex[c] * (1.0 / 255.0) + is_pix_f * rgba_cols[c]
+        if c == 3:
+            val = val + other  # SRC_OFF -> opaque black (rasterizer.rs:1222)
+        out.append(val)
+    return out
+
+
+def _visibility(planes, sboxes, cboxes, s_near, hp, wp):
+    """The kernel's scan, tile for tile: supers in front-to-back order,
+    super and chunk boxes gating each 64x128 tile, and the tile's early
+    stop once s_near[s] <= min(best over the tile). -> best (hp, wp) in the
+    max-1/z domain, idx (hp, wp) i32 sorted slot or -1."""
+    dev = planes.device
+    n_th, n_tw = hp // TILE_H, wp // TILE_W
+    xs = (torch.arange(wp, dtype=torch.float32, device=dev) + 0.5).reshape(
+        1, 1, n_tw, TILE_W, 1
+    )
+    ys = (torch.arange(hp, dtype=torch.float32, device=dev) + 0.5).reshape(
+        n_th, TILE_H, 1, 1, 1
+    )
+    tx0 = torch.arange(n_tw, device=dev, dtype=torch.int32) * TILE_W
+    ty0 = torch.arange(n_th, device=dev, dtype=torch.int32) * TILE_H
+
+    def tile_hits(b):  # (n, 4) i32 -> (n_th, n_tw, n)
+        hx = (b[None, :, 0] < tx0[:, None] + TILE_W) & (b[None, :, 2] > tx0[:, None])
+        hy = (b[None, :, 1] < ty0[:, None] + TILE_H) & (b[None, :, 3] > ty0[:, None])
+        return hy[:, None, :] & hx[None, :, :]
+
+    s_hit = tile_hits(sboxes)
+    c_hit = tile_hits(cboxes).repeat_interleave(CHUNK, dim=2)  # per slot
+    best = torch.ones((n_th, TILE_H, n_tw, TILE_W), device=dev)
+    idx = torch.full((n_th, TILE_H, n_tw, TILE_W), -1, dtype=torch.int32, device=dev)
+    minb = torch.ones((n_th, n_tw), device=dev)
+    for s in range(s_near.shape[0]):
+        active = s_hit[:, :, s] & (s_near[s] > minb)
+        if not bool(active.any()):
+            continue
+        for c in range(s * SUPER, (s + 1) * SUPER):
+            t0 = c * CHUNK
+            gate = (active[:, :, None] & c_hit[:, :, t0 : t0 + CHUNK])[:, None, :, None, :]
+            best, idx = scan_candidates(
+                planes[t0 : t0 + CHUNK], xs, ys, best, idx, t0, gate=gate
+            )
+        minb = best.amin(dim=(1, 3))
+    return best.reshape(hp, wp), idx.reshape(hp, wp)
+
+
+def mega_render_reference(
+    vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params, lights_packed,
+    occ_packed, width: int, height: int, sample_mode: int = 0,
+    light_spec: tuple = None, sun_off: bool = False, s_near=None,
+):
+    """Plain torch version of the megakernel: the kernel body's per-pixel
+    math transcribed op for op (the JAX kernel's `_mega_kernel` stages 1-6),
+    vectorised over pixels and chunked over candidates in sorted order.
+    Same inputs and outputs as mega_render."""
+    if light_spec is None or s_near is None:
+        raise ValueError("mega_render_reference needs light_spec and s_near")
+    planes, attr, sboxes, cboxes = _prepare(vis_planes, alive, bbox, attr)
+    hp = height + (-height % TILE_H)
+    wp = width + (-width % TILE_W)
+    best, idx = _visibility(planes, sboxes, cboxes, s_near.float(), hp, wp)
+    best = best[:height, :width]
+    idx = idx[:height, :width]
+    hit = idx >= 0
+    a = attr[torch.clamp(idx, min=0).long()]  # (H, W, n_attr)
+    a = torch.where(hit[..., None], a, 0.0)
+    A = [a[..., i] for i in range(32)]
+    P = params.float()
+    dev = vis_planes.device
+
+    z = 1.0 / best
+    xg = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]
+    yg = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]
+
+    # ---- stage 2: plane interpolation ----
+    def interp(i):
+        return A[3 * i] * xg + A[3 * i + 1] * yg + A[3 * i + 2]
+
+    inv_w = interp(0)
+    safe_w = torch.where(inv_w == 0.0, 1.0, inv_w)
+    u = interp(1) / safe_w
+    v = interp(2) / safe_w
+    nx, ny, nz = interp(3), interp(4), interp(5)
+    kind = A[18]
+    fullbright = (A[19] >= 4.0).float()
+    repeat = A[19] - 4.0 * fullbright
+    has_n = A[20]
+    rgba_cols = A[21:25]
+    amb_r, amb_g, amb_b = A[25], A[26], A[27]
+    rect = (A[28], A[29], A[30], A[31])
+
+    # ---- stage 3: texel resolve ----
+    atlas_w = int(P[54].item())
+    tex_r, tex_g, tex_b, tex_a = _texel_lookup(
+        atlas_u32, u, v, rect, kind, rgba_cols, repeat, sample_mode, atlas_w
+    )
+
+    # ---- stage 4: lighting (rasterizer.rs:1319-1412 + light.rs:491-653) ----
+    x_ndc = 2.0 * (xg / P[41]) - 1.0
+    y_ndc = 1.0 - 2.0 * (yg / P[42])
+
+    def mat(base, r, c):
+        return P[base + 4 * r + c]
+
+    def row(base, r, x, y, zz):
+        return mat(base, r, 0) * x + mat(base, r, 1) * y + mat(base, r, 2) * zz + mat(base, r, 3)
+
+    vx, vy, vz, vw = (row(0, r, x_ndc, y_ndc, z) for r in range(4))
+    inv_vw = 1.0 / vw
+    vx, vy, vz = vx * inv_vw, vy * inv_vw, vz * inv_vw
+    wx, wy, wz = (row(16, r, vx, vy, vz) for r in range(3))
+
+    vdx, vdy, vdz = P[32] - wx, P[33] - wy, P[34] - wz
+    vlen = torch.sqrt(vdx * vdx + vdy * vdy + vdz * vdz)
+    inv_vlen = 1.0 / torch.clamp(vlen, min=1e-30)
+    vdx, vdy, vdz = vdx * inv_vlen, vdy * inv_vlen, vdz * inv_vlen
+
+    nlen = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    inv_nlen = 1.0 / torch.clamp(nlen, min=1e-30)
+    ux, uy, uz = nx * inv_nlen, ny * inv_nlen, nz * inv_nlen
+    flip = torch.where(ux * vdx + uy * vdy + uz * vdz < 0.0, -1.0, 1.0)
+    n_ok = has_n > 0.5
+    ux = torch.where(n_ok, ux * flip, 0.0)
+    uy = torch.where(n_ok, uy * flip, 0.0)
+    uz = torch.where(n_ok, uz * flip, 0.0)
+
+    kd_r = _srgb_to_linear(tex_r) * 0.96
+    kd_g = _srgb_to_linear(tex_g) * 0.96
+    kd_b = _srgb_to_linear(tex_b) * 0.96
+    hemi = 0.5 * (uy + 1.0)
+
+    occlusion = torch.ones_like(wx)
+    occ = occ_packed.float()
+    for bi in range(occ.shape[0]):
+        inside = (wx >= occ[bi, 0]) & (wz >= occ[bi, 1]) & (wx <= occ[bi, 2]) & (wz <= occ[bi, 3])
+        occlusion = torch.minimum(occlusion, torch.where(inside, occ[bi, 4], 1.0))
+
+    lit_r = P[35] * P[36] * kd_r * hemi
+    lit_g = P[35] * P[37] * kd_g * hemi
+    lit_b = P[35] * P[38] * kd_b * hemi
+
+    def brdf(ldx, ldy, ldz, rad_r, rad_g, rad_b):
+        n_dot_l = torch.clamp(ux * ldx + uy * ldy + uz * ldz, min=0.0)
+        hx, hy, hz = ldx + vdx, ldy + vdy, ldz + vdz
+        hl = torch.sqrt(hx * hx + hy * hy + hz * hz)
+        inv_hl = 1.0 / torch.clamp(hl, min=1e-30)
+        n_dot_h = torch.clamp((ux * hx + uy * hy + uz * hz) * inv_hl, min=0.0)
+        nh2 = n_dot_h * n_dot_h
+        spec_b = nh2 * nh2 * nh2
+        n_dot_v = torch.clamp(ux * vdx + uy * vdy + uz * vdz, min=0.0)
+        x1 = 1.0 - torch.clamp(n_dot_v, 0.0, 1.0)
+        x2 = x1 * x1
+        x5 = x2 * x2 * x1
+        fr = 0.04 + 0.96 * x5
+        sb = spec_b * n_dot_l
+        dead = n_dot_l <= 0.0
+        return (
+            torch.where(dead, 0.0, (kd_r * n_dot_l + fr * sb) * rad_r),
+            torch.where(dead, 0.0, (kd_g * n_dot_l + fr * sb) * rad_g),
+            torch.where(dead, 0.0, (kd_b * n_dot_l + fr * sb) * rad_b),
+        )
+
+    if not sun_off:
+        sdx, sdy, sdz = -P[44], -P[45], -P[46]
+        slen = torch.sqrt(sdx * sdx + sdy * sdy + sdz * sdz)
+        inv_slen = 1.0 / torch.clamp(slen, min=1e-30)
+        day = P[47]
+        sr, sg, sb = brdf(
+            sdx * inv_slen, sdy * inv_slen, sdz * inv_slen,
+            day * P[55], day * P[56], day * P[57],
+        )
+        lit_r = lit_r + P[43] * sr
+        lit_g = lit_g + P[43] * sg
+        lit_b = lit_b + P[43] * sb
+
+    lit_r = lit_r * occlusion
+    lit_g = lit_g * occlusion
+    lit_b = lit_b * occlusion
+    lit_r = lit_r + amb_r * kd_r * hemi
+    lit_g = lit_g + amb_g * kd_g * hemi
+    lit_b = lit_b + amb_b * kd_b * hemi
+
+    Lp = lights_packed.float()
+    for li, lt in light_spec:
+        lrow = Lp[li]
+        start, end, intensity, valid = lrow[4], lrow[5], lrow[6], lrow[20]
+        tpx, tpy, tpz = wx - lrow[0], wy - lrow[1], wz - lrow[2]
+        dist = torch.sqrt(tpx * tpx + tpy * tpy + tpz * tpz)
+        inv_dist = 1.0 / torch.clamp(dist, min=1e-20)
+        rng_f = (dist < end).float()
+        near_f = (dist <= start).float()
+        if lt not in (1, 2, 3):  # point, area, daylight
+            smooth_att = near_f + (1.0 - near_f) * _smoothstep(end, start, dist)
+        if lt not in (0, 1, 2, 3):  # area and daylight
+            angle_att = torch.clamp(
+                (lrow[16] * tpx + lrow[17] * tpy + lrow[18] * tpz) * inv_dist, min=0.0
+            )
+        if lt == 0:
+            scale = intensity * smooth_att
+        elif lt in (1, 2):
+            scale = intensity
+        elif lt == 3:
+            lin_att = near_f + (1.0 - near_f) * (
+                1.0 - (dist - start) / torch.clamp(end - start, min=1e-20)
+            )
+            cosang = torch.clamp(
+                (lrow[10] * tpx + lrow[11] * tpy + lrow[12] * tpz) * inv_dist, -1.0, 1.0
+            )
+            spot_ok_f = (cosang >= lrow[13]).float()
+            scale = spot_ok_f * intensity * lin_att
+        elif lt == 4:
+            area = lrow[14] * lrow[15]
+            area_main = angle_att * smooth_att * area * intensity
+            area_linedef = smooth_att * area * intensity
+            area_c = lrow[19] * area_linedef + (1.0 - lrow[19]) * area_main
+            inner_f = (dist < 0.1).float()
+            scale = inner_f + (1.0 - inner_f) * area_c
+        else:
+            scale = angle_att * smooth_att * intensity
+        if lt in (1, 2):
+            ok_f = valid
+        elif lt == 3:
+            ok_f = valid * rng_f * spot_ok_f
+        else:
+            ok_f = valid * rng_f
+        ldx, ldy, ldz = -tpx * inv_dist, -tpy * inv_dist, -tpz * inv_dist
+        if lt in (0, 3, 4):
+            lam = torch.clamp(ux * ldx + uy * ldy + uz * ldz, min=0.0)
+            rad = ok_f * scale * lam
+        else:
+            rad = ok_f * scale * 1.0
+        rad_r, rad_g, rad_b = lrow[7] * rad, lrow[8] * rad, lrow[9] * rad
+        cr, cg, cb = brdf(ldx, ldy, ldz, rad_r, rad_g, rad_b)
+        has_rad = ((rad_r != 0.0) | (rad_g != 0.0) | (rad_b != 0.0)).float()
+        lit_r = lit_r + has_rad * cr
+        lit_g = lit_g + has_rad * cg
+        lit_b = lit_b + has_rad * cb
+
+    out_r = _linear_to_srgb(lit_r)
+    out_g = _linear_to_srgb(lit_g)
+    out_b = _linear_to_srgb(lit_b)
+    # fullbright batches bypass lighting entirely (raw sRGB texel)
+    out_r = fullbright * tex_r + (1.0 - fullbright) * out_r
+    out_g = fullbright * tex_g + (1.0 - fullbright) * out_g
+    out_b = fullbright * tex_b + (1.0 - fullbright) * out_b
+
+    # ---- stage 5: distance fog (linear node fade or SceneVM exp^2) ----
+    fog_lin = torch.clamp((vlen - P[52]) / P[53], 0.0, 1.0)
+    fog_exp = 1.0 - torch.exp(-P[77] * vlen * vlen)
+    fog_t = P[48] * (P[76] * fog_exp + (1.0 - P[76]) * fog_lin)
+    out_r = out_r * (1.0 - fog_t) + P[49] * fog_t
+    out_g = out_g * (1.0 - fog_t) + P[50] * fog_t
+    out_b = out_b * (1.0 - fog_t) + P[51] * fog_t
+
+    # ---- stage 6: compose + RGBA8 pack ----
+    def q(x):
+        return torch.floor(torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5)
+
+    a_u8 = q(tex_a)
+    wrote = hit & (a_u8 >= 255)
+    packed = torch.stack([q(out_r), q(out_g), q(out_b), a_u8], dim=-1)
+    packed = packed.to(torch.uint8).contiguous().view(torch.int32)[..., 0]
+    rgba = torch.where(wrote, packed, bg_u32)
+    zeff = torch.where(wrote, z, 1.0)
+    return rgba, zeff
