@@ -77,7 +77,11 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rx_mega_render.restype = i32
-    lib.rx_mega_render.argtypes = [vp] * 13 + [i32, i32, i64] + [i32] * 6 + [vp]
+    lib.rx_mega_render.argtypes = [vp] * 13 + [i32, i32, i64] + [i32] * 7 + [vp]
+    lib.rx_visibility.restype = i32
+    lib.rx_visibility.argtypes = [vp] * 5 + [i32] * 3 + [vp]
+    lib.rx_rt_intersect.restype = i32
+    lib.rx_rt_intersect.argtypes = [vp] * 8 + [i32] * 5 + [vp]
     lib.rx_error_string.restype = ctypes.c_char_p
     lib.rx_error_string.argtypes = [i32]
     _lib = lib

@@ -7,7 +7,8 @@
 // max 1/z and a strict `>`, (2) plane interpolation of 1/w, u, v and the
 // normal, (3) the atlas texel fetch, nearest or bilinear, with the repeat
 // modes, (4) the lighting chain (hemisphere ambient, sun with the fast
-// BRDF, occlusion boxes, batch ambient and the five light types), (5)
+// Blinn-Phong BRDF or, in the `brdf_ggx` variant, Cook-Torrance GGX,
+// occlusion boxes, batch ambient and the five light types), (5)
 // linear or exp^2 fog, and (6) the composite over the background and the
 // RGBA8 pack. Outputs: packed RGBA8 per pixel and the effective z (1.0
 // where the opaque pass did not write).
@@ -20,10 +21,11 @@
 //
 // What the simple design does about it: one block per 64x128 tile, so
 // the tile's early stop is decided on exactly the pixels the TPU kernel
-// decided it on. Each of the 512 threads owns one column and 16 rows of
-// the tile; it evaluates a*x + c once per candidate and adds b*y per row.
-// A super's 128 plane rows are staged in shared memory once and read as
-// broadcasts; the super and chunk boxes gate the block uniformly; after
+// decided it on. The scan is visibility.cuh's, shared with the
+// visibility-only kernel: each of the 512 threads owns one column and 16
+// rows of the tile; it evaluates a*x + c once per candidate and adds b*y
+// per row. A super's 128 plane rows are staged in shared memory once and
+// read as broadcasts; the super and chunk boxes gate the block uniformly; after
 // each scanned super a block reduction gives min(best) and the scan stops
 // when s_near[s] <= min(best). Winners are tracked as a slot index and the
 // attribute row is read once per pixel from global memory. The texel fetch
@@ -40,14 +42,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TILE_H 64
-#define TILE_W 128
-#define CHUNK 4
-#define SUPER 32
-#define GROUP (CHUNK * SUPER)
-#define THREADS 512
-#define ROWS_PER_STEP (THREADS / TILE_W)   // 4 rows of the tile per step
-#define PPT (TILE_H / ROWS_PER_STEP)        // 16 pixels per thread
+#include "visibility.cuh"
 
 #define SRC_TEXTURE 1.0f
 #define SRC_PIXEL 2.0f
@@ -69,7 +64,7 @@ struct MegaArgs {
     const float* occ;      // (n_occ, 5)
     uint32_t* rgba;        // (H, W) out
     float* zeff;           // (H, W) out
-    int ns, n_attr, n_lights, n_occ, height, width, sample_mode, sun_off;
+    int ns, n_attr, n_lights, n_occ, height, width, sample_mode, sun_off, brdf_ggx;
     long long n_atlas;
 };
 
@@ -167,7 +162,8 @@ __device__ __forceinline__ void texel_lookup(const MegaArgs& a, float u, float v
 struct Surface {
     float ux, uy, uz;     // shading normal (0 without normals)
     float vdx, vdy, vdz;  // unit view direction
-    float kd_r, kd_g, kd_b;
+    float base_r, base_g, base_b;  // linear albedo
+    float kd_r, kd_g, kd_b;        // base * 0.96
 };
 
 // fast Blinn-Phong BRDF with Schlick Fresnel (roughness 0.5, metallic 0)
@@ -191,6 +187,46 @@ __device__ __forceinline__ void brdf(const Surface& s, float ldx, float ldy, flo
     cr = dead ? 0.0f : (s.kd_r * n_dot_l + fr * sb) * rad_r;
     cg = dead ? 0.0f : (s.kd_g * n_dot_l + fr * sb) * rad_g;
     cb = dead ? 0.0f : (s.kd_b * n_dot_l + fr * sb) * rad_b;
+}
+
+// Cook-Torrance GGX (GGX NDF, Smith G, Schlick Fresnel) with roughness 0.5
+// and metallic 0 folded into the constants: a2 = 0.5^4, k = 1.5^2 / 8
+__device__ __forceinline__ void brdf_ggx(const Surface& s, float ldx, float ldy, float ldz,
+                                         float rad_r, float rad_g, float rad_b,
+                                         float& cr, float& cg, float& cb) {
+    const float a2 = K(0.0625), k = K(0.28125);
+    float n_dot_l = jmax(s.ux * ldx + s.uy * ldy + s.uz * ldz, 0.0f);
+    float n_dot_v = jmax(s.ux * s.vdx + s.uy * s.vdy + s.uz * s.vdz, 0.0f);
+    float hx = ldx + s.vdx, hy = ldy + s.vdy, hz = ldz + s.vdz;
+    float hl = sqrtf(hx * hx + hy * hy + hz * hz);
+    float inv_hl = 1.0f / jmax(hl, K(1e-30));
+    float n_dot_h = jmax((s.ux * hx + s.uy * hy + s.uz * hz) * inv_hl, 0.0f);
+    float denom_d = n_dot_h * n_dot_h * (a2 - 1.0f) + 1.0f;
+    float dist = a2 / (K(3.14159265358979) * denom_d * denom_d + K(1e-7));
+    float gv = n_dot_v / (n_dot_v * (1.0f - k) + k + K(1e-7));
+    float gl = n_dot_l / (n_dot_l * (1.0f - k) + k + K(1e-7));
+    float sp = dist * gv * gl / (4.0f * n_dot_l * n_dot_v + K(1e-7));
+    float h_dot_v = jmax((hx * s.vdx + hy * s.vdy + hz * s.vdz) * inv_hl, 0.0f);
+    float x1 = 1.0f - jclip(h_dot_v, 0.0f, 1.0f);
+    float x2 = x1 * x1;
+    float x5 = x2 * x2 * x1;
+    float fr = K(0.04) + K(0.96) * x5;
+    float dd = n_dot_l * K(0.31830988618379);
+    float sl = sp * n_dot_l;
+    bool dead = n_dot_l <= 0.0f || n_dot_v <= 0.0f;
+    cr = dead ? 0.0f : ((1.0f - fr) * dd * s.base_r + fr * sl) * rad_r;
+    cg = dead ? 0.0f : ((1.0f - fr) * dd * s.base_g + fr * sl) * rad_g;
+    cb = dead ? 0.0f : ((1.0f - fr) * dd * s.base_b + fr * sl) * rad_b;
+}
+
+// the frame's direct-light BRDF (block-uniform choice)
+__device__ __forceinline__ void light_brdf(const MegaArgs& a, const Surface& s, float ldx,
+                                           float ldy, float ldz, float rad_r, float rad_g,
+                                           float rad_b, float& cr, float& cg, float& cb) {
+    if (a.brdf_ggx)
+        brdf_ggx(s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
+    else
+        brdf(s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
 }
 
 // stages 2-6 for one covered pixel -> packed RGBA8 (or the background)
@@ -253,9 +289,12 @@ __device__ __noinline__ void shade_pixel(const MegaArgs& a, int gx, int gy, floa
     s.ux = n_ok ? ux * flip : 0.0f;
     s.uy = n_ok ? uy * flip : 0.0f;
     s.uz = n_ok ? uz * flip : 0.0f;
-    s.kd_r = srgb_to_linear(tex[0]) * K(0.96);
-    s.kd_g = srgb_to_linear(tex[1]) * K(0.96);
-    s.kd_b = srgb_to_linear(tex[2]) * K(0.96);
+    s.base_r = srgb_to_linear(tex[0]);
+    s.base_g = srgb_to_linear(tex[1]);
+    s.base_b = srgb_to_linear(tex[2]);
+    s.kd_r = s.base_r * K(0.96);
+    s.kd_g = s.base_g * K(0.96);
+    s.kd_b = s.base_b * K(0.96);
     const float hemi = 0.5f * (s.uy + 1.0f);
 
     float occlusion = 1.0f;
@@ -274,8 +313,8 @@ __device__ __noinline__ void shade_pixel(const MegaArgs& a, int gx, int gy, floa
         float inv_slen = 1.0f / jmax(slen, K(1e-30));
         float day = P[47];
         float sr, sg, sb;
-        brdf(s, sdx * inv_slen, sdy * inv_slen, sdz * inv_slen, day * P[55], day * P[56],
-             day * P[57], sr, sg, sb);
+        light_brdf(a, s, sdx * inv_slen, sdy * inv_slen, sdz * inv_slen, day * P[55],
+                   day * P[56], day * P[57], sr, sg, sb);
         lit_r = lit_r + P[43] * sr;
         lit_g = lit_g + P[43] * sg;
         lit_b = lit_b + P[43] * sb;
@@ -336,7 +375,7 @@ __device__ __noinline__ void shade_pixel(const MegaArgs& a, int gx, int gy, floa
         }
         const float rad_r = L[7] * rad, rad_g = L[8] * rad, rad_b = L[9] * rad;
         float cr, cg, cb;
-        brdf(s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
+        light_brdf(a, s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
         // has_rad gate: a light with zero radiance adds nothing, even NaN
         const float has_rad = (rad_r != 0.0f || rad_g != 0.0f || rad_b != 0.0f) ? 1.0f : 0.0f;
         lit_r = lit_r + has_rad * cr;
@@ -383,55 +422,20 @@ __global__ void __launch_bounds__(THREADS) mega_kernel(const MegaArgs a) {
     const int lx = tid % TILE_W;
     const int ly = tid / TILE_W;
 
-    // pixel centres; padded pixels past the frame take part in the scan
-    // and in min(best) exactly as in the TPU kernel's padded tile
-    const float xs = (float)lx + ((float)x0 + 0.5f);
-    float ys[PPT], best[PPT];
+    float xs, ys[PPT], best[PPT];
     int idx[PPT];
-#pragma unroll
-    for (int r = 0; r < PPT; ++r) {
-        ys[r] = (float)(ly + r * ROWS_PER_STEP) + ((float)y0 + 0.5f);
-        best[r] = 1.0f;
-        idx[r] = -1;
-    }
+    tile_pixels(x0, y0, tid, xs, ys, best, idx);
     if (tid == 0) s_minb = 1.0f;
     __syncthreads();
 
-    // ---- stage 1: front-to-back visibility scan ----
+    // ---- stage 1: front-to-back visibility scan with the tile's early stop ----
     for (int s = 0; s < a.ns; ++s) {
-        const int* sb = a.sbox + 4 * s;
-        if (!(sb[0] < x0 + TILE_W && sb[2] > x0 && sb[1] < y0 + TILE_H && sb[3] > y0))
-            continue;
+        if (!box_meets_tile(a.sbox + 4 * s, x0, y0)) continue;
         // strict >: a super at exactly min(best) cannot win
         if (!(a.s_near[s] > s_minb)) break;
-        const float* src = a.planes + (size_t)s * GROUP * 12;
-        for (int i = tid; i < GROUP * 12; i += THREADS) s_planes[i] = src[i];
+        stage_super(s_planes, a.planes, s, tid);
         __syncthreads();
-        for (int c = 0; c < SUPER; ++c) {
-            const int* cb = a.cbox + 4 * (s * SUPER + c);
-            if (!(cb[0] < x0 + TILE_W && cb[2] > x0 && cb[1] < y0 + TILE_H && cb[3] > y0))
-                continue;
-            for (int k = 0; k < CHUNK; ++k) {
-                const float* p = s_planes + (c * CHUNK + k) * 12;
-                const int slot = (s * SUPER + c) * CHUNK + k;
-                // (a*xs + c) + b*ys, each op rounded on its own
-                const float r0 = __fadd_rn(__fmul_rn(p[0], xs), p[2]);
-                const float r1 = __fadd_rn(__fmul_rn(p[3], xs), p[5]);
-                const float r2 = __fadd_rn(__fmul_rn(p[6], xs), p[8]);
-                const float r3 = __fadd_rn(__fmul_rn(p[9], xs), p[11]);
-#pragma unroll
-                for (int r = 0; r < PPT; ++r) {
-                    const float e0 = __fadd_rn(r0, __fmul_rn(p[1], ys[r]));
-                    const float e1 = __fadd_rn(r1, __fmul_rn(p[4], ys[r]));
-                    const float e2 = __fadd_rn(r2, __fmul_rn(p[7], ys[r]));
-                    const float invz = __fadd_rn(r3, __fmul_rn(p[10], ys[r]));
-                    if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && invz > best[r]) {
-                        best[r] = invz;
-                        idx[r] = slot;
-                    }
-                }
-            }
-        }
+        scan_super(s_planes, a.cbox, s, x0, y0, xs, ys, best, idx);
         // the tile's min winning 1/z for the early stop
         float m = best[0];
 #pragma unroll
@@ -463,7 +467,7 @@ extern "C" int rx_mega_render(
     const float* s_near, const int* atlas, const int* bg, const float* params,
     const float* lights, const int* light_list, const float* occ, int* rgba,
     float* zeff, int ns, int n_attr, long long n_atlas, int n_lights, int n_occ,
-    int height, int width, int sample_mode, int sun_off, void* stream) {
+    int height, int width, int sample_mode, int sun_off, int brdf_ggx, void* stream) {
     MegaArgs a;
     a.planes = planes;
     a.attr = attr;
@@ -487,6 +491,7 @@ extern "C" int rx_mega_render(
     a.width = width;
     a.sample_mode = sample_mode;
     a.sun_off = sun_off;
+    a.brdf_ggx = brdf_ggx;
     dim3 grid((width + TILE_W - 1) / TILE_W, (height + TILE_H - 1) / TILE_H);
     mega_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
     return (int)cudaGetLastError();

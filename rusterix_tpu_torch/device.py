@@ -7,6 +7,8 @@ else.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # the port is f32 throughout; the edge tests need full-precision products
@@ -27,3 +29,10 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.lru_cache(maxsize=64)
+def device_table(rows: tuple, dtype, device) -> torch.Tensor:
+    """A small constant table, uploaded once per (rows, dtype, device), so
+    that a launch makes no host-to-device copy in steady state. Read only."""
+    return torch.tensor(rows, dtype=dtype, device=device)

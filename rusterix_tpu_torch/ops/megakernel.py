@@ -22,19 +22,26 @@ Mega attr-table layout (f32 columns, the JAX package's layout):
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from .._host import SRC_PIXEL, SRC_TEXTURE
+from ..device import device_table
+from .scene_pack import SRC_PIXEL, SRC_TEXTURE
 from .setup_pass import _fma
-from .visibility import DEAD_PLANE, scan_candidates
-from .visibility_pallas import CHUNK, SUPER, TILE_H, TILE_W, _group_boxes, morton_perm
+from .visibility import scan_candidates
+from .visibility_pallas import (
+    CHUNK,
+    GROUP,
+    SUPER,
+    TILE_H,
+    TILE_W,
+    morton_perm,
+    prepare_visibility,
+    tile_box_hits,
+)
 
-GROUP = CHUNK * SUPER  # candidate slots per super-chunk
 N_PARAMS = 80
-EMPTY_BOX = (1e9, 1e9, -1e9, -1e9)
 
 #: launches of the CUDA kernel (one per mega_render call on CUDA tensors)
 launches = 0
@@ -247,13 +254,12 @@ def unpack_frame_u32(rgba_u32) -> torch.Tensor:
 # ---------------------------------------------------------------- the call
 
 
-def _check_variants(has_blend, has_material, has_matmap, brdf_ggx, tonemap,
+def _check_variants(has_blend, has_material, has_matmap, tonemap,
                     shadow_rows, shadow_spec, ao_img, light_spec, s_near):
     refused = {
         "has_blend (vertex blend)": has_blend,
         "has_material": has_material,
         "has_matmap": has_matmap,
-        "brdf_ggx": brdf_ggx,
         "tonemap (scenevm)": tonemap,
         "shadow_rows/shadow_spec (shadow maps)": (
             shadow_rows is not None or shadow_spec is not None
@@ -273,35 +279,15 @@ def _check_variants(has_blend, has_material, has_matmap, brdf_ggx, tonemap,
 def _prepare(vis_planes, alive, bbox, attr):
     """Dead candidates -> impossible planes, empty boxes, zero attributes;
     the merged super (GROUP) and chunk (CHUNK) boxes as (n, 4) i32."""
-    if vis_planes.shape[0] % GROUP:
-        raise ValueError(
-            f"presorted inputs must be padded to {GROUP}-row groups "
-            f"(got {vis_planes.shape[0]}); use morton_ftb_sort"
-        )
-    live = (alive > 0.5)[:, None]
-    dev = vis_planes.device
-    planes = torch.where(live, vis_planes, _device_table(DEAD_PLANE, torch.float32, dev))
-    bbox = torch.where(live, bbox, _device_table(EMPTY_BOX, torch.float32, dev))
-    attr = torch.where(live, attr, 0.0)
-    return (
-        planes.float().contiguous(),
-        attr.float().contiguous(),
-        _group_boxes(bbox, GROUP).contiguous(),
-        _group_boxes(bbox, CHUNK).contiguous(),
-    )
-
-
-@functools.lru_cache(maxsize=64)
-def _device_table(rows: tuple, dtype, device) -> torch.Tensor:
-    """A small constant table, uploaded once per (rows, dtype, device), so
-    that a launch makes no host-to-device copy in steady state. Read only."""
-    return torch.tensor(rows, dtype=dtype, device=device)
+    planes, sboxes, cboxes = prepare_visibility(vis_planes, alive, bbox)
+    attr = torch.where((alive > 0.5)[:, None], attr, 0.0)
+    return planes, attr.float().contiguous(), sboxes, cboxes
 
 
 def _light_list(light_spec, device) -> torch.Tensor:
     """light_spec -> (n, 2) i32 [row, type code] for the kernel's loop."""
     rows = tuple((int(r), int(t)) for r, t in light_spec)
-    return _device_table(rows, torch.int32, device).reshape(-1, 2)
+    return device_table(rows, torch.int32, device).reshape(-1, 2)
 
 
 def mega_render(
@@ -318,28 +304,31 @@ def mega_render(
     s_near, padded to GROUP rows and in front-to-back super order); the
     atlas is the flat u32 texel array as (N,) i32; bg_u32 from
     pack_background_u32; params, lights and occlusion boxes from the pack_*
-    helpers. z_eff is 1.0 where the opaque pass did not write.
+    helpers. z_eff is 1.0 where the opaque pass did not write. `brdf_ggx`
+    shades direct light with Cook-Torrance GGX (roughness 0.5, metallic 0)
+    instead of the fast Blinn-Phong BRDF.
 
     CUDA tensors launch the hand-written kernel (csrc/megakernel.cu); CPU
     tensors run mega_render_reference."""
-    _check_variants(has_blend, has_material, has_matmap, brdf_ggx, tonemap,
+    _check_variants(has_blend, has_material, has_matmap, tonemap,
                     shadow_rows, shadow_spec, ao_img, light_spec, s_near)
     if vis_planes.device.type != "cuda":
         return mega_render_reference(
             vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
             lights_packed, occ_packed, width, height, sample_mode,
             light_spec=light_spec, sun_off=sun_off, s_near=s_near,
+            brdf_ggx=brdf_ggx,
         )
     return _launch(
         vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         lights_packed, occ_packed, width, height, sample_mode, light_spec,
-        sun_off, s_near,
+        sun_off, s_near, brdf_ggx,
     )
 
 
 def _launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
             lights_packed, occ_packed, width, height, sample_mode, light_spec,
-            sun_off, s_near):
+            sun_off, s_near, brdf_ggx):
     global launches
     from .. import _cuda
 
@@ -383,7 +372,7 @@ def _launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         ptr(rgba.data_ptr()), ptr(zeff.data_ptr()),
         planes.shape[0] // GROUP, attr.shape[1], inputs["atlas"].numel(),
         llist.shape[0], inputs["occ"].shape[0], height, width,
-        int(sample_mode), int(bool(sun_off)),
+        int(sample_mode), int(bool(sun_off)), int(bool(brdf_ggx)),
         ptr(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
@@ -478,7 +467,8 @@ def _visibility(planes, sboxes, cboxes, s_near, hp, wp):
     """The kernel's scan, tile for tile: supers in front-to-back order,
     super and chunk boxes gating each 64x128 tile, and the tile's early
     stop once s_near[s] <= min(best over the tile). -> best (hp, wp) in the
-    max-1/z domain, idx (hp, wp) i32 sorted slot or -1."""
+    max-1/z domain, idx (hp, wp) i32 sorted slot or -1, and the number of
+    pixel-candidate tests the scan performed."""
     dev = planes.device
     n_th, n_tw = hp // TILE_H, wp // TILE_W
     xs = (torch.arange(wp, dtype=torch.float32, device=dev) + 0.5).reshape(
@@ -487,48 +477,46 @@ def _visibility(planes, sboxes, cboxes, s_near, hp, wp):
     ys = (torch.arange(hp, dtype=torch.float32, device=dev) + 0.5).reshape(
         n_th, TILE_H, 1, 1, 1
     )
-    tx0 = torch.arange(n_tw, device=dev, dtype=torch.int32) * TILE_W
-    ty0 = torch.arange(n_th, device=dev, dtype=torch.int32) * TILE_H
-
-    def tile_hits(b):  # (n, 4) i32 -> (n_th, n_tw, n)
-        hx = (b[None, :, 0] < tx0[:, None] + TILE_W) & (b[None, :, 2] > tx0[:, None])
-        hy = (b[None, :, 1] < ty0[:, None] + TILE_H) & (b[None, :, 3] > ty0[:, None])
-        return hy[:, None, :] & hx[None, :, :]
-
-    s_hit = tile_hits(sboxes)
-    c_hit = tile_hits(cboxes).repeat_interleave(CHUNK, dim=2)  # per slot
+    s_hit = tile_box_hits(sboxes, n_th, n_tw)
+    c_hit = tile_box_hits(cboxes, n_th, n_tw).repeat_interleave(CHUNK, dim=2)  # per slot
     best = torch.ones((n_th, TILE_H, n_tw, TILE_W), device=dev)
     idx = torch.full((n_th, TILE_H, n_tw, TILE_W), -1, dtype=torch.int32, device=dev)
     minb = torch.ones((n_th, n_tw), device=dev)
+    tests = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(s_near.shape[0]):
         active = s_hit[:, :, s] & (s_near[s] > minb)
         if not bool(active.any()):
             continue
         for c in range(s * SUPER, (s + 1) * SUPER):
             t0 = c * CHUNK
-            gate = (active[:, :, None] & c_hit[:, :, t0 : t0 + CHUNK])[:, None, :, None, :]
+            gate = active[:, :, None] & c_hit[:, :, t0 : t0 + CHUNK]
+            tests += gate.sum()
             best, idx = scan_candidates(
-                planes[t0 : t0 + CHUNK], xs, ys, best, idx, t0, gate=gate
+                planes[t0 : t0 + CHUNK], xs, ys, best, idx, t0,
+                gate=gate[:, None, :, None, :],
             )
         minb = best.amin(dim=(1, 3))
-    return best.reshape(hp, wp), idx.reshape(hp, wp)
+    return best.reshape(hp, wp), idx.reshape(hp, wp), int(tests) * TILE_H * TILE_W
 
 
 def mega_render_reference(
     vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params, lights_packed,
     occ_packed, width: int, height: int, sample_mode: int = 0,
     light_spec: tuple = None, sun_off: bool = False, s_near=None,
+    brdf_ggx: bool = False, return_work: bool = False,
 ):
     """Plain torch version of the megakernel: the kernel body's per-pixel
     math transcribed op for op (the JAX kernel's `_mega_kernel` stages 1-6),
     vectorised over pixels and chunked over candidates in sorted order.
-    Same inputs and outputs as mega_render."""
+    Same inputs and outputs as mega_render; with `return_work`, a third
+    output counts the pixel-candidate visibility tests the scan performed
+    (gated by the boxes and stopped early as the kernel is)."""
     if light_spec is None or s_near is None:
         raise ValueError("mega_render_reference needs light_spec and s_near")
     planes, attr, sboxes, cboxes = _prepare(vis_planes, alive, bbox, attr)
     hp = height + (-height % TILE_H)
     wp = width + (-width % TILE_W)
-    best, idx = _visibility(planes, sboxes, cboxes, s_near.float(), hp, wp)
+    best, idx, tests = _visibility(planes, sboxes, cboxes, s_near.float(), hp, wp)
     best = best[:height, :width]
     idx = idx[:height, :width]
     hit = idx >= 0
@@ -594,9 +582,12 @@ def mega_render_reference(
     uy = torch.where(n_ok, uy * flip, 0.0)
     uz = torch.where(n_ok, uz * flip, 0.0)
 
-    kd_r = _srgb_to_linear(tex_r) * 0.96
-    kd_g = _srgb_to_linear(tex_g) * 0.96
-    kd_b = _srgb_to_linear(tex_b) * 0.96
+    base_r = _srgb_to_linear(tex_r)
+    base_g = _srgb_to_linear(tex_g)
+    base_b = _srgb_to_linear(tex_b)
+    kd_r = base_r * 0.96
+    kd_g = base_g * 0.96
+    kd_b = base_b * 0.96
     hemi = 0.5 * (uy + 1.0)
 
     occlusion = torch.ones_like(wx)
@@ -609,7 +600,7 @@ def mega_render_reference(
     lit_g = P[35] * P[37] * kd_g * hemi
     lit_b = P[35] * P[38] * kd_b * hemi
 
-    def brdf(ldx, ldy, ldz, rad_r, rad_g, rad_b):
+    def brdf_fast(ldx, ldy, ldz, rad_r, rad_g, rad_b):
         n_dot_l = torch.clamp(ux * ldx + uy * ldy + uz * ldz, min=0.0)
         hx, hy, hz = ldx + vdx, ldy + vdy, ldz + vdz
         hl = torch.sqrt(hx * hx + hy * hy + hz * hz)
@@ -629,6 +620,38 @@ def mega_render_reference(
             torch.where(dead, 0.0, (kd_g * n_dot_l + fr * sb) * rad_g),
             torch.where(dead, 0.0, (kd_b * n_dot_l + fr * sb) * rad_b),
         )
+
+    def brdf_ggx_fn(ldx, ldy, ldz, rad_r, rad_g, rad_b):
+        # Cook-Torrance with roughness 0.5 and metallic 0 folded into the
+        # constants: a2 = 0.5^4, Smith k = 1.5^2 / 8 (the JAX kernel's
+        # `brdf` closure without material)
+        a2, k = 0.0625, 0.28125
+        n_dot_l = torch.clamp(ux * ldx + uy * ldy + uz * ldz, min=0.0)
+        n_dot_v = torch.clamp(ux * vdx + uy * vdy + uz * vdz, min=0.0)
+        hx, hy, hz = ldx + vdx, ldy + vdy, ldz + vdz
+        hl = torch.sqrt(hx * hx + hy * hy + hz * hz)
+        inv_hl = 1.0 / torch.clamp(hl, min=1e-30)
+        n_dot_h = torch.clamp((ux * hx + uy * hy + uz * hz) * inv_hl, min=0.0)
+        denom_d = n_dot_h * n_dot_h * (a2 - 1.0) + 1.0
+        dist = a2 / (3.14159265358979 * denom_d * denom_d + 1e-7)
+        gv = n_dot_v / (n_dot_v * (1.0 - k) + k + 1e-7)
+        gl = n_dot_l / (n_dot_l * (1.0 - k) + k + 1e-7)
+        s = dist * gv * gl / (4.0 * n_dot_l * n_dot_v + 1e-7)
+        h_dot_v = torch.clamp((hx * vdx + hy * vdy + hz * vdz) * inv_hl, min=0.0)
+        x1 = 1.0 - torch.clamp(h_dot_v, 0.0, 1.0)
+        x2 = x1 * x1
+        x5 = x2 * x2 * x1
+        fr = 0.04 + 0.96 * x5
+        dd = n_dot_l * 0.31830988618379
+        sl = s * n_dot_l
+        dead = (n_dot_l <= 0.0) | (n_dot_v <= 0.0)
+        return (
+            torch.where(dead, 0.0, ((1.0 - fr) * dd * base_r + fr * sl) * rad_r),
+            torch.where(dead, 0.0, ((1.0 - fr) * dd * base_g + fr * sl) * rad_g),
+            torch.where(dead, 0.0, ((1.0 - fr) * dd * base_b + fr * sl) * rad_b),
+        )
+
+    brdf = brdf_ggx_fn if brdf_ggx else brdf_fast
 
     if not sun_off:
         sdx, sdy, sdz = -P[44], -P[45], -P[46]
@@ -732,4 +755,4 @@ def mega_render_reference(
     packed = packed.to(torch.uint8).contiguous().view(torch.int32)[..., 0]
     rgba = torch.where(wrote, packed, bg_u32)
     zeff = torch.where(wrote, z, 1.0)
-    return rgba, zeff
+    return (rgba, zeff, tests) if return_work else (rgba, zeff)

@@ -1,13 +1,16 @@
 """Rasterizer facade — the public render API of the port (counterpart of
-`rusterix_tpu/ops/raster.py`, the opaque megakernel branch).
+`rusterix_tpu/ops/raster.py`, its megakernel branch).
 
 `Rasterizer.setup(None, view, proj, device="cuda").rasterize(scene, W, H,
-tile, assets)` packs the scene on the host (the JAX package's numpy packer,
-through the jax-free mount in `_host`), uploads it once into a scene cache,
-and renders each frame as: setup pass -> megakernel table + Morton /
-front-to-back sort -> the megakernel -> RGBA8 unpack, then draws the 2D
-line overlay on the host. Every feature outside that slice raises
-`NotImplementedError` naming it; none degrades silently.
+tile, assets)` packs the scene on the host (the port's copy of the JAX
+package's numpy packer, `ops/scene_pack.py`), uploads it once into a scene
+cache, and renders each frame as: setup pass -> megakernel table + Morton /
+front-to-back sort -> the megakernel (B1) -> RGBA8 unpack. With GGX
+reflections (`set_reflections`), the visibility pre-pass (B2) rebuilds the
+G-buffer's winners, the reflection rays go through the ray-intersect
+kernel (B3), and the reflections are composited over the opaque frame.
+The 2D line overlay is drawn last, on the host. Every feature outside that
+slice raises `NotImplementedError` naming it; none degrades silently.
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._host import PackedScene, SampleMode, invert, next_pow2, pack_lights, ref_module
+from .. import native
 from ..device import resolve_device
+from ..models import Assets, SampleMode, pack_lights
+from ..models.blend import RenderMode
+from ..utils.color import hash_u32, srgb_to_linear_fast
 from .megakernel import (
     light_spec_from,
     mega_render,
@@ -31,10 +37,12 @@ from .megakernel import (
     pack_occ_params,
     unpack_frame_u32,
 )
+from .composite import frame_to_u8
+from .matrices import invert
+from .reflect import apply_reflections, reflection_pass_scaled
+from .scene_pack import PackedScene, next_pow2
 from .setup_pass import setup_pass
-
-_color = ref_module("utils.color")
-_native = ref_module("native")
+from .visibility_pallas import visibility_pass_pallas
 
 
 def packed_to_torch(packed: PackedScene, device) -> dict:
@@ -60,17 +68,22 @@ def packed_to_torch(packed: PackedScene, device) -> dict:
     }
 
 
-def mega_inputs(d3, lights, atlas, uniforms, background, width: int,
-                height: int, sample_mode: int = 0, has_fog: bool = False,
-                light_spec: tuple = None, sun_off: bool = False):
-    """The opaque frame's preparation -> (args, kwargs) for mega_render:
-    setup pass, megakernel table, Morton + front-to-back sort and the
-    parameter packs.
+def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
+                 height: int, sample_mode: int = 0, has_fog: bool = False,
+                 light_spec: tuple = None, sun_off: bool = False,
+                 brdf_ggx: bool = False, refl_samples: int = 0,
+                 refl_scale: int = 1) -> dict:
+    """The frame's preparation before its kernels: setup pass, megakernel
+    table, Morton + front-to-back sort and the parameter packs -> dict with
+    the setup pass's `attr` and `tri_id`, the sorted `vis_s`, `alive_s`,
+    `bbox_s`, the sorted position -> slot permutation `sort_perm`, and
+    `mega_args` / `mega_kwargs` for mega_render.
 
     d3/atlas: packed_to_torch tensors; lights/uniforms: the host (numpy)
     dicts the Rasterizer builds each frame (pack_light_params,
     pack_mega_params and pack_occ_params carry them to the device);
-    background (H, W, 4) f32 on the device."""
+    background (H, W, 4) f32 on the device. The reflection settings are
+    read by render_frame."""
     dev = d3["pos"].device
     vis, attr, bbox, alive, tri_id = setup_pass(
         d3["pos"], d3["uv"], d3["nrm"], d3["valid"], d3["cull"],
@@ -79,8 +92,8 @@ def mega_inputs(d3, lights, atlas, uniforms, background, width: int,
         width, height,
     )
     table = pack_mega_table(attr, tri_id, d3, atlas, int(uniforms["anim_frame"]), False)
-    vis_s, bbox_s, alive_s, table_s, s_near = morton_ftb_sort(
-        vis, bbox, alive.float(), table, width, height
+    vis_s, bbox_s, alive_s, table_s, s_near, sort_perm = morton_ftb_sort(
+        vis, bbox, alive.float(), table, width, height, return_perm=True
     )
     args = (
         vis_s, alive_s, bbox_s, table_s, atlas["flat_u32"],
@@ -90,27 +103,58 @@ def mega_inputs(d3, lights, atlas, uniforms, background, width: int,
         pack_occ_params(uniforms, dev),
         width, height, sample_mode,
     )
-    return args, {"light_spec": light_spec, "sun_off": sun_off, "s_near": s_near}
+    return {
+        "attr": attr, "tri_id": tri_id,
+        "vis_s": vis_s, "alive_s": alive_s, "bbox_s": bbox_s, "sort_perm": sort_perm,
+        "mega_args": args,
+        "mega_kwargs": {"light_spec": light_spec, "sun_off": sun_off, "s_near": s_near,
+                        "brdf_ggx": brdf_ggx},
+    }
+
+
+def visibility_prepass(fi: dict, width: int, height: int):
+    """The G-buffer's visibility before shading (B2 on the sorted
+    candidates) -> (z, idx, hit) with idx mapped back to the setup pass's
+    slots through the sort permutation."""
+    z, i_s, hit = visibility_pass_pallas(fi["vis_s"], fi["alive_s"], fi["bbox_s"], width, height)
+    idx = torch.where(hit, fi["sort_perm"][torch.clamp(i_s, min=0).long()], -1)
+    return z, idx, hit
 
 
 def render_frame(d3, lights, atlas, uniforms, background, width: int,
                  height: int, sample_mode: int = 0, has_fog: bool = False,
-                 light_spec: tuple = None, sun_off: bool = False):
-    """One opaque 3D frame on the device -> (H, W, 4) uint8 tensor: the JAX
-    render_frame's megakernel branch with no pass after it
-    (ops/raster.py:233-312 there). Arguments as for mega_inputs."""
-    args, kwargs = mega_inputs(
+                 light_spec: tuple = None, sun_off: bool = False,
+                 brdf_ggx: bool = False, refl_samples: int = 0,
+                 refl_scale: int = 1):
+    """One 3D frame on the device -> (H, W, 4) uint8 tensor: the JAX
+    render_frame's megakernel branch (ops/raster.py:233-387 and :500
+    there). The opaque frame comes from the megakernel (B1); with
+    reflections, the visibility pre-pass (B2) gives the G-buffer its
+    winners before shading, the reflection pass traces its rays through the
+    ray-intersect kernel (B3), and the result is composited in f32 over the
+    quantized opaque frame. Arguments as for frame_inputs."""
+    fi = frame_inputs(
         d3, lights, atlas, uniforms, background, width, height, sample_mode,
-        has_fog, light_spec, sun_off,
+        has_fog, light_spec, sun_off, brdf_ggx,
     )
-    rgba_u32, _z_eff = mega_render(*args, **kwargs)
-    return unpack_frame_u32(rgba_u32)
+    pre = visibility_prepass(fi, width, height) if refl_samples else None
+    rgba_u32, _z_eff = mega_render(*fi["mega_args"], **fi["mega_kwargs"])
+    if not refl_samples:
+        return unpack_frame_u32(rgba_u32)
+    # the passes after the opaque frame blend in f32 over its quantized
+    # bytes, as the reference's u8 tile buffer does (rasterizer.rs:464-495)
+    frame = unpack_frame_u32(rgba_u32).float() * (1.0 / 255.0)
+    refl, rmask = reflection_pass_scaled(
+        *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms,
+        width, height, sample_mode, refl_samples, scale=refl_scale,
+    )
+    return frame_to_u8(apply_reflections(frame, refl, rmask))
 
 
 def draw_lines_bresenham(pixels: np.ndarray, segments: np.ndarray, colors: np.ndarray):
     """Exact port of rasterize_line_bresenham (src/rasterizer.rs:1777-1841)
     over the full frame. Mutates `pixels` (H,W,4)."""
-    if len(segments) and _native.draw_lines_native(pixels, segments, colors):
+    if len(segments) and native.draw_lines_native(pixels, segments, colors):
         return
     h, w = pixels.shape[:2]
     for (x0f, y0f, x1f, y1f), color in zip(segments, colors):
@@ -161,7 +205,7 @@ class Rasterizer:
         else:
             self.proj2d = np.eye(3, dtype=np.float32)
 
-        self.render_mode = ref_module("models.blend").RenderMode.render_all()
+        self.render_mode = RenderMode.render_all()
         self.sample_mode = SampleMode.Nearest
         self.background_color: Optional[tuple] = None
         self.ambient_color: Optional[np.ndarray] = None
@@ -179,12 +223,20 @@ class Rasterizer:
         #: 0 = the ShapeFX Fog node's linear fade, 1 = SceneVM exp^2 fog
         self._fog_mode = 0.0
         self._fog_density = 0.0
+        #: range cap of reflection rays (RenderSettings max_sky_distance)
+        self._rs_sky_distance = 50.0
+        #: direct-light BRDF: "fast" (Blinn-Phong) or "ggx" (set_brdf)
+        self.brdf = "fast"
+        #: GGX reflection rays per pixel, 0 = off (set_reflections)
+        self.reflection_samples = 0
+        self.reflection_scale = 1
+        #: depth-peeled transparency layers (RenderSettings
+        #: max_transparency_bounces); they matter with opacity batches only
+        self.transparency_layers = 1
         # features of the JAX Rasterizer outside the ported slice; set them
         # and rasterize() raises NotImplementedError naming them
         self.supersample = 1
-        self.brdf = "fast"
         self.tonemap = "srgb"
-        self.reflection_samples = 0
         self.sky_light_enabled = False
         self.shadow_settings = None
         self.ao_settings = None
@@ -199,6 +251,26 @@ class Rasterizer:
     def setup(projection_matrix_2d, view_matrix, projection_matrix,
               device=None) -> "Rasterizer":
         return Rasterizer(projection_matrix_2d, view_matrix, projection_matrix, device)
+
+    def set_brdf(self, model: str) -> "Rasterizer":
+        """Direct-light shading model of the 3D pass: "fast" (Blinn-Phong
+        with Schlick Fresnel, rasterizer.rs:1906-1951) or "ggx" (Cook-Torrance
+        with the GGX NDF, 3d_shader.wgsl:559-650)."""
+        model = str(model).lower()
+        if model not in ("fast", "ggx"):
+            raise ValueError(f"unknown brdf model '{model}' (fast|ggx)")
+        self.brdf = model
+        return self
+
+    def set_reflections(self, samples: int, scale: int = None) -> "Rasterizer":
+        """GGX importance-sampled reflection rays per pixel (0 disables),
+        range-capped by max_sky_distance (3d_shader.wgsl:764-826). `scale`
+        > 1 (reflections at 1/scale resolution) is not ported: rasterize()
+        raises on it."""
+        self.reflection_samples = max(0, int(samples))
+        if scale is not None:
+            self.reflection_scale = max(1, int(scale))
+        return self
 
     # builder-style setters (rasterizer.rs:155-182)
     def set_render_mode(self, mode) -> "Rasterizer":
@@ -222,10 +294,10 @@ class Rasterizer:
         return self
 
     def apply_render_settings(self, rs, hour: float = None) -> "Rasterizer":
-        """Sky color, sun, ambient and exp^2 fog from a RenderSettings block
-        (reference src/render_settings.rs:10-120). The block's shadow, AO,
-        reflection and transparency knobs belong to unported passes:
-        reflection samples > 0 make rasterize() raise."""
+        """Sky color, sun, ambient, exp^2 fog, the reflection samples and
+        their range cap from a RenderSettings block (reference
+        src/render_settings.rs:10-120). The block's shadow and AO knobs
+        belong to unported passes."""
         if hour is not None:
             self.hour = hour
         if rs.simulation.enabled:
@@ -240,7 +312,9 @@ class Rasterizer:
             self.day_factor = 0.0
         amb = np.asarray(rs.ambient_color, np.float32) * float(rs.ambient_strength)
         self.ambient_color = np.concatenate([amb, [1.0]]).astype(np.float32)
+        self._rs_sky_distance = float(rs.max_sky_distance)
         self.reflection_samples = max(0, int(rs.reflection_samples))
+        self.transparency_layers = int(np.clip(rs.max_transparency_bounces, 1, 8))
         self._rs_bump_strength = float(np.clip(rs.bump_strength, 0.0, 1.0))
         if rs.fog_density > 0.0:
             self._rs_has_fog = True
@@ -327,16 +401,29 @@ class Rasterizer:
             "fog_fade": np.float32(self._fog_fade),
             "fog_mode": np.float32(self._fog_mode),
             "fog_density": np.float32(self._fog_density),
+            "refl_dist": np.float32(self._rs_sky_distance),
+            "refl_sky": self._refl_sky_linear(),
             "bump_strength": np.float32(self._rs_bump_strength),
         }
 
+    def _refl_sky_linear(self) -> np.ndarray:
+        """Linear sky color reflected by rays that miss (the WGSL picks the
+        sky color, 3d_shader.wgsl:797; the background fill is the sky color
+        after apply_render_settings)."""
+        bg = self.background_color
+        if bg is None:
+            return np.zeros(3, np.float32)
+        return np.asarray(srgb_to_linear_fast(np.asarray(bg[:3], np.float32) / 255.0), np.float32)
+
     def _refuse_unported_settings(self, mesh):
+        refl = self.reflection_samples > 0
         checks = {
             "mesh= (the multi-chip row-sharded frame)": mesh is not None,
             "SSAA > 1 (set_supersample)": self.supersample > 1,
-            "the GGX BRDF": self.brdf != "fast",
             "the scenevm tonemap": self.tonemap != "srgb",
-            "reflections": self.reflection_samples > 0,
+            "reflections at a reduced scale (reflection_scale > 1)": refl
+            and self.reflection_scale > 1,
+            "reflections with shadows": refl and self.shadow_settings is not None,
             "sky light": self.sky_light_enabled,
             "shadows": self.shadow_settings is not None,
             "ambient occlusion": self.ao_settings is not None,
@@ -349,14 +436,16 @@ class Rasterizer:
 
     def _refuse_unported_scene(self, scene, packed):
         d3 = packed.d3
+        opacity = self.render_mode.d3_active and bool(packed.d3_opacity.valid.any())
         checks = {
+            "reflections on transparency layers (transparency_layers > 1)": opacity
+            and self.reflection_samples > 0 and self.transparency_layers > 1,
             "dynamic batches": bool(
                 scene.d3_dynamic or scene.d3_dynamic_opacity or scene.d2_dynamic
             ),
             "runtime or baked shaders": bool(getattr(scene, "shaders", None))
             or bool(packed.runtime_shaders),
-            "opacity batches": self.render_mode.d3_active
-            and bool(packed.d3_opacity.valid.any()),
+            "opacity batches": opacity,
             "2D batches": self.render_mode.d2_active and bool(packed.d2.valid.any()),
             "vertex blend": bool((d3.kind2 >= 0).any()),
             "material": bool((d3.rough != 0.5).any() or d3.metal.any()),
@@ -386,8 +475,8 @@ class Rasterizer:
         by the JAX package) instead of packing the scene."""
         self._refuse_unported_settings(mesh)
         if assets is None:
-            assets = ref_module("models.assets").Assets.default()
-        self.hash_anim = _color.hash_u32(scene.animation_frame & 0xFFFFFFFF)
+            assets = Assets.default()
+        self.hash_anim = hash_u32(scene.animation_frame & 0xFFFFFFFF)
 
         # device-resident scene cache, keyed by uuid tokens (not id(), which
         # CPython reuses after GC) and the device
@@ -443,6 +532,9 @@ class Rasterizer:
             has_fog=self._rs_has_fog,
             light_spec=light_spec_from(lights),
             sun_off=not (self.sun_dir is not None and self.day_factor > 0),
+            brdf_ggx=self.brdf == "ggx",
+            refl_samples=self.reflection_samples if self.render_mode.d3_active else 0,
+            refl_scale=self.reflection_scale,
         )
         self.frame_args = frame_args
         frame = render_frame(**frame_args)

@@ -5,11 +5,18 @@
 grid of 10-unit rooms with corridors, point lights in every third room, a
 spot and an ambient light, seen from a first-person camera. It is built
 here through the port's host layer because bench.py imports jax.
+
+`build_map_refl_scene` is the bench's `map_1920x1080_ggx_refl1`
+configuration (bench.py `build_map_refl_scene`): the map with a sun, the
+GGX BRDF and one reflection ray per pixel.
 """
 
 from __future__ import annotations
 
-from ._host import Assets, D3Builder, D3FirstPCamera, Light, LightType, MapScript, Scene, Texture
+import numpy as np
+
+from .builders import D3Builder, MapScript
+from .models import Assets, D3FirstPCamera, Light, LightType, Scene, Texture
 
 MAP_SOURCE_HEADER = """
 set_default("wall_tex", "brick")
@@ -56,4 +63,15 @@ def build_map_scene(width: int, height: int, device=None):
     rast = Rasterizer.setup(
         None, camera.view_matrix(), camera.projection_matrix(width, height), device=device
     ).ambient([0.25, 0.25, 0.3, 1.0])
+    return rast, scene, assets
+
+
+def build_map_refl_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the map plus a sun, GGX shading and
+    one GGX reflection ray per pixel."""
+    rast, scene, assets = build_map_scene(width, height, device=device)
+    rast.sun_dir = np.array([0.4, -1.0, 0.25], np.float32)
+    rast.sun_color = np.array([1.0, 1.0, 0.95], np.float32)
+    rast.day_factor = 1.0
+    rast.set_brdf("ggx").set_reflections(1)
     return rast, scene, assets

@@ -1,0 +1,19 @@
+"""Stand-in for the rusteria shader compiler, which the port has not ported.
+
+The host layer imports it lazily (`from ..shader import Rusteria`, and the
+packer's `from ..shader.jaxc import Rusteria`) only when a scene carries
+rusteria shaders; every name read here raises `NotImplementedError`.
+"""
+
+
+def unported(name: str):
+    return NotImplementedError(
+        f"rusteria shaders ({name}) need the rusteria shader compiler, which "
+        "rusterix_tpu_torch has not ported yet"
+    )
+
+
+def __getattr__(name):
+    if name.startswith("__"):
+        raise AttributeError(name)
+    raise unported(name)

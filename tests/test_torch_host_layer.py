@@ -1,8 +1,11 @@
-"""The port's jax-free host layer: rusterix_tpu_torch imports, builds,
-packs and renders with every jax import blocked, and the JAX package's
-numpy modules it mounts pack the bench map exactly as the JAX package does.
+"""The port's own host layer: rusterix_tpu_torch imports, builds, packs
+and renders with every jax import blocked and without loading any file of
+the JAX package; its copies of the JAX package's numpy modules pack the
+bench map exactly as the JAX package does.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -65,13 +68,76 @@ def test_port_runs_with_jax_blocked():
     assert "no-jax ok" in proc.stdout
 
 
+NO_JAX_PACKAGE_SCRIPT = textwrap.dedent(
+    """
+    import os
+    import sys
+
+    import rusterix_tpu_torch
+    from rusterix_tpu_torch.scenes import build_map_refl_scene
+
+    rast, scene, assets = build_map_refl_scene(64, 32, device="cpu")
+    frame = rast.rasterize(scene, 64, 32, 40, assets)
+    assert frame.shape == (32, 64, 4) and frame.dtype.name == "uint8", frame.shape
+    jax_pkg = os.path.join(os.getcwd(), "rusterix_tpu") + os.sep
+    files = [getattr(m, "__file__", None) or "" for m in list(sys.modules.values())]
+    from_jax_pkg = sorted(f for f in files if os.path.abspath(f).startswith(jax_pkg))
+    assert not from_jax_pkg, from_jax_pkg
+    jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    assert not jax_mods, jax_mods
+    print("own host layer ok", len(files))
+    """
+)
+
+
+def test_port_loads_no_file_of_the_jax_package():
+    """The reflection frame (every module of the slice) renders without
+    loading any file of rusterix_tpu/ and without importing jax."""
+    proc = subprocess.run(
+        [sys.executable, "-c", NO_JAX_PACKAGE_SCRIPT],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "own host layer ok" in proc.stdout
+
+
+def _names_jax_package(path):
+    """(line, what) of every import of rusterix_tpu and every string
+    constant equal to "rusterix_tpu" (a path built at run time) in a file."""
+    tree = ast.parse(open(path).read(), filename=path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Constant) and node.value == "rusterix_tpu":
+            found.append((node.lineno, "string 'rusterix_tpu'"))
+            continue
+        else:
+            continue
+        found += [(node.lineno, n) for n in names if n.split(".")[0] == "rusterix_tpu"]
+    return found
+
+
+def test_port_sources_name_no_jax_package():
+    files = sorted(glob.glob(os.path.join(ROOT, "rusterix_tpu_torch", "**", "*.py"),
+                             recursive=True))
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) > 40
+    hits = {os.path.relpath(f, ROOT): _names_jax_package(f) for f in files}
+    assert not {f: h for f, h in hits.items() if h}
+
+
 def test_mounted_packer_matches_jax_package():
-    """The map PackedScene built through the mount equals the JAX package's,
-    array for array, byte for byte."""
+    """The map PackedScene built by the port's copied host layer equals the
+    JAX package's, array for array, byte for byte."""
     from rusterix_tpu_torch import PackedScene as MountedPackedScene
     from rusterix_tpu_torch.scenes import build_map_scene
 
-    assert MountedPackedScene is not PackedScene  # same file, other module
+    assert MountedPackedScene is not PackedScene
+    assert MountedPackedScene.__module__ == "rusterix_tpu_torch.ops.scene_pack"
     _rast, scene, assets = bench.build_map_scene(128, 64)
     ref = PackedScene.from_scene(scene, assets, static_only=True)
     _port_rast, pscene, passets = build_map_scene(128, 64, device="cpu")
@@ -91,10 +157,11 @@ def test_mounted_packer_matches_jax_package():
 
 @pytest.mark.parametrize("module", ["shader", "shader.jaxc"])
 def test_shader_compiler_fails_loudly_under_the_mount(module):
-    """The rusteria compiler is jax code; through the mount both lazy
-    import sites (`..shader` and the packer's `..shader.jaxc`) raise
-    instead of importing jax."""
-    from rusterix_tpu_torch._host import ref_module
+    """The rusteria compiler is jax code the port has not ported; both lazy
+    import sites of the copied host layer (`..shader` and the packer's
+    `..shader.jaxc`) land on the port's stub and raise."""
+    import importlib
 
+    stub = importlib.import_module(f"rusterix_tpu_torch.{module}")
     with pytest.raises(NotImplementedError, match="shader compiler"):
-        ref_module(module).Rusteria  # noqa: B018
+        stub.Rusteria  # noqa: B018

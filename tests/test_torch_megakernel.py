@@ -240,6 +240,20 @@ def test_reference_matches_jax_interpret(lights, sun, sample_mode, fog, source):
     assert _max_channel_diff(rgba.numpy(), rgba_ref) <= 1
 
 
+@pytest.mark.parametrize("lights,sun,sample_mode,fog,source", [CASES[1], CASES[4]])
+def test_ggx_reference_matches_jax_interpret(lights, sun, sample_mode, fog, source):
+    """B1's brdf_ggx variant (Cook-Torrance, roughness 0.5, metallic 0)."""
+    args, kwargs = _box_inputs(lights, sun, sample_mode, fog, source)
+    kwargs["brdf_ggx"] = True
+    rgba_ref, z_ref = _jax_render(args, kwargs)
+    targs, tkw = _torch_args(args, kwargs)
+    rgba, z = tm.mega_render_reference(*targs, W, H, **tkw)
+    fast, _ = tm.mega_render_reference(*targs, W, H, **dict(tkw, brdf_ggx=False))
+    assert not torch.equal(rgba, fast), "the GGX variant changed nothing"
+    np.testing.assert_allclose(z.numpy(), z_ref, rtol=1e-6, atol=1e-6)
+    assert _max_channel_diff(rgba.numpy(), rgba_ref) <= 1
+
+
 def test_cpu_tensors_take_the_plain_version():
     args, kwargs = _box_inputs("point")
     targs, tkw = _torch_args(args, kwargs)
@@ -252,7 +266,7 @@ def test_cpu_tensors_take_the_plain_version():
 
 @pytest.mark.parametrize(
     "variant",
-    ["has_blend", "has_material", "has_matmap", "brdf_ggx", "tonemap", "shadow_rows",
+    ["has_blend", "has_material", "has_matmap", "shadow_spec", "tonemap", "shadow_rows",
      "ao_img"],
 )
 def test_mega_render_refuses_unported_variants(variant):
