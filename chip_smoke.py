@@ -7,13 +7,17 @@ two main paths through `rusterix_tpu_torch.Rasterizer.rasterize` at
 1920x1080 on the bench's procedural map: the opaque frame (the megakernel,
 B1) and the frame with a sun, the GGX BRDF and one GGX reflection ray per
 pixel (B1's GGX variant, the visibility pre-pass B2 and the ray intersect
-B3). For each path it checks that the frame went through every kernel of
-the path (launch counts read right after it), holds every kernel against
-its plain torch version on the frame's own inputs, checks the CUDA frames
-against the CPU frames at a small size, times the frames, the kernels and
-the plain versions with CUDA events, and breaks the frames down: host wall
-time per step, and under torch.profiler the device time, device ops, busy
-share and each kernel's device time per frame. Every phase raises on
+B3 with its preparation kernel). For each path it checks that the frame
+went through every kernel of the path (launch counts read right after it),
+holds every kernel against its plain torch version on the frame's own
+inputs (B1 also at the profiling cuts stage_cut 1 and 2), checks the CUDA
+frames against the CPU frames at a small size, times the frames, the
+kernels and the plain versions with CUDA events (B1's kernel alone at
+stage_cut 0, 1 and 2, which splits its time into the scan, the texel stage
+and the lighting), and breaks the frames down: host wall time per step, and
+under torch.profiler the device time, device ops, busy share and each
+kernel's device time per frame. It prints each kernel's registers, shared
+memory and resident blocks an SM, and its bound. Every phase raises on
 failure; nothing falls back to the CPU or to a plain version. The last line
 is the JSON result; it is printed only when every phase passed. Imports no
 jax.
@@ -43,6 +47,26 @@ F32_OPS_PER_S = 67e12
 OPS_PER_VIS_TEST = 8
 OPS_PER_MT_TEST = 46
 OPS_PER_SLAB_TEST = 24
+# B1's stages 2-6, f32 operations per covered pixel, counted from the
+# expressions of the plain version (megakernel.mega_render_reference) as the
+# counts above were: every multiply, add, subtract, divide, square root,
+# floor, exp, min/max and compare-to-float is one operation; integer index
+# arithmetic is not counted.
+OPS_INTERP = 30          # z = 1/best, six planes (2 mul + 2 add), u and v quotients, repeat decode
+OPS_TEXEL_NEAREST = 43   # repeat/clamp of u and v, texel coordinates, four channels resolved
+OPS_TEXEL_BILINEAR_EXTRA = 64  # three more taps, four weights, the weighted channel sums
+OPS_SHADE_FIXED = 204    # view + world position, view and normal directions, albedo, hemisphere
+                         # ambient, batch ambient, sRGB encode, fullbright blend, fog, quantize
+OPS_PER_OCC_BOX = 6      # four compares, a select and a min
+OPS_SUN_EXTRA = 6        # has_sun * colour, accumulated (the BRDF is counted by its type)
+# one light of a type (LightType codes: 0 point, 1 and 2 ambient, 3 spot, 4
+# area, 5 daylight) up to its radiance and the accumulation, without the BRDF
+OPS_PER_LIGHT = {0: 54, 1: 34, 2: 34, 3: 61, 4: 72, 5: 56}
+OPS_BRDF = {False: 58, True: 94}  # fast Blinn-Phong + Schlick; Cook-Torrance GGX
+# f32 operations per ray of the preparation (12 min/max + 6 NaN tests + the
+# live test) and per (block, cell) key (gaps, distance, cull, compares)
+OPS_PREP_PER_RAY = 19
+OPS_PREP_PER_KEY = 40
 
 
 def _run(cmd):
@@ -93,9 +117,12 @@ def wall_ms(fn, iters: int = 20) -> float:
 
 def profile_calls(fn, n: int):
     """Device activity of `n` calls of `fn` under torch.profiler -> None
-    when the profiler recorded no device activity, else per call: device ms
-    (the union of the device intervals: kernels, copies, memsets), device
-    ops, and device ms and op count by name."""
+    when the profiler recorded no device activity, else "calls" (n), per
+    call the device ms (the union of the device intervals: kernels, copies,
+    memsets) and the device ops, and by name the total device ms and the
+    number of records over all n calls. The profiler can lose records of a
+    long run, so a reader that needs one kernel's time divides its total by
+    its own count of records, not by n."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,34 +144,37 @@ def profile_calls(fn, n: int):
     for e in events:
         ms, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
-    return {
-        "device_ms": busy / 1e3 / n,
-        "ops": len(events) / n,
-        "by_name": {k: (ms / n, c / n) for k, (ms, c) in by_name.items()},
-    }
+    return {"calls": n, "device_ms": busy / 1e3 / n, "ops": len(events) / n, "by_name": by_name}
 
 
 def is_kernel(name: str, symbol: str) -> bool:
     """Does the profiler's kernel name denote the __global__ function
-    `symbol` (demangled "symbol(...)" or mangled "_Z<len>symbol...")?"""
+    `symbol` (demangled "symbol(...)" or "symbol<...>(...)", or mangled
+    "_Z<len>symbol...")?"""
     name = name.removeprefix("void ")
-    return name == symbol or name.startswith(symbol + "(") or name.startswith(
-        f"_Z{len(symbol)}{symbol}")
+    return name == symbol or name.startswith(
+        (symbol + "(", symbol + "<", f"_Z{len(symbol)}{symbol}"))
 
 
 def report_profile(label, prof, frame_ms, gpu, kernels: dict) -> dict:
-    """Print a frame's profile; -> {kernel: device ms per frame}, each named
-    kernel seen exactly once per frame."""
+    """Print a frame's profile; -> {kernel: device ms per launch}. Each named
+    kernel is launched once per frame (the launch counters hold that), so
+    more records than frames is an error; fewer means the profiler lost
+    records, and then the frame's device ms and ops are lower bounds."""
     if prof is None:
         print(f"profiler, {label}: no device activity recorded; device time not measured")
         return {k: None for k in kernels}
-    out = {}
+    out, n, lost = {}, prof["calls"], False
     for key, symbol in kernels.items():
         seen = [(ms, c) for name, (ms, c) in prof["by_name"].items() if is_kernel(name, symbol)]
-        if len(seen) != 1 or seen[0][1] != 1:
+        if len(seen) != 1 or not 1 <= seen[0][1] <= n:
             raise SystemExit(f"profiler, {label}: expected one {symbol} launch per frame, "
-                             f"saw {seen}")
-        out[key] = seen[0][0]
+                             f"saw (total ms, records) {seen} in {n} frames")
+        out[key] = seen[0][0] / seen[0][1]
+        lost = lost or seen[0][1] < n
+    if lost:
+        print(f"profiler, {label}: the profiler lost records of some launches; the frame's "
+              f"device ms and ops below are lower bounds, each kernel's ms is per record kept")
     each = ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
     print(f"profiler, {label}: device {prof['device_ms']:.4f} ms per frame, "
           f"{prof['ops']:.1f} device ops per frame, busy share "
@@ -152,7 +182,7 @@ def report_profile(label, prof, frame_ms, gpu, kernels: dict) -> dict:
           f"{each} per frame on {gpu}")
     top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])[:10]
     for name, (ms, c) in top:
-        print(f"  device {ms:.4f} ms, {c:.1f} ops per frame: {name[:100]}")
+        print(f"  device {ms / n:.4f} ms, {c / n:.1f} ops per frame: {name[:100]}")
     return out
 
 
@@ -168,6 +198,44 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def shade_ops(covered: int, stage_cut: int, kwargs: dict, n_occ: int, sample_mode: int) -> int:
+    """f32 operations of B1's stages 2-6 for `covered` pixels with a winner,
+    up to the stage the cut keeps, for this frame's lights, BRDF, sun and
+    sampling mode."""
+    if stage_cut == 1:
+        return 0
+    texel = OPS_TEXEL_NEAREST + (OPS_TEXEL_BILINEAR_EXTRA if sample_mode else 0)
+    per_px = OPS_INTERP + texel
+    if stage_cut == 0:
+        brdf = OPS_BRDF[bool(kwargs.get("brdf_ggx", False))]
+        per_px += OPS_SHADE_FIXED + OPS_PER_OCC_BOX * n_occ
+        if not kwargs.get("sun_off", False):
+            per_px += brdf + OPS_SUN_EXTRA
+        per_px += sum(OPS_PER_LIGHT[int(t)] + brdf for _row, t in kwargs["light_spec"])
+    return covered * per_px
+
+
+def reflection_kernel_inputs(rast_r, fi) -> dict:
+    """The inputs B2 and B3 get on the reflection frame that `rast_r` last
+    rendered at W x H (fi: its frame_inputs): "b2_in", the arguments of
+    visibility_pass_pallas; "pre", the pre-pass's (z, idx, hit); "g", the
+    G-buffer; "rays", the reflection rays; "b3_in", the arguments of
+    intersect_rays_pallas."""
+    from rusterix_tpu_torch.ops import reflect
+    from rusterix_tpu_torch.ops.raster import visibility_prepass
+    from rusterix_tpu_torch.ops.shade import gbuffer_pass
+
+    fa = rast_r.frame_args
+    pre = visibility_prepass(fi, W, H)
+    g = gbuffer_pass(*pre, fi["attr"], fi["tri_id"], fa["d3"], fa["atlas"], fa["uniforms"],
+                     W, H, fa["sample_mode"])
+    rays = reflect.reflection_rays(g, pre[2], W, H, 0)
+    b3_in = (fa["d3"]["pos"], fa["d3"]["valid"], rays["o_x"], rays["o_y"], rays["o_z"],
+             rays["d_x"], rays["d_y"], rays["d_z"], float(fa["uniforms"]["refl_dist"]), H, W)
+    return {"b2_in": (fi["vis_s"], fi["alive_s"], fi["bbox_s"], W, H), "pre": pre, "g": g,
+            "rays": rays, "b3_in": b3_in}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -179,14 +247,15 @@ def main() -> int:
     from rusterix_tpu_torch.ops.shade import gbuffer_pass
     from rusterix_tpu_torch.scenes import build_map_refl_scene, build_map_scene
 
-    kernel_modules = {"B1": megakernel, "B2": visibility_pallas, "B3": rt_kernel}
+    counters = {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
+                "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches")}
 
     def zero_counts():
-        for mod in kernel_modules.values():
-            mod.launches = 0
+        for mod, name in counters.values():
+            setattr(mod, name, 0)
 
     def read_counts() -> dict:
-        return {k: mod.launches for k, mod in kernel_modules.items()}
+        return {k: getattr(mod, name) for k, (mod, name) in counters.items()}
 
     def rgba_diff(a, b):
         """per-channel |a - b| of two packed RGBA8 frames"""
@@ -272,11 +341,28 @@ def main() -> int:
     print(f"B1 brdf_ggx vs plain (reflection map): z_eff equal, rgba max diff {ggx_err} "
           f"(tolerance {RGBA_TOL}), px differing {int((diff.amax(-1) > 0).sum())}, "
           f"visibility tests {ggx_tests}")
-    b1_err = max(b1_err, ggx_err)
-    if b1_err > RGBA_TOL:
+    if max(b1_err, ggx_err) > RGBA_TOL:
         raise SystemExit("the megakernel disagrees with its plain version")
+    # the profiling cuts: 1 = the scan's winning slot and 1/z, 2 = the texel
+    covered = {}
+    for label, (a_, k_) in (("opaque map", (args, kwargs)), ("reflection map", (gargs, gkwargs))):
+        for cut in (1, 2):
+            out_k = megakernel.mega_render(*a_, **k_, stage_cut=cut)
+            out_p = megakernel.mega_render_reference(*a_, **k_, stage_cut=cut)
+            torch.cuda.synchronize()
+            if not (torch.equal(out_k[0], out_p[0]) and torch.equal(out_k[1], out_p[1])):
+                raise SystemExit(
+                    f"B1 stage_cut={cut} ({label}) differs from the plain version at "
+                    f"{int((out_k[0] != out_p[0]).sum())} px (first output), "
+                    f"{int((out_k[1] != out_p[1]).sum())} px (second)")
+            if cut == 1:
+                covered[label] = int((out_k[0] >= 0).sum())
+        print(f"B1 stage_cut 1 and 2 vs plain ({label}): both outputs equal, "
+              f"px with a winner {covered[label]}")
 
-    b2_in = (fi["vis_s"], fi["alive_s"], fi["bbox_s"], W, H)
+    kin = reflection_kernel_inputs(rast_r, fi)
+    b2_in, b3_in, g, rays = kin["b2_in"], kin["b3_in"], kin["g"], kin["rays"]
+    z_pre, idx_pre, hit_pre = kin["pre"]
     z2, i2, h2 = visibility_pallas.visibility_pass_pallas(*b2_in)
     z2p, i2p, h2p = visibility_pallas.visibility_pass_pallas_reference(*b2_in)
     torch.cuda.synchronize()
@@ -287,13 +373,19 @@ def main() -> int:
         raise SystemExit("the visibility kernel disagrees with its plain version")
     b2_tests = visibility_pallas.scan_work(*b2_in)
 
-    z_pre, idx_pre, hit_pre = visibility_prepass(fi, W, H)
     fa = rast_r.frame_args
-    g = gbuffer_pass(z_pre, idx_pre, hit_pre, fi["attr"], fi["tri_id"], fa["d3"], fa["atlas"],
-                     fa["uniforms"], W, H, fa["sample_mode"])
-    rays = reflect.reflection_rays(g, hit_pre, W, H, 0)
-    b3_in = (fa["d3"]["pos"], fa["d3"]["valid"], rays["o_x"], rays["o_y"], rays["o_z"],
-             rays["d_x"], rays["d_y"], rays["d_z"], float(fa["uniforms"]["refl_dist"]), H, W)
+    prep_k = rt_kernel.rt_prepare_cuda(*b3_in)
+    prep_p = rt_kernel.rt_prepare(*b3_in)
+    torch.cuda.synchronize()
+    prep_bad = [k for k in ("boxes", "tnear", "slist", "tab", "cbox", "tcap")
+                if not torch.equal(prep_k[k], prep_p[k])]
+    prep_err = float((prep_k["tnear"] - prep_p["tnear"]).abs().max())
+    print(f"B3 preparation kernel vs plain rt_prepare ({prep_k['tnear'].shape[0]} blocks x "
+          f"{prep_k['ncells']} cells): block boxes, tnear and slist "
+          f"{'equal' if not prep_bad else 'DIFFER in ' + ', '.join(prep_bad)}, "
+          f"tnear max diff {prep_err}")
+    if prep_bad:
+        raise SystemExit("the preparation kernel disagrees with rt_prepare")
     t3, i3 = rt_kernel.intersect_rays_pallas(*b3_in)
     t3p, i3p, b3_work = rt_kernel.intersect_rays_pallas_reference(*b3_in, return_work=True)
     torch.cuda.synchronize()
@@ -325,20 +417,54 @@ def main() -> int:
     b1_t = cuda_times(lambda: megakernel.mega_render(*args, **kwargs), 40)
     b1_plain_t = cuda_times(lambda: megakernel.mega_render_reference(*args, **kwargs), 3, warmup=1)
     ggx_t = cuda_times(lambda: megakernel.mega_render(*gargs, **gkwargs), 40)
+    ggx_plain_t = cuda_times(lambda: megakernel.mega_render_reference(*gargs, **gkwargs), 3,
+                             warmup=1)
     b2_t = cuda_times(lambda: visibility_pallas.visibility_pass_pallas(*b2_in), 40)
     b2_plain_t = cuda_times(lambda: visibility_pallas.visibility_pass_pallas_reference(*b2_in), 3,
                             warmup=1)
     b3_t = cuda_times(lambda: rt_kernel.intersect_rays_pallas(*b3_in), 40)
     b3_plain_t = cuda_times(lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in), 3, warmup=1)
+    prep_t = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*b3_in), 40)
+    prep_plain_t = cuda_times(lambda: rt_kernel.rt_prepare(*b3_in), 10)
+    fields = rt_kernel._ray_fields(*b3_in[2:8])
+    walk_t = cuda_times(lambda: rt_kernel._launch(prep_k, fields), 40)
+    # the sort's yardstick: one torch.sort of the same keys (the port does
+    # not call it on this path)
+    keys = torch.empty_like(prep_k["tnear"]).scatter_(1, prep_k["slist"].long(), prep_k["tnear"])
+    sort_t = cuda_times(lambda: torch.sort(keys, dim=1, stable=True), 40)
+    # B1's kernel alone (inputs prepared once) at the three cuts
+    cut_t = {}
+    for label, (a_, k_) in (("opaque", (args, kwargs)), ("ggx", (gargs, gkwargs))):
+        for cut in (0, 1, 2):
+            cut_t[label, cut] = median(cuda_times(
+                megakernel.prepare_launch(*a_, **k_, stage_cut=cut), 100))
+    # the kernel's fixed cost (no super scanned: s_near below every 1/z)
+    no_scan = dict(kwargs, s_near=torch.full_like(kwargs["s_near"], -1e30))
+    no_scan_t = median(cuda_times(megakernel.prepare_launch(*args, **no_scan, stage_cut=1), 100))
     print(f"rasterize(readback=False) opaque {W}x{H}: {summary(frame_t)} on {gpu}")
     print(f"rasterize(readback=False) GGX reflections {W}x{H}: {summary(frame_r_t)} on {gpu}")
     print(f"B1 mega_render (opaque map): {summary(b1_t)} on {gpu}")
     print(f"plain mega_render_reference (opaque map): {summary(b1_plain_t)} on {gpu}")
     print(f"B1 mega_render brdf_ggx (reflection map): {summary(ggx_t)} on {gpu}")
+    print(f"plain mega_render_reference brdf_ggx (reflection map): {summary(ggx_plain_t)} "
+          f"on {gpu}")
     print(f"B2 visibility_pass_pallas: {summary(b2_t)} on {gpu}")
     print(f"plain visibility_pass_pallas_reference: {summary(b2_plain_t)} on {gpu}")
     print(f"B3 intersect_rays_pallas: {summary(b3_t)} on {gpu}")
     print(f"plain intersect_rays_pallas_reference: {summary(b3_plain_t)} on {gpu}")
+    print(f"B3 walk kernel alone (prepared inputs): {summary(walk_t)} on {gpu}")
+    print(f"B3 preparation rt_prepare_cuda (scene tables in torch + kernel): {summary(prep_t)} "
+          f"on {gpu}")
+    print(f"plain rt_prepare: {summary(prep_plain_t)} on {gpu}")
+    print(f"torch.sort of the same keys (stable): {summary(sort_t)} on {gpu}")
+    print(f"B1 kernel alone (opaque map inputs), no super scanned (set-up, copies and writes "
+          f"only, stage_cut 1): {no_scan_t:.4f} ms (median of 100) on {gpu}")
+    for label in ("opaque", "ggx"):
+        c0, c1, c2 = (cut_t[label, c] for c in (0, 1, 2))
+        print(f"B1 kernel alone ({label} map inputs), "
+              f"stage_cut 0 / 1 / 2: {c0:.4f} / {c1:.4f} / {c2:.4f} ms -> scan {c1:.4f}, "
+              f"interpolation + texel {c2 - c1:.4f}, lighting + fog + pack {c0 - c2:.4f} ms "
+              f"(medians of 100) on {gpu}")
     frame_ms, frame_r_ms = median(frame_t), median(frame_r_t)
 
     # 8. where the frames' time goes: host wall per step (synchronized)
@@ -399,33 +525,80 @@ def main() -> int:
         f"reflection rasterize(readback=False) x{n_prof}",
         profile_calls(lambda: rast_r.rasterize(scene_r, W, H, 40, assets_r, readback=False),
                       n_prof),
-        frame_r_ms, gpu, {"B1": "mega_kernel", "B2": "visibility_kernel", "B3": "rt_kernel"})
+        frame_r_ms, gpu, {"B1": "mega_kernel", "B2": "visibility_kernel", "B3": "rt_kernel",
+                          "B3prep": "rt_prepare_kernel"})
 
-    # 9. bounds: each input read once and each output written once over the
-    # memory rate, against the visibility / ray tests this data needs over
-    # the f32 rate
+    # 9. what each kernel takes on the card (registers a thread, shared
+    # memory a block, blocks an SM holds at once: occupancy API)
+    ns = fi["vis_s"].shape[0] // 128
+    n_occ = int(args[8].shape[0])
+    res = {
+        "B1": _cuda.resources("mega", ns, len(kwargs["light_spec"]), n_occ),
+        "B2": _cuda.resources("visibility", ns),
+        "B3": _cuda.resources("rt_walk"),
+        "B3prep": _cuda.resources("rt_prepare", prep_k["ncells"]),
+    }
+    for key, r in res.items():
+        warps = 32 if key == "B3" else 8  # B3's walk: 1024 threads a block, the others 256
+        print(f"resources {key}: {r['registers']} registers, "
+              f"{r['smem_static'] + r['smem_dynamic']} B shared memory a block, "
+              f"{r['blocks_per_sm']} blocks of {warps * 32} threads an SM "
+              f"({r['blocks_per_sm'] * warps} of 64 warps) on {gpu}")
+
+    # 10. bounds: each input read once and each output written once over the
+    # memory rate, against the f32 operations this data needs over the f32
+    # rate: visibility tests, B1's stages 2-6 per pixel with a winner (by
+    # this frame's lights and BRDF), ray tests, the preparation's reductions
+    # and keys. The 67 TFLOP/s peak counts a fused multiply-add as two
+    # operations; these kernels execute unfused multiplies and adds for bit
+    # parity, so half of that peak is the most they can reach. The published
+    # peak stays the yardstick.
     b1_bytes = nbytes(*[a for a in args if isinstance(a, torch.Tensor)], rgba_k, z_k)
-    b1_bound = bound(b1_bytes, b1_tests * OPS_PER_VIS_TEST)
+    b1_bounds = {}
+    for label, k_, tests, n_cov in (("opaque", kwargs, b1_tests, covered["opaque map"]),
+                                    ("ggx", gkwargs, ggx_tests, covered["reflection map"])):
+        for cut in (0, 1, 2):
+            ops = tests * OPS_PER_VIS_TEST + shade_ops(n_cov, cut, k_, n_occ, int(args[11]))
+            b1_bounds[label, cut] = bound(b1_bytes, ops)
+            ms, by = b1_bounds[label, cut]
+            print(f"bound B1 {label} stage_cut={cut}: {b1_bytes} bytes, {ops} f32 ops "
+                  f"({tests} tests, {n_cov} px shaded) -> {ms:.6f} ms, bound by {by}; "
+                  f"kernel alone {cut_t[label, cut]:.4f} ms")
     b2_bytes = nbytes(*b2_in[:3], z2, i2)
     b2_bound = bound(b2_bytes, b2_tests * OPS_PER_VIS_TEST)
     b3_bytes = nbytes(*b3_in[:8], t3, i3)
     b3_ops = b3_work["ray_triangle"] * OPS_PER_MT_TEST + b3_work["ray_box"] * OPS_PER_SLAB_TEST
     b3_bound = bound(b3_bytes, b3_ops)
-    for key, (ms, by), nb, ops in (("B1", b1_bound, b1_bytes, b1_tests * OPS_PER_VIS_TEST),
-                                   ("B2", b2_bound, b2_bytes, b2_tests * OPS_PER_VIS_TEST),
-                                   ("B3", b3_bound, b3_bytes, b3_ops)):
+    prep_bytes = nbytes(*b3_in[2:8], prep_k["cbox"], prep_k["boxes"], prep_k["tnear"],
+                        prep_k["slist"])
+    prep_ops = H * W * OPS_PREP_PER_RAY + prep_k["tnear"].numel() * OPS_PREP_PER_KEY
+    prep_bound = bound(prep_bytes, prep_ops)
+    for key, (ms, by), nb, ops in (("B2", b2_bound, b2_bytes, b2_tests * OPS_PER_VIS_TEST),
+                                   ("B3 walk", b3_bound, b3_bytes, b3_ops),
+                                   ("B3 preparation", prep_bound, prep_bytes, prep_ops)):
         print(f"bound {key}: {nb} bytes, {ops} f32 ops -> {ms:.6f} ms, bound by {by}")
-
+    print("bounds: 67 TFLOP/s counts an FMA as two operations; these kernels execute unfused "
+          "multiplies and adds (-fmad=false, bit parity), so half of that peak is their ceiling")
+    # B1 has one entry per main path: each launch with its own frame's
+    # inputs, times, bound and profile
+    b1_rows = (
+        ("mega_render (opaque map)", "opaque", counts_a["B1"], b1_err, b1_t, b1_plain_t, dev_a),
+        ("mega_render brdf_ggx (reflection map)", "ggx", counts_b["B1"], ggx_err, ggx_t,
+         ggx_plain_t, dev_b),
+    )
     kernels = [
         {
-            "name": "mega_render", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "rusterix_tpu_torch/csrc/megakernel.cu",
             "replaces": "rusterix_tpu/ops/megakernel.py:250",
-            "launches": launches["B1"], "max_abs_err": b1_err,
-            "ms": median(b1_t), "plain_ms": median(b1_plain_t),
-            "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None,
-            "device_ms": dev_a["B1"],
-        },
+            "launches": n, "max_abs_err": err,
+            "ms": median(t), "plain_ms": median(plain_t),
+            "bound_ms": b1_bounds[label, 0][0], "bound_by": b1_bounds[label, 0][1],
+            "library_ms": None, "device_ms": dev["B1"], "alone_ms": cut_t[label, 0],
+            **res["B1"],
+        }
+        for name, label, n, err, t, plain_t, dev in b1_rows
+    ] + [
         {
             "name": "visibility_pass_pallas", "route": "cuda",
             "source": "rusterix_tpu_torch/csrc/visibility.cu",
@@ -433,7 +606,7 @@ def main() -> int:
             "launches": launches["B2"], "max_abs_err": b2_err,
             "ms": median(b2_t), "plain_ms": median(b2_plain_t),
             "bound_ms": b2_bound[0], "bound_by": b2_bound[1], "library_ms": None,
-            "device_ms": dev_b["B2"],
+            "device_ms": dev_b["B2"], **res["B2"],
         },
         {
             "name": "intersect_rays_pallas", "route": "cuda",
@@ -442,7 +615,17 @@ def main() -> int:
             "launches": launches["B3"], "max_abs_err": b3_err,
             "ms": median(b3_t), "plain_ms": median(b3_plain_t),
             "bound_ms": b3_bound[0], "bound_by": b3_bound[1], "library_ms": None,
-            "device_ms": dev_b["B3"],
+            "device_ms": dev_b["B3"], "alone_ms": median(walk_t), **res["B3"],
+        },
+        {
+            "name": "rt_prepare_cuda", "route": "cuda",
+            "source": "rusterix_tpu_torch/csrc/rt_kernel.cu",
+            "replaces": "rusterix_tpu/ops/rt_kernel.py:286-354",
+            "launches": launches["B3prep"], "max_abs_err": prep_err,
+            "ms": median(prep_t), "plain_ms": median(prep_plain_t),
+            "bound_ms": prep_bound[0], "bound_by": prep_bound[1],
+            "library_ms": median(sort_t),
+            "device_ms": dev_b["B3prep"], **res["B3prep"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

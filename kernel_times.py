@@ -1,0 +1,112 @@
+"""Times of the port's CUDA kernels alone, for one tree or two in turns.
+
+    python3 kernel_times.py                   # this checkout
+    python3 kernel_times.py --against DIR     # DIR, this, this, DIR on one card
+
+Builds the kernels of a tree's `rusterix_tpu_torch`, takes the kernels' own
+inputs from the two 1920x1080 map frames chip_smoke.py drives (opaque, and
+with the sun, GGX and one reflection ray per pixel) and times, per call of
+each wrapper: the wrapper (CUDA events, median of 40), and under
+torch.profiler (20 calls) all device time of the call and the device time
+of each hand-written kernel by name. The megakernel is timed at stage_cut
+0, 1 and 2 on both frames' inputs, so the differences split its time into
+the scan, the interpolation + texel fetch, and the lighting + fog + pack.
+
+With `--against DIR` the same measurement runs in a process of its own for
+each turn (DIR holds another version of the package, for example the parent
+commit unpacked with `git archive`): the other tree, this one, this one,
+the other tree, all on the same card, so that two designs are compared
+within one run. DIR's package must take `stage_cut` in `mega_render`:
+kernel_times_first_design.patch gives it to the first design of the kernels
+(commit 4d3d6b2) and says how to unpack and patch that tree. Every line
+names the card and its power limit. Needs a GPU; imports no jax.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+KERNEL_SYMBOLS = ("mega_kernel", "visibility_kernel", "rt_kernel", "rt_prepare_kernel")
+
+
+def measure(tree: str) -> dict:
+    """The times of the package under `tree` (a directory that holds
+    rusterix_tpu_torch/), in ms per call."""
+    import chip_smoke as cs  # this checkout's, whatever the tree holds
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from rusterix_tpu_torch import _cuda
+    from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas
+    from rusterix_tpu_torch.ops.raster import frame_inputs
+    from rusterix_tpu_torch.scenes import build_map_refl_scene, build_map_scene
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: torch.cuda.is_available() is False")
+    _cuda.build(force=True)
+    _cuda.library()
+
+    def timed(fn) -> dict:
+        wrapper = cs.median(cs.cuda_times(fn, 40))
+        prof = cs.profile_calls(fn, 20)
+        out = {"wrapper_ms": wrapper, "device_ms": None, "device_ops": None}
+        if prof is not None:
+            out["device_ms"], out["device_ops"] = prof["device_ms"], prof["ops"]
+            for name, (ms, count) in prof["by_name"].items():
+                for symbol in KERNEL_SYMBOLS:
+                    if cs.is_kernel(name, symbol):  # one launch per call
+                        out[symbol + "_ms"] = out.get(symbol + "_ms", 0.0) + ms / count
+        return out
+
+    times = {}
+    for label, build in (("opaque", build_map_scene), ("ggx", build_map_refl_scene)):
+        rast, scene, assets = build(cs.W, cs.H, device="cuda")
+        rast.rasterize(scene, cs.W, cs.H, 40, assets)
+        fi = frame_inputs(**rast.frame_args)
+        args, kwargs = fi["mega_args"], fi["mega_kwargs"]
+        for cut in (0, 1, 2):
+            times[f"B1 {label} stage_cut={cut}"] = timed(
+                lambda: megakernel.mega_render(*args, **kwargs, stage_cut=cut))
+    kin = cs.reflection_kernel_inputs(rast, fi)
+    b2_in, b3_in = kin["b2_in"], kin["b3_in"]
+    times["B2"] = timed(lambda: visibility_pallas.visibility_pass_pallas(*b2_in))
+    times["B3 (preparation + walk)"] = timed(lambda: rt_kernel.intersect_rays_pallas(*b3_in))
+    gpu = cs._run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    return {"tree": os.path.abspath(tree), "gpu": gpu.splitlines()[0], "times": times}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)),
+                    help="directory that holds the rusterix_tpu_torch to measure")
+    ap.add_argument("--against", help="another tree: measure it, this, this, it")
+    ns = ap.parse_args()
+    if not ns.against:
+        print(json.dumps(measure(ns.tree)))
+        return 0
+    here = os.path.abspath(__file__)
+    turns = []
+    for tree in (ns.against, ns.tree, ns.tree, ns.against):
+        proc = subprocess.run([sys.executable, here, "--tree", tree], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        turns.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(turns[-1]))
+    gpu = turns[0]["gpu"]
+    for key in turns[0]["times"]:
+        for field in sorted({f for t in turns for f in t["times"][key]}):
+            vals = [t["times"][key].get(field) for t in turns]
+            shown = ", ".join("-" if v is None else f"{v:.4f}" for v in vals)
+            print(f"{key} {field} [other, this, this, other]: {shown} on {gpu}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

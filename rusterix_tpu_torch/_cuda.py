@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with `nvcc` into a shared library
-with a plain C interface (`rx_*` functions), which is loaded with ctypes.
-The build goes into `rusterix_tpu_torch/_build/` (git-ignored) and is
+The sources are compiled at first use with `nvcc`, one compiler process per
+source and all of them at once, and linked into a shared library with a
+plain C interface (`rx_*` functions), which is loaded with ctypes. The
+build goes into `rusterix_tpu_torch/_build/` (git-ignored) and is
 redone whenever a source is newer than the library. Nothing here runs when
 the module is imported, so machines without `nvcc` import it freely.
 """
@@ -26,7 +27,7 @@ BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 # torch versions (see the note in csrc/megakernel.cu); no fast math.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
@@ -50,21 +51,49 @@ def build(force: bool = False) -> str:
     The compiler's output (register and shared-memory use per kernel from
     -Xptxas -v) is kept in BUILD_LOG."""
     global build_seconds
+    deps = SOURCES + glob.glob(os.path.join(_PKG, "csrc", "*.cuh"))
     stale = not os.path.exists(LIBRARY) or any(
-        os.path.getmtime(s) > os.path.getmtime(LIBRARY) for s in SOURCES
+        os.path.getmtime(s) > os.path.getmtime(LIBRARY) for s in deps
     )
     if not (force or stale):
         return LIBRARY
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+    nvcc = nvcc_path()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    objects, procs = [], []
+    for src in SOURCES:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objects.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += "\n(killed after 600 s)"
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-4000:]}")
+    tmp = f"{LIBRARY}.{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *objects]
+        link = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        log.append(" ".join(cmd) + "\n" + link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-4000:]}")
     build_seconds = time.perf_counter() - t0
     with open(BUILD_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        f.write("\n".join(log))
+    for obj in objects:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIBRARY)
     return LIBRARY
 
@@ -77,15 +106,45 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rx_mega_render.restype = i32
-    lib.rx_mega_render.argtypes = [vp] * 13 + [i32, i32, i64] + [i32] * 7 + [vp]
+    lib.rx_mega_render.argtypes = [vp] * 13 + [i32, i32, i64] + [i32] * 8 + [vp]
+    for fn, n_int in ((lib.rx_mega_resources, 3), (lib.rx_visibility_resources, 1),
+                      (lib.rx_rt_resources, 2)):
+        fn.restype = i32
+        fn.argtypes = [i32] * n_int + [vp]
+    lib.rx_mega_smem_bytes.restype = i64
+    lib.rx_mega_smem_bytes.argtypes = [i32] * 3
     lib.rx_visibility.restype = i32
     lib.rx_visibility.argtypes = [vp] * 5 + [i32] * 3 + [vp]
     lib.rx_rt_intersect.restype = i32
-    lib.rx_rt_intersect.argtypes = [vp] * 8 + [i32] * 5 + [vp]
+    lib.rx_rt_intersect.argtypes = [vp] * 13 + [i32] * 5 + [vp]
+    lib.rx_rt_prepare.restype = i32
+    lib.rx_rt_prepare.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 3 + [i32] * 5 + [vp]
     lib.rx_error_string.restype = ctypes.c_char_p
     lib.rx_error_string.argtypes = [i32]
     _lib = lib
     return _lib
+
+
+def resources(kernel: str, *sizes: int) -> dict:
+    """What the built `kernel` takes on the card: registers a thread, static
+    and dynamic shared memory a block, and the blocks an SM holds at once.
+    kernel and sizes: "mega" (supers, lights, occlusion boxes), "visibility" (supers), "rt_walk" (), "rt_prepare" (cells)."""
+    lib = library()
+    out = (ctypes.c_int * 4)()
+    if kernel == "mega":
+        err = lib.rx_mega_resources(*sizes, out)
+    elif kernel == "visibility":
+        err = lib.rx_visibility_resources(*sizes, out)
+    elif kernel == "rt_walk":
+        err = lib.rx_rt_resources(0, 0, out)
+    elif kernel == "rt_prepare":
+        err = lib.rx_rt_resources(1, *sizes, out)
+    else:
+        raise ValueError(f"no kernel named {kernel!r}")
+    if err != 0:
+        raise RuntimeError(f"resources({kernel}): CUDA error {err} ({error_string(err)})")
+    return {"registers": out[0], "smem_static": out[1], "smem_dynamic": out[2],
+            "blocks_per_sm": out[3]}
 
 
 def error_string(err: int) -> str:

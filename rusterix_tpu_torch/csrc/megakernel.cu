@@ -11,25 +11,54 @@
 // occlusion boxes, batch ambient and the five light types), (5)
 // linear or exp^2 fog, and (6) the composite over the background and the
 // RGBA8 pack. Outputs: packed RGBA8 per pixel and the effective z (1.0
-// where the opaque pass did not write).
+// where the opaque pass did not write). `stage_cut` 1 and 2 are the JAX
+// kernel's profiling cuts: stop after the scan (output the winning slot
+// and 1/z) or after the texel fetch (output the quantized texel).
 //
-// What bounds it on the card: the visibility scan is ALU-bound on the edge
-// tests (four plane evaluations per candidate per pixel); the winner's
-// attribute row and the texel reads are latency-bound gathers that the
-// 50 MB L2 serves (the whole candidate table and atlas of a map scene are
-// a few MB).
+// What bounded the first design (one block of 512 threads per tile, 128
+// registers, one block an SM; measured with stage_cut on the 1080p map):
+// not the card's rate but the heaviest tile. The frame's 255 tiles hold
+// 1423 chunk scans and 521,006 covered pixels, yet 60 tiles hold nearly
+// all of them and one tile 70 chunks and 8192 covered pixels. A tile was
+// one block on one SM, so the kernel took as long as that SM needed for
+// the heaviest tile's scan plus its shading, while most SMs idled; evenly
+// spread, the same instructions are a fraction of that time. Within the
+// block, background lanes waited for covered ones, and params, lights and
+// occlusion boxes were re-read from global memory per pixel.
 //
-// What the simple design does about it: one block per 64x128 tile, so
-// the tile's early stop is decided on exactly the pixels the TPU kernel
-// decided it on. The scan is visibility.cuh's, shared with the
-// visibility-only kernel: each of the 512 threads owns one column and 16
-// rows of the tile; it evaluates a*x + c once per candidate and adds b*y
-// per row. A super's 128 plane rows are staged in shared memory once and
-// read as broadcasts; the super and chunk boxes gate the block uniformly; after
-// each scanned super a block reduction gives min(best) and the scan stops
-// when s_near[s] <= min(best). Winners are tracked as a slot index and the
-// attribute row is read once per pixel from global memory. The texel fetch
-// is a direct gather on the flat u32 atlas.
+// What this design does about it:
+// - A tile is a thread block CLUSTER of CL = 8 blocks (the fastest of 2, 4
+//   and 8 when measured on the 1080p map), each block of 256 threads owning
+//   a horizontal slice of 64/CL rows: the heaviest tile spreads over CL
+//   SMs, and small blocks (launch bound: at least 3 an SM; at 61 registers
+//   4 are resident) keep many tiles in flight at once.
+// - The early stop is still ONE decision per 64x128 tile per super, on the
+//   same pixels with the same strict `>`: after each scanned super every
+//   block publishes min(best) of its slice in its shared memory (warp
+//   reduce + one shared atomicMin; best is a positive float, so its bit
+//   pattern orders as the value), the cluster barrier orders it, and every
+//   block reads the CL values through distributed shared memory. The
+//   decision cannot be made finer: s_near is the 1/z plane at the bbox
+//   corners rounded as fma(a, x, b*y) + c, while the scan evaluates
+//   (a*x + c) + b*y at pixel centres, so it bounds later candidates only up
+//   to rounding, and a finer stop could change a winner on the last bit.
+//   Likewise the chunk gate stays the tile's box test: the edge planes of a
+//   thin sliver can pass by rounding outside its bbox, so a finer gate
+//   would test another set of pairs than the TPU kernel.
+// - Supers arrive through visibility.cuh's ring of two bulk asynchronous
+//   copies (cp.async.bulk + mbarrier): the next super that meets the tile is
+//   in flight while this one is scanned; s_near and the supers' tile bits
+//   are staged once per block.
+// - The scan leaves (best, slot) of the slice's covered pixels compacted in
+//   shared memory; the shading then walks that list, thread t taking
+//   entries t, t+256, ..., so no lane copies background while its warp
+//   shades. Background pixels are written straight from the scan's mapping.
+// - params, the frame's light rows (in light-list order) and the occlusion
+//   boxes sit in shared memory once per block; the winner's attribute row
+//   is read as eight 16-byte loads.
+// - No tensor cores: the plane evaluation is an affine form, but wgmma has
+//   no exact f32 mode (TF32 keeps 10 mantissa bits) and the edge tests
+//   decide coverage on the last bit.
 //
 // Bit parity with the plain torch version (megakernel.mega_render_reference):
 // the file is compiled with -fmad=false and without fast math, so every
@@ -44,6 +73,9 @@
 
 #include "visibility.cuh"
 
+// blocks in the thread block cluster that shares one tile
+constexpr int CL = 8;
+
 #define SRC_TEXTURE 1.0f
 #define SRC_PIXEL 2.0f
 
@@ -52,7 +84,7 @@
 
 struct MegaArgs {
     const float* planes;   // (ns*GROUP, 12) sorted candidate planes
-    const float* attr;     // (ns*GROUP, n_attr) candidate rows
+    const float* attr;     // (ns*GROUP, n_attr) candidate rows, n_attr % 4 == 0
     const int* sbox;       // (ns, 4) merged super boxes
     const int* cbox;       // (ns*SUPER, 4) merged chunk boxes
     const float* s_near;   // (ns,) per-super near bound, descending
@@ -64,8 +96,16 @@ struct MegaArgs {
     const float* occ;      // (n_occ, 5)
     uint32_t* rgba;        // (H, W) out
     float* zeff;           // (H, W) out
-    int ns, n_attr, n_lights, n_occ, height, width, sample_mode, sun_off, brdf_ggx;
+    int ns, n_attr, n_lights, n_occ, height, width, sample_mode, sun_off, brdf_ggx, stage_cut;
     long long n_atlas;
+};
+
+// the frame's constants in shared memory (one copy per block)
+struct Consts {
+    const float* P;    // params (80)
+    const float* L;    // n_lights rows of 24, in light-list order
+    const int* ltype;  // n_lights type codes
+    const float* occ;  // n_occ rows of 5
 };
 
 __device__ __forceinline__ float jmin(float a, float b) {
@@ -230,24 +270,29 @@ __device__ __forceinline__ void light_brdf(const MegaArgs& a, const Surface& s, 
 }
 
 // stages 2-6 for one covered pixel -> packed RGBA8 (or the background)
-__device__ __noinline__ void shade_pixel(const MegaArgs& a, int gx, int gy, float best,
-                                         int slot) {
+__device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, int gx, int gy,
+                                            float best, int slot) {
     const size_t o = (size_t)gy * a.width + gx;
-    if (slot < 0) {
-        a.rgba[o] = __ldg(a.bg + o);
-        a.zeff[o] = 1.0f;
-        return;
-    }
-    const float* P = a.params;
-    const float* row = a.attr + (size_t)slot * a.n_attr;
+    const float* P = k.P;
     float A[32];
-    for (int i = 0; i < 32; ++i) A[i] = __ldg(row + i);
+    {
+        const float4* row = reinterpret_cast<const float4*>(a.attr + (size_t)slot * a.n_attr);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float4 v = __ldg(row + i);
+            A[4 * i] = v.x;
+            A[4 * i + 1] = v.y;
+            A[4 * i + 2] = v.z;
+            A[4 * i + 3] = v.w;
+        }
+    }
     const float z = 1.0f / best;
     const float xg = (float)gx + 0.5f;
     const float yg = (float)gy + 0.5f;
 
     // ---- stage 2: plane interpolation ----
     float interp[6];
+#pragma unroll
     for (int i = 0; i < 6; ++i) interp[i] = A[3 * i] * xg + A[3 * i + 1] * yg + A[3 * i + 2];
     const float inv_w = interp[0];
     const float safe_w = inv_w == 0.0f ? 1.0f : inv_w;
@@ -260,16 +305,24 @@ __device__ __noinline__ void shade_pixel(const MegaArgs& a, int gx, int gy, floa
     // ---- stage 3: texel resolve ----
     float tex[4];
     texel_lookup(a, u, v, A, repeat, (int)P[54], tex);
+    if (a.stage_cut == 2) {  // profiling: the quantized texel, no shading
+        a.rgba[o] = (uint32_t)quant(tex[0]) | ((uint32_t)quant(tex[1]) << 8) |
+                    ((uint32_t)quant(tex[2]) << 16) | ((uint32_t)quant(tex[3]) << 24);
+        a.zeff[o] = best;
+        return;
+    }
 
     // ---- stage 4: lighting ----
     const float x_ndc = 2.0f * (xg / P[41]) - 1.0f;
     const float y_ndc = 1.0f - 2.0f * (yg / P[42]);
     float vr[4];
+#pragma unroll
     for (int r = 0; r < 4; ++r)
         vr[r] = P[4 * r] * x_ndc + P[4 * r + 1] * y_ndc + P[4 * r + 2] * z + P[4 * r + 3];
     const float inv_vw = 1.0f / vr[3];
     const float vx = vr[0] * inv_vw, vy = vr[1] * inv_vw, vz = vr[2] * inv_vw;
     float wp[3];
+#pragma unroll
     for (int r = 0; r < 3; ++r)
         wp[r] = P[16 + 4 * r] * vx + P[17 + 4 * r] * vy + P[18 + 4 * r] * vz + P[19 + 4 * r];
     const float wx = wp[0], wy = wp[1], wz = wp[2];
@@ -299,7 +352,7 @@ __device__ __noinline__ void shade_pixel(const MegaArgs& a, int gx, int gy, floa
 
     float occlusion = 1.0f;
     for (int bi = 0; bi < a.n_occ; ++bi) {
-        const float* b = a.occ + 5 * bi;
+        const float* b = k.occ + 5 * bi;
         bool inside = (wx >= b[0]) && (wz >= b[1]) && (wx <= b[2]) && (wz <= b[3]);
         occlusion = jmin(occlusion, inside ? b[4] : 1.0f);
     }
@@ -327,8 +380,8 @@ __device__ __noinline__ void shade_pixel(const MegaArgs& a, int gx, int gy, floa
     lit_b = lit_b + A[27] * s.kd_b * hemi;
 
     for (int n = 0; n < a.n_lights; ++n) {
-        const int lt = a.light_list[2 * n + 1];
-        const float* L = a.lights + 24 * a.light_list[2 * n];
+        const int lt = k.ltype[n];
+        const float* L = k.L + 24 * n;
         const float start = L[4], end = L[5], intensity = L[6], valid = L[20];
         const float tpx = wx - L[0], tpy = wy - L[1], tpz = wz - L[2];
         const float dist = sqrtf(tpx * tpx + tpy * tpy + tpz * tpz);
@@ -411,55 +464,206 @@ __device__ __noinline__ void shade_pixel(const MegaArgs& a, int gx, int gy, floa
     }
 }
 
-__global__ void __launch_bounds__(THREADS) mega_kernel(const MegaArgs a) {
-    __shared__ float s_planes[GROUP * 12];
-    __shared__ float s_red[THREADS / 32];
-    __shared__ float s_minb;
+// what a block shares with its cluster and keeps across the phases
+struct __align__(16) BlockState {
+    uint32_t bmin[3];   // min(best) of the slice per super, bit pattern, 3 slots in turn
+    uint32_t hit;       // does any pixel of the slice have a winner?
+    int count;          // covered in-frame pixels of the slice (the shading list's length)
+    int pad[3];
+};
+
+// shared memory, in this order: ScanRing | BlockState | list best (f32),
+// slot (i32), pixel (u16) x pixels of the slice | s_near (ns) | meet bits
+// ((ns+31)/32) | params (80) | lights (n_lights*24) | light types
+// (n_lights) | occlusion boxes (n_occ*5)
+static size_t mega_smem_bytes(int ns, int n_lights, int n_occ) {
+    const size_t px = (size_t)SLICE_ROWS(CL) * TILE_W;
+    return sizeof(ScanRing) + sizeof(BlockState) + px * 12 + 4 * (size_t)ns +
+           4 * (size_t)((ns + 31) / 32) + 4 * (80 + 25 * (size_t)n_lights + 5 * (size_t)n_occ) + 16;
+}
+
+__global__ void __launch_bounds__(THREADS, 3) mega_kernel(const MegaArgs a) {
+    constexpr int PPT = SLICE_PPT(CL);
+    constexpr int PX = SLICE_ROWS(CL) * TILE_W;
+    extern __shared__ __align__(16) unsigned char mega_smem[];
+    ScanRing* ring = reinterpret_cast<ScanRing*>(mega_smem);
+    BlockState* st = reinterpret_cast<BlockState*>(mega_smem + sizeof(ScanRing));
+    float* l_best = reinterpret_cast<float*>(st + 1);
+    int* l_slot = reinterpret_cast<int*>(l_best + PX);
+    float* s_sn = reinterpret_cast<float*>(l_slot + PX);
+    uint32_t* meet = reinterpret_cast<uint32_t*>(s_sn + a.ns);
+    float* c_params = reinterpret_cast<float*>(meet + (a.ns + 31) / 32);
+    float* c_lights = c_params + 80;
+    int* c_ltype = reinterpret_cast<int*>(c_lights + 24 * a.n_lights);
+    float* c_occ = reinterpret_cast<float*>(c_ltype + a.n_lights);
+    unsigned short* l_pix = reinterpret_cast<unsigned short*>(c_occ + 5 * a.n_occ);
 
     const int x0 = blockIdx.x * TILE_W;
-    const int y0 = blockIdx.y * TILE_H;
+    const int y0 = (blockIdx.y / CL) * TILE_H;
+    const int slice = blockIdx.y % CL;
     const int tid = threadIdx.x;
-    const int lx = tid % TILE_W;
-    const int ly = tid / TILE_W;
 
     float xs, ys[PPT], best[PPT];
     int idx[PPT];
-    tile_pixels(x0, y0, tid, xs, ys, best, idx);
-    if (tid == 0) s_minb = 1.0f;
+    slice_pixels<PPT>(x0, y0, slice, xs, ys, best, idx);
+
+    // ---- set-up: the supers' tile bits and s_near ----
+    supers_meeting_tile(meet, a.sbox, a.ns, x0, y0);
+    for (int i = tid; i < a.ns; i += THREADS) s_sn[i] = __ldg(a.s_near + i);
+    if (tid == 0) {
+        mbar_init(&ring->mbar[0], 1);
+        mbar_init(&ring->mbar[1], 1);
+        mbar_init_fence();
+        st->bmin[0] = 0x7F800000u;  // +inf
+        st->bmin[1] = 0x7F800000u;
+        st->bmin[2] = 0x7F800000u;
+        st->hit = 0u;
+        st->count = 0;
+    }
     __syncthreads();
 
     // ---- stage 1: front-to-back visibility scan with the tile's early stop ----
-    for (int s = 0; s < a.ns; ++s) {
-        if (!box_meets_tile(a.sbox + 4 * s, x0, y0)) continue;
+    // Every block of the cluster walks the same supers: the gates and the
+    // stop depend only on the tile and on the tile's min(best). A cluster
+    // barrier is passed only between two scanned supers, so a tile that
+    // scans at most one super (most of a frame) passes none.
+    float minb = 1.0f;
+    bool shared_state = false;  // did the cluster read each other's memory?
+    int cur = next_super(meet, 0, a.ns);
+    if (cur < a.ns && tid == 0) ring_start(ring, 0, a.planes, a.cbox, cur);
+    int k = 0;
+    for (; cur < a.ns; ++k) {
         // strict >: a super at exactly min(best) cannot win
-        if (!(a.s_near[s] > s_minb)) break;
-        stage_super(s_planes, a.planes, s, tid);
-        __syncthreads();
-        scan_super(s_planes, a.cbox, s, x0, y0, xs, ys, best, idx);
-        // the tile's min winning 1/z for the early stop
+        if (!(s_sn[cur] > minb)) break;
+        const int nxt = next_super(meet, cur + 1, a.ns);
+        if (tid == 0) {
+            // slot (k+1)&1 was scanned in iteration k-1, bmin slot (k+1)%3
+            // read in iteration k-2: a cluster barrier lies behind both
+            if (nxt < a.ns) ring_start(ring, (k + 1) & 1, a.planes, a.cbox, nxt);
+            st->bmin[(k + 1) % 3] = 0x7F800000u;
+        }
+        mbar_wait(&ring->mbar[k & 1], (k >> 1) & 1);
+        scan_super<PPT>(ring->planes[k & 1], ring->cbox[k & 1], cur, x0, y0, xs, ys, best, idx);
+        cur = nxt;
+        if (cur >= a.ns) break;  // the bound only matters while supers remain
+        // the tile's min winning 1/z: slice min -> own shared slot -> cluster
         float m = best[0];
 #pragma unroll
         for (int r = 1; r < PPT; ++r) m = fminf(m, best[r]);
         for (int off = 16; off > 0; off >>= 1)
             m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        if ((tid & 31) == 0) s_red[tid >> 5] = m;
-        __syncthreads();
-        if (tid == 0) {
-            float mm = s_red[0];
-            for (int w = 1; w < THREADS / 32; ++w) mm = fminf(mm, s_red[w]);
-            s_minb = mm;
-        }
-        __syncthreads();
+        if ((tid & 31) == 0) atomicMin(&st->bmin[k % 3], __float_as_uint(m));
+        cluster_arrive();
+        cluster_wait();
+        uint32_t mm = 0x7F800000u;
+#pragma unroll
+        for (int r = 0; r < CL; ++r) mm = min(mm, cluster_load(&st->bmin[k % 3], r));
+        minb = __uint_as_float(mm);
+        shared_state = true;
     }
+    // the early stop can leave with super `cur` still in flight into slot
+    // k&1: drain it, so that no copy lands after the block has gone
+    if (cur < a.ns) mbar_wait(&ring->mbar[k & 1], (k >> 1) & 1);
 
-    // ---- stages 2-6 per pixel that lies inside the frame ----
-    const int gx = x0 + lx;
-    if (gx >= a.width) return;
+    // stage_cut 2 shades a tile when any of its pixels, padding included,
+    // has a winner: one more exchange across the cluster
+    uint32_t tile_hit = 0u;
+    if (a.stage_cut == 2) {
+        bool any_hit = false;
+#pragma unroll
+        for (int r = 0; r < PPT; ++r) any_hit |= idx[r] >= 0;
+        if (__any_sync(0xffffffffu, any_hit) && (tid & 31) == 0) st->hit = 1u;
+        cluster_arrive();
+        cluster_wait();
+#pragma unroll
+        for (int r = 0; r < CL; ++r) tile_hit |= cluster_load(&st->hit, r);
+        shared_state = true;
+    }
+    // paired with the wait before the block ends: no block leaves while its
+    // shared memory may still be read
+    if (shared_state) cluster_arrive();
+
+    // ---- the slice's winners: background out, covered pixels into the list ----
+    const int gx = x0 + tid % TILE_W;
 #pragma unroll
     for (int r = 0; r < PPT; ++r) {
-        const int gy = y0 + ly + r * ROWS_PER_STEP;
-        if (gy < a.height) shade_pixel(a, gx, gy, best[r], idx[r]);
+        const int row = slice_row<PPT>(slice, r);
+        const int gy = y0 + row;
+        const bool inside = gx < a.width && gy < a.height;
+        const size_t o = (size_t)gy * a.width + gx;
+        const bool covered = inside && idx[r] >= 0 && a.stage_cut != 1;
+        if (inside && !covered) {
+            if (a.stage_cut == 1) {  // profiling: the scan's winners
+                a.rgba[o] = (uint32_t)idx[r];
+                a.zeff[o] = best[r];
+            } else if (a.stage_cut == 2 && tile_hit) {
+                // no winner in a tile that shades: zero attributes, so
+                // SRC_OFF's opaque black
+                a.rgba[o] = 0xFF000000u;
+                a.zeff[o] = best[r];
+            } else {
+                a.rgba[o] = __ldg(a.bg + o);
+                a.zeff[o] = 1.0f;
+            }
+        }
+        const uint32_t mask = __ballot_sync(0xffffffffu, covered);
+        if (mask) {
+            int base = 0;
+            if ((tid & 31) == 0) base = atomicAdd(&st->count, __popc(mask));
+            base = __shfl_sync(0xffffffffu, base, 0);
+            if (covered) {
+                const int pos = base + __popc(mask & ((1u << (tid & 31)) - 1u));
+                l_best[pos] = best[r];
+                l_slot[pos] = idx[r];
+                l_pix[pos] = (unsigned short)((row - slice * SLICE_ROWS(CL)) * TILE_W + tid % TILE_W);
+            }
+        }
     }
+    __syncthreads();
+
+    // ---- stages 2-6 over the compacted list ----
+    const int count = st->count;
+    if (count > 0) {
+        // the frame's constants, staged only by blocks that shade
+        for (int i = tid; i < 80; i += THREADS) c_params[i] = __ldg(a.params + i);
+        for (int i = tid; i < 24 * a.n_lights; i += THREADS)
+            c_lights[i] = __ldg(a.lights + 24 * __ldg(a.light_list + 2 * (i / 24)) + i % 24);
+        for (int i = tid; i < a.n_lights; i += THREADS)
+            c_ltype[i] = __ldg(a.light_list + 2 * i + 1);
+        for (int i = tid; i < 5 * a.n_occ; i += THREADS) c_occ[i] = __ldg(a.occ + i);
+        __syncthreads();
+        Consts kc;
+        kc.P = c_params;
+        kc.L = c_lights;
+        kc.ltype = c_ltype;
+        kc.occ = c_occ;
+        for (int i = tid; i < count; i += THREADS) {
+            const int pix = l_pix[i];
+            shade_pixel(a, kc, x0 + pix % TILE_W, y0 + slice * SLICE_ROWS(CL) + pix / TILE_W,
+                        l_best[i], l_slot[i]);
+        }
+    }
+    if (shared_state) cluster_wait();
+}
+
+static int launch_mega(const MegaArgs& a, cudaStream_t stream) {
+    const size_t smem = mega_smem_bytes(a.ns, a.n_lights, a.n_occ);
+    cudaError_t err = cudaFuncSetAttribute(mega_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((a.width + TILE_W - 1) / TILE_W, ((a.height + TILE_H - 1) / TILE_H) * CL);
+    return launch_clustered(mega_kernel, grid, THREADS, smem, stream, dim3(1, CL, 1), a);
+}
+
+// shared memory a block needs for this frame
+extern "C" long long rx_mega_smem_bytes(int ns, int n_lights, int n_occ) {
+    return (long long)mega_smem_bytes(ns, n_lights, n_occ);
+}
+
+// out[0..3]: registers, static and dynamic shared memory of the kernel for
+// this frame, and the blocks an SM holds at once
+extern "C" int rx_mega_resources(int ns, int n_lights, int n_occ, int* out) {
+    return kernel_resources(mega_kernel, THREADS, mega_smem_bytes(ns, n_lights, n_occ), out);
 }
 
 extern "C" int rx_mega_render(
@@ -467,7 +671,8 @@ extern "C" int rx_mega_render(
     const float* s_near, const int* atlas, const int* bg, const float* params,
     const float* lights, const int* light_list, const float* occ, int* rgba,
     float* zeff, int ns, int n_attr, long long n_atlas, int n_lights, int n_occ,
-    int height, int width, int sample_mode, int sun_off, int brdf_ggx, void* stream) {
+    int height, int width, int sample_mode, int sun_off, int brdf_ggx, int stage_cut,
+    void* stream) {
     MegaArgs a;
     a.planes = planes;
     a.attr = attr;
@@ -492,9 +697,8 @@ extern "C" int rx_mega_render(
     a.sample_mode = sample_mode;
     a.sun_off = sun_off;
     a.brdf_ggx = brdf_ggx;
-    dim3 grid((width + TILE_W - 1) / TILE_W, (height + TILE_H - 1) / TILE_H);
-    mega_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-    return (int)cudaGetLastError();
+    a.stage_cut = stage_cut;
+    return launch_mega(a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* rx_error_string(int err) {

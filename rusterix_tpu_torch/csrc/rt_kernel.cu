@@ -1,44 +1,88 @@
-// Secondary-ray closest-hit kernel for Hopper (sm_90a).
+// Secondary-ray closest hit for Hopper (sm_90a): the shortlist preparation
+// and the walk.
 //
-// Replaces the TPU kernel `_rt_kernel` in rusterix_tpu/ops/rt_kernel.py
-// (launched by `intersect_rays_pallas` there): one block per 8x128 ray
-// block walks the block's distance-ordered shortlist of 64-triangle cells
-// while the next entry's t lower bound is below the block's bound. Per
-// visited cell every ray slab-tests the cell box; when any live ray enters
-// closer than min(best, its scene-exit cap), the block runs Möller-Trumbore
-// of all its rays against the cell's 64 triangles (closest hit, strict `<`,
-// hits in (1e-4, t_cap)). While entries remain, the bound is refreshed as
-// the max over live rays of min(best, per-ray scene-exit cap).
+// `rt_kernel` replaces the TPU kernel `_rt_kernel` in
+// rusterix_tpu/ops/rt_kernel.py (launched by `intersect_rays_pallas`
+// there): one block per 8x128 ray block walks the block's distance-ordered
+// shortlist of 64-triangle cells while the next entry's t lower bound is
+// below the block's bound. Per visited cell every ray slab-tests the cell
+// box; when any live ray enters closer than min(best, its scene-exit cap),
+// the block runs Möller-Trumbore of all its rays against the cell's 64
+// triangles (closest hit, strict `<`, hits in (1e-4, t_cap)). While entries
+// remain, the bound is refreshed as the max over live rays of min(best,
+// per-ray scene-exit cap).
 //
-// What bounds it on the card: the Möller-Trumbore tests, 46 f32
-// operations per ray-triangle pair, so it is ALU-bound; on the 1080p map
-// a block walks two or three cells and tests one or two of them, and the
-// data it reads once (rays 24 B each, 50 MB; the triangle table and the
-// shortlists, under 1 MB) take a fraction of the operations' time.
+// `rt_prepare_kernel` replaces the XLA code around that kernel
+// (rusterix_tpu/ops/rt_kernel.py, `intersect_rays_pallas`: the per-block
+// origin and direction boxes, the per-(block, cell) keys and their stable
+// sort): one block per ray block reads its 1024 rays once, reduces the
+// twelve box values over live rays (NaN values skipped), computes each
+// cell's key (the gap between the origin box and the cell box, _BIG for
+// cells out of range, dead or behind every ray) and ranks the keys.
 //
-// What the simple design does about it: 256 threads per block with 4 rays
-// each keep the TPU kernel's block shape, so the block shares one shortlist
-// and visits cells in the TPU kernel's order (which decides exact-t ties).
-// A visited cell's 64 triangles (9 floats each) are staged in shared
-// memory and read as broadcasts; the slab gate is a block-wide vote
-// (__syncthreads_or), the bound a block max-reduction. Rays are read and
-// the hits written straight from device memory.
+// What bounded the first design: the row's time was the preparation, some
+// sixty small torch launches (twelve masked reductions over 2*10^6-element
+// fields, forty elementwise ops on the keys, a segmented sort) around a
+// 0.85 ms kernel; the kernel itself passed five block barriers per visited
+// cell, staged triangles with strided scalar loads and nothing in flight,
+// and at 97 registers kept two blocks of 256 threads on an SM.
 //
-// Bit parity with the plain torch version
-// (rt_kernel.intersect_rays_pallas_reference): compiled with -fmad=false,
-// every product and sum rounds on its own in the JAX kernel's expression
-// order; min/max propagate NaN as jnp.minimum/maximum do; 1/det and
-// 1/d are correctly rounded quotients.
+// What this design does about it:
+// - The preparation is one launch that reads the rays once (50 MB at 1080p)
+//   and never materialises a padded copy: both kernels read the six (H, W)
+//   fields directly and treat lanes past the frame as parked rays. Keys are
+//   (f32 bits << 32 | cell) in shared memory; keys are non-negative floats,
+//   so the u64 order is the key order with ties in cell order, and a rank
+//   sort (count the smaller keys) is stable by construction. The keys are
+//   dynamic shared memory, 8 bytes a cell, so a scene may have as many cells
+//   as a block's shared memory holds (RT_MAX_CELLS).
+// - The walk's time is its Moeller-Trumbore instructions (unfused, so some
+//   80 a pair), and what moved it was not the barriers or the copies but
+//   the rays a thread holds: with four rays a thread (256 threads a block,
+//   88 registers) the kernel took the first design's time whatever else
+//   changed; with one ray a thread (1024 threads a block, one block an SM,
+//   64 registers) it takes a quarter less. With one ray the u test below is
+//   a branch a whole warp can skip. Sharing a ray block between 2 or 4
+//   blocks of a thread block cluster (the decisions combined through
+//   distributed shared memory) was measured too and gained nothing over
+//   that: the walk is not short of parallel blocks.
+// - The walk passes one block barrier per visited cell and a second one
+//   only when the cell is tested: the refresh of the bound and the slab
+//   vote for the NEXT entry share one round (the vote rides on the barrier,
+//   __syncthreads_or; the max goes through one shared slot per warp, slots
+//   alternating so no second barrier guards them). The next entry's 64
+//   triangles are copied as whole 16-float rows with cp.async into the
+//   other half of a two-cell ring while this cell is tested. The vote
+//   stays the block's: a warp-level gate would skip pairs the TPU kernel
+//   tests, and a ray the slab test rejects can still hit a triangle on the
+//   box's face.
+// - Within a pair the u test rejects most triangles; v and t are computed
+//   only for rays that pass it (the result is the same: a failed u test
+//   already decides the pair). 1/det is __frcp_rn, the correctly rounded
+//   reciprocal, the same value as the IEEE quotient 1/det.
+//
+// Bit parity with the plain torch versions (rt_kernel.rt_prepare and
+// rt_kernel.intersect_rays_pallas_reference): compiled with -fmad=false,
+// every product and sum rounds on its own in the JAX code's expression
+// order; min/max propagate NaN as jnp.minimum/maximum do; sqrt, 1/det and
+// 1/d are correctly rounded.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster.cuh"  // kernel_resources
+
 #define RT_BH 8
 #define RT_BW 128
-#define RT_THREADS 256
-#define RAYS (RT_BH * RT_BW / RT_THREADS)  // 4 rays per thread
+#define RT_THREADS 256                      // the preparation: 4 rays per thread
+#define RAYS (RT_BH * RT_BW / RT_THREADS)
+#define RT_WARPS (RT_THREADS / 32)
+#define WALK_THREADS (RT_BH * RT_BW)        // the walk: one ray per thread
+#define WALK_WARPS (WALK_THREADS / 32)
 #define CELL 64
+#define CELL_FLOATS (CELL * 16)
+#define RT_MAX_CELLS 28672                  // 224 KB of keys in a block's 227 KB
 #define PARKED 1e7f
 #define BIG 3e37f
 
@@ -49,148 +93,311 @@ static __device__ __forceinline__ float nmax(float a, float b) {
     return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
 }
 
-// block-wide max (NaN-propagating) of one value per thread
-static __device__ float block_max(float v, float* s_red) {
-    for (int off = 16; off > 0; off >>= 1) v = nmax(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const int tid = threadIdx.x;
-    __syncthreads();  // s_red may still be read from the last call
-    if ((tid & 31) == 0) s_red[tid >> 5] = v;
-    __syncthreads();
-    float m = s_red[0];
-    for (int w = 1; w < RT_THREADS / 32; ++w) m = nmax(m, s_red[w]);
-    return m;
-}
-
 static __device__ __forceinline__ float safe_inv(float d) {
     return __fdiv_rn(1.0f, fabsf(d) < 1e-20f ? 1e-20f : d);
 }
 
-__global__ void __launch_bounds__(RT_THREADS) rt_kernel(
+struct RayFields {
+    const float* f[6];  // ox oy oz dx dy dz, each (height, width)
+};
+
+// ray r (0..1023) of block (by, bx): its frame offset, or -1 past the frame
+static __device__ __forceinline__ long long ray_offset(int by, int bx, int r, int height,
+                                                       int width) {
+    const int gy = by * RT_BH + r / RT_BW, gx = bx * RT_BW + r % RT_BW;
+    return (gy < height && gx < width) ? (long long)gy * width + gx : -1;
+}
+
+// ------------------------------------------------------------ preparation
+
+__global__ void __launch_bounds__(RT_THREADS) rt_prepare_kernel(
+    const RayFields rays, const float* __restrict__ cbox, float t_cap,
+    float* __restrict__ boxes, float* __restrict__ tnear, int* __restrict__ slist, int ncells,
+    int nbx, int height, int width) {
+    __shared__ float s_part[RT_WARPS][12];
+    __shared__ float s_box[12];
+    extern __shared__ unsigned long long s_key[];  // ncells (key, cell) pairs
+
+    const int b = blockIdx.x;
+    const int by = b / nbx, bx = b % nbx;
+    const int tid = threadIdx.x;
+
+    // ---- the block's origin and direction boxes over live rays ----
+    // v[0..2] origin min, v[3..5] origin max, v[6..8] direction min,
+    // v[9..11] direction max; a dead ray, a lane past the frame or a NaN
+    // value contributes the neutral +-BIG
+    float v[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) v[i] = (i % 6 < 3) ? INFINITY : -INFINITY;
+#pragma unroll
+    for (int j = 0; j < RAYS; ++j) {
+        const long long o = ray_offset(by, bx, tid + j * RT_THREADS, height, width);
+        const float ox = o >= 0 ? rays.f[0][o] : 1e8f;
+        const bool live = ox < PARKED;
+#pragma unroll
+        for (int kf = 0; kf < 6; ++kf) {
+            float x;
+            if (kf == 0) x = ox;
+            else if (kf < 3) x = o >= 0 ? rays.f[kf][o] : 1e8f;
+            else x = o >= 0 ? rays.f[kf][o] : 0.0f;
+            const bool use = live && (x == x);
+            const int lo = kf < 3 ? kf : kf + 3, hi = lo + 3;
+            v[lo] = fminf(v[lo], use ? x : BIG);
+            v[hi] = fmaxf(v[hi], use ? x : -BIG);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+        float x = v[i];
+        for (int off = 16; off > 0; off >>= 1) {
+            const float y = __shfl_xor_sync(0xffffffffu, x, off);
+            x = (i % 6 < 3) ? fminf(x, y) : fmaxf(x, y);
+        }
+        if ((tid & 31) == 0) s_part[tid >> 5][i] = x;
+    }
+    __syncthreads();
+    if (tid < 12) {
+        float x = s_part[0][tid];
+        for (int w = 1; w < RT_WARPS; ++w)
+            x = (tid % 6 < 3) ? fminf(x, s_part[w][tid]) : fmaxf(x, s_part[w][tid]);
+        s_box[tid] = x;
+        boxes[(size_t)b * 12 + tid] = x;
+    }
+    __syncthreads();
+
+    // ---- per-cell keys ----
+    for (int c = tid; c < ncells; c += RT_THREADS) {
+        const float* cb = cbox + 8 * c;
+        float g2 = 0.0f;
+        bool reach = true;
+#pragma unroll
+        for (int kf = 0; kf < 3; ++kf) {
+            const float c0 = cb[kf], c1 = cb[3 + kf];
+            const float ob0 = s_box[kf], ob1 = s_box[3 + kf];
+            const float db0 = s_box[6 + kf], db1 = s_box[9 + kf];
+            // the gap between origin box and cell box along this axis
+            const float g = nmax(nmax(c0 - ob1, ob0 - c1), 0.0f);
+            g2 = kf == 0 ? g * g : g2 + g * g;
+            // a cell strictly on the + side of every origin is out of reach
+            // when no live ray points +, and mirrored
+            const bool pos_side = c0 > ob1, neg_side = c1 < ob0;
+            reach = reach && !((pos_side && db1 <= 0.0f) || (neg_side && db0 >= 0.0f));
+        }
+        const float dist = __fsqrt_rn(g2);
+        const bool cell_alive = cb[0] <= cb[3];
+        const float key = (cell_alive && reach && dist < t_cap) ? dist : BIG;
+        s_key[c] = ((unsigned long long)__float_as_uint(key) << 32) | (unsigned)c;
+    }
+    __syncthreads();
+
+    // ---- stable rank sort: position = number of smaller (key, cell) pairs ----
+    for (int c = tid; c < ncells; c += RT_THREADS) {
+        const unsigned long long mine = s_key[c];
+        int rank = 0;
+        for (int j = 0; j < ncells; ++j) rank += s_key[j] < mine;
+        tnear[(size_t)b * ncells + rank] = __uint_as_float((unsigned)(mine >> 32));
+        slist[(size_t)b * ncells + rank] = c;
+    }
+}
+
+extern "C" int rx_rt_prepare(const float* ox, const float* oy, const float* oz, const float* dx,
+                             const float* dy, const float* dz, const float* cbox, float t_cap,
+                             float* boxes, float* tnear, int* slist, int ncells, int nby,
+                             int nbx, int height, int width, void* stream) {
+    if (ncells > RT_MAX_CELLS) return (int)cudaErrorInvalidValue;
+    RayFields rays;
+    rays.f[0] = ox;
+    rays.f[1] = oy;
+    rays.f[2] = oz;
+    rays.f[3] = dx;
+    rays.f[4] = dy;
+    rays.f[5] = dz;
+    const size_t smem = sizeof(unsigned long long) * (size_t)ncells;
+    cudaError_t err = cudaFuncSetAttribute(rt_prepare_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    rt_prepare_kernel<<<nby * nbx, RT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        rays, cbox, t_cap, boxes, tnear, slist, ncells, nbx, height, width);
+    return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ walk
+
+// the first 256 threads: start the copy of cell c's 64 rows of 16 floats (4 KB)
+static __device__ __forceinline__ void cell_start(float* dst, const float* tab, int c) {
+    const int q = threadIdx.x;
+    if (q < CELL_FLOATS / 4) {
+        const float* src = tab + (size_t)c * CELL_FLOATS + 4 * q;
+        const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst + 4 * q));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+    }
+}
+static __device__ __forceinline__ void cell_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most one committed group (the newest) is still in flight
+static __device__ __forceinline__ void cell_wait_older() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+static __device__ __forceinline__ void cell_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The walk: one block per 8x128 ray block, one ray per thread.
+__global__ void __launch_bounds__(WALK_THREADS) rt_kernel(
     const float* __restrict__ tab, const float* __restrict__ cbox,
     const float* __restrict__ tnear, const int* __restrict__ slist,
-    const float* __restrict__ tcap_row, const float* __restrict__ rays,
-    float* __restrict__ t_out, int* __restrict__ idx_out, int ncells, int nbx, int hp, int wp,
-    int height, int width) {
-    __shared__ float s_tri[CELL * 9];
-    __shared__ float s_red[RT_THREADS / 32];
+    const float* __restrict__ tcap_row, const RayFields rays, float* __restrict__ t_out,
+    int* __restrict__ idx_out, int ncells, int nbx, int height, int width) {
+    __shared__ __align__(16) float s_tri[2][CELL_FLOATS];
+    __shared__ float s_red[2][WALK_WARPS];
 
     const int b = blockIdx.x;
     const int by = b / nbx, bx = b % nbx;
     const int tid = threadIdx.x;
     const float* tn_row = tnear + (size_t)b * ncells;
     const int* sl_row = slist + (size_t)b * ncells;
-    const size_t plane = (size_t)hp * wp;
     const float tcap = tcap_row[0];
 
-    float ox[RAYS], oy[RAYS], oz[RAYS], dx[RAYS], dy[RAYS], dz[RAYS];
-    float ivx[RAYS], ivy[RAYS], ivz[RAYS], tcv[RAYS], best[RAYS];
-    int idx[RAYS];
-    bool live[RAYS];
-    float my_max = 0.0f;
-#pragma unroll
-    for (int j = 0; j < RAYS; ++j) {
-        const int r = tid + j * RT_THREADS;
-        const size_t o = (size_t)(by * RT_BH + r / RT_BW) * wp + bx * RT_BW + r % RT_BW;
-        ox[j] = rays[o];
-        oy[j] = rays[o + plane];
-        oz[j] = rays[o + 2 * plane];
-        dx[j] = rays[o + 3 * plane];
-        dy[j] = rays[o + 4 * plane];
-        dz[j] = rays[o + 5 * plane];
-        live[j] = ox[j] < PARKED;
-        ivx[j] = safe_inv(dx[j]);
-        ivy[j] = safe_inv(dy[j]);
-        ivz[j] = safe_inv(dz[j]);
-        // per-ray scene-exit cap: no hit lies beyond the ray's exit from the
-        // scene AABB
-        float t_exit = nmax((tcap_row[1] - ox[j]) * ivx[j], (tcap_row[4] - ox[j]) * ivx[j]);
-        t_exit = nmin(t_exit, nmax((tcap_row[2] - oy[j]) * ivy[j], (tcap_row[5] - oy[j]) * ivy[j]));
-        t_exit = nmin(t_exit, nmax((tcap_row[3] - oz[j]) * ivz[j], (tcap_row[6] - oz[j]) * ivz[j]));
-        tcv[j] = nmin(tcap, nmax(t_exit, 0.0f) + 1e-3f);
-        best[j] = INFINITY;
-        idx[j] = -1;
-        my_max = nmax(my_max, live[j] ? tcv[j] : 0.0f);
-    }
-    // dead rays bound the block at 0, so an all-dead block never walks
-    float maxt = block_max(my_max, s_red);
+    const long long o = ray_offset(by, bx, tid, height, width);
+    const float ox = o >= 0 ? rays.f[0][o] : 1e8f;
+    const float oy = o >= 0 ? rays.f[1][o] : 1e8f;
+    const float oz = o >= 0 ? rays.f[2][o] : 1e8f;
+    const float dx = o >= 0 ? rays.f[3][o] : 0.0f;
+    const float dy = o >= 0 ? rays.f[4][o] : 0.0f;
+    const float dz = o >= 0 ? rays.f[5][o] : 0.0f;
+    const bool live = ox < PARKED;
+    const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+    // per-ray scene-exit cap: no hit lies beyond the ray's exit from the
+    // scene AABB
+    float t_exit = nmax((tcap_row[1] - ox) * ivx, (tcap_row[4] - ox) * ivx);
+    t_exit = nmin(t_exit, nmax((tcap_row[2] - oy) * ivy, (tcap_row[5] - oy) * ivy));
+    t_exit = nmin(t_exit, nmax((tcap_row[3] - oz) * ivz, (tcap_row[6] - oz) * ivz));
+    const float tcv = nmin(tcap, nmax(t_exit, 0.0f) + 1e-3f);
+    float best = INFINITY;
+    int idx = -1;
 
-    for (int i = 0; i < ncells && tn_row[i] < maxt; ++i) {
-        const int c = sl_row[i];
-        const float* cb = cbox + 8 * c;
-        bool any = false;
-#pragma unroll
-        for (int j = 0; j < RAYS; ++j) {
-            const float t0x = (cb[0] - ox[j]) * ivx[j], t1x = (cb[3] - ox[j]) * ivx[j];
-            const float t0y = (cb[1] - oy[j]) * ivy[j], t1y = (cb[4] - oy[j]) * ivy[j];
-            const float t0z = (cb[2] - oz[j]) * ivz[j], t1z = (cb[5] - oz[j]) * ivz[j];
-            const float tn =
-                nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z));
-            const float tf =
-                nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z));
-            any |= live[j] && (tf >= nmax(tn, 0.0f)) && (tn < nmin(best[j], tcv[j]));
+    // One reduction round gives the block's bound (the max over live rays of
+    // min(best, cap); dead rays bound it at 0, so an all-dead block never
+    // walks) and the slab vote for shortlist entry `e`: does any live ray
+    // enter that cell closer than min(best, cap)? The vote rides on the
+    // barrier itself (__syncthreads_or); each warp leaves its max in a slot
+    // of its own, the slots of two rounds alternating, so that one barrier
+    // a round is enough.
+    int round = 0;
+    float maxt = 0.0f;
+    bool any = false;
+    auto reduce = [&](int e, bool refresh) {
+        float m = live ? nmin(best, tcv) : 0.0f;
+        m = nmax(0.0f, m);
+        bool vote = false;
+        if (e < ncells) {
+            const float* cb = cbox + 8 * sl_row[e];
+            const float t0x = (cb[0] - ox) * ivx, t1x = (cb[3] - ox) * ivx;
+            const float t0y = (cb[1] - oy) * ivy, t1y = (cb[4] - oy) * ivy;
+            const float t0z = (cb[2] - oz) * ivz, t1z = (cb[5] - oz) * ivz;
+            const float tn = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z));
+            const float tf = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z));
+            vote = live && (tf >= nmax(tn, 0.0f)) && (tn < nmin(best, tcv));
         }
-        if (__syncthreads_or(any)) {
-            const float* src = tab + (size_t)c * CELL * 16;
-            for (int q = tid; q < CELL * 9; q += RT_THREADS) s_tri[q] = src[(q / 9) * 16 + q % 9];
-            __syncthreads();
-            for (int k = 0; k < CELL; ++k) {
-                const float* T = s_tri + 9 * k;
-                const float ax = T[0], ay = T[1], az = T[2];
-                const float e1x = T[3], e1y = T[4], e1z = T[5];
-                const float e2x = T[6], e2y = T[7], e2z = T[8];
-                const int slot = c * CELL + k;
+        for (int w = 16; w > 0; w >>= 1) m = nmax(m, __shfl_xor_sync(0xffffffffu, m, w));
+        const int slot = round & 1;
+        if ((tid & 31) == 0) s_red[slot][tid >> 5] = m;
+        any = __syncthreads_or(vote);
+        if (refresh) {
+            float mm = s_red[slot][0];
 #pragma unroll
-                for (int j = 0; j < RAYS; ++j) {
-                    const float hx = dy[j] * e2z - dz[j] * e2y;
-                    const float hy = dz[j] * e2x - dx[j] * e2z;
-                    const float hz = dx[j] * e2y - dy[j] * e2x;
-                    const float det = e1x * hx + e1y * hy + e1z * hz;
-                    const bool okd = fabsf(det) >= 1e-6f;
-                    const float f = okd ? __fdiv_rn(1.0f, det) : 0.0f;
-                    const float svx = ox[j] - ax, svy = oy[j] - ay, svz = oz[j] - az;
-                    const float uu = f * (svx * hx + svy * hy + svz * hz);
-                    bool ok = okd && (uu >= 0.0f) && (uu <= 1.0f);
+            for (int w = 1; w < WALK_WARPS; ++w) mm = nmax(mm, s_red[slot][w]);
+            maxt = mm;
+        }
+        ++round;
+    };
+
+    reduce(0, true);
+    int i = 0;
+    if (ncells > 0 && tn_row[0] < maxt) cell_start(s_tri[0], tab, sl_row[0]);
+    cell_commit();
+    while (i < ncells && tn_row[i] < maxt) {
+        const int c = sl_row[i];
+        // the next entry's triangles fly while this cell is tested; ring
+        // half (i+1)&1 was last read in iteration i-1, and the reduction's
+        // barrier lies behind every thread
+        if (i + 1 < ncells) cell_start(s_tri[(i + 1) & 1], tab, sl_row[i + 1]);
+        cell_commit();
+        // cell c's copy has landed, tested or not: the next iteration starts
+        // a copy into the same ring half, and two pending groups that write
+        // one address are not ordered
+        cell_wait_older();
+        if (any) {
+            __syncthreads();  // every thread's part of cell c has landed
+            const float* tri = s_tri[i & 1];
+            for (int k = 0; k < CELL; ++k) {
+                const float4* T = reinterpret_cast<const float4*>(tri + 16 * k);
+                const float4 q0 = T[0], q1 = T[1], q2 = T[2];
+                const float ax = q0.x, ay = q0.y, az = q0.z;
+                const float e1x = q0.w, e1y = q1.x, e1z = q1.y;
+                const float e2x = q1.z, e2y = q1.w, e2z = q2.x;
+                const float hx = dy * e2z - dz * e2y;
+                const float hy = dz * e2x - dx * e2z;
+                const float hz = dx * e2y - dy * e2x;
+                const float det = e1x * hx + e1y * hy + e1z * hz;
+                const bool okd = fabsf(det) >= 1e-6f;
+                const float f = okd ? __frcp_rn(det) : 0.0f;
+                const float svx = ox - ax, svy = oy - ay, svz = oz - az;
+                const float uu = f * (svx * hx + svy * hy + svz * hz);
+                // most pairs fail here; a warp in which every ray fails
+                // skips the rest of the test
+                if (okd && (uu >= 0.0f) && (uu <= 1.0f)) {
                     const float qx = svy * e1z - svz * e1y;
                     const float qy = svz * e1x - svx * e1z;
                     const float qz = svx * e1y - svy * e1x;
-                    const float vv = f * (dx[j] * qx + dy[j] * qy + dz[j] * qz);
-                    ok = ok && (vv >= 0.0f) && (uu + vv <= 1.0f);
+                    const float vv = f * (dx * qx + dy * qy + dz * qz);
                     const float tt = f * (e2x * qx + e2y * qy + e2z * qz);
-                    ok = ok && (tt > 1e-4f) && (tt < tcap);
-                    if (ok && tt < best[j]) {
-                        best[j] = tt;
-                        idx[j] = slot;
+                    const bool ok = (vv >= 0.0f) && (uu + vv <= 1.0f) && (tt > 1e-4f) &&
+                                    (tt < tcap);
+                    if (ok && tt < best) {
+                        best = tt;
+                        idx = c * CELL + k;
                     }
                 }
             }
-            __syncthreads();  // every thread is done with s_tri
         }
-        // refresh the early-exit bound while entries remain
-        if (tn_row[min(i + 1, ncells - 1)] < BIG) {
-            float m = 0.0f;
-#pragma unroll
-            for (int j = 0; j < RAYS; ++j) m = nmax(m, live[j] ? nmin(best[j], tcv[j]) : 0.0f);
-            maxt = block_max(m, s_red);
-        }
+        // refresh the early-exit bound while entries remain, and vote on
+        // the next entry
+        const bool more = tn_row[min(i + 1, ncells - 1)] < BIG;
+        reduce(i + 1, more);
+        ++i;
     }
+    cell_wait_all();  // a prefetched cell the walk never reached
 
-#pragma unroll
-    for (int j = 0; j < RAYS; ++j) {
-        const int r = tid + j * RT_THREADS;
-        const int gy = by * RT_BH + r / RT_BW, gx = bx * RT_BW + r % RT_BW;
-        if (gy < height && gx < width) {
-            t_out[(size_t)gy * width + gx] = best[j];
-            idx_out[(size_t)gy * width + gx] = idx[j];
-        }
+    if (o >= 0) {
+        t_out[o] = best;
+        idx_out[o] = idx;
     }
 }
 
+// which = 0: the walk, 1: the preparation of a scene of `ncells` cells;
+// out[0..3]: registers, static and dynamic shared memory, blocks an SM holds
+// at once
+extern "C" int rx_rt_resources(int which, int ncells, int* out) {
+    return which ? kernel_resources(rt_prepare_kernel, RT_THREADS,
+                                    sizeof(unsigned long long) * (size_t)ncells, out)
+                 : kernel_resources(rt_kernel, WALK_THREADS, 0, out);
+}
+
 extern "C" int rx_rt_intersect(const float* tab, const float* cbox, const float* tnear,
-                               const int* slist, const float* tcap, const float* rays,
-                               float* t, int* idx, int ncells, int nby, int nbx, int height,
-                               int width, void* stream) {
-    rt_kernel<<<nby * nbx, RT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        tab, cbox, tnear, slist, tcap, rays, t, idx, ncells, nbx, nby * RT_BH, nbx * RT_BW,
-        height, width);
+                               const int* slist, const float* tcap, const float* ox,
+                               const float* oy, const float* oz, const float* dx,
+                               const float* dy, const float* dz, float* t, int* idx, int ncells,
+                               int nby, int nbx, int height, int width, void* stream) {
+    RayFields rays;
+    rays.f[0] = ox;
+    rays.f[1] = oy;
+    rays.f[2] = oz;
+    rays.f[3] = dx;
+    rays.f[4] = dy;
+    rays.f[5] = dz;
+    rt_kernel<<<nby * nbx, WALK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        tab, cbox, tnear, slist, tcap, rays, t, idx, ncells, nbx, height, width);
     return (int)cudaGetLastError();
 }

@@ -45,6 +45,8 @@ N_PARAMS = 80
 
 #: launches of the CUDA kernel (one per mega_render call on CUDA tensors)
 launches = 0
+#: shared memory one block may use on the card (H100: 227 KB)
+SMEM_PER_BLOCK = 232448
 
 
 def pack_mega_table(attr_planes, tri_id, meta, atlas, anim_frame,
@@ -255,7 +257,21 @@ def unpack_frame_u32(rgba_u32) -> torch.Tensor:
 
 
 def _check_variants(has_blend, has_material, has_matmap, tonemap,
-                    shadow_rows, shadow_spec, ao_img, light_spec, s_near):
+                    shadow_rows, shadow_spec, ao_img, light_spec, s_near,
+                    stage_cut=0):
+    if stage_cut in (3, 4):
+        # the JAX kernel's cuts 3 and 4 sit inside TPU mechanisms: 3 skips
+        # the per-chunk pull-in of the winners' attribute rows into VMEM
+        # (this kernel tracks a slot index and reads the row once, after the
+        # scan), 4 runs only the gates the TPU's scalar core evaluates
+        raise NotImplementedError(
+            f"megakernel variant stage_cut={stage_cut} is not ported to "
+            "rusterix_tpu_torch: it cuts inside a TPU mechanism the CUDA kernel "
+            "does not have (3: the per-chunk attribute pull-in; 4: the "
+            "scalar-core gates); stage_cut 1 and 2 are"
+        )
+    if stage_cut not in (0, 1, 2):
+        raise ValueError(f"mega_render: stage_cut {stage_cut} is not 0, 1 or 2")
     refused = {
         "has_blend (vertex blend)": has_blend,
         "has_material": has_material,
@@ -296,7 +312,7 @@ def mega_render(
     has_blend: bool = False, has_material: bool = False,
     has_matmap: bool = False, light_spec: tuple = None, sun_off: bool = False,
     s_near=None, shadow_rows=None, shadow_spec: tuple = None, ao_img=None,
-    brdf_ggx: bool = False, tonemap: bool = False,
+    brdf_ggx: bool = False, tonemap: bool = False, stage_cut: int = 0,
 ):
     """One composed opaque frame -> (rgba_u32 (H,W) i32, z_eff (H,W) f32).
 
@@ -308,28 +324,42 @@ def mega_render(
     shades direct light with Cook-Torrance GGX (roughness 0.5, metallic 0)
     instead of the fast Blinn-Phong BRDF.
 
+    `stage_cut` is the JAX kernel's profiling instrument: the kernel stops
+    after a stage, so that timing cuts 1, 2 and 0 splits its time into the
+    scan, the interpolation + texel fetch, and the lighting + fog + pack.
+    1: the visibility scan only; the first output is the winning sorted slot
+    per pixel (-1 where none), the second the winning 1/z (1.0 where none).
+    2: scan + interpolation + texel; the first output is the quantized texel
+    (RGBA8) in every 64x128 tile with a winner (opaque black where the pixel
+    has none) and the background in the other tiles, the second the winning
+    1/z. Cuts 3 and 4 are refused (see _check_variants).
+
     CUDA tensors launch the hand-written kernel (csrc/megakernel.cu); CPU
     tensors run mega_render_reference."""
     _check_variants(has_blend, has_material, has_matmap, tonemap,
-                    shadow_rows, shadow_spec, ao_img, light_spec, s_near)
+                    shadow_rows, shadow_spec, ao_img, light_spec, s_near, stage_cut)
     if vis_planes.device.type != "cuda":
         return mega_render_reference(
             vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
             lights_packed, occ_packed, width, height, sample_mode,
             light_spec=light_spec, sun_off=sun_off, s_near=s_near,
-            brdf_ggx=brdf_ggx,
+            brdf_ggx=brdf_ggx, stage_cut=stage_cut,
         )
-    return _launch(
+    return prepare_launch(
         vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         lights_packed, occ_packed, width, height, sample_mode, light_spec,
-        sun_off, s_near, brdf_ggx,
-    )
+        sun_off, s_near, brdf_ggx, stage_cut,
+    )()
 
 
-def _launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
-            lights_packed, occ_packed, width, height, sample_mode, light_spec,
-            sun_off, s_near, brdf_ggx):
-    global launches
+def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
+                   lights_packed, occ_packed, width, height, sample_mode, light_spec,
+                   sun_off, s_near, brdf_ggx=False, stage_cut=0):
+    """Check and prepare mega_render's inputs for the CUDA kernel -> a
+    function of no arguments that launches the kernel on them and returns
+    (rgba, z_eff), the same two tensors at every call. mega_render is one
+    such call; timing the returned function alone times the kernel without
+    the preparation."""
     from .. import _cuda
 
     dev = vis_planes.device
@@ -353,32 +383,50 @@ def _launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         raise ValueError("mega_render: params must be (80,) and lights (L, 24)")
     if attr.shape[1] < 32:
         raise ValueError(f"mega_render: attr table has {attr.shape[1]} columns, needs 32")
+    if attr.shape[1] % 4:
+        # the kernel reads a row as 16-byte loads
+        attr = torch.nn.functional.pad(attr, (0, -attr.shape[1] % 4)).contiguous()
     if sample_mode not in (0, 1):
         raise ValueError(f"mega_render: sample_mode {sample_mode} is not 0 or 1")
     if any(int(r) >= inputs["lights"].shape[0] for r, _t in light_spec):
         raise ValueError("mega_render: light_spec names a row past the light table")
     llist = _light_list(light_spec, dev)
+    ns = planes.shape[0] // GROUP
+    lib = _cuda.library()
+    smem = lib.rx_mega_smem_bytes(ns, llist.shape[0], inputs["occ"].shape[0])
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"mega_render: {ns} supers, {llist.shape[0]} lights and {inputs['occ'].shape[0]} "
+            f"occlusion boxes need {smem} bytes of shared memory a block; the card has "
+            f"{SMEM_PER_BLOCK}")
 
     rgba = torch.empty((height, width), dtype=torch.int32, device=dev)
     zeff = torch.empty((height, width), dtype=torch.float32, device=dev)
-    lib = _cuda.library()
     ptr = ctypes.c_void_p
-    err = lib.rx_mega_render(
+    call_args = (
         ptr(planes.data_ptr()), ptr(attr.data_ptr()), ptr(sboxes.data_ptr()),
         ptr(cboxes.data_ptr()), ptr(inputs["s_near"].data_ptr()),
         ptr(inputs["atlas"].data_ptr()), ptr(inputs["bg"].data_ptr()),
         ptr(inputs["params"].data_ptr()), ptr(inputs["lights"].data_ptr()),
         ptr(llist.data_ptr()), ptr(inputs["occ"].data_ptr()),
         ptr(rgba.data_ptr()), ptr(zeff.data_ptr()),
-        planes.shape[0] // GROUP, attr.shape[1], inputs["atlas"].numel(),
+        ns, attr.shape[1], inputs["atlas"].numel(),
         llist.shape[0], inputs["occ"].shape[0], height, width,
-        int(sample_mode), int(bool(sun_off)), int(bool(brdf_ggx)),
-        ptr(torch.cuda.current_stream(dev).cuda_stream),
+        int(sample_mode), int(bool(sun_off)), int(bool(brdf_ggx)), int(stage_cut),
     )
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err} ({_cuda.error_string(err)})")
-    launches += 1
-    return rgba, zeff
+    keep = (planes, attr, sboxes, cboxes, inputs, llist)  # alive while the closure is
+
+    def launch():
+        global launches
+        err = lib.rx_mega_render(*call_args, ptr(torch.cuda.current_stream(dev).cuda_stream))
+        if err != 0:
+            raise RuntimeError(
+                f"megakernel launch failed: CUDA error {err} ({_cuda.error_string(err)})")
+        launches += 1
+        return rgba, zeff
+
+    launch.keep = keep
+    return launch
 
 
 # -------------------------------------------------- the plain torch version
@@ -503,22 +551,31 @@ def mega_render_reference(
     vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params, lights_packed,
     occ_packed, width: int, height: int, sample_mode: int = 0,
     light_spec: tuple = None, sun_off: bool = False, s_near=None,
-    brdf_ggx: bool = False, return_work: bool = False,
+    brdf_ggx: bool = False, return_work: bool = False, stage_cut: int = 0,
 ):
     """Plain torch version of the megakernel: the kernel body's per-pixel
     math transcribed op for op (the JAX kernel's `_mega_kernel` stages 1-6),
     vectorised over pixels and chunked over candidates in sorted order.
     Same inputs and outputs as mega_render; with `return_work`, a third
     output counts the pixel-candidate visibility tests the scan performed
-    (gated by the boxes and stopped early as the kernel is)."""
+    (gated by the boxes and stopped early as the kernel is). `stage_cut` 1
+    and 2 stop where the kernel's cuts do (see mega_render)."""
     if light_spec is None or s_near is None:
         raise ValueError("mega_render_reference needs light_spec and s_near")
+    if stage_cut not in (0, 1, 2):
+        raise ValueError(f"mega_render_reference: stage_cut {stage_cut} is not 0, 1 or 2")
     planes, attr, sboxes, cboxes = _prepare(vis_planes, alive, bbox, attr)
     hp = height + (-height % TILE_H)
     wp = width + (-width % TILE_W)
     best, idx, tests = _visibility(planes, sboxes, cboxes, s_near.float(), hp, wp)
+    # a tile shades when any of its pixels, padding included, has a winner
+    tile_hit = (idx >= 0).reshape(hp // TILE_H, TILE_H, wp // TILE_W, TILE_W).any(dim=3).any(dim=1)
+    tile_hit = tile_hit.repeat_interleave(TILE_H, 0).repeat_interleave(TILE_W, 1)[:height, :width]
     best = best[:height, :width]
     idx = idx[:height, :width]
+    if stage_cut == 1:
+        out = (idx.contiguous(), best.contiguous())
+        return out + (tests,) if return_work else out
     hit = idx >= 0
     a = attr[torch.clamp(idx, min=0).long()]  # (H, W, n_attr)
     a = torch.where(hit[..., None], a, 0.0)
@@ -552,6 +609,18 @@ def mega_render_reference(
     tex_r, tex_g, tex_b, tex_a = _texel_lookup(
         atlas_u32, u, v, rect, kind, rgba_cols, repeat, sample_mode, atlas_w
     )
+
+    def q(x):
+        return torch.floor(torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5)
+
+    def pack(r, g, b, alpha):
+        packed = torch.stack([r, g, b, alpha], dim=-1)
+        return packed.to(torch.uint8).contiguous().view(torch.int32)[..., 0]
+
+    if stage_cut == 2:
+        texel = pack(q(tex_r), q(tex_g), q(tex_b), q(tex_a))
+        out = (torch.where(tile_hit, texel, bg_u32), best.contiguous())
+        return out + (tests,) if return_work else out
 
     # ---- stage 4: lighting (rasterizer.rs:1319-1412 + light.rs:491-653) ----
     x_ndc = 2.0 * (xg / P[41]) - 1.0
@@ -746,13 +815,8 @@ def mega_render_reference(
     out_b = out_b * (1.0 - fog_t) + P[51] * fog_t
 
     # ---- stage 6: compose + RGBA8 pack ----
-    def q(x):
-        return torch.floor(torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5)
-
     a_u8 = q(tex_a)
     wrote = hit & (a_u8 >= 255)
-    packed = torch.stack([q(out_r), q(out_g), q(out_b), a_u8], dim=-1)
-    packed = packed.to(torch.uint8).contiguous().view(torch.int32)[..., 0]
-    rgba = torch.where(wrote, packed, bg_u32)
+    rgba = torch.where(wrote, pack(q(out_r), q(out_g), q(out_b), a_u8), bg_u32)
     zeff = torch.where(wrote, z, 1.0)
     return (rgba, zeff, tests) if return_work else (rgba, zeff)

@@ -4,16 +4,20 @@ counterpart of `rusterix_tpu/ops/rt_kernel.py`).
 
 Rays stay in their (H, W) screen layout and are cut into RT_BH x RT_BW
 blocks; triangles are grouped into cells of RT_CELL consecutive pack slots
-with world AABBs. The preparation (plain torch on the device) gives every
-block a shortlist of cells ordered by the euclidean gap between the
-block's origin box and the cell box, a lower bound on any of its rays' t
-into the cell, with cells beyond the range cap or behind every ray's
-direction culled to the tail. The kernel walks a block's shortlist while
-the next entry's bound is below the block's bound (the max over its live
-rays of min(best t, per-ray scene-exit cap)), slab-tests the cell box and,
-when any ray enters, runs Möller-Trumbore on the cell's triangles.
+with world AABBs. The preparation gives every block a shortlist of cells
+ordered by the euclidean gap between the block's origin box and the cell
+box, a lower bound on any of its rays' t into the cell, with cells beyond
+the range cap or behind every ray's direction culled to the tail. Its
+scene side (the triangle table, the cell boxes, the scene box) is plain
+torch; its ray side (the blocks' origin and direction boxes, the keys and
+their stable sort) is `rt_prepare_kernel` on CUDA tensors and plain torch
+(`rt_prepare`, the plain version) on the CPU. The kernel walks a block's
+shortlist while the next entry's bound is below the block's bound (the max
+over its live rays of min(best t, per-ray scene-exit cap)), slab-tests the
+cell box and, when any ray enters, runs Möller-Trumbore on the cell's
+triangles.
 
-`intersect_rays_pallas` launches the CUDA kernel (csrc/rt_kernel.cu) for
+`intersect_rays_pallas` launches the CUDA kernels (csrc/rt_kernel.cu) for
 CUDA tensors and the plain version for CPU tensors;
 `intersect_rays_pallas_reference` replays the kernel's walk in torch.
 """
@@ -33,9 +37,17 @@ RT_BW = 128
 _PARKED = 1e7
 _BIG = 3e37
 
-#: launches of the CUDA kernel (one per intersect_rays_pallas call on CUDA
+#: cells whose keys rt_prepare_kernel holds in a block's shared memory
+#: (RT_MAX_CELLS in csrc/rt_kernel.cu: 8 bytes a cell, 224 KB); a scene with
+#: more cells is refused on CUDA tensors
+PREPARE_MAX_CELLS = 28672
+
+#: launches of the walk kernel (one per intersect_rays_pallas call on CUDA
 #: tensors)
 launches = 0
+#: launches of the preparation kernel (one per intersect_rays_pallas call on
+#: CUDA tensors)
+prepare_launches = 0
 
 
 def _cell_boxes(pos, valid, ncells: int, cell: int):
@@ -61,25 +73,24 @@ def _block_reduce(field, nby: int, nbx: int, lo: bool, neutral: float):
     return v.amin(dim=(1, 3)) if lo else v.amax(dim=(1, 3))
 
 
-def rt_prepare(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, width: int) -> dict:
-    """The walk's inputs, computed on the rays' device:
-
-    tab (Tp, 16) f32: per slot [A | B - A | C - A], zero for dead slots;
-    cbox (ncells, 8) f32: cell AABBs [x0 y0 z0 x1 y1 z1 0 0];
-    tnear (nblocks, ncells) f32 and slist (nblocks, ncells) i32: each
-    block's shortlist, keys ascending (culled cells at _BIG), ties in cell
-    order; tcap (8,) f32: [t_cap | scene AABB of the live cells | 0];
-    rays (6, hp, wp) f32: ox oy oz dx dy dz padded to whole blocks with
-    parked rays; and the sizes."""
-    dev = ox.device
-    tcount = pos.shape[0]
-    hp = -(-height // RT_BH) * RT_BH
-    wp = -(-width // RT_BW) * RT_BW
-    nby, nbx = hp // RT_BH, wp // RT_BW
+def _sizes(tcount: int, height: int, width: int) -> dict:
     cell = -(-RT_CELL // 8) * 8
-    ncells = -(-tcount // cell)
-    tp = ncells * cell
+    return {
+        "cell": cell, "ncells": -(-tcount // cell),
+        "nby": -(-height // RT_BH), "nbx": -(-width // RT_BW),
+        "height": height, "width": width,
+    }
 
+
+def scene_tables(pos, valid, t_cap, ncells: int, cell: int) -> dict:
+    """The part of the preparation that depends on the pack and not on the
+    rays: tab (Tp, 16) f32, per slot [A | B - A | C - A], zero for dead
+    slots; cbox (ncells, 8) f32, cell AABBs [x0 y0 z0 x1 y1 z1 0 0]; tcap
+    (8,) f32, [t_cap | scene AABB of the live cells | 0]; and the per-axis
+    cell bounds (c0, c1) and cell_alive the keys are made from."""
+    dev = pos.device
+    tcount = pos.shape[0]
+    tp = ncells * cell
     pos = pos[:, :, :3].float()
     valid = valid.float()
     a3 = pos[:, 0]
@@ -91,6 +102,43 @@ def rt_prepare(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, width: in
         torch.nn.functional.pad(pos, (0, 0, 0, 0, 0, tp - tcount)),
         torch.nn.functional.pad(valid, (0, tp - tcount)), ncells, cell,
     )
+    zeros = torch.zeros_like(cx0)
+    cbox = torch.stack([cx0, cy0, cz0, cx1, cy1, cz1, zeros, zeros], dim=1)
+    cell_alive = cx0 <= cx1
+    t_cap = torch.as_tensor(t_cap, dtype=torch.float32, device=dev)
+
+    def live_min(v):
+        return torch.where(cell_alive, v, _BIG).amin()
+
+    def live_max(v):
+        return torch.where(cell_alive, v, -_BIG).amax()
+
+    tcap = torch.stack([
+        t_cap, live_min(cx0), live_min(cy0), live_min(cz0),
+        live_max(cx1), live_max(cy1), live_max(cz1), torch.zeros_like(t_cap),
+    ])
+    return {
+        "tab": tab.contiguous(), "cbox": cbox.contiguous(), "tcap": tcap.contiguous(),
+        "c0": (cx0, cy0, cz0), "c1": (cx1, cy1, cz1), "cell_alive": cell_alive,
+    }
+
+
+def rt_prepare(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, width: int) -> dict:
+    """The walk's inputs, computed in plain torch on the rays' device (the
+    plain version of the preparation):
+
+    tab, cbox, tcap: see scene_tables; boxes (nblocks, 12) f32: each
+    block's origin box and direction box over its live rays, [o min xyz |
+    o max xyz | d min xyz | d max xyz], NaN values skipped; tnear (nblocks,
+    ncells) f32 and slist (nblocks, ncells) i32: each block's shortlist,
+    keys ascending (culled cells at _BIG), ties in cell order; rays (6, hp,
+    wp) f32: ox oy oz dx dy dz padded to whole blocks with parked rays; and
+    the sizes."""
+    sizes = _sizes(pos.shape[0], height, width)
+    ncells, nby, nbx = sizes["ncells"], sizes["nby"], sizes["nbx"]
+    hp, wp = nby * RT_BH, nbx * RT_BW
+    scene = scene_tables(pos, valid, t_cap, ncells, sizes["cell"])
+    c0s, c1s, cell_alive = scene["c0"], scene["c1"], scene["cell_alive"]
 
     def padr(f, fill):
         return torch.nn.functional.pad(f.float(), (0, wp - width, 0, hp - height), value=fill)
@@ -115,7 +163,6 @@ def rt_prepare(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, width: in
             min=0.0,
         )
 
-    c0s, c1s = (cx0, cy0, cz0), (cx1, cy1, cz1)
     gx, gy, gz = (gap(c0s[k], c1s[k], ob0[k], ob1[k]) for k in range(3))
     dist = torch.sqrt(gx * gx + gy * gy + gz * gz)
 
@@ -128,32 +175,64 @@ def rt_prepare(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, width: in
         reach &= ~((pos_side & (db1[k][:, :, None] <= 0.0))
                    | (neg_side & (db0[k][:, :, None] >= 0.0)))
 
-    zeros = torch.zeros_like(cx0)
-    cbox = torch.stack([cx0, cy0, cz0, cx1, cy1, cz1, zeros, zeros], dim=1)
-    cell_alive = cx0 <= cx1
-    t_cap = torch.as_tensor(t_cap, dtype=torch.float32, device=dev)
-    key = torch.where(cell_alive[None, None, :] & reach & (dist < t_cap), dist, _BIG)
+    key = torch.where(cell_alive[None, None, :] & reach & (dist < scene["tcap"][0]), dist, _BIG)
     # stable: keys tie at gap 0 and at _BIG, and the walk must visit tied
     # cells in cell order as the TPU kernel's stable sort does
     tnear, slist = torch.sort(key.reshape(nby * nbx, ncells), dim=1, stable=True)
-
-    def live_min(v):
-        return torch.where(cell_alive, v, _BIG).amin()
-
-    def live_max(v):
-        return torch.where(cell_alive, v, -_BIG).amax()
-
-    tcap = torch.stack([
-        t_cap, live_min(cx0), live_min(cy0), live_min(cz0),
-        live_max(cx1), live_max(cy1), live_max(cz1), torch.zeros_like(t_cap),
-    ])
+    boxes = torch.stack(ob0 + ob1 + db0 + db1, dim=-1).reshape(nby * nbx, 12)
     return {
-        "tab": tab.contiguous(), "cbox": cbox.contiguous(),
+        "tab": scene["tab"], "cbox": scene["cbox"], "tcap": scene["tcap"],
+        "boxes": boxes.contiguous(),
         "tnear": tnear.contiguous(), "slist": slist.to(torch.int32).contiguous(),
-        "tcap": tcap.contiguous(), "rays": rays.contiguous(),
-        "cell": cell, "ncells": ncells, "nby": nby, "nbx": nbx,
-        "height": height, "width": width,
+        "rays": rays.contiguous(), **sizes,
     }
+
+
+def rt_prepare_cuda(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, width: int) -> dict:
+    """rt_prepare for CUDA tensors: the scene tables in torch, the blocks'
+    boxes, keys and stable sort in one launch of rt_prepare_kernel
+    (csrc/rt_kernel.cu), which reads the six ray fields as they are. The
+    kernel holds a block's keys in shared memory, so it takes scenes of at
+    most PREPARE_MAX_CELLS cells and refuses larger ones. -> tab, cbox, tcap, boxes, tnear, slist
+    as rt_prepare gives them (equal, bit for bit), and the sizes; no padded
+    copy of the rays."""
+    global prepare_launches
+    from .. import _cuda
+
+    sizes = _sizes(pos.shape[0], height, width)
+    ncells, nby, nbx = sizes["ncells"], sizes["nby"], sizes["nbx"]
+    if ncells > PREPARE_MAX_CELLS:
+        raise NotImplementedError(
+            f"ray-intersect preparation on CUDA tensors: a scene of {ncells} cells "
+            f"({pos.shape[0]} slots) is not ported; rt_prepare_kernel holds at most "
+            f"{PREPARE_MAX_CELLS} cells ({PREPARE_MAX_CELLS * sizes['cell']} slots) in a "
+            "block's shared memory")
+    dev = ox.device
+    scene = scene_tables(pos, valid, t_cap, ncells, sizes["cell"])
+    fields = _ray_fields(ox, oy, oz, dx, dy, dz)
+    boxes = torch.empty((nby * nbx, 12), dtype=torch.float32, device=dev)
+    tnear = torch.empty((nby * nbx, ncells), dtype=torch.float32, device=dev)
+    slist = torch.empty((nby * nbx, ncells), dtype=torch.int32, device=dev)
+    ptr = ctypes.c_void_p
+    err = _cuda.library().rx_rt_prepare(
+        *(ptr(f.data_ptr()) for f in fields), ptr(scene["cbox"].data_ptr()),
+        ctypes.c_float(float(t_cap)), ptr(boxes.data_ptr()), ptr(tnear.data_ptr()),
+        ptr(slist.data_ptr()), ncells, nby, nbx, height, width,
+        ptr(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"ray-intersect preparation kernel launch failed: CUDA error {err} "
+                           f"({_cuda.error_string(err)})")
+    prepare_launches += 1
+    return {
+        "tab": scene["tab"], "cbox": scene["cbox"], "tcap": scene["tcap"],
+        "boxes": boxes, "tnear": tnear, "slist": slist, **sizes,
+    }
+
+
+def _ray_fields(ox, oy, oz, dx, dy, dz) -> tuple:
+    """The six (H, W) ray fields as contiguous f32 tensors, for the kernels."""
+    return tuple(f.float().contiguous() for f in (ox, oy, oz, dx, dy, dz))
 
 
 def _check_inputs(pos, valid, rays, height: int, width: int):
@@ -178,24 +257,27 @@ def intersect_rays_pallas(pos, valid, ox, oy, oz, dx, dy, dz, t_cap,
     hits at or beyond it are misses. -> (t (H, W) f32, inf on a miss;
     idx (H, W) i32 slot, -1 on a miss).
 
-    CUDA tensors launch the kernel (csrc/rt_kernel.cu); CPU tensors run
-    intersect_rays_pallas_reference."""
+    CUDA tensors launch the kernels of csrc/rt_kernel.cu, the preparation
+    and then the walk (scenes of more than PREPARE_MAX_CELLS cells are
+    refused). CPU tensors run intersect_rays_pallas_reference."""
     _check_inputs(pos, valid, (ox, oy, oz, dx, dy, dz), height, width)
     if ox.device.type != "cuda":
         return intersect_rays_pallas_reference(
             pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height, width
         )
-    prep = rt_prepare(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height, width)
-    return _launch(prep)
+    prep = rt_prepare_cuda(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height, width)
+    return _launch(prep, _ray_fields(ox, oy, oz, dx, dy, dz))
 
 
-def _launch(prep):
+def _launch(prep, fields):
+    """The walk kernel on a preparation (rt_prepare's or rt_prepare_cuda's)
+    and the six contiguous (H, W) ray fields."""
     global launches
     from .. import _cuda
 
     if prep["cell"] != 64:
         raise ValueError(f"the kernel stages cells of 64 triangles, not {prep['cell']}")
-    dev = prep["rays"].device
+    dev = fields[0].device
     height, width = prep["height"], prep["width"]
     t = torch.empty((height, width), dtype=torch.float32, device=dev)
     idx = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -203,7 +285,7 @@ def _launch(prep):
     err = _cuda.library().rx_rt_intersect(
         ptr(prep["tab"].data_ptr()), ptr(prep["cbox"].data_ptr()),
         ptr(prep["tnear"].data_ptr()), ptr(prep["slist"].data_ptr()),
-        ptr(prep["tcap"].data_ptr()), ptr(prep["rays"].data_ptr()),
+        ptr(prep["tcap"].data_ptr()), *(ptr(f.data_ptr()) for f in fields),
         ptr(t.data_ptr()), ptr(idx.data_ptr()),
         prep["ncells"], prep["nby"], prep["nbx"], height, width,
         ptr(torch.cuda.current_stream(dev).cuda_stream),

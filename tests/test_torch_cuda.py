@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card: the megakernel (B1, both BRDFs), the
-visibility pre-pass (B2) and the ray intersect (B3) against their plain
-torch versions on the same inputs, and the whole CUDA frames (opaque and
+"""The CUDA kernels on the card: the megakernel (B1, both BRDFs, the
+profiling cuts), the visibility pre-pass (B2), the
+ray intersect (B3) and its preparation kernel against their plain torch
+versions on the same inputs, and the whole CUDA frames (opaque and
 with GGX reflections) against the CPU frames.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
@@ -8,8 +9,9 @@ jax, so they also run on a machine without it:
 
     RUSTERIX_TPU_TEST_PLATFORM=cuda python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerances: z_eff, the pre-pass's z and idx and the ray intersect's t and
-idx equal; RGBA8 within 1 per channel (the kernels and the plain versions
+Tolerances: z_eff, the stage_cut outputs, the pre-pass's z and idx, the
+preparation's boxes, tnear and slist and the ray intersect's t and idx
+equal; RGBA8 within 1 per channel (the kernels and the plain versions
 round alike, -fmad=false; only expf may differ in an ulp).
 """
 
@@ -158,6 +160,50 @@ def test_ggx_kernel_matches_plain_version(cuda, lights, sun, sample_mode, fog, s
     assert not torch.equal(rgba, fast_rgba), "brdf_ggx changed nothing"
 
 
+def _map_frame_inputs(width, height):
+    """The procedural map's mega_render inputs at a size off the tile grid."""
+    rast, scene, assets = build_map_scene(width, height, device="cpu")
+    rast.rasterize(scene, width, height, 40, assets)
+    fi = frame_inputs(**rast.frame_args)
+    return fi["mega_args"], fi["mega_kwargs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage_cut", [1, 2])
+@pytest.mark.parametrize("scene", ["box_192x96", "map_333x77"])
+def test_stage_cut_kernel_matches_plain_version(cuda, scene, stage_cut):
+    """The profiling cuts (the scan's winners; the quantized texel), both
+    outputs equal, at a small size and at one off the 64x128 tile grid."""
+    if scene == "box_192x96":
+        inputs = _box_frame_inputs("mixed", True, 1, "off", "texture")
+    else:
+        inputs = _map_frame_inputs(333, 77)
+    args, kwargs = _to(*inputs, cuda)
+    out = megakernel.mega_render(*args, **kwargs, stage_cut=stage_cut)
+    ref = megakernel.mega_render_reference(*args, **kwargs, stage_cut=stage_cut)
+    full = megakernel.mega_render(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert not torch.equal(out[0], full[0]), "the cut changed nothing"
+    if stage_cut == 1:
+        assert bool((out[0] >= 0).any()), "no pixel has a winner"
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_the_map_off_the_tile_grid(cuda):
+    """A 64x128 tile shared by the blocks of a cluster: the same frame, bit
+    for bit in z_eff, on the map at a size off the tile grid (early stops
+    and tiles cut by the frame's edge included)."""
+    args, kwargs = _to(*_map_frame_inputs(333, 77), cuda)
+    rgba, z = megakernel.mega_render(*args, **kwargs)
+    ref_rgba, ref_z = megakernel.mega_render_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(z, ref_z)
+    diff = (megakernel.unpack_frame_u32(rgba).int() - megakernel.unpack_frame_u32(ref_rgba).int())
+    assert int(diff.abs().max()) <= 1
+    assert bool((z < 1.0).any())
+
+
 def _random_candidates(seed, n, width, height):
     """n random world triangles in front of an orbit camera through the
     port's setup pass -> (vis_planes, alive, bbox) on the CPU."""
@@ -222,13 +268,103 @@ def test_ray_intersect_kernel_matches_plain_version(cuda, tcount, height, width,
     pos, valid, o, d = _random_rays(11, tcount, height, width, parked)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
             for a in (pos, valid, *o, *d)]
-    before = rt_kernel.launches
+    before = (rt_kernel.launches, rt_kernel.prepare_launches)
     t, idx = rt_kernel.intersect_rays_pallas(*args, 25.0, height, width)
     t_p, idx_p = rt_kernel.intersect_rays_pallas_reference(*args, 25.0, height, width)
     torch.cuda.synchronize()
-    assert rt_kernel.launches == before + 1
+    assert (rt_kernel.launches, rt_kernel.prepare_launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(idx, idx_p)
     assert torch.equal(t, t_p)
+    assert int((idx >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tcount,height,width,parked", [
+    (300, 24, 40, 0.0),     # 5 cells with a dead tail, one partial block
+    (2048, 67, 300, 0.5),   # 32 cells, ragged blocks, half the rays parked
+    (40000, 19, 150, 0.2),  # 625 cells: the rank sort past one warp of keys
+])
+def test_preparation_kernel_matches_rt_prepare(cuda, tcount, height, width, parked):
+    """The blocks' boxes, the keys and their stable sort, bit for bit, with
+    NaN values among the rays (skipped by the boxes)."""
+    pos, valid, o, d = _random_rays(13, tcount, height, width, parked)
+    o[1, 3, 7] = np.nan
+    d[2, height - 1, width - 1] = np.nan
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (pos, valid, *o, *d)]
+    before = rt_kernel.prepare_launches
+    prep = rt_kernel.rt_prepare_cuda(*args, 25.0, height, width)
+    ref = rt_kernel.rt_prepare(*args, 25.0, height, width)
+    torch.cuda.synchronize()
+    assert rt_kernel.prepare_launches == before + 1
+    for key in ("boxes", "tnear", "slist", "tab", "cbox", "tcap"):
+        assert torch.equal(prep[key], ref[key]), key
+    assert bool((prep["tnear"] < 3e37).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncells", [2048, 6200])
+def test_large_scene_prepares_through_the_kernel(cuda, ncells):
+    """Scenes of thousands of cells (16 KB of keys, and 48 KB and more, which
+    a block has to opt in to): still the preparation kernel, the same
+    shortlist and the same hits."""
+    tcount, height, width = 64 * ncells, 8, 128
+    pos, valid, o, d = _random_rays(17, tcount, height, width)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (pos, valid, *o, *d)]
+    before = (rt_kernel.launches, rt_kernel.prepare_launches)
+    prep = rt_kernel.rt_prepare_cuda(*args, 25.0, height, width)
+    ref = rt_kernel.rt_prepare(*args, 25.0, height, width)
+    t, idx = rt_kernel.intersect_rays_pallas(*args, 25.0, height, width)
+    t_p, idx_p = rt_kernel.intersect_rays_pallas_reference(*args, 25.0, height, width)
+    torch.cuda.synchronize()
+    assert (rt_kernel.launches, rt_kernel.prepare_launches) == (before[0] + 1, before[1] + 2)
+    for key in ("boxes", "tnear", "slist"):
+        assert torch.equal(prep[key], ref[key]), key
+    assert torch.equal(idx, idx_p) and torch.equal(t, t_p)
+    assert int((idx >= 0).sum()) > 0
+
+
+def _sparse_scene(seed, height, width):
+    """512 compact cells, 64 small triangles around each node of an 8x8x8
+    grid, and per 8x128 ray block a narrow cone of rays from outside the
+    grid: most cells a block visits lie beside its cone, so no ray enters
+    them and they are not tested."""
+    rng = np.random.default_rng(seed)
+    node = np.stack(np.meshgrid(*[np.arange(8)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    centre = (node * 2.5 - 8.75).astype(np.float32)
+    a = (np.repeat(centre, 64, axis=0) + rng.uniform(-0.5, 0.5, (512 * 64, 3))).astype(np.float32)
+    pos = np.stack([a, a + rng.uniform(-0.3, 0.3, a.shape), a + rng.uniform(-0.3, 0.3, a.shape)], 1)
+    pos = np.concatenate([pos, np.ones((len(a), 3, 1))], axis=2).astype(np.float32)
+    nby, nbx = -(-height // 8), -(-width // 128)
+    axis = rng.normal(size=(nby, nbx, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    axis = np.repeat(np.repeat(axis, 8, 0), 128, 1)[:height, :width]
+    d = axis + rng.uniform(-0.05, 0.05, axis.shape)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = -14.0 * axis + rng.uniform(-0.2, 0.2, axis.shape)
+    def to32(x):
+        return np.ascontiguousarray(np.moveaxis(x, -1, 0), np.float32)
+
+    return pos, np.ones(len(a), np.float32), to32(o), to32(d)
+
+
+@pytest.mark.cuda
+def test_ray_intersect_kernel_on_visited_cells_it_does_not_test(cuda):
+    """A sparse scene with coherent rays: the walk visits many cells whose
+    box no ray enters, so their prefetched triangles are never read, and the
+    cells it does test still give the plain version's hits bit for bit."""
+    height, width = 40, 300
+    pos, valid, o, d = _sparse_scene(19, height, width)
+    args = [torch.from_numpy(a).to(cuda) for a in (pos, valid, *o, *d)]
+    t, idx = rt_kernel.intersect_rays_pallas(*args, 60.0, height, width)
+    t_p, idx_p, work = rt_kernel.intersect_rays_pallas_reference(
+        *args, 60.0, height, width, return_work=True)
+    torch.cuda.synchronize()
+    visited = work["ray_box"] // (rt_kernel.RT_BH * rt_kernel.RT_BW)
+    tested = work["ray_triangle"] // (rt_kernel.RT_BH * rt_kernel.RT_BW * rt_kernel.RT_CELL)
+    assert visited > 4 * tested > 0, (visited, tested)
+    assert torch.equal(idx, idx_p) and torch.equal(t, t_p)
     assert int((idx >= 0).sum()) > 0
 
 

@@ -254,6 +254,40 @@ def test_ggx_reference_matches_jax_interpret(lights, sun, sample_mode, fog, sour
     assert _max_channel_diff(rgba.numpy(), rgba_ref) <= 1
 
 
+@pytest.mark.parametrize("lights,sun,sample_mode,fog,source", [CASES[1], CASES[2], CASES[4]])
+@pytest.mark.parametrize("stage_cut", [1, 2])
+def test_stage_cut_reference_matches_jax_interpret(stage_cut, lights, sun, sample_mode, fog,
+                                                   source):
+    """The profiling cuts: 1 gives the scan's winning slot per pixel (equal
+    to the JAX kernel's) and the winning 1/z; 2 the quantized texel (within
+    1 per channel) in tiles with a winner and the background elsewhere. No
+    pixel of these boxes is a z tie, so none is pinned."""
+    args, kwargs = _box_inputs(lights, sun, sample_mode, fog, source)
+    kwargs["stage_cut"] = stage_cut
+    out_ref, z_ref = _jax_render(args, kwargs)
+    targs, tkw = _torch_args(args, kwargs)
+    out, z = tm.mega_render_reference(*targs, W, H, **tkw)
+    full, _ = tm.mega_render_reference(*targs, W, H, **dict(tkw, stage_cut=0))
+    assert not torch.equal(out, full), "the cut changed nothing"
+    np.testing.assert_allclose(z.numpy(), z_ref, rtol=1e-6, atol=1e-6)
+    if stage_cut == 1:
+        assert (out_ref >= 0).any(), "the box covers no pixel"
+        np.testing.assert_array_equal(out.numpy(), out_ref)
+    else:
+        assert _max_channel_diff(out.numpy(), out_ref) <= 1
+
+
+def test_stage_cut_on_cpu_tensors_takes_the_plain_version():
+    args, kwargs = _box_inputs("point")
+    targs, tkw = _torch_args(args, kwargs)
+    for cut in (1, 2):
+        out = tm.mega_render(*targs, W, H, **dict(tkw, stage_cut=cut))
+        ref = tm.mega_render_reference(*targs, W, H, **dict(tkw, stage_cut=cut))
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    with pytest.raises(ValueError, match="stage_cut"):
+        tm.mega_render(*targs, W, H, **dict(tkw, stage_cut=5))
+
+
 def test_cpu_tensors_take_the_plain_version():
     args, kwargs = _box_inputs("point")
     targs, tkw = _torch_args(args, kwargs)
@@ -275,6 +309,15 @@ def test_mega_render_refuses_unported_variants(variant):
     tkw[variant] = torch.ones(1) if variant in ("shadow_rows", "ao_img") else True
     with pytest.raises(NotImplementedError, match=variant):
         tm.mega_render(*targs, W, H, **tkw)
+
+
+@pytest.mark.parametrize("stage_cut", [3, 4])
+def test_mega_render_refuses_tpu_only_stage_cuts(stage_cut):
+    """Cuts 3 and 4 sit inside TPU mechanisms the CUDA kernel lacks."""
+    args, kwargs = _box_inputs("point")
+    targs, tkw = _torch_args(args, kwargs)
+    with pytest.raises(NotImplementedError, match=f"stage_cut={stage_cut}"):
+        tm.mega_render(*targs, W, H, **dict(tkw, stage_cut=stage_cut))
 
 
 def test_nonzero_row_offset_is_refused():

@@ -321,3 +321,79 @@ def test_reflection_hit_shading_matches_jax(map_128):
                                     pt["atlas"], m["lights"], m["uniforms"], 0, _t(sky))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
     assert int((i_ref >= 0).sum()) > 500
+
+
+def test_rt_prepare_sizes_and_padding():
+    """The preparation's Python side: block and cell counts, the padded ray
+    planes (parked origins, zero directions) and the shortlist shapes."""
+    rng = np.random.default_rng(5)
+    tcount, height, width = 300, 19, 150  # 5 cells, 3 x 2 ray blocks, ragged
+    a = rng.uniform(-5, 5, (tcount, 3)).astype(np.float32)
+    pos = np.stack([a, a + 1.0, a - 1.0], axis=1)
+    pos = np.concatenate([pos, np.ones((tcount, 3, 1), np.float32)], axis=2)
+    valid = np.ones(tcount, np.float32)
+    o = rng.uniform(-4, 4, (3, height, width)).astype(np.float32)
+    d = rng.normal(size=(3, height, width)).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (pos, valid, *o, *d)]
+    prep = trt.rt_prepare(*args, 30.0, height, width)
+    assert (prep["cell"], prep["ncells"], prep["nby"], prep["nbx"]) == (64, 5, 3, 2)
+    assert prep["rays"].shape == (6, 24, 256)
+    assert prep["tab"].shape == (320, 16) and prep["cbox"].shape == (5, 8)
+    assert prep["tnear"].shape == (6, 5) and prep["slist"].shape == (6, 5)
+    assert prep["boxes"].shape == (6, 12)
+    rays = prep["rays"].numpy()
+    assert (rays[:3, height:, :] == 1e8).all() and (rays[:3, :, width:] == 1e8).all()
+    assert (rays[3:, height:, :] == 0).all() and (rays[3:, :, width:] == 0).all()
+    np.testing.assert_array_equal(rays[:, :height, :width], np.concatenate([o, d]))
+    # every block's shortlist is a permutation of the cells, keys ascending
+    assert (np.sort(prep["slist"].numpy(), axis=1) == np.arange(5)).all()
+    assert (np.diff(prep["tnear"].numpy(), axis=1) >= 0).all()
+
+
+def test_rt_prepare_block_boxes_skip_dead_rays_and_nans():
+    """boxes: per 8x128 block the min and max of origin and direction over
+    live rays; parked rays, padding lanes and NaN values do not count."""
+    rng = np.random.default_rng(6)
+    height, width = 11, 200
+    o = rng.uniform(-4, 4, (3, height, width)).astype(np.float32)
+    d = rng.normal(size=(3, height, width)).astype(np.float32)
+    dead = rng.uniform(size=(height, width)) < 0.3
+    o[:, dead] = 1e8
+    d[1, 2, 5] = np.nan
+    o[2, 9, 150] = np.nan
+    o[:, 8:, 128:] = 1e8  # one block without a live ray
+    pos = np.zeros((64, 3, 4), np.float32)
+    pos[:, 1, 0] = pos[:, 2, 1] = 1.0
+    args = [torch.from_numpy(x) for x in (pos, np.ones(64, np.float32), *o, *d)]
+    boxes = trt.rt_prepare(*args, 30.0, height, width)["boxes"].numpy().reshape(2, 2, 12)
+    fields = np.concatenate([o, d])
+    live = o[0] < 1e7
+    for by in range(2):
+        for bx in range(2):
+            ys, xs = slice(by * 8, by * 8 + 8), slice(bx * 128, bx * 128 + 128)
+            m = live[ys, xs]
+            for k in range(6):
+                vals = fields[k][ys, xs][m]
+                vals = vals[~np.isnan(vals)]
+                lo = vals.min() if vals.size else np.float32(3e37)
+                hi = vals.max() if vals.size else np.float32(-3e37)
+                col = k if k < 3 else k + 3
+                assert boxes[by, bx, col] == lo and boxes[by, bx, col + 3] == hi
+    assert (boxes[1, 1, :3] == np.float32(3e37)).all()
+
+
+def test_preparation_kernel_refuses_scenes_past_its_shared_memory():
+    """On CUDA tensors the preparation kernel is the only route: a scene
+    with more cells than a block's shared memory holds is refused by name
+    before the card is touched. On the CPU rt_prepare is the route, whatever
+    the size, and no kernel is counted."""
+    assert trt.PREPARE_MAX_CELLS * 8 == 224 * 1024
+    tcount = 64 * (trt.PREPARE_MAX_CELLS + 1)
+    pos = torch.zeros((1, 3, 4)).expand(tcount, 3, 4)
+    rays = [torch.zeros((8, 128)) for _ in range(6)]
+    with pytest.raises(NotImplementedError, match=str(trt.PREPARE_MAX_CELLS)):
+        trt.rt_prepare_cuda(pos, torch.ones(tcount), *rays, 10.0, 8, 128)
+    before = (trt.launches, trt.prepare_launches)
+    t, idx = trt.intersect_rays_pallas(pos[:128], torch.ones(128), *rays, 10.0, 8, 128)
+    assert (trt.launches, trt.prepare_launches) == before  # CPU tensors: the plain version
+    assert t.shape == (8, 128) and int((idx >= 0).sum()) == 0
