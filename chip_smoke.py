@@ -3,12 +3,17 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from rusterix_tpu_torch/csrc and drives the port's
-two main paths through `rusterix_tpu_torch.Rasterizer.rasterize` at
-1920x1080 on the bench's procedural map: the opaque frame (the megakernel,
-B1) and the frame with a sun, the GGX BRDF and one GGX reflection ray per
-pixel (B1's GGX variant, the visibility pre-pass B2 and the ray intersect
-B3 with its preparation kernel). For each path it checks that the frame
-went through every kernel of the path (launch counts read right after it),
+main paths through `rusterix_tpu_torch.Rasterizer.rasterize` at 1920x1080:
+A, the bench's procedural map opaque (the megakernel, B1); B, the map with
+a sun, the GGX BRDF and one GGX reflection ray per pixel (B1's GGX variant,
+the visibility pre-pass B2 and the ray intersect B3 with its preparation
+kernel); C, the map with ambient occlusion (B2, the AO pass, B1's ao_img
+variant); D, the sky-light floor scene with AO (B2, B1 with ao_img, one sky
+ray per pixel through B3); E, the GGX-reflection map with its reflections
+at half scale (B3 on 960x540 rays); F, the map with 2x2 SSAA (B1 at
+3840x2160). For each path it checks that the frame went through exactly
+the kernels of the path (launch counts zeroed before it and read right
+after it),
 holds every kernel against its plain torch version on the frame's own
 inputs (B1 also at the profiling cuts stage_cut 1 and 2), checks the CUDA
 frames against the CPU frames at a small size, times the frames, the
@@ -37,6 +42,16 @@ W, H = 1920, 1080
 SMALL_W, SMALL_H = 256, 128
 # B1 vs its plain version on the same inputs: z_eff equal, rgba within 1
 RGBA_TOL = 1
+# launches per frame of the later paths (B1, B2, B3 walk, B3 preparation)
+EXPECTED_LAUNCHES = {
+    "C": {"B1": 1, "B2": 1, "B3": 0, "B3prep": 0},
+    "D": {"B1": 1, "B2": 1, "B3": 1, "B3prep": 1},
+    "E": {"B1": 1, "B2": 1, "B3": 1, "B3prep": 1},
+    "F": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
+}
+# pixels where a later path's CUDA frame differs from its CPU frame at the
+# small size (each within RGBA_TOL); see PERF.md
+SMALL_PINNED = {"C": 0, "D": 0, "E": 0, "F": 0}
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, f32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -63,6 +78,7 @@ OPS_SUN_EXTRA = 6        # has_sun * colour, accumulated (the BRDF is counted by
 # area, 5 daylight) up to its radiance and the accumulation, without the BRDF
 OPS_PER_LIGHT = {0: 54, 1: 34, 2: 34, 3: 61, 4: 72, 5: 56}
 OPS_BRDF = {False: 58, True: 94}  # fast Blinn-Phong + Schlick; Cook-Torrance GGX
+OPS_AO = 1  # the ao_img variant: hemi * ao
 # f32 operations per ray of the preparation (12 min/max + 6 NaN tests + the
 # live test) and per (block, cell) key (gaps, distance, cull, compares)
 OPS_PREP_PER_RAY = 19
@@ -212,26 +228,32 @@ def shade_ops(covered: int, stage_cut: int, kwargs: dict, n_occ: int, sample_mod
         if not kwargs.get("sun_off", False):
             per_px += brdf + OPS_SUN_EXTRA
         per_px += sum(OPS_PER_LIGHT[int(t)] + brdf for _row, t in kwargs["light_spec"])
+        if kwargs.get("ao_img") is not None:
+            per_px += OPS_AO
     return covered * per_px
 
 
-def reflection_kernel_inputs(rast_r, fi) -> dict:
-    """The inputs B2 and B3 get on the reflection frame that `rast_r` last
-    rendered at W x H (fi: its frame_inputs): "b2_in", the arguments of
+def reflection_kernel_inputs(rast_r, fi, scale: int = 1, sky: bool = False) -> dict:
+    """The inputs B2 and B3 get on the frame that `rast_r` last rendered at
+    W x H (fi: its frame_inputs): "b2_in", the arguments of
     visibility_pass_pallas; "pre", the pre-pass's (z, idx, hit); "g", the
-    G-buffer; "rays", the reflection rays; "b3_in", the arguments of
-    intersect_rays_pallas."""
+    G-buffer; "rays", the reflection rays (sample 0; every scale-th pixel
+    when `scale` > 1) or with `sky` the sky-light rays; "b3_in", the
+    arguments of intersect_rays_pallas."""
     from rusterix_tpu_torch.ops import reflect
     from rusterix_tpu_torch.ops.raster import visibility_prepass
     from rusterix_tpu_torch.ops.shade import gbuffer_pass
 
     fa = rast_r.frame_args
     pre = visibility_prepass(fi, W, H)
-    g = gbuffer_pass(*pre, fi["attr"], fi["tri_id"], fa["d3"], fa["atlas"], fa["uniforms"],
-                     W, H, fa["sample_mode"])
-    rays = reflect.reflection_rays(g, pre[2], W, H, 0)
+    hs, ws = H // scale, W // scale
+    sl = (slice(0, hs * scale, scale), slice(0, ws * scale, scale))
+    z, idx, hit = (t[sl] for t in pre)
+    g = gbuffer_pass(z, idx, hit, fi["attr"], fi["tri_id"], fa["d3"], fa["atlas"],
+                     fa["uniforms"], ws, hs, fa["sample_mode"], stride=scale)
+    rays = reflect.sky_rays(g, hit) if sky else reflect.reflection_rays(g, hit, ws, hs, 0, scale)
     b3_in = (fa["d3"]["pos"], fa["d3"]["valid"], rays["o_x"], rays["o_y"], rays["o_z"],
-             rays["d_x"], rays["d_y"], rays["d_z"], float(fa["uniforms"]["refl_dist"]), H, W)
+             rays["d_x"], rays["d_y"], rays["d_z"], float(fa["uniforms"]["refl_dist"]), hs, ws)
     return {"b2_in": (fi["vis_s"], fi["alive_s"], fi["bbox_s"], W, H), "pre": pre, "g": g,
             "rays": rays, "b3_in": b3_in}
 
@@ -240,12 +262,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     from rusterix_tpu_torch import _cuda
     from rusterix_tpu_torch.ops import megakernel, reflect, rt_kernel, visibility_pallas
-    from rusterix_tpu_torch.ops.raster import frame_inputs, visibility_prepass
+    from rusterix_tpu_torch.ops.raster import ambient_occlusion, frame_inputs, visibility_prepass
     from rusterix_tpu_torch.ops.setup_pass import setup_pass
     from rusterix_tpu_torch.ops.shade import gbuffer_pass
-    from rusterix_tpu_torch.scenes import build_map_refl_scene, build_map_scene
+    from rusterix_tpu_torch.scenes import (
+        build_map_ao_scene,
+        build_map_refl_half_scene,
+        build_map_refl_scene,
+        build_map_scene,
+        build_map_ssaa2_scene,
+        build_sky_light_scene,
+    )
 
     counters = {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
                 "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches")}
@@ -312,7 +342,40 @@ def main() -> int:
           f"launches {counts_b}, px changed by the reflections {reflected}")
     if reflected < W * H // 50:
         raise SystemExit(f"the reflections changed only {reflected} pixels")
-    launches = {k: counts_a[k] + counts_b[k] for k in counts_a}
+    # 4b. the later paths C-F at 1920x1080, each with its exact launch counts
+    later = {
+        "C": ("AO map", build_map_ao_scene),
+        "D": ("sky-light floor scene with AO", build_sky_light_scene),
+        "E": ("GGX reflection map, reflections at half scale", build_map_refl_half_scene),
+        "F": ("SSAA2 map, 3840x2160 inside", build_map_ssaa2_scene),
+    }
+    paths = {}
+    for key, (label, build) in later.items():
+        r_, s_, a_ = build(W, H, device="cuda")
+        zero_counts()
+        f_ = r_.rasterize(s_, W, H, 40, a_)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != EXPECTED_LAUNCHES[key]:
+            raise SystemExit(f"path {key} ({label}) launched {counts}, expected "
+                             f"{EXPECTED_LAUNCHES[key]}")
+        if f_.shape != (H, W, 4) or f_.dtype != np.uint8:
+            raise SystemExit(f"path {key} frame is {f_.shape} {f_.dtype}")
+        fa_ = r_.frame_args
+        print(f"main path {key} ({label}): frame {f_.shape} {f_.dtype}, rendered at "
+              f"{fa_['width']}x{fa_['height']}, launches {counts}")
+        paths[key] = {"label": label, "rast": r_, "scene": s_, "assets": a_, "frame": f_,
+                      "counts": counts}
+    # what each path adds to the opaque map, in pixels that changed by more than 1
+    for key, base in (("C", frame), ("E", frame_o), ("F", frame)):
+        d = np.abs(paths[key]["frame"].astype(int) - base.astype(int)).max(-1)
+        changed = int((d > 1).sum())
+        print(f"path {key}: px changed by more than 1 against the frame without its feature "
+              f"{changed}")
+        if changed < W * H // 1000:
+            raise SystemExit(f"path {key}'s feature changed only {changed} pixels")
+    launches = {k: counts_a[k] + counts_b[k] + sum(p_["counts"][k] for p_ in paths.values())
+                for k in counts_a}
 
     # 5. every kernel against its plain version on the frames' own inputs
     fi_o = frame_inputs(**rast.frame_args)
@@ -398,6 +461,68 @@ def main() -> int:
     if not (torch.equal(i3, i3p) and torch.equal(t3, t3p)):
         raise SystemExit("the ray-intersect kernel disagrees with its plain version")
 
+    # 5b. the later paths' kernels against their plain versions on each
+    # frame's own inputs: B1 (with the AO factor on C and D, at 3840x2160 on
+    # F), B2 (C, D, E), the preparation and the walk on the sky rays (D) and
+    # on the 960x540 reflection rays (E)
+    for key, p_ in paths.items():
+        r_ = p_["rast"]
+        fa_ = r_.frame_args
+        fi_ = frame_inputs(**fa_)
+        a_, k_ = fi_["mega_args"], dict(fi_["mega_kwargs"])
+        if fa_["ao_taps"]:
+            p_["pre"] = visibility_prepass(fi_, W, H)
+            k_["ao_img"] = ambient_occlusion(p_["pre"], fa_["uniforms"], H, fa_["ao_taps"])
+        p_["mega"] = (a_, k_)
+        rgba_l, z_l = megakernel.mega_render(*a_, **k_)
+        rgba_lp, z_lp, tests = megakernel.mega_render_reference(*a_, **k_, return_work=True)
+        cut1 = megakernel.mega_render(*a_, **k_, stage_cut=1)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(z_l, z_lp):
+            raise SystemExit(f"B1 path {key}: z_eff differs at {int((z_l != z_lp).sum())} px")
+        diff = rgba_diff(rgba_l, rgba_lp)
+        p_["b1_err"], p_["b1_tests"], p_["covered"] = int(diff.max()), tests, int((cut1 >= 0).sum())
+        p_["b1_bytes"] = nbytes(*[a for a in a_ if isinstance(a, torch.Tensor)], rgba_l, z_l,
+                                *([k_["ao_img"]] if "ao_img" in k_ else []))
+        print(f"B1 vs plain (path {key}, {fa_['width']}x{fa_['height']}"
+              f"{', ao_img' if 'ao_img' in k_ else ''}): z_eff equal, rgba max diff "
+              f"{p_['b1_err']} (tolerance {RGBA_TOL}), px differing "
+              f"{int((diff.amax(-1) > 0).sum())}, visibility tests {tests}, "
+              f"px with a winner {p_['covered']}")
+        if p_["b1_err"] > RGBA_TOL:
+            raise SystemExit(f"B1 path {key}: the megakernel disagrees with its plain version")
+        if key == "F":
+            continue
+        kin_ = reflection_kernel_inputs(r_, fi_, scale=fa_["refl_scale"], sky=key == "D")
+        z2_, i2_, _h2 = visibility_pallas.visibility_pass_pallas(*kin_["b2_in"])
+        z2p_, i2p_, _h2p = visibility_pallas.visibility_pass_pallas_reference(*kin_["b2_in"])
+        torch.cuda.synchronize()
+        print(f"B2 vs plain (path {key} pre-pass): idx px differing {int((i2_ != i2p_).sum())}, "
+              f"z px differing {int((z2_ != z2p_).sum())}")
+        if not (torch.equal(i2_, i2p_) and torch.equal(z2_, z2p_)):
+            raise SystemExit(f"B2 path {key}: the visibility kernel disagrees with its plain "
+                             "version")
+        if key == "C":
+            continue
+        p_["kin"] = kin_
+        b3_in_ = kin_["b3_in"]
+        prep_k_ = rt_kernel.rt_prepare_cuda(*b3_in_)
+        prep_p_ = rt_kernel.rt_prepare(*b3_in_)
+        t3_, i3_ = rt_kernel.intersect_rays_pallas(*b3_in_)
+        t3p_, i3p_, work_ = rt_kernel.intersect_rays_pallas_reference(*b3_in_, return_work=True)
+        torch.cuda.synchronize()
+        bad_ = [k for k in ("boxes", "tnear", "slist", "tab", "cbox", "tcap")
+                if not torch.equal(prep_k_[k], prep_p_[k])]
+        p_["prep"], p_["b3_work"], p_["b3_out"] = prep_k_, work_, (t3_, i3_)
+        print(f"B3 vs plain (path {key}, {b3_in_[-1]}x{b3_in_[-2]} rays, "
+              f"{int(kin_['rays']['live' if key == 'D' else 'ok'].sum())} cast): preparation "
+              f"{'equal' if not bad_ else 'DIFFERS in ' + ', '.join(bad_)}; walk idx rays "
+              f"differing {int((i3_ != i3p_).sum())}, t rays differing "
+              f"{int(((t3_ != t3p_) & ~(torch.isinf(t3_) & torch.isinf(t3p_))).sum())}, "
+              f"hits {int((i3_ >= 0).sum())}, work {work_}")
+        if bad_ or not (torch.equal(i3_, i3p_) and torch.equal(t3_, t3p_)):
+            raise SystemExit(f"B3 path {key}: a ray kernel disagrees with its plain version")
+
     # 6. the CUDA frames against the CPU (plain) frames at a small size
     for label, build in (("opaque", build_map_scene), ("reflection", build_map_refl_scene)):
         small = []
@@ -409,6 +534,17 @@ def main() -> int:
               f"px differing {int((d > 0).sum())}")
         if d.max() > RGBA_TOL:
             raise SystemExit(f"the CUDA {label} frame disagrees with the CPU frame")
+    for key, (label, build) in later.items():
+        sw, sh = (SMALL_W // 2, SMALL_H // 2) if key == "F" else (SMALL_W, SMALL_H)
+        small = []
+        for dev in ("cuda", "cpu"):
+            r, s, a = build(sw, sh, device=dev)
+            small.append(r.rasterize(s, sw, sh, 40, a).astype(np.int32))
+        d = np.abs(small[0] - small[1]).max(-1)
+        print(f"cuda vs cpu path {key} frame at {sw}x{sh}: max diff {int(d.max())}, "
+              f"px differing {int((d > 0).sum())} (pinned {SMALL_PINNED[key]})")
+        if d.max() > RGBA_TOL or int((d > 0).sum()) != SMALL_PINNED[key]:
+            raise SystemExit(f"the CUDA path {key} frame disagrees with the CPU frame")
 
     # 7. steady-state times (the rasterize figures include their host work)
     frame_t = cuda_times(lambda: rast.rasterize(scene, W, H, 40, assets, readback=False), 40)
@@ -466,6 +602,50 @@ def main() -> int:
               f"interpolation + texel {c2 - c1:.4f}, lighting + fog + pack {c0 - c2:.4f} ms "
               f"(medians of 100) on {gpu}")
     frame_ms, frame_r_ms = median(frame_t), median(frame_r_t)
+    # the later paths: frames, B1 (wrapper, plain, alone; C also without its
+    # AO factor), the sky rays' and the 960x540 rays' walk and preparation
+    # alone, the AO pass in plain torch
+    for key, p_ in paths.items():
+        r_, s_, as_ = p_["rast"], p_["scene"], p_["assets"]
+        a_, k_ = p_["mega"]
+        p_["frame_t"] = cuda_times(lambda: r_.rasterize(s_, W, H, 40, as_, readback=False), 20)
+        p_["b1_t"] = cuda_times(lambda: megakernel.mega_render(*a_, **k_), 40)
+        p_["b1_plain_t"] = cuda_times(lambda: megakernel.mega_render_reference(*a_, **k_), 3,
+                                      warmup=1)
+        p_["alone"] = median(cuda_times(megakernel.prepare_launch(*a_, **k_), 100))
+        print(f"rasterize(readback=False) path {key} ({p_['label']}) {W}x{H}: "
+              f"{summary(p_['frame_t'])} on {gpu}")
+        print(f"B1 mega_render path {key}: {summary(p_['b1_t'])}; plain "
+              f"{summary(p_['b1_plain_t'])}; kernel alone {p_['alone']:.4f} ms (median of 100) "
+              f"on {gpu}")
+        if "kin" in p_:
+            b3_in_, prep_k_ = p_["kin"]["b3_in"], p_["prep"]
+            fields_ = rt_kernel._ray_fields(*b3_in_[2:8])
+            p_["walk_t"] = cuda_times(lambda: rt_kernel._launch(prep_k_, fields_), 40)
+            p_["prep_t"] = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*b3_in_), 40)
+            p_["b3_t"] = cuda_times(lambda: rt_kernel.intersect_rays_pallas(*b3_in_), 40)
+            p_["b3_plain_t"] = cuda_times(
+                lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in_), 3, warmup=1)
+            print(f"B3 path {key} ({b3_in_[-1]}x{b3_in_[-2]} rays): walk alone "
+                  f"{summary(p_['walk_t'])}; rt_prepare_cuda {summary(p_['prep_t'])}; "
+                  f"intersect_rays_pallas {summary(p_['b3_t'])}; plain "
+                  f"{summary(p_['b3_plain_t'])} on {gpu}")
+    a_c, k_c = paths["C"]["mega"]
+    no_ao_alone = median(cuda_times(
+        megakernel.prepare_launch(*a_c, **dict(k_c, ao_img=None)), 100))
+    print(f"B1 kernel alone on the AO map's inputs (stage_cut 0): with ao_img "
+          f"{paths['C']['alone']:.4f} ms, without {no_ao_alone:.4f} ms (medians of 100) on {gpu}")
+    fa_c = paths["C"]["rast"].frame_args
+
+    def run_ssao():
+        return ambient_occlusion(paths["C"]["pre"], fa_c["uniforms"], H, fa_c["ao_taps"])
+
+    ssao_t = cuda_times(run_ssao, 40)
+    ssao_prof = profile_calls(run_ssao, 20)
+    ssao_dev = ("device time not measured" if ssao_prof is None else
+                f"device {ssao_prof['device_ms']:.4f} ms in {ssao_prof['ops']:.1f} device ops")
+    print(f"ssao_pass (plain torch, {len(fa_c['ao_taps'])} taps, {W}x{H}): {summary(ssao_t)}; "
+          f"{ssao_dev} per call on {gpu}")
 
     # 8. where the frames' time goes: host wall per step (synchronized)
     fa_o = rast.frame_args
@@ -528,6 +708,18 @@ def main() -> int:
         frame_r_ms, gpu, {"B1": "mega_kernel", "B2": "visibility_kernel", "B3": "rt_kernel",
                           "B3prep": "rt_prepare_kernel"})
 
+    path_kernels = {"C": {"B1": "mega_kernel", "B2": "visibility_kernel"},
+                    "D": {"B1": "mega_kernel", "B2": "visibility_kernel", "B3": "rt_kernel",
+                          "B3prep": "rt_prepare_kernel"},
+                    "F": {"B1": "mega_kernel"}}
+    path_kernels["E"] = path_kernels["D"]
+    for key, p_ in paths.items():
+        r_, s_, as_ = p_["rast"], p_["scene"], p_["assets"]
+        p_["dev"] = report_profile(
+            f"path {key} rasterize(readback=False) x{n_prof}",
+            profile_calls(lambda: r_.rasterize(s_, W, H, 40, as_, readback=False), n_prof),
+            median(p_["frame_t"]), gpu, path_kernels[key])
+
     # 9. what each kernel takes on the card (registers a thread, shared
     # memory a block, blocks an SM holds at once: occupancy API)
     ns = fi["vis_s"].shape[0] // 128
@@ -579,6 +771,44 @@ def main() -> int:
         print(f"bound {key}: {nb} bytes, {ops} f32 ops -> {ms:.6f} ms, bound by {by}")
     print("bounds: 67 TFLOP/s counts an FMA as two operations; these kernels execute unfused "
           "multiplies and adds (-fmad=false, bit parity), so half of that peak is their ceiling")
+    later_rows = []
+    for key, name in (("C", "mega_render ao_img (AO map)"),
+                      ("D", "mega_render ao_img (sky-light scene)"),
+                      ("F", "mega_render 3840x2160 (SSAA2 map)")):
+        p_ = paths[key]
+        a_, k_ = p_["mega"]
+        n_occ_ = int(a_[8].shape[0])
+        ops = p_["b1_tests"] * OPS_PER_VIS_TEST + shade_ops(p_["covered"], 0, k_, n_occ_,
+                                                            int(a_[11]))
+        ms, by = bound(p_["b1_bytes"], ops)
+        print(f"bound B1 path {key}: {p_['b1_bytes']} bytes, {ops} f32 ops "
+              f"({p_['b1_tests']} tests, {p_['covered']} px shaded) -> {ms:.6f} ms, bound by {by}; "
+              f"kernel alone {p_['alone']:.4f} ms")
+        later_rows.append({
+            "name": name, "route": "cuda", "source": "rusterix_tpu_torch/csrc/megakernel.cu",
+            "replaces": "rusterix_tpu/ops/megakernel.py:250",
+            "launches": p_["counts"]["B1"], "max_abs_err": p_["b1_err"],
+            "ms": median(p_["b1_t"]), "plain_ms": median(p_["b1_plain_t"]),
+            "bound_ms": ms, "bound_by": by, "library_ms": None,
+            "device_ms": p_["dev"]["B1"], "alone_ms": p_["alone"],
+            **_cuda.resources("mega", a_[0].shape[0] // 128, len(k_["light_spec"]), n_occ_),
+        })
+    for key, name in (("D", "intersect_rays_pallas (sky rays)"),
+                      ("E", "intersect_rays_pallas (960x540 reflection rays)")):
+        p_ = paths[key]
+        b3_in_, (t3_, i3_), work_ = p_["kin"]["b3_in"], p_["b3_out"], p_["b3_work"]
+        nb = nbytes(*b3_in_[:8], t3_, i3_)
+        ops = work_["ray_triangle"] * OPS_PER_MT_TEST + work_["ray_box"] * OPS_PER_SLAB_TEST
+        ms, by = bound(nb, ops)
+        print(f"bound B3 walk path {key}: {nb} bytes, {ops} f32 ops -> {ms:.6f} ms, bound by {by}")
+        later_rows.append({
+            "name": name, "route": "cuda", "source": "rusterix_tpu_torch/csrc/rt_kernel.cu",
+            "replaces": "rusterix_tpu/ops/rt_kernel.py:79",
+            "launches": p_["counts"]["B3"], "max_abs_err": 0.0,
+            "ms": median(p_["b3_t"]), "plain_ms": median(p_["b3_plain_t"]),
+            "bound_ms": ms, "bound_by": by, "library_ms": None,
+            "device_ms": p_["dev"]["B3"], "alone_ms": median(p_["walk_t"]), **res["B3"],
+        })
     # B1 has one entry per main path: each launch with its own frame's
     # inputs, times, bound and profile
     b1_rows = (
@@ -627,7 +857,8 @@ def main() -> int:
             "library_ms": median(sort_t),
             "device_ms": dev_b["B3prep"], **res["B3prep"],
         },
-    ]
+    ] + later_rows
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the last check")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

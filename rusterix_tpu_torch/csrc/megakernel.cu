@@ -8,9 +8,10 @@
 // normal, (3) the atlas texel fetch, nearest or bilinear, with the repeat
 // modes, (4) the lighting chain (hemisphere ambient, sun with the fast
 // Blinn-Phong BRDF or, in the `brdf_ggx` variant, Cook-Torrance GGX,
-// occlusion boxes, batch ambient and the five light types), (5)
-// linear or exp^2 fog, and (6) the composite over the background and the
-// RGBA8 pack. Outputs: packed RGBA8 per pixel and the effective z (1.0
+// occlusion boxes, batch ambient and the five light types; in the `ao_img`
+// variant the two ambient terms scaled by the frame's ambient-occlusion
+// factor at the pixel), (5) linear or exp^2 fog, and (6) the composite over
+// the background and the RGBA8 pack. Outputs: packed RGBA8 per pixel and the effective z (1.0
 // where the opaque pass did not write). `stage_cut` 1 and 2 are the JAX
 // kernel's profiling cuts: stop after the scan (output the winning slot
 // and 1/z) or after the texel fetch (output the quantized texel).
@@ -94,6 +95,7 @@ struct MegaArgs {
     const float* lights;   // (L, 24)
     const int* light_list; // (n_lights, 2) [row, type code]
     const float* occ;      // (n_occ, 5)
+    const float* ao;       // (H, W) ambient-occlusion factor, or null
     uint32_t* rgba;        // (H, W) out
     float* zeff;           // (H, W) out
     int ns, n_attr, n_lights, n_occ, height, width, sample_mode, sun_off, brdf_ggx, stage_cut;
@@ -348,7 +350,10 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
     s.kd_r = s.base_r * K(0.96);
     s.kd_g = s.base_g * K(0.96);
     s.kd_b = s.base_b * K(0.96);
-    const float hemi = 0.5f * (s.uy + 1.0f);
+    float hemi = 0.5f * (s.uy + 1.0f);
+    // the ambient-occlusion factor scales only the two terms hemi feeds
+    // (the hemisphere and the batch ambient)
+    if (a.ao) hemi = hemi * __ldg(a.ao + o);
 
     float occlusion = 1.0f;
     for (int bi = 0; bi < a.n_occ; ++bi) {
@@ -669,8 +674,8 @@ extern "C" int rx_mega_resources(int ns, int n_lights, int n_occ, int* out) {
 extern "C" int rx_mega_render(
     const float* planes, const float* attr, const int* sbox, const int* cbox,
     const float* s_near, const int* atlas, const int* bg, const float* params,
-    const float* lights, const int* light_list, const float* occ, int* rgba,
-    float* zeff, int ns, int n_attr, long long n_atlas, int n_lights, int n_occ,
+    const float* lights, const int* light_list, const float* occ, const float* ao,
+    int* rgba, float* zeff, int ns, int n_attr, long long n_atlas, int n_lights, int n_occ,
     int height, int width, int sample_mode, int sun_off, int brdf_ggx, int stage_cut,
     void* stream) {
     MegaArgs a;
@@ -685,6 +690,7 @@ extern "C" int rx_mega_render(
     a.lights = lights;
     a.light_list = light_list;
     a.occ = occ;
+    a.ao = ao;
     a.rgba = reinterpret_cast<uint32_t*>(rgba);
     a.zeff = zeff;
     a.ns = ns;

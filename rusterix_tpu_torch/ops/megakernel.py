@@ -257,8 +257,7 @@ def unpack_frame_u32(rgba_u32) -> torch.Tensor:
 
 
 def _check_variants(has_blend, has_material, has_matmap, tonemap,
-                    shadow_rows, shadow_spec, ao_img, light_spec, s_near,
-                    stage_cut=0):
+                    shadow_rows, shadow_spec, light_spec, s_near, stage_cut=0):
     if stage_cut in (3, 4):
         # the JAX kernel's cuts 3 and 4 sit inside TPU mechanisms: 3 skips
         # the per-chunk pull-in of the winners' attribute rows into VMEM
@@ -280,7 +279,6 @@ def _check_variants(has_blend, has_material, has_matmap, tonemap,
         "shadow_rows/shadow_spec (shadow maps)": (
             shadow_rows is not None or shadow_spec is not None
         ),
-        "ao_img (ambient occlusion)": ao_img is not None,
         "light_spec=None (generic one-hot light blend)": light_spec is None,
     }
     for name, on in refused.items():
@@ -290,6 +288,18 @@ def _check_variants(has_blend, has_material, has_matmap, tonemap,
             )
     if s_near is None:
         raise ValueError("mega_render takes inputs presorted by morton_ftb_sort (s_near)")
+
+
+def _check_ao(ao_img, height: int, width: int, device):
+    """ao_img must be None or an (H, W) f32 tensor on the planes' device."""
+    if ao_img is None:
+        return None
+    if tuple(ao_img.shape) != (height, width) or ao_img.dtype != torch.float32:
+        raise ValueError(f"mega_render: ao_img is {tuple(ao_img.shape)} {ao_img.dtype}, "
+                         f"not ({height}, {width}) float32")
+    if ao_img.device != device:
+        raise ValueError(f"mega_render: ao_img is on {ao_img.device}, planes on {device}")
+    return ao_img.contiguous()
 
 
 def _prepare(vis_planes, alive, bbox, attr):
@@ -322,7 +332,9 @@ def mega_render(
     pack_background_u32; params, lights and occlusion boxes from the pack_*
     helpers. z_eff is 1.0 where the opaque pass did not write. `brdf_ggx`
     shades direct light with Cook-Torrance GGX (roughness 0.5, metallic 0)
-    instead of the fast Blinn-Phong BRDF.
+    instead of the fast Blinn-Phong BRDF. `ao_img`, an (H, W) f32
+    ambient-occlusion factor (ops/ao.ssao_pass), multiplies the two ambient
+    terms (the hemisphere and the batch ambient) of each shaded pixel.
 
     `stage_cut` is the JAX kernel's profiling instrument: the kernel stops
     after a stage, so that timing cuts 1, 2 and 0 splits its time into the
@@ -337,24 +349,24 @@ def mega_render(
     CUDA tensors launch the hand-written kernel (csrc/megakernel.cu); CPU
     tensors run mega_render_reference."""
     _check_variants(has_blend, has_material, has_matmap, tonemap,
-                    shadow_rows, shadow_spec, ao_img, light_spec, s_near, stage_cut)
+                    shadow_rows, shadow_spec, light_spec, s_near, stage_cut)
     if vis_planes.device.type != "cuda":
         return mega_render_reference(
             vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
             lights_packed, occ_packed, width, height, sample_mode,
             light_spec=light_spec, sun_off=sun_off, s_near=s_near,
-            brdf_ggx=brdf_ggx, stage_cut=stage_cut,
+            brdf_ggx=brdf_ggx, stage_cut=stage_cut, ao_img=ao_img,
         )
     return prepare_launch(
         vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         lights_packed, occ_packed, width, height, sample_mode, light_spec,
-        sun_off, s_near, brdf_ggx, stage_cut,
+        sun_off, s_near, brdf_ggx, stage_cut, ao_img,
     )()
 
 
 def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
                    lights_packed, occ_packed, width, height, sample_mode, light_spec,
-                   sun_off, s_near, brdf_ggx=False, stage_cut=0):
+                   sun_off, s_near, brdf_ggx=False, stage_cut=0, ao_img=None):
     """Check and prepare mega_render's inputs for the CUDA kernel -> a
     function of no arguments that launches the kernel on them and returns
     (rgba, z_eff), the same two tensors at every call. mega_render is one
@@ -375,6 +387,7 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
     for name, t in inputs.items():
         if t.device != dev:
             raise ValueError(f"mega_render: {name} is on {t.device}, planes on {dev}")
+    ao_img = _check_ao(ao_img, height, width, dev)
     if inputs["atlas"].dtype != torch.int32 or inputs["bg"].dtype != torch.int32:
         raise TypeError("mega_render: atlas and bg_u32 must be int32 (u32 bits)")
     if tuple(inputs["bg"].shape) != (height, width):
@@ -409,12 +422,13 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         ptr(inputs["atlas"].data_ptr()), ptr(inputs["bg"].data_ptr()),
         ptr(inputs["params"].data_ptr()), ptr(inputs["lights"].data_ptr()),
         ptr(llist.data_ptr()), ptr(inputs["occ"].data_ptr()),
+        ptr(None if ao_img is None else ao_img.data_ptr()),
         ptr(rgba.data_ptr()), ptr(zeff.data_ptr()),
         ns, attr.shape[1], inputs["atlas"].numel(),
         llist.shape[0], inputs["occ"].shape[0], height, width,
         int(sample_mode), int(bool(sun_off)), int(bool(brdf_ggx)), int(stage_cut),
     )
-    keep = (planes, attr, sboxes, cboxes, inputs, llist)  # alive while the closure is
+    keep = (planes, attr, sboxes, cboxes, inputs, llist, ao_img)  # alive while the closure is
 
     def launch():
         global launches
@@ -552,6 +566,7 @@ def mega_render_reference(
     occ_packed, width: int, height: int, sample_mode: int = 0,
     light_spec: tuple = None, sun_off: bool = False, s_near=None,
     brdf_ggx: bool = False, return_work: bool = False, stage_cut: int = 0,
+    ao_img=None,
 ):
     """Plain torch version of the megakernel: the kernel body's per-pixel
     math transcribed op for op (the JAX kernel's `_mega_kernel` stages 1-6),
@@ -564,6 +579,7 @@ def mega_render_reference(
         raise ValueError("mega_render_reference needs light_spec and s_near")
     if stage_cut not in (0, 1, 2):
         raise ValueError(f"mega_render_reference: stage_cut {stage_cut} is not 0, 1 or 2")
+    ao_img = _check_ao(ao_img, height, width, vis_planes.device)
     planes, attr, sboxes, cboxes = _prepare(vis_planes, alive, bbox, attr)
     hp = height + (-height % TILE_H)
     wp = width + (-width % TILE_W)
@@ -658,6 +674,8 @@ def mega_render_reference(
     kd_g = base_g * 0.96
     kd_b = base_b * 0.96
     hemi = 0.5 * (uy + 1.0)
+    if ao_img is not None:
+        hemi = hemi * ao_img
 
     occlusion = torch.ones_like(wx)
     occ = occ_packed.float()

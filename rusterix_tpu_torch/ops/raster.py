@@ -5,12 +5,15 @@
 tile, assets)` packs the scene on the host (the port's copy of the JAX
 package's numpy packer, `ops/scene_pack.py`), uploads it once into a scene
 cache, and renders each frame as: setup pass -> megakernel table + Morton /
-front-to-back sort -> the megakernel (B1) -> RGBA8 unpack. With GGX
-reflections (`set_reflections`), the visibility pre-pass (B2) rebuilds the
-G-buffer's winners, the reflection rays go through the ray-intersect
-kernel (B3), and the reflections are composited over the opaque frame.
-The 2D line overlay is drawn last, on the host. Every feature outside that
-slice raises `NotImplementedError` naming it; none degrades silently.
+front-to-back sort -> the megakernel (B1) -> RGBA8 unpack. With ambient
+occlusion, GGX reflections or sky light, the visibility pre-pass (B2) gives
+the winners before shading: the screen-space AO factor (`ops/ao.py`) feeds
+B1's ambient terms, the reflection rays (at full or reduced resolution) and
+the sky-light rays go through the ray-intersect kernel (B3), and their
+terms are composited over the opaque frame. With SSAA the frame renders at
+n times the size and is box-filtered down. The 2D line overlay is drawn
+last, on the host. Every feature outside that slice raises
+`NotImplementedError` naming it; none degrades silently.
 """
 
 from __future__ import annotations
@@ -37,11 +40,13 @@ from .megakernel import (
     pack_occ_params,
     unpack_frame_u32,
 )
+from .ao import ssao_pass, tap_offsets
 from .composite import frame_to_u8
 from .matrices import invert
-from .reflect import apply_reflections, reflection_pass_scaled
+from .reflect import apply_reflections, reflection_pass_scaled, sky_light_pass
 from .scene_pack import PackedScene, next_pow2
 from .setup_pass import setup_pass
+from .shade import _div
 from .visibility_pallas import visibility_pass_pallas
 
 
@@ -72,7 +77,8 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
                  height: int, sample_mode: int = 0, has_fog: bool = False,
                  light_spec: tuple = None, sun_off: bool = False,
                  brdf_ggx: bool = False, refl_samples: int = 0,
-                 refl_scale: int = 1) -> dict:
+                 refl_scale: int = 1, ao_taps: tuple = None,
+                 sky_light: bool = False) -> dict:
     """The frame's preparation before its kernels: setup pass, megakernel
     table, Morton + front-to-back sort and the parameter packs -> dict with
     the setup pass's `attr` and `tri_id`, the sorted `vis_s`, `alive_s`,
@@ -82,8 +88,8 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
     d3/atlas: packed_to_torch tensors; lights/uniforms: the host (numpy)
     dicts the Rasterizer builds each frame (pack_light_params,
     pack_mega_params and pack_occ_params carry them to the device);
-    background (H, W, 4) f32 on the device. The reflection settings are
-    read by render_frame."""
+    background (H, W, 4) f32 on the device. The reflection, AO and sky-light
+    settings are read by render_frame."""
     dev = d3["pos"].device
     vis, attr, bbox, alive, tri_id = setup_pass(
         d3["pos"], d3["uv"], d3["nrm"], d3["valid"], d3["cull"],
@@ -121,34 +127,68 @@ def visibility_prepass(fi: dict, width: int, height: int):
     return z, idx, hit
 
 
+def ambient_occlusion(pre, uniforms, height: int, ao_taps: tuple):
+    """The frame's (H, W) AO factor from the pre-pass (z, idx, hit), with
+    the projection's depth constants and the world size of a pixel in f32,
+    as the JAX render_frame computes them (ops/raster.py:282-285 there)."""
+    z, _idx, hit = pre
+    proj = np.asarray(uniforms["proj"], np.float32)
+    px_scale = np.float32(2.0) / (proj[1, 1] * np.float32(height))
+    return ssao_pass(z, hit, proj[2, 2], proj[2, 3], np.float32(uniforms["ao_radius"]),
+                     px_scale, ao_taps)
+
+
 def render_frame(d3, lights, atlas, uniforms, background, width: int,
                  height: int, sample_mode: int = 0, has_fog: bool = False,
                  light_spec: tuple = None, sun_off: bool = False,
                  brdf_ggx: bool = False, refl_samples: int = 0,
-                 refl_scale: int = 1):
+                 refl_scale: int = 1, ao_taps: tuple = None,
+                 sky_light: bool = False):
     """One 3D frame on the device -> (H, W, 4) uint8 tensor: the JAX
-    render_frame's megakernel branch (ops/raster.py:233-387 and :500
-    there). The opaque frame comes from the megakernel (B1); with
-    reflections, the visibility pre-pass (B2) gives the G-buffer its
-    winners before shading, the reflection pass traces its rays through the
-    ray-intersect kernel (B3), and the result is composited in f32 over the
-    quantized opaque frame. Arguments as for frame_inputs."""
+    render_frame's megakernel branch (ops/raster.py:233-411 and :500
+    there). The opaque frame comes from the megakernel (B1). With AO
+    (`ao_taps` from tap_offsets, radius uniforms["ao_radius"]), reflections
+    or sky light, the visibility pre-pass (B2) gives the winners before
+    shading; the AO factor scales B1's ambient terms; the reflection pass
+    (at 1/refl_scale resolution) and the sky-light pass trace their rays
+    through the ray-intersect kernel (B3), and each term is composited in
+    f32 over the quantized opaque frame, the sky light scaled by the AO
+    factor. Arguments as for frame_inputs."""
     fi = frame_inputs(
         d3, lights, atlas, uniforms, background, width, height, sample_mode,
         has_fog, light_spec, sun_off, brdf_ggx,
     )
-    pre = visibility_prepass(fi, width, height) if refl_samples else None
-    rgba_u32, _z_eff = mega_render(*fi["mega_args"], **fi["mega_kwargs"])
-    if not refl_samples:
+    pre = visibility_prepass(fi, width, height) if (ao_taps or refl_samples or sky_light) else None
+    ao_img = ambient_occlusion(pre, uniforms, height, ao_taps) if ao_taps else None
+    rgba_u32, _z_eff = mega_render(*fi["mega_args"], **fi["mega_kwargs"], ao_img=ao_img)
+    if not (refl_samples or sky_light):
         return unpack_frame_u32(rgba_u32)
     # the passes after the opaque frame blend in f32 over its quantized
     # bytes, as the reference's u8 tile buffer does (rasterizer.rs:464-495)
     frame = unpack_frame_u32(rgba_u32).float() * (1.0 / 255.0)
-    refl, rmask = reflection_pass_scaled(
-        *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms,
-        width, height, sample_mode, refl_samples, scale=refl_scale,
-    )
-    return frame_to_u8(apply_reflections(frame, refl, rmask))
+    if refl_samples:
+        refl, rmask = reflection_pass_scaled(
+            *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms,
+            width, height, sample_mode, refl_samples, scale=refl_scale,
+        )
+        frame = apply_reflections(frame, refl, rmask)
+    if sky_light:
+        sky_term, sky_mask = sky_light_pass(
+            *pre, fi["attr"], fi["tri_id"], d3, atlas, uniforms, width, height, sample_mode,
+        )
+        if ao_taps:
+            sky_term = sky_term * ao_img[..., None]
+        frame = apply_reflections(frame, sky_term, sky_mask)
+    return frame_to_u8(frame)
+
+
+def ssaa_downsample(frame_u8, ss: int):
+    """Box-filter an (H*ss, W*ss, 4) uint8 frame down to (H, W, 4): the mean
+    of each ss x ss block (a sum of integers, exact, divided once), rounded
+    half up, as the JAX package's _ssaa_downsample."""
+    h, w, c = frame_u8.shape
+    f = frame_u8.float().reshape(h // ss, ss, w // ss, ss, c).sum(dim=(1, 3))
+    return torch.floor(_div(f, float(ss * ss)) + 0.5).to(torch.uint8)
 
 
 def draw_lines_bresenham(pixels: np.ndarray, segments: np.ndarray, colors: np.ndarray):
@@ -233,13 +273,20 @@ class Rasterizer:
         #: depth-peeled transparency layers (RenderSettings
         #: max_transparency_bounces); they matter with opacity batches only
         self.transparency_layers = 1
+        #: directional sky-bounce ambient, one mirror ray per pixel
+        #: (set_sky_light)
+        self.sky_light_enabled = False
+        #: screen-space ambient occlusion, None = off (set_ambient_occlusion);
+        #: samples and radius default to RenderSettings ao_samples / ao_radius
+        self.ao_settings = None
+        self._rs_ao_samples = 4.0
+        self._rs_ao_radius = 0.5
+        #: supersampled antialiasing factor (set_supersample)
+        self.supersample = 1
         # features of the JAX Rasterizer outside the ported slice; set them
         # and rasterize() raises NotImplementedError naming them
-        self.supersample = 1
         self.tonemap = "srgb"
-        self.sky_light_enabled = False
         self.shadow_settings = None
-        self.ao_settings = None
         self.render_graph = None
         self.brush_preview = None
         #: the last frame's render_frame arguments (every tensor in it is
@@ -265,11 +312,40 @@ class Rasterizer:
     def set_reflections(self, samples: int, scale: int = None) -> "Rasterizer":
         """GGX importance-sampled reflection rays per pixel (0 disables),
         range-capped by max_sky_distance (3d_shader.wgsl:764-826). `scale`
-        > 1 (reflections at 1/scale resolution) is not ported: rasterize()
-        raises on it."""
+        > 1 traces them at 1/scale resolution and upsamples bilinearly."""
         self.reflection_samples = max(0, int(samples))
         if scale is not None:
             self.reflection_scale = max(1, int(scale))
+        return self
+
+    def set_sky_light(self, enabled: bool = True) -> "Rasterizer":
+        """Directional sky-bounce ambient: per pixel one ray along the view
+        ray mirrored about the normal, up to max_sky_distance; where it
+        reaches the sky, sky_rgb * max(N.y, 0) * albedo (* AO when AO is on)
+        is added (SceneVM `sky_contribution`, 3d_shader.wgsl:744-758)."""
+        self.sky_light_enabled = bool(enabled)
+        return self
+
+    def set_ambient_occlusion(self, enabled: bool = True, samples: int = None,
+                              radius: float = None) -> "Rasterizer":
+        """Screen-space ambient occlusion on the visibility depth
+        (ops/ao.py), scaling only the ambient terms (SceneVM `compute_ao`,
+        3d_shader.wgsl:519-560). samples and radius default to the
+        RenderSettings ao_samples / ao_radius; samples == 0 or radius <= 0
+        turns the pass off."""
+        if enabled:
+            self.ao_settings = {
+                "samples": None if samples is None else int(samples),
+                "radius": None if radius is None else float(radius),
+            }
+        else:
+            self.ao_settings = None
+        return self
+
+    def set_supersample(self, n: int) -> "Rasterizer":
+        """Render at n x n samples per pixel and box-filter down on the
+        device (n = 1 disables)."""
+        self.supersample = max(1, int(n))
         return self
 
     # builder-style setters (rasterizer.rs:155-182)
@@ -294,10 +370,10 @@ class Rasterizer:
         return self
 
     def apply_render_settings(self, rs, hour: float = None) -> "Rasterizer":
-        """Sky color, sun, ambient, exp^2 fog, the reflection samples and
-        their range cap from a RenderSettings block (reference
-        src/render_settings.rs:10-120). The block's shadow and AO knobs
-        belong to unported passes."""
+        """Sky color, sun, ambient, exp^2 fog, the AO samples and radius,
+        the reflection samples and their range cap from a RenderSettings
+        block (reference src/render_settings.rs:10-120). The block's shadow
+        knobs belong to an unported pass."""
         if hour is not None:
             self.hour = hour
         if rs.simulation.enabled:
@@ -312,6 +388,8 @@ class Rasterizer:
             self.day_factor = 0.0
         amb = np.asarray(rs.ambient_color, np.float32) * float(rs.ambient_strength)
         self.ambient_color = np.concatenate([amb, [1.0]]).astype(np.float32)
+        self._rs_ao_samples = float(rs.ao_samples)
+        self._rs_ao_radius = float(rs.ao_radius)
         self._rs_sky_distance = float(rs.max_sky_distance)
         self.reflection_samples = max(0, int(rs.reflection_samples))
         self.transparency_layers = int(np.clip(rs.max_transparency_bounces, 1, 8))
@@ -401,6 +479,7 @@ class Rasterizer:
             "fog_fade": np.float32(self._fog_fade),
             "fog_mode": np.float32(self._fog_mode),
             "fog_density": np.float32(self._fog_density),
+            "ao_radius": np.float32(self._ao_radius_eff()),
             "refl_dist": np.float32(self._rs_sky_distance),
             "refl_sky": self._refl_sky_linear(),
             "bump_strength": np.float32(self._rs_bump_strength),
@@ -415,18 +494,29 @@ class Rasterizer:
             return np.zeros(3, np.float32)
         return np.asarray(srgb_to_linear_fast(np.asarray(bg[:3], np.float32) / 255.0), np.float32)
 
+    def _ao_radius_eff(self) -> float:
+        if self.ao_settings is None:
+            return 0.0
+        r = self.ao_settings["radius"]
+        return float(self._rs_ao_radius if r is None else r)
+
+    def _ao_taps(self):
+        """The frame's AO tap offsets (None = AO off)."""
+        if self.ao_settings is None:
+            return None
+        n = self.ao_settings["samples"]
+        n = int(self._rs_ao_samples if n is None else n)
+        if n <= 0 or self._ao_radius_eff() <= 0.0:
+            return None  # compute_ao's early return
+        return tap_offsets(n)
+
     def _refuse_unported_settings(self, mesh):
         refl = self.reflection_samples > 0
         checks = {
             "mesh= (the multi-chip row-sharded frame)": mesh is not None,
-            "SSAA > 1 (set_supersample)": self.supersample > 1,
             "the scenevm tonemap": self.tonemap != "srgb",
-            "reflections at a reduced scale (reflection_scale > 1)": refl
-            and self.reflection_scale > 1,
             "reflections with shadows": refl and self.shadow_settings is not None,
-            "sky light": self.sky_light_enabled,
             "shadows": self.shadow_settings is not None,
-            "ambient occlusion": self.ao_settings is not None,
             "render-graph sky/fog nodes": self.render_graph is not None,
             "the brush preview": self.brush_preview is not None,
         }
@@ -472,11 +562,17 @@ class Rasterizer:
         own. `readback=False` returns the (H, W, 4) uint8 tensor on the
         device instead (no copy to the host; the 2D line overlay is skipped
         in that mode). `packed` renders a PackedScene built elsewhere (e.g.
-        by the JAX package) instead of packing the scene."""
+        by the JAX package) instead of packing the scene. With
+        set_supersample(n) the frame renders at (n*H, n*W) and is
+        box-filtered down to (H, W) on the device before the readback."""
         self._refuse_unported_settings(mesh)
         if assets is None:
             assets = Assets.default()
         self.hash_anim = hash_u32(scene.animation_frame & 0xFFFFFFFF)
+        # SSAA: everything below renders at the scaled size (the projection
+        # matrix depends on the aspect only)
+        ss = max(1, int(self.supersample))
+        width, height = width * ss, height * ss
 
         # device-resident scene cache, keyed by uuid tokens (not id(), which
         # CPython reuses after GC) and the device
@@ -535,9 +631,13 @@ class Rasterizer:
             brdf_ggx=self.brdf == "ggx",
             refl_samples=self.reflection_samples if self.render_mode.d3_active else 0,
             refl_scale=self.reflection_scale,
+            ao_taps=self._ao_taps() if self.render_mode.d3_active else None,
+            sky_light=self.sky_light_enabled and self.render_mode.d3_active,
         )
         self.frame_args = frame_args
         frame = render_frame(**frame_args)
+        if ss > 1:
+            frame = ssaa_downsample(frame, ss)
         if not readback:
             return frame
         out = frame.cpu().numpy()

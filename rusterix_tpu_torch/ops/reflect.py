@@ -8,10 +8,13 @@ traces it through the ray-intersect kernel (`rt_kernel.intersect_rays_pallas`,
 B3), shades the hits with Cook-Torrance direct light plus the ambient
 uniform (`_shade_reflection_hits`), and Fresnel-weights the sum.
 `apply_reflections` composites the result onto the display-encoded frame.
+`reflection_pass_scaled` with scale > 1 traces every scale-th pixel of each
+axis and upsamples the result bilinearly, as `jax.image.resize` does
+(`_resize_bilinear`). `sky_light_pass` casts one mirror ray per pixel
+through the same kernel and adds sky-tinted ambient where it escapes.
 
-Ported: full resolution (`reflection_pass_scaled` with scale 1), no
-shadow maps at the hits, the sRGB transfer. Reflections at a reduced scale
-and the scenevm tonemap raise NotImplementedError.
+Ported: no shadow maps at the hits, the sRGB transfer. The scenevm
+tonemap raises NotImplementedError.
 
 The sampling math is written in the rounding XLA's CPU build gives the
 JAX package's expressions (`_fma` where XLA fuses a product into a sum),
@@ -277,7 +280,8 @@ def _shade_reflection_hits(t, tri, ox, oy, oz, dx, dy, dz, d3, atlas, lights,
     return torch.where(hit[..., None], lit, sky_rgb.to(dev)[None, None, :])
 
 
-def reflection_rays(g, hit, width: int, height: int, sample: int = 0) -> dict:
+def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
+                    stride: int = 1) -> dict:
     """One GGX reflection ray per covered pixel (`hit`) from the G-buffer
     `g` (gbuffer_pass) -> dict of (H, W) fields: origin o_x, o_y, o_z (parked
     at 1e8 where the pixel casts no ray), direction d_x, d_y, d_z ((0, -1,
@@ -286,7 +290,10 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0) -> dict:
     The sample hashes its own uniforms (WGSL hash33, seeded with the world
     position and the pixel coordinates), importance-samples the GGX half
     vector around the pixel normal (sample_ggx, 3d_shader.wgsl:61-74) and
-    reflects the view ray about it."""
+    reflects the view ray about it. With `stride` > 1 the fields are every
+    stride-th pixel of a full-resolution frame and the seeds use its pixel
+    coordinates, so each ray equals the full-resolution pass's at the same
+    pixel."""
     dev = g["world"].device
     normal, vdir = g["normal"], g["view_dir"]
     rough = torch.clamp(g["roughness"], 0.045, 1.0)
@@ -310,9 +317,11 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0) -> dict:
     a_r = rough * rough
     a2 = a_r * a_r
 
-    # hash seeds in pixel coordinates (f32(px) in the WGSL)
-    xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :].expand(height, width)
-    ys = torch.arange(height, dtype=torch.float32, device=dev)[:, None].expand(height, width)
+    # hash seeds in full-resolution pixel coordinates (f32(px) in the WGSL)
+    xs = (torch.arange(width, dtype=torch.float32, device=dev) * stride)[None, :].expand(
+        height, width)
+    ys = (torch.arange(height, dtype=torch.float32, device=dev) * stride)[:, None].expand(
+        height, width)
     u1, u2 = _hash33(wx + (xs * 0.5 + float(sample)), wy + ys * 0.5,
                      wz + float(np.float32(sample * 7.31)))
     phi = float(np.float32(2.0 * math.pi)) * u1
@@ -345,17 +354,21 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0) -> dict:
 
 
 def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniforms,
-                    width: int, height: int, sample_mode: int = 0, samples: int = 1):
+                    width: int, height: int, sample_mode: int = 0, samples: int = 1,
+                    stride: int = 1):
     """GGX reflection radiance for every covered pixel -> ((H, W, 3) linear,
     (H, W) applied mask; pixels whose samples all faced away keep 0).
 
     Each sample casts reflection_rays, traces them through the
     ray-intersect kernel against the whole packed scene, shades the hits
     and Fresnel-weights the sum (3d_shader.wgsl:764-826). The range cap is
-    uniforms["refl_dist"] (max_sky_distance)."""
+    uniforms["refl_dist"] (max_sky_distance). With `stride` > 1 the inputs
+    are every stride-th pixel of a full-resolution frame (its G-buffer and
+    ray seeds at those pixels), and the result equals the full-resolution
+    pass subsampled there."""
     dev = z.device
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
-                     width, height, sample_mode)
+                     width, height, sample_mode, stride=stride)
     f0 = 0.04 + (g["base"] - 0.04) * g["metallic"][..., None]
     max_dist = float(np.float32(uniforms["refl_dist"]))
     sky_rgb = torch.from_numpy(np.asarray(uniforms["refl_sky"], np.float32))
@@ -363,7 +376,7 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
     accum = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
     wsum = torch.zeros((height, width), dtype=torch.float32, device=dev)
     for s in range(samples):
-        r = reflection_rays(g, hit, width, height, s)
+        r = reflection_rays(g, hit, width, height, s, stride)
         ray = (r["o_x"], r["o_y"], r["o_z"], r["d_x"], r["d_y"], r["d_z"])
         t, tri = intersect_rays_pallas(d3["pos"], d3["valid"], *ray, max_dist, height, width)
         tri = torch.where(r["ok"], tri, -1)
@@ -381,18 +394,129 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
     return refl, wsum > 0.0
 
 
+def _bilinear_taps(m: int, n: int, device):
+    """jax.image.resize's bilinear weights from m samples to n along one
+    axis -> (j0, j1, w0, w1), each (n,): output i reads input j0 with weight
+    w0 and j1 = j0 + 1 with w1. Half-pixel centres, the triangle kernel,
+    weights renormalised over the taps inside the input (its edges), in the
+    f32 rounding XLA gives jax's expressions."""
+    inv = float(np.float32(1.0 / (n / m)))
+    s = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * inv - 0.5
+    j0 = torch.floor(s)
+    taps = []
+    for j in (j0, j0 + 1.0):
+        w = torch.clamp(1.0 - (s - j).abs(), min=0.0)
+        taps.append(torch.where((j >= 0) & (j < m), w, 0.0))
+    total = taps[0] + taps[1]
+    keep = (total.abs() > float(np.float32(1000.0 * np.finfo(np.float32).eps))) & (
+        s >= -0.5) & (s <= m - 0.5)
+    total = torch.where(total != 0, total, 1.0)
+    w0, w1 = (torch.where(keep, w / total, 0.0) for w in taps)
+    j0 = j0.long()
+    return torch.clamp(j0, 0, m - 1), torch.clamp(j0 + 1, 0, m - 1), w0, w1
+
+
+def _contract(x, dim: int, taps):
+    """The bilinear contraction along `dim`: fma(x[j1], w1, x[j0] * w0), the
+    two nonzero terms of XLA's dot in its order."""
+    j0, j1, w0, w1 = taps
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    a = x.index_select(dim, j0) * w0.reshape(shape)
+    return _fma(x.index_select(dim, j1), w1.reshape(shape), a)
+
+
+def _resize_bilinear(img, height: int, width: int):
+    """(h, w) or (h, w, c) f32 -> (height, width[, c]) as
+    jax.image.resize(img, ..., "bilinear") gives it when upsampling: one
+    contraction per axis, the cheaper order first as jnp.einsum picks it
+    (the width first on a landscape frame)."""
+    h, w = img.shape[:2]
+    dev = img.device
+    t_h, t_w = _bilinear_taps(h, height, dev), _bilinear_taps(w, width, dev)
+    height_first = h * w * height + w * height * width
+    width_first = h * w * width + h * width * height
+    if width_first <= height_first:
+        return _contract(_contract(img, 1, t_w), 0, t_h)
+    return _contract(_contract(img, 0, t_h), 1, t_w)
+
+
 def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                            uniforms, width: int, height: int, sample_mode: int = 0,
                            samples: int = 1, scale: int = 1):
-    """reflection_pass at 1/scale resolution; only scale 1 (the full-res,
-    reference-exact path) is ported."""
-    if scale > 1:
-        raise NotImplementedError(
-            "reflections at a reduced scale (reflection_scale > 1) are not ported "
-            "to rusterix_tpu_torch yet"
-        )
-    return reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
-                           uniforms, width, height, sample_mode, samples)
+    """reflection_pass at 1/scale resolution, bilinearly upsampled.
+
+    scale 1 is the full-resolution pass. With scale > 1 the pass traces
+    every scale-th pixel of each axis ((height // scale) x (width // scale)
+    rays per sample), the radiance (zero where no sample applied) and the
+    applied mask are upsampled as jax.image.resize does, and a pixel takes
+    the upsampled radiance where the upsampled mask exceeds 0.5 and the
+    full-resolution pre-pass covers it."""
+    if scale <= 1:
+        return reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
+                               uniforms, width, height, sample_mode, samples)
+    hs, ws = height // scale, width // scale
+    sl = (slice(0, hs * scale, scale), slice(0, ws * scale, scale))
+    refl_lo, mask_lo = reflection_pass(
+        z[sl], idx[sl], hit[sl], attr_planes, tri_id, d3, atlas, lights, uniforms,
+        ws, hs, sample_mode, samples, stride=scale,
+    )
+    refl_lo = torch.where(mask_lo[..., None], refl_lo, 0.0)
+    up = _resize_bilinear(refl_lo, height, width)
+    mask_up = _resize_bilinear(mask_lo.float(), height, width) > 0.5
+    return up, mask_up & hit
+
+
+def sky_rays(g, hit) -> dict:
+    """The sky-light ray of each covered pixel from the G-buffer `g` -> dict
+    of (H, W) fields: origin o_x, o_y, o_z (parked at 1e8 where no ray is
+    cast), direction d_x, d_y, d_z (the view ray mirrored about the normal;
+    (0, -1, 0) where none), live (the ray is cast: a lit surface whose
+    normal and mirror ray both point up) and sky_factor (max(N.y, 0)). The
+    mirror ray and its origin offset round as reflection_rays' do."""
+    normal = g["normal"]
+    nxg, nyg, nzg = normal.unbind(-1)
+    vx, vy, vz = g["view_dir"].unbind(-1)
+    wx, wy, wz = g["world"].unbind(-1)
+    sky_factor = torch.clamp(nyg, min=0.0)
+    # r = reflect(-V, N) = 2 (N.V) N - V
+    ndv = _fma(nzg, vz, _fma(nyg, vy, nxg * vx))
+    rx = _fma(2.0 * ndv, nxg, -vx)
+    ry = _fma(2.0 * ndv, nyg, -vy)
+    rz = _fma(2.0 * ndv, nzg, -vz)
+    live = (hit & ~g["fullbright"] & (_dot(normal, normal) > 0.5) & (sky_factor > 0.0)
+            & (ry > 0.0))
+    return {
+        "o_x": torch.where(live, _fma(nxg, 0.01, wx), 1e8),
+        "o_y": torch.where(live, _fma(nyg, 0.01, wy), 1e8),
+        "o_z": torch.where(live, _fma(nzg, 0.01, wz), 1e8),
+        "d_x": torch.where(live, rx, 0.0),
+        "d_y": torch.where(live, ry, -1.0),
+        "d_z": torch.where(live, rz, 0.0),
+        "live": live,
+        "sky_factor": sky_factor,
+    }
+
+
+def sky_light_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
+                   width: int, height: int, sample_mode: int = 0):
+    """Directional sky-bounce ambient (the WGSL `sky_contribution`,
+    3d_shader.wgsl:744-758) -> (radiance (H, W, 3) linear, applied mask).
+
+    Per covered pixel ONE mirror ray (sky_rays), range-capped by
+    uniforms["refl_dist"], through the ray-intersect kernel (B3); where it
+    escapes, the pixel gains refl_sky * max(N.y, 0) * albedo. The caller
+    scales the term by the AO factor where AO is on."""
+    g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
+                     width, height, sample_mode)
+    r = sky_rays(g, hit)
+    ray = (r["o_x"], r["o_y"], r["o_z"], r["d_x"], r["d_y"], r["d_z"])
+    max_dist = float(np.float32(uniforms["refl_dist"]))
+    _t, tri = intersect_rays_pallas(d3["pos"], d3["valid"], *ray, max_dist, height, width)
+    vis = r["live"] & (tri < 0)
+    sky_rgb = torch.from_numpy(np.asarray(uniforms["refl_sky"], np.float32)).to(z.device)
+    term = sky_rgb[None, None, :] * r["sky_factor"][..., None] * g["base"]
+    return torch.where(vis[..., None], term, 0.0), vis
 
 
 def apply_reflections(frame_rgba_f32, refl, rmask, tonemap: bool = False):

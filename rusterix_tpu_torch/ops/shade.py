@@ -187,7 +187,7 @@ def _uniform(uniforms, key, device):
 def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
                  width: int, height: int, sample_mode: int = 0,
                  has_blend: bool = False, has_material: bool = False,
-                 has_matmap: bool = False, shaders: tuple = ()):
+                 has_matmap: bool = False, shaders: tuple = (), stride: int = 1):
     """Per-pixel G-buffer from the winning candidates -> dict of (H, W)
     and (H, W, 3) fields: world, view_dir, normal, base, roughness,
     metallic, texel (RGBA 0..1), fullbright.
@@ -195,7 +195,10 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
     z, idx, hit: the visibility result at (height, width), idx indexing the
     setup pass's (unsorted) candidate slots; attr_planes (T2, 21) and
     tri_id (T2,) from the setup pass; meta: the packed d3 fields; uniforms:
-    the Rasterizer's host dict."""
+    the Rasterizer's host dict. `stride` > 1: the (height, width) inputs
+    are every stride-th pixel of a full-resolution frame; the attribute
+    planes (full-resolution screen space) are evaluated at the true pixel
+    centres x*stride + 0.5 and the unprojection uses the full frame's size."""
     refused = {
         "vertex blend (has_blend)": has_blend,
         "material (has_material)": has_material,
@@ -232,8 +235,8 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
     has_n = g[..., 21]
     rgba = g[..., 23:27]
 
-    px = torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5
-    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5
+    px = torch.arange(width, dtype=torch.float32, device=dev)[None, :] * stride + 0.5
+    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None] * stride + 0.5
     px, py = px.expand(height, width), py.expand(height, width)
 
     def interp(i):
@@ -246,7 +249,7 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
 
     world = screen_to_world(
         px, py, z, _uniform(uniforms, "inv_proj", dev), _uniform(uniforms, "inv_view", dev),
-        float(width), float(height),
+        float(width * stride), float(height * stride),
     )
 
     # normal: interpolate, then flip toward the viewer (rasterizer.rs:1083-1099)

@@ -8,7 +8,12 @@ here through the port's host layer because bench.py imports jax.
 
 `build_map_refl_scene` is the bench's `map_1920x1080_ggx_refl1`
 configuration (bench.py `build_map_refl_scene`): the map with a sun, the
-GGX BRDF and one reflection ray per pixel.
+GGX BRDF and one reflection ray per pixel. `build_map_ao_scene`,
+`build_map_refl_half_scene` and `build_map_ssaa2_scene` are the bench's
+`map_1920x1080_ao`, `map_1920x1080_ggx_refl1_half` and
+`map_1920x1080_ssaa2` configurations. `build_sky_light_scene` is the
+repo's own sky-light scene (a floor the sky can light; the map's walls all
+face sideways).
 """
 
 from __future__ import annotations
@@ -16,7 +21,17 @@ from __future__ import annotations
 import numpy as np
 
 from .builders import D3Builder, MapScript
-from .models import Assets, D3FirstPCamera, Light, LightType, Scene, Texture
+from .models import (
+    Assets,
+    Batch3D,
+    D3FirstPCamera,
+    D3OrbitCamera,
+    Light,
+    LightType,
+    PixelSource,
+    Scene,
+    Texture,
+)
 
 MAP_SOURCE_HEADER = """
 set_default("wall_tex", "brick")
@@ -75,3 +90,62 @@ def build_map_refl_scene(width: int, height: int, device=None):
     rast.day_factor = 1.0
     rast.set_brdf("ggx").set_reflections(1)
     return rast, scene, assets
+
+
+def build_map_ao_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the map with screen-space ambient
+    occlusion, 8 samples within 0.6 world units (bench.py:659-664)."""
+    rast, scene, assets = build_map_scene(width, height, device=device)
+    rast.set_ambient_occlusion(True, samples=8, radius=0.6)
+    return rast, scene, assets
+
+
+def build_map_refl_half_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the GGX-reflection map with its
+    reflections traced at half resolution in each axis and upsampled
+    (bench.py:676-678, `set_reflections(1, scale=2)`)."""
+    rast, scene, assets = build_map_refl_scene(width, height, device=device)
+    rast.set_reflections(1, scale=2)
+    return rast, scene, assets
+
+
+def build_map_ssaa2_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the map with 2x2 supersampling, the
+    frame rendered at (2H, 2W) and box-filtered down (bench.py:686-688)."""
+    rast, scene, assets = build_map_scene(width, height, device=device)
+    rast.set_supersample(2)
+    return rast, scene, assets
+
+
+def build_sky_light_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): a grey floor slab, a brown wall and a
+    point light under a blue sky, seen by an orbit camera at elevation 0.35
+    and distance 8 (tests/test_reflect.py:252-276), with the sky light on
+    and the bench's AO (8 samples within 0.6 world units). Mirror rays of
+    the floor near the camera reach the sky; those next to the wall hit
+    it."""
+    from .ops.raster import Rasterizer
+
+    floor = (
+        Batch3D.from_box(-6, -1.2, -4, 12, 0.2, 8)
+        .set_source(PixelSource.pixel((120, 120, 120, 255)))
+        .with_computed_normals()
+    )
+    wall = (
+        Batch3D.from_box(-6, -1.0, -4, 0.3, 5.0, 8)
+        .set_source(PixelSource.pixel((90, 60, 40, 255)))
+        .with_computed_normals()
+    )
+    scene = Scene.from_static([], [floor, wall]).set_lights(
+        [Light(LightType.Point).with_position([2, 3, 2]).with_intensity(1.0).compile()]
+    )
+    cam = D3OrbitCamera()
+    cam.azimuth = 0.0
+    cam.elevation = 0.35
+    cam.set_parameter_f32("distance", 8.0)
+    rast = Rasterizer.setup(
+        None, cam.view_matrix(), cam.projection_matrix(width, height), device=device
+    ).ambient((0.2, 0.2, 0.2, 1.0))
+    rast.background((60, 110, 220, 255))
+    rast.set_sky_light(True).set_ambient_occlusion(True, samples=8, radius=0.6)
+    return rast, scene, Assets.default()

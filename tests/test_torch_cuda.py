@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: the megakernel (B1, both BRDFs, the
-profiling cuts), the visibility pre-pass (B2), the
-ray intersect (B3) and its preparation kernel against their plain torch
-versions on the same inputs, and the whole CUDA frames (opaque and
-with GGX reflections) against the CPU frames.
+ambient-occlusion input, the profiling cuts), the visibility pre-pass
+(B2), the ray intersect (B3) and its preparation kernel against their
+plain torch versions on the same inputs, and the whole CUDA frames (opaque,
+with GGX reflections at full and half scale, with AO, with sky light, with
+SSAA) against the CPU frames.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
 jax, so they also run on a machine without it:
@@ -36,7 +37,14 @@ from rusterix_tpu_torch.models import RenderSettings, Tile  # noqa: E402
 from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas  # noqa: E402
 from rusterix_tpu_torch.ops.raster import frame_inputs  # noqa: E402
 from rusterix_tpu_torch.ops.setup_pass import setup_pass  # noqa: E402
-from rusterix_tpu_torch.scenes import build_map_refl_scene, build_map_scene  # noqa: E402
+from rusterix_tpu_torch.scenes import (  # noqa: E402
+    build_map_ao_scene,
+    build_map_refl_half_scene,
+    build_map_refl_scene,
+    build_map_scene,
+    build_map_ssaa2_scene,
+    build_sky_light_scene,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -379,4 +387,47 @@ def test_cuda_reflection_frame_matches_cpu_frame(cuda):
         frames.append(rast.rasterize(scene, 192, 96, 40, assets).astype(np.int32))
     after = (megakernel.launches, visibility_pallas.launches, rt_kernel.launches)
     assert all(b > a for a, b in zip(counts, after))
+    assert np.abs(frames[0] - frames[1]).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [f"box{i}" for i in range(len(CASES))] + ["map_333x77"])
+def test_ao_kernel_matches_plain_version(cuda, case):
+    """B1's ao_img variant (an (H, W) factor on the two ambient terms) on
+    the box cases and on the map at a size off the 64x128 tile grid, with a
+    factor drawn from a seed."""
+    if case == "map_333x77":
+        (args, kwargs), (width, height) = _map_frame_inputs(333, 77), (333, 77)
+    else:
+        (args, kwargs), (width, height) = _box_frame_inputs(*CASES[int(case[3:])]), (W, H)
+    rng = np.random.default_rng(len(case) + width)
+    ao = torch.from_numpy(rng.uniform(0.2, 1.0, (height, width)).astype(np.float32))
+    args, kwargs = _to(args, dict(kwargs, ao_img=ao), cuda)
+    before = megakernel.launches
+    rgba, z = megakernel.mega_render(*args, **kwargs)
+    ref_rgba, ref_z = megakernel.mega_render_reference(*args, **kwargs)
+    plain, _ = megakernel.mega_render(*args, **dict(kwargs, ao_img=None))
+    torch.cuda.synchronize()
+    assert megakernel.launches == before + 2
+    assert torch.equal(z, ref_z)
+    diff = (megakernel.unpack_frame_u32(rgba).int() - megakernel.unpack_frame_u32(ref_rgba).int())
+    assert int(diff.abs().max()) <= 1
+    assert not torch.equal(rgba, plain), "ao_img changed nothing"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build,width,height", [
+    (build_map_ao_scene, 256, 128),
+    (build_sky_light_scene, 256, 128),
+    (build_map_refl_half_scene, 256, 128),
+    (build_map_ssaa2_scene, 128, 64),
+], ids=["ao", "sky_light", "refl_half", "ssaa2"])
+def test_cuda_frame_of_a_later_path_matches_cpu_frame(cuda, build, width, height):
+    """The AO map, the sky-light scene, the half-scale reflection map and
+    the SSAA2 map through Rasterizer on the card and on the CPU."""
+    frames = []
+    for device in (cuda, "cpu"):
+        rast, scene, assets = build(width, height, device=device)
+        frames.append(rast.rasterize(scene, width, height, 40, assets).astype(np.int32))
+    assert frames[0].shape == (height, width, 4)
     assert np.abs(frames[0] - frames[1]).max() <= 1

@@ -187,17 +187,13 @@ UNPORTED = {
     "render-graph": _set("render_graph", object()),
     "brush preview": _set("brush_preview", object()),
     "shadows": _set("shadow_settings", {"res": 128}),
-    "ambient occlusion": _set("ao_settings", {"samples": 4, "radius": 0.5}),
-    "reduced scale": _reflect(_set("reflection_scale", 2)),
     "reflections with shadows": _reflect(_set("shadow_settings", {"res": 128})),
     "transparency layers": _reflect(_set("transparency_layers", 2),
                                     _packed_field("d3_opacity", "valid", 1.0)),
-    "sky light": _set("sky_light_enabled", True),
     "scenevm tonemap": _set("tonemap", "scenevm"),
     "vertex blend": _packed_field("d3", "kind2", 1),
     "material": _packed_field("d3", "rough", 0.3),
     "matmap": _packed_field("d3", "m1_slot", 0),
-    "SSAA": _set("supersample", 2),
 }
 
 
