@@ -11,15 +11,22 @@ kernel); C, the map with ambient occlusion (B2, the AO pass, B1's ao_img
 variant); D, the sky-light floor scene with AO (B2, B1 with ao_img, one sky
 ray per pixel through B3); E, the GGX-reflection map with its reflections
 at half scale (B3 on 960x540 rays); F, the map with 2x2 SSAA (B1 at
-3840x2160). For each path it checks that the frame went through exactly
+3840x2160); G, the bench's shadowed map (a sun and shadow maps: B1's shadow
+variant reading four cube maps and the sun's, baked in plain torch on the
+first frame); H, the GGX-reflection map with shadow maps (B1's GGX variant
+with shadows, B2, B3, and the maps looked up at the reflection hits). For
+each path it checks that the frame went through exactly
 the kernels of the path (launch counts zeroed before it and read right
 after it),
 holds every kernel against its plain torch version on the frame's own
-inputs (B1 also at the profiling cuts stage_cut 1 and 2), checks the CUDA
+inputs (B1 also at the profiling cuts stage_cut 1 and 2; with shadows bit
+for bit), checks the CUDA
 frames against the CPU frames at a small size, times the frames, the
 kernels and the plain versions with CUDA events (B1's kernel alone at
 stage_cut 0, 1 and 2, which splits its time into the scan, the texel stage
-and the lighting), and breaks the frames down: host wall time per step, and
+and the lighting; on G with and without the shadow table), times the
+shadow bake apart from the steady frames, and breaks the frames down: host
+wall time per step, and
 under torch.profiler the device time, device ops, busy share and each
 kernel's device time per frame. It prints each kernel's registers, shared
 memory and resident blocks an SM, and its bound. Every phase raises on
@@ -48,10 +55,15 @@ EXPECTED_LAUNCHES = {
     "D": {"B1": 1, "B2": 1, "B3": 1, "B3prep": 1},
     "E": {"B1": 1, "B2": 1, "B3": 1, "B3prep": 1},
     "F": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
+    "G": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
+    "H": {"B1": 1, "B2": 1, "B3": 1, "B3prep": 1},
 }
+# the shadowed paths: B1 equals its plain version bit for bit, and their
+# steady frames are counted after a first frame that bakes the maps
+SHADOWED = ("G", "H")
 # pixels where a later path's CUDA frame differs from its CPU frame at the
 # small size (each within RGBA_TOL); see PERF.md
-SMALL_PINNED = {"C": 0, "D": 0, "E": 0, "F": 0}
+SMALL_PINNED = {"C": 0, "D": 0, "E": 0, "F": 0, "G": 0, "H": 0}
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, f32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -79,6 +91,16 @@ OPS_SUN_EXTRA = 6        # has_sun * colour, accumulated (the BRDF is counted by
 OPS_PER_LIGHT = {0: 54, 1: 34, 2: 34, 3: 61, 4: 72, 5: 56}
 OPS_BRDF = {False: 58, True: 94}  # fast Blinn-Phong + Schlick; Cook-Torrance GGX
 OPS_AO = 1  # the ao_img variant: hemi * ao
+# the shadow variant (shadow.shadow_factor's expressions; a fused product
+# counts as two, abs as one), per texel read: a cube lookup (receiver minus
+# light 3, |.| 3 and max 2, range compare, offset 2, normal offset 6, |.| 3,
+# face tests 5, max 2, signs 3, u/v products 3, face sign tests 3, max 1, two
+# texel coordinates 6 each, depth compare 4, radiance scale 1) and a sun
+# lookup (receiver minus camera 3, depth dot 5, max, footprint 2, offset 2,
+# normal offset 6, minus camera 3, three dots 15, max, two texel coordinates
+# 5 each, range tests 5, depth compare 4, sun colour scale 3)
+OPS_CUBE_SHADOW = 52
+OPS_SUN_SHADOW = 60
 # f32 operations per ray of the preparation (12 min/max + 6 NaN tests + the
 # live test) and per (block, cell) key (gaps, distance, cull, compares)
 OPS_PREP_PER_RAY = 19
@@ -258,13 +280,29 @@ def reflection_kernel_inputs(rast_r, fi, scale: int = 1, sky: bool = False) -> d
             "rays": rays, "b3_in": b3_in}
 
 
+def bake_call(rast, shadow):
+    """A function of no arguments that bakes the shadow maps of the frame
+    `rast` last rendered, as its Rasterizer baked them (shadow: the port's
+    ops.shadow module) -> (flat table, params, spec)."""
+    fa = rast.frame_args
+    sun_entry, cubes = fa["shadow_spec"]
+    params, d3 = fa["shadow_params"], fa["d3"]
+    bounds = shadow.scene_bounds(d3["pos"].cpu().numpy(), d3["valid"].cpu().numpy())
+    cfg = rast.shadow_settings
+    return lambda: shadow.bake_shadow_pack(
+        d3, None, fa["lights"], [c[0] for c in cubes],
+        rast.sun_dir if sun_entry is not None else None, res=cfg["res"],
+        sun_res=cfg["sun_res"], trans_steps=int(np.clip(rast._rs_shadow_steps, 1, 4)),
+        max_shadow_distance=float(params[0]), bias=float(params[1]), bounds=bounds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     from rusterix_tpu_torch import _cuda
-    from rusterix_tpu_torch.ops import megakernel, reflect, rt_kernel, visibility_pallas
+    from rusterix_tpu_torch.ops import megakernel, reflect, rt_kernel, shadow, visibility_pallas
     from rusterix_tpu_torch.ops.raster import ambient_occlusion, frame_inputs, visibility_prepass
     from rusterix_tpu_torch.ops.setup_pass import setup_pass
     from rusterix_tpu_torch.ops.shade import gbuffer_pass
@@ -273,6 +311,8 @@ def main() -> int:
         build_map_refl_half_scene,
         build_map_refl_scene,
         build_map_scene,
+        build_map_shadow_refl_scene,
+        build_map_shadow_scene,
         build_map_ssaa2_scene,
         build_sky_light_scene,
     )
@@ -348,10 +388,21 @@ def main() -> int:
         "D": ("sky-light floor scene with AO", build_sky_light_scene),
         "E": ("GGX reflection map, reflections at half scale", build_map_refl_half_scene),
         "F": ("SSAA2 map, 3840x2160 inside", build_map_ssaa2_scene),
+        "G": ("shadowed map", build_map_shadow_scene),
+        "H": ("shadowed GGX reflection map", build_map_shadow_refl_scene),
     }
     paths = {}
     for key, (label, build) in later.items():
         r_, s_, a_ = build(W, H, device="cuda")
+        first_ms = None
+        if key in SHADOWED:
+            # the first frame bakes the maps; the launches are counted on a
+            # steady frame after it (the bake launches none of the kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r_.rasterize(s_, W, H, 40, a_, readback=False)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
         zero_counts()
         f_ = r_.rasterize(s_, W, H, 40, a_)
         torch.cuda.synchronize()
@@ -365,7 +416,7 @@ def main() -> int:
         print(f"main path {key} ({label}): frame {f_.shape} {f_.dtype}, rendered at "
               f"{fa_['width']}x{fa_['height']}, launches {counts}")
         paths[key] = {"label": label, "rast": r_, "scene": s_, "assets": a_, "frame": f_,
-                      "counts": counts}
+                      "counts": counts, "first_ms": first_ms}
     # what each path adds to the opaque map, in pixels that changed by more than 1
     for key, base in (("C", frame), ("E", frame_o), ("F", frame)):
         d = np.abs(paths[key]["frame"].astype(int) - base.astype(int)).max(-1)
@@ -374,6 +425,18 @@ def main() -> int:
               f"{changed}")
         if changed < W * H // 1000:
             raise SystemExit(f"path {key}'s feature changed only {changed} pixels")
+    # what the shadow maps change in G and H (the bench map's walls shade
+    # each other only in a few places)
+    for key in SHADOWED:
+        p_ = paths[key]
+        r_, s_, a_ = p_["rast"], p_["scene"], p_["assets"]
+        off = r_.set_shadows(False).rasterize(s_, W, H, 40, a_)
+        r_.set_shadows(True).rasterize(s_, W, H, 40, a_)  # the cached maps again
+        d = np.abs(p_["frame"].astype(int) - off.astype(int)).max(-1)
+        print(f"path {key}: px changed by the shadow maps {int((d > 0).sum())} "
+              f"(by more than 1: {int((d > 1).sum())})")
+        if int((d > 0).sum()) == 0:
+            raise SystemExit(f"path {key}'s shadow maps changed no pixel")
     launches = {k: counts_a[k] + counts_b[k] + sum(p_["counts"][k] for p_ in paths.values())
                 for k in counts_a}
 
@@ -381,7 +444,8 @@ def main() -> int:
     fi_o = frame_inputs(**rast.frame_args)
     args, kwargs = fi_o["mega_args"], fi_o["mega_kwargs"]
     rgba_k, z_k = megakernel.mega_render(*args, **kwargs)
-    rgba_p, z_p, b1_tests = megakernel.mega_render_reference(*args, **kwargs, return_work=True)
+    rgba_p, z_p, work = megakernel.mega_render_reference(*args, **kwargs, return_work=True)
+    b1_tests = work["vis_tests"]
     torch.cuda.synchronize()
     if not torch.equal(z_k, z_p):
         raise SystemExit(f"B1: z_eff differs from the plain version at {int((z_k != z_p).sum())} px")
@@ -395,7 +459,8 @@ def main() -> int:
     if not gkwargs["brdf_ggx"]:
         raise SystemExit("the reflection frame's megakernel call is not the GGX variant")
     rgba_k, z_k = megakernel.mega_render(*gargs, **gkwargs)
-    rgba_p, z_p, ggx_tests = megakernel.mega_render_reference(*gargs, **gkwargs, return_work=True)
+    rgba_p, z_p, work = megakernel.mega_render_reference(*gargs, **gkwargs, return_work=True)
+    ggx_tests = work["vis_tests"]
     torch.cuda.synchronize()
     if not torch.equal(z_k, z_p):
         raise SystemExit(f"B1 GGX: z_eff differs at {int((z_k != z_p).sum())} px")
@@ -474,24 +539,39 @@ def main() -> int:
             p_["pre"] = visibility_prepass(fi_, W, H)
             k_["ao_img"] = ambient_occlusion(p_["pre"], fa_["uniforms"], H, fa_["ao_taps"])
         p_["mega"] = (a_, k_)
+        if key in SHADOWED and not (k_["shadow_rows"] is not None and k_["shadow_rows"].is_cuda):
+            raise SystemExit(f"path {key}: the frame's B1 call has no shadow table on the card")
         rgba_l, z_l = megakernel.mega_render(*a_, **k_)
-        rgba_lp, z_lp, tests = megakernel.mega_render_reference(*a_, **k_, return_work=True)
+        rgba_lp, z_lp, work_b1 = megakernel.mega_render_reference(*a_, **k_, return_work=True)
+        tests = work_b1["vis_tests"]
+        p_["shadow_reads"] = (work_b1["cube_reads"], work_b1["sun_reads"])
         cut1 = megakernel.mega_render(*a_, **k_, stage_cut=1)[0]
         torch.cuda.synchronize()
         if not torch.equal(z_l, z_lp):
             raise SystemExit(f"B1 path {key}: z_eff differs at {int((z_l != z_lp).sum())} px")
         diff = rgba_diff(rgba_l, rgba_lp)
         p_["b1_err"], p_["b1_tests"], p_["covered"] = int(diff.max()), tests, int((cut1 >= 0).sum())
+        # the shadow table counts the texels read (at most its size)
+        reads = sum(p_["shadow_reads"])
+        table = k_.get("shadow_rows")
         p_["b1_bytes"] = nbytes(*[a for a in a_ if isinstance(a, torch.Tensor)], rgba_l, z_l,
-                                *([k_["ao_img"]] if "ao_img" in k_ else []))
+                                *([k_["ao_img"]] if "ao_img" in k_ else [])) + (
+            0 if table is None else min(4 * reads, nbytes(table)))
         print(f"B1 vs plain (path {key}, {fa_['width']}x{fa_['height']}"
               f"{', ao_img' if 'ao_img' in k_ else ''}): z_eff equal, rgba max diff "
               f"{p_['b1_err']} (tolerance {RGBA_TOL}), px differing "
               f"{int((diff.amax(-1) > 0).sum())}, visibility tests {tests}, "
               f"px with a winner {p_['covered']}")
-        if p_["b1_err"] > RGBA_TOL:
+        if p_["b1_err"] > (0 if key in SHADOWED else RGBA_TOL):
             raise SystemExit(f"B1 path {key}: the megakernel disagrees with its plain version")
-        if key == "F":
+        if key in SHADOWED:
+            cube_reads, sun_reads = p_["shadow_reads"]
+            print(f"B1 shadow lookups (path {key}): {cube_reads} cube texels and {sun_reads} sun "
+                  f"texels read, table {k_['shadow_rows'].numel()} f32, spec "
+                  f"{k_['shadow_spec']}")
+            if cube_reads == 0 or sun_reads == 0:
+                raise SystemExit(f"B1 path {key}: a shadow lookup read no texel")
+        if key in ("F", "G"):
             continue
         kin_ = reflection_kernel_inputs(r_, fi_, scale=fa_["refl_scale"], sky=key == "D")
         z2_, i2_, _h2 = visibility_pallas.visibility_pass_pallas(*kin_["b2_in"])
@@ -630,6 +710,26 @@ def main() -> int:
                   f"{summary(p_['walk_t'])}; rt_prepare_cuda {summary(p_['prep_t'])}; "
                   f"intersect_rays_pallas {summary(p_['b3_t'])}; plain "
                   f"{summary(p_['b3_plain_t'])} on {gpu}")
+    # G: B1 alone on the same inputs without the shadow table (the lookup's
+    # own cost), and the bake apart from the steady frames
+    a_g, k_g = paths["G"]["mega"]
+    no_shadow_alone = median(cuda_times(
+        megakernel.prepare_launch(*a_g, **dict(k_g, shadow_rows=None, shadow_spec=None)), 100))
+    print(f"B1 kernel alone on the shadowed map's inputs (stage_cut 0): with the shadow table "
+          f"{paths['G']['alone']:.4f} ms, without {no_shadow_alone:.4f} ms (medians of 100) "
+          f"on {gpu}")
+    for key in SHADOWED:
+        p_ = paths[key]
+        bake = bake_call(p_["rast"], shadow)
+        if not torch.equal(bake()[0], p_["rast"].frame_args["shadow_rows"]):
+            raise SystemExit(f"path {key}: the bake timed here is not the frame's bake")
+        p_["bake_ms"] = wall_ms(bake, 3)
+        bake_prof = profile_calls(bake, 1)
+        bake_dev = ("device time not measured" if bake_prof is None else
+                    f"device {bake_prof['device_ms']:.4f} ms in {bake_prof['ops']:.1f} device ops")
+        print(f"shadow bake (path {key}, plain torch, 25 depth renders): first frame "
+              f"{p_['first_ms']:.4f} ms of wall time with the bake; bake alone median "
+              f"{p_['bake_ms']:.4f} ms of wall time (n=3), {bake_dev} on {gpu}")
     a_c, k_c = paths["C"]["mega"]
     no_ao_alone = median(cuda_times(
         megakernel.prepare_launch(*a_c, **dict(k_c, ao_img=None)), 100))
@@ -712,7 +812,8 @@ def main() -> int:
                     "D": {"B1": "mega_kernel", "B2": "visibility_kernel", "B3": "rt_kernel",
                           "B3prep": "rt_prepare_kernel"},
                     "F": {"B1": "mega_kernel"}}
-    path_kernels["E"] = path_kernels["D"]
+    path_kernels["E"] = path_kernels["H"] = path_kernels["D"]
+    path_kernels["G"] = path_kernels["F"]
     for key, p_ in paths.items():
         r_, s_, as_ = p_["rast"], p_["scene"], p_["assets"]
         p_["dev"] = report_profile(
@@ -730,6 +831,9 @@ def main() -> int:
         "B3": _cuda.resources("rt_walk"),
         "B3prep": _cuda.resources("rt_prepare", prep_k["ncells"]),
     }
+    a_g, k_g = paths["G"]["mega"]
+    res["B1 shadows (G)"] = _cuda.resources("mega", a_g[0].shape[0] // 128,
+                                            len(k_g["light_spec"]), int(a_g[8].shape[0]))
     for key, r in res.items():
         warps = 32 if key == "B3" else 8  # B3's walk: 1024 threads a block, the others 256
         print(f"resources {key}: {r['registers']} registers, "
@@ -774,12 +878,16 @@ def main() -> int:
     later_rows = []
     for key, name in (("C", "mega_render ao_img (AO map)"),
                       ("D", "mega_render ao_img (sky-light scene)"),
-                      ("F", "mega_render 3840x2160 (SSAA2 map)")):
+                      ("F", "mega_render 3840x2160 (SSAA2 map)"),
+                      ("G", "mega_render shadows (shadowed map)"),
+                      ("H", "mega_render brdf_ggx shadows (shadowed reflection map)")):
         p_ = paths[key]
         a_, k_ = p_["mega"]
         n_occ_ = int(a_[8].shape[0])
-        ops = p_["b1_tests"] * OPS_PER_VIS_TEST + shade_ops(p_["covered"], 0, k_, n_occ_,
-                                                            int(a_[11]))
+        cube_reads, sun_reads = p_["shadow_reads"]
+        ops = (p_["b1_tests"] * OPS_PER_VIS_TEST
+               + shade_ops(p_["covered"], 0, k_, n_occ_, int(a_[11]))
+               + cube_reads * OPS_CUBE_SHADOW + sun_reads * OPS_SUN_SHADOW)
         ms, by = bound(p_["b1_bytes"], ops)
         print(f"bound B1 path {key}: {p_['b1_bytes']} bytes, {ops} f32 ops "
               f"({p_['b1_tests']} tests, {p_['covered']} px shaded) -> {ms:.6f} ms, bound by {by}; "

@@ -11,6 +11,10 @@ torch.profiler (20 calls) all device time of the call and the device time
 of each hand-written kernel by name. The megakernel is timed at stage_cut
 0, 1 and 2 on both frames' inputs, so the differences split its time into
 the scan, the interpolation + texel fetch, and the lighting + fog + pack.
+Where the tree has the shadowed map (`scenes.build_map_shadow_scene`), the
+megakernel is also timed on its inputs with and without the shadow table.
+Each tree's line also gives the megakernel's registers, shared memory,
+resident blocks an SM and ptxas's spill report.
 
 With `--against DIR` the same measurement runs in a process of its own for
 each turn (DIR holds another version of the package, for example the parent
@@ -41,7 +45,7 @@ def measure(tree: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
-    from rusterix_tpu_torch import _cuda
+    from rusterix_tpu_torch import _cuda, scenes
     from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas
     from rusterix_tpu_torch.ops.raster import frame_inputs
     from rusterix_tpu_torch.scenes import build_map_refl_scene, build_map_scene
@@ -72,12 +76,26 @@ def measure(tree: str) -> dict:
         for cut in (0, 1, 2):
             times[f"B1 {label} stage_cut={cut}"] = timed(
                 lambda: megakernel.mega_render(*args, **kwargs, stage_cut=cut))
+    b1 = _cuda.resources("mega", args[0].shape[0] // 128, len(kwargs["light_spec"]),
+                         int(args[8].shape[0]))
+    with open(_cuda.BUILD_LOG) as f:  # csrc/megakernel.cu compiles first
+        b1["spill"] = [line.strip() for line in f if "spill" in line][0]
     kin = cs.reflection_kernel_inputs(rast, fi)
     b2_in, b3_in = kin["b2_in"], kin["b3_in"]
     times["B2"] = timed(lambda: visibility_pallas.visibility_pass_pallas(*b2_in))
     times["B3 (preparation + walk)"] = timed(lambda: rt_kernel.intersect_rays_pallas(*b3_in))
+    if hasattr(scenes, "build_map_shadow_scene"):
+        rast, scene, assets = scenes.build_map_shadow_scene(cs.W, cs.H, device="cuda")
+        rast.rasterize(scene, cs.W, cs.H, 40, assets)
+        fi = frame_inputs(**rast.frame_args)
+        args, kwargs = fi["mega_args"], fi["mega_kwargs"]
+        times["B1 shadowed map"] = timed(lambda: megakernel.mega_render(*args, **kwargs))
+        no_table = dict(kwargs, shadow_rows=None, shadow_spec=None)
+        times["B1 shadowed map without the table"] = timed(
+            lambda: megakernel.mega_render(*args, **no_table))
     gpu = cs._run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    return {"tree": os.path.abspath(tree), "gpu": gpu.splitlines()[0], "times": times}
+    return {"tree": os.path.abspath(tree), "gpu": gpu.splitlines()[0], "b1": b1,
+            "times": times}
 
 
 def main() -> int:
@@ -100,9 +118,12 @@ def main() -> int:
         turns.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(turns[-1]))
     gpu = turns[0]["gpu"]
-    for key in turns[0]["times"]:
-        for field in sorted({f for t in turns for f in t["times"][key]}):
-            vals = [t["times"][key].get(field) for t in turns]
+    for t in turns[:2]:
+        print(f"B1 of {t['tree']}: {t['b1']}")
+    keys = list(dict.fromkeys(k for t in turns for k in t["times"]))  # a tree may lack some
+    for key in keys:
+        for field in sorted({f for t in turns for f in t["times"].get(key, {})}):
+            vals = [t["times"].get(key, {}).get(field) for t in turns]
             shown = ", ".join("-" if v is None else f"{v:.4f}" for v in vals)
             print(f"{key} {field} [other, this, this, other]: {shown} on {gpu}")
     return 0

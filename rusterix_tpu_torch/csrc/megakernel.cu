@@ -10,7 +10,9 @@
 // Blinn-Phong BRDF or, in the `brdf_ggx` variant, Cook-Torrance GGX,
 // occlusion boxes, batch ambient and the five light types; in the `ao_img`
 // variant the two ambient terms scaled by the frame's ambient-occlusion
-// factor at the pixel), (5) linear or exp^2 fog, and (6) the composite over
+// factor at the pixel; in the shadow variant each casting light's radiance
+// and the sun's scaled by a depth-compare lookup in its shadow map), (5)
+// linear or exp^2 fog, and (6) the composite over
 // the background and the RGBA8 pack. Outputs: packed RGBA8 per pixel and the effective z (1.0
 // where the opaque pass did not write). `stage_cut` 1 and 2 are the JAX
 // kernel's profiling cuts: stop after the scan (output the winning slot
@@ -31,8 +33,12 @@
 // - A tile is a thread block CLUSTER of CL = 8 blocks (the fastest of 2, 4
 //   and 8 when measured on the 1080p map), each block of 256 threads owning
 //   a horizontal slice of 64/CL rows: the heaviest tile spreads over CL
-//   SMs, and small blocks (launch bound: at least 3 an SM; at 61 registers
-//   4 are resident) keep many tiles in flight at once.
+//   SMs, and small blocks (launch bound: 4 an SM, so at most 64 registers)
+//   keep many tiles in flight at once. The shadow variant's lookups raised
+//   the kernel to 80 registers and 3 blocks an SM when left to the
+//   compiler; held to 4 an SM it fits 64 registers without spilling and
+//   every path's kernel got faster (measured on the 1080p map, see
+//   PERF.md).
 // - The early stop is still ONE decision per 64x128 tile per super, on the
 //   same pixels with the same strict `>`: after each scanned super every
 //   block publishes min(best) of its slice in its shared memory (warp
@@ -67,7 +73,19 @@
 // evaluation keeps the kernels' own order (a*xs + c) + b*ys; min/max/clip
 // propagate NaN as jnp.minimum/torch.minimum do; light types dispatch at
 // run time with the specialised per-type semantics; constants are the f32
-// rounding of the same decimal literals.
+// rounding of the same decimal literals. The shadow lookup's products that
+// XLA fuses (they pick the texel and decide the depth compare) are written
+// as xla_fma, where the plain version writes `_fma`.
+//
+// The shadow variant: the maps are one flat f32 table (ops/shadow.py's
+// layout). Per covered pixel and casting light the lookup offsets the
+// receiver along its normal by a texel footprint, picks the cube face and
+// texel analytically (or projects into the sun camera), reads ONE texel and
+// compares depths. It reads only for live pixels, as the JAX kernel does:
+// cube lookups where the pixel lies within the light's range (Chebyshev
+// distance below its end; beyond it the light adds nothing), sun lookups
+// inside the sun map. The table (1.8 MB on the shadowed 1080p map) stays
+// in L2; it is not staged in shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,9 +114,12 @@ struct MegaArgs {
     const int* light_list; // (n_lights, 2) [row, type code]
     const float* occ;      // (n_occ, 5)
     const float* ao;       // (H, W) ambient-occlusion factor, or null
+    const float* shadow;   // flat shadow-map table, or null
+    const int* lshadow;    // (n_lights, 2) [cube base (-1: none), res] per listed light
     uint32_t* rgba;        // (H, W) out
     float* zeff;           // (H, W) out
     int ns, n_attr, n_lights, n_occ, height, width, sample_mode, sun_off, brdf_ggx, stage_cut;
+    int sun_base, sun_res;  // the sun map (base -1: none)
     long long n_atlas;
 };
 
@@ -108,6 +129,7 @@ struct Consts {
     const float* L;    // n_lights rows of 24, in light-list order
     const int* ltype;  // n_lights type codes
     const float* occ;  // n_occ rows of 5
+    const int* lshadow;  // n_lights [cube base, res], in light-list order
 };
 
 __device__ __forceinline__ float jmin(float a, float b) {
@@ -199,6 +221,82 @@ __device__ __forceinline__ void texel_lookup(const MegaArgs& a, float u, float v
         if (c == 3) val = val + other;  // SRC_OFF -> opaque black
         out[c] = val;
     }
+}
+
+// f32 a*b + c rounded once, as XLA's CPU build fuses it. The plain
+// version's `_fma` rounds the exact product's f64 sum to f32, which equals
+// this single rounding except where the f64 sum lands on an f32 rounding
+// tie (about one sum in 2^29). Written in that f64 form here, the kernel
+// needed 4 more registers and, held to 64, spilled.
+__device__ __forceinline__ float xla_fma(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+}
+
+// a*x + b*y + c*z as XLA fuses the chain: fma(c, z, fma(a, x, b*y))
+__device__ __forceinline__ float dot3_xla(float x, float y, float z, float a, float b, float c) {
+    return xla_fma(z, c, xla_fma(x, a, y * b));
+}
+
+// the cube-map factor (0 or 1) of one casting light at a covered pixel:
+// shadow.shadow_factor's cube branch for a live pixel; 1 outside the
+// light's range, where nothing is read
+__device__ __forceinline__ float cube_shadow(const MegaArgs& a, const float* P, float wx,
+                                             float wy, float wz, float ux, float uy, float uz,
+                                             const float* L, int base, int res) {
+    const float tpx0 = wx - L[0], tpy0 = wy - L[1], tpz0 = wz - L[2];
+    const float ma0 = jmax(fabsf(tpx0), jmax(fabsf(tpy0), fabsf(tpz0)));
+    if (!(ma0 < L[5])) return 1.0f;
+    const float msd = P[59], bias = P[60];
+    // the texel footprint 2K/res, a constant of the f32 rounding of 4/res
+    const float offs = xla_fma(ma0, (float)(4.0 / (double)res), bias);
+    const float tpx = xla_fma(ux, offs, tpx0);
+    const float tpy = xla_fma(uy, offs, tpy0);
+    const float tpz = xla_fma(uz, offs, tpz0);
+    const float ax = fabsf(tpx), ay = fabsf(tpy), az = fabsf(tpz);
+    const bool is_x = (ax >= ay) && (ax >= az);
+    const bool is_y = !is_x && (ay >= az);
+    const float ma = jmax(ax, jmax(ay, az));
+    const float sgn_x = tpx >= 0.0f ? 1.0f : -1.0f;
+    const float sgn_y = tpy >= 0.0f ? 1.0f : -1.0f;
+    const float sgn_z = tpz >= 0.0f ? 1.0f : -1.0f;
+    const float u_num = is_x ? -sgn_x * tpz : (is_y ? tpx : -sgn_z * tpx);
+    const float v_num = is_x ? tpy : (is_y ? -sgn_y * tpz : tpy);
+    const int face = is_x ? (tpx < 0.0f ? 1 : 0)
+                          : (is_y ? (tpy < 0.0f ? 3 : 2) : (tpz < 0.0f ? 5 : 4));
+    const float ma_safe = jmax(ma, K(1e-20));
+    const float half = (float)res * 0.5f;
+    const float sx = jclip(floorf(xla_fma(u_num / ma_safe, half, half)), 0.0f, (float)(res - 1));
+    const float sy = jclip(floorf(xla_fma(-v_num / ma_safe, half, half)), 0.0f, (float)(res - 1));
+    const int flat = base + face * res * res + (int)sy * res + (int)sx;
+    const float stored = __ldg(a.shadow + flat);
+    return ((stored < ma - bias) && (ma - stored <= msd)) ? 0.0f : 1.0f;
+}
+
+// the sun map's factor (0 or 1) at a covered pixel: shadow.shadow_factor's
+// sun branch; 1 outside the map, where nothing is read
+__device__ __forceinline__ float sun_shadow(const MegaArgs& a, const float* P, float wx,
+                                            float wy, float wz, float ux, float uy, float uz) {
+    const int res = a.sun_res;
+    const float msd = P[59], bias = P[60], f = P[73];
+    const float vz0 = dot3_xla(wx - P[61], wy - P[62], wz - P[63], P[70], P[71], P[72]);
+    // the footprint 2K/(f*res) is an f32 product and an f32 division
+    const float offs = xla_fma(jmax(vz0, 0.0f), 4.0f / (f * (float)res), bias);
+    const float dx = xla_fma(ux, offs, wx) - P[61];
+    const float dy = xla_fma(uy, offs, wy) - P[62];
+    const float dz = xla_fma(uz, offs, wz) - P[63];
+    const float vx = dot3_xla(dx, dy, dz, P[64], P[65], P[66]);
+    const float vy = dot3_xla(dx, dy, dz, P[67], P[68], P[69]);
+    const float vz = dot3_xla(dx, dy, dz, P[70], P[71], P[72]);
+    const float vz_safe = jmax(vz, K(1e-20));
+    const float half = (float)res * 0.5f;
+    const float sxf = floorf(xla_fma(f * vx / vz_safe, half, half));
+    const float syf = floorf(xla_fma(-f * vy / vz_safe, half, half));
+    const float fres = (float)res;
+    if (!((vz > P[74]) && (sxf >= 0.0f) && (sxf < fres) && (syf >= 0.0f) && (syf < fres)))
+        return 1.0f;
+    const int flat = a.sun_base + (int)syf * res + (int)sxf;
+    const float stored = __ldg(a.shadow + flat);
+    return ((stored < vz - bias) && (vz - stored <= msd)) ? 0.0f : 1.0f;
 }
 
 struct Surface {
@@ -371,8 +469,15 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
         float inv_slen = 1.0f / jmax(slen, K(1e-30));
         float day = P[47];
         float sr, sg, sb;
-        light_brdf(a, s, sdx * inv_slen, sdy * inv_slen, sdz * inv_slen, day * P[55],
-                   day * P[56], day * P[57], sr, sg, sb);
+        float day_r = day * P[55], day_g = day * P[56], day_b = day * P[57];
+        if (a.shadow && a.sun_base >= 0) {
+            const float sf = sun_shadow(a, P, wx, wy, wz, s.ux, s.uy, s.uz);
+            day_r = day_r * sf;
+            day_g = day_g * sf;
+            day_b = day_b * sf;
+        }
+        light_brdf(a, s, sdx * inv_slen, sdy * inv_slen, sdz * inv_slen, day_r, day_g, day_b,
+                   sr, sg, sb);
         lit_r = lit_r + P[43] * sr;
         lit_g = lit_g + P[43] * sg;
         lit_b = lit_b + P[43] * sb;
@@ -431,6 +536,9 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
         } else {
             rad = ok_f * scale * 1.0f;
         }
+        if (a.shadow && k.lshadow[2 * n] >= 0)
+            rad = rad * cube_shadow(a, P, wx, wy, wz, s.ux, s.uy, s.uz, L, k.lshadow[2 * n],
+                                    k.lshadow[2 * n + 1]);
         const float rad_r = L[7] * rad, rad_g = L[8] * rad, rad_b = L[9] * rad;
         float cr, cg, cb;
         light_brdf(a, s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
@@ -478,16 +586,18 @@ struct __align__(16) BlockState {
 };
 
 // shared memory, in this order: ScanRing | BlockState | list best (f32),
-// slot (i32), pixel (u16) x pixels of the slice | s_near (ns) | meet bits
-// ((ns+31)/32) | params (80) | lights (n_lights*24) | light types
-// (n_lights) | occlusion boxes (n_occ*5)
+// slot (i32) x pixels of the slice | s_near (ns) | meet bits ((ns+31)/32) |
+// params (80) | lights (n_lights*24) | light types (n_lights) | occlusion
+// boxes (n_occ*5) | cube maps of the lights (n_lights*2) | list pixel
+// (u16) x pixels of the slice
 static size_t mega_smem_bytes(int ns, int n_lights, int n_occ) {
     const size_t px = (size_t)SLICE_ROWS(CL) * TILE_W;
     return sizeof(ScanRing) + sizeof(BlockState) + px * 12 + 4 * (size_t)ns +
-           4 * (size_t)((ns + 31) / 32) + 4 * (80 + 25 * (size_t)n_lights + 5 * (size_t)n_occ) + 16;
+           4 * (size_t)((ns + 31) / 32) + 4 * (80 + 27 * (size_t)n_lights + 5 * (size_t)n_occ) +
+           16;
 }
 
-__global__ void __launch_bounds__(THREADS, 3) mega_kernel(const MegaArgs a) {
+__global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
     constexpr int PPT = SLICE_PPT(CL);
     constexpr int PX = SLICE_ROWS(CL) * TILE_W;
     extern __shared__ __align__(16) unsigned char mega_smem[];
@@ -501,7 +611,8 @@ __global__ void __launch_bounds__(THREADS, 3) mega_kernel(const MegaArgs a) {
     float* c_lights = c_params + 80;
     int* c_ltype = reinterpret_cast<int*>(c_lights + 24 * a.n_lights);
     float* c_occ = reinterpret_cast<float*>(c_ltype + a.n_lights);
-    unsigned short* l_pix = reinterpret_cast<unsigned short*>(c_occ + 5 * a.n_occ);
+    int* c_lshadow = reinterpret_cast<int*>(c_occ + 5 * a.n_occ);
+    unsigned short* l_pix = reinterpret_cast<unsigned short*>(c_lshadow + 2 * a.n_lights);
 
     const int x0 = blockIdx.x * TILE_W;
     const int y0 = (blockIdx.y / CL) * TILE_H;
@@ -636,12 +747,15 @@ __global__ void __launch_bounds__(THREADS, 3) mega_kernel(const MegaArgs a) {
         for (int i = tid; i < a.n_lights; i += THREADS)
             c_ltype[i] = __ldg(a.light_list + 2 * i + 1);
         for (int i = tid; i < 5 * a.n_occ; i += THREADS) c_occ[i] = __ldg(a.occ + i);
+        if (a.shadow)
+            for (int i = tid; i < 2 * a.n_lights; i += THREADS) c_lshadow[i] = __ldg(a.lshadow + i);
         __syncthreads();
         Consts kc;
         kc.P = c_params;
         kc.L = c_lights;
         kc.ltype = c_ltype;
         kc.occ = c_occ;
+        kc.lshadow = c_lshadow;
         for (int i = tid; i < count; i += THREADS) {
             const int pix = l_pix[i];
             shade_pixel(a, kc, x0 + pix % TILE_W, y0 + slice * SLICE_ROWS(CL) + pix / TILE_W,
@@ -675,9 +789,9 @@ extern "C" int rx_mega_render(
     const float* planes, const float* attr, const int* sbox, const int* cbox,
     const float* s_near, const int* atlas, const int* bg, const float* params,
     const float* lights, const int* light_list, const float* occ, const float* ao,
-    int* rgba, float* zeff, int ns, int n_attr, long long n_atlas, int n_lights, int n_occ,
-    int height, int width, int sample_mode, int sun_off, int brdf_ggx, int stage_cut,
-    void* stream) {
+    const float* shadow, const int* lshadow, int* rgba, float* zeff, int ns, int n_attr,
+    long long n_atlas, int n_lights, int n_occ, int height, int width, int sample_mode,
+    int sun_off, int brdf_ggx, int stage_cut, int sun_base, int sun_res, void* stream) {
     MegaArgs a;
     a.planes = planes;
     a.attr = attr;
@@ -691,6 +805,10 @@ extern "C" int rx_mega_render(
     a.light_list = light_list;
     a.occ = occ;
     a.ao = ao;
+    a.shadow = shadow;
+    a.lshadow = lshadow;
+    a.sun_base = shadow ? sun_base : -1;
+    a.sun_res = sun_res;
     a.rgba = reinterpret_cast<uint32_t*>(rgba);
     a.zeff = zeff;
     a.ns = ns;

@@ -29,6 +29,7 @@ import torch
 from ..device import device_table
 from .scene_pack import SRC_PIXEL, SRC_TEXTURE
 from .setup_pass import _fma
+from .shadow import shadow_factor
 from .visibility import scan_candidates
 from .visibility_pallas import (
     CHUNK,
@@ -210,15 +211,20 @@ def pack_occ_params(uniforms, device) -> torch.Tensor:
 
 
 def pack_mega_params(uniforms, width: int, height: int, atlas_w, device,
-                     has_fog: bool = False, y0: int = 0) -> torch.Tensor:
+                     has_fog: bool = False, y0: int = 0,
+                     shadow_params=None) -> torch.Tensor:
     """Camera/ambient/sun scalars, fog at 48-53, the atlas width at 54, the
-    sun color at 55-57, bump strength at 75, fog mode/density at 76-77 ->
-    (80,) f32. Shadow parameters (59-74) and a row offset (58) belong to
-    variants the port does not take yet."""
+    sun color at 55-57, shadow parameters at 59-74, bump strength at 75, fog
+    mode/density at 76-77 -> (80,) f32. shadow_params: the (40,) params of
+    shadow.bake_shadow_pack; its first 16 slots (max shadow distance, bias,
+    the sun camera) go to 59-74. A row offset (58) belongs to the
+    row-sharded frame, which the port does not take yet."""
     if y0 != 0:
         raise NotImplementedError("row-sharded frames (y0 != 0) are not ported yet")
     p = np.zeros(N_PARAMS, np.float32)
     p[75] = uniforms.get("bump_strength", 1.0)
+    if shadow_params is not None:
+        p[59:75] = np.asarray(shadow_params, np.float32)[:16]
     p[0:16] = np.asarray(uniforms["inv_proj"], np.float32).reshape(-1)
     p[16:32] = np.asarray(uniforms["inv_view"], np.float32).reshape(-1)
     p[32:35] = uniforms["camera_pos"]
@@ -276,8 +282,11 @@ def _check_variants(has_blend, has_material, has_matmap, tonemap,
         "has_material": has_material,
         "has_matmap": has_matmap,
         "tonemap (scenevm)": tonemap,
-        "shadow_rows/shadow_spec (shadow maps)": (
-            shadow_rows is not None or shadow_spec is not None
+        # the maps' transmittance planes need opacity batches in the frame
+        "shadow transmittance layers (shadow_spec with a trans base >= 0)": (
+            shadow_spec is not None and (
+                (shadow_spec[0] is not None and shadow_spec[0][2] >= 0)
+                or any(e[3] >= 0 for e in shadow_spec[1]))
         ),
         "light_spec=None (generic one-hot light blend)": light_spec is None,
     }
@@ -288,6 +297,11 @@ def _check_variants(has_blend, has_material, has_matmap, tonemap,
             )
     if s_near is None:
         raise ValueError("mega_render takes inputs presorted by morton_ftb_sort (s_near)")
+    if (shadow_rows is None) != (shadow_spec is None):
+        raise ValueError("mega_render: shadow_rows and shadow_spec come together")
+    if shadow_rows is not None and shadow_rows.dim() != 1:
+        raise ValueError(f"mega_render: shadow_rows is {tuple(shadow_rows.shape)}, not the "
+                         "flat (N,) table of shadow.bake_shadow_pack")
 
 
 def _check_ao(ao_img, height: int, width: int, device):
@@ -316,6 +330,31 @@ def _light_list(light_spec, device) -> torch.Tensor:
     return device_table(rows, torch.int32, device).reshape(-1, 2)
 
 
+def _shadow_launch_tables(shadow_rows, shadow_spec, light_spec, device):
+    """The shadow variant's launch inputs -> (flat f32 table or None,
+    (n_lights, 2) i32 [cube base, res] per light of the light list (base
+    -1: the light casts no map) or None, (sun base, sun res) with base -1
+    when there is no sun map)."""
+    if shadow_rows is None:
+        return None, None, (-1, 0)
+    if shadow_rows.device != device or shadow_rows.dtype != torch.float32:
+        raise ValueError(f"mega_render: shadow_rows is {shadow_rows.dtype} on "
+                         f"{shadow_rows.device}, not float32 on {device}")
+    sun_entry, cube_entries = shadow_spec
+    maps = [(int(e[1]), 6 * int(e[2]) ** 2) for e in cube_entries]
+    if sun_entry is not None:
+        maps.append((int(sun_entry[0]), int(sun_entry[1]) ** 2))
+    n = shadow_rows.numel()
+    for base, size in maps:
+        if base < 0 or base + size > n:
+            raise ValueError(f"mega_render: a map of {size} texels at {base} leaves the "
+                             f"{n}-texel shadow table")
+    cube = {int(e[0]): (int(e[1]), int(e[2])) for e in cube_entries}
+    rows = tuple(cube.get(int(r), (-1, 0)) for r, _t in light_spec)
+    sun_map = (-1, 0) if sun_entry is None else (int(sun_entry[0]), int(sun_entry[1]))
+    return shadow_rows.contiguous(), device_table(rows, torch.int32, device), sun_map
+
+
 def mega_render(
     vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params, lights_packed,
     occ_packed, width: int, height: int, sample_mode: int = 0,
@@ -335,6 +374,11 @@ def mega_render(
     instead of the fast Blinn-Phong BRDF. `ao_img`, an (H, W) f32
     ambient-occlusion factor (ops/ao.ssao_pass), multiplies the two ambient
     terms (the hemisphere and the batch ambient) of each shaded pixel.
+    `shadow_rows` (the flat f32 table of shadow.bake_shadow_pack, on the
+    planes' device) with its `shadow_spec` adds per-light geometry shadows:
+    each casting light's cube factor scales that light's radiance, the sun
+    map's factor the sun's (params 59-74 from pack_mega_params'
+    shadow_params).
 
     `stage_cut` is the JAX kernel's profiling instrument: the kernel stops
     after a stage, so that timing cuts 1, 2 and 0 splits its time into the
@@ -356,17 +400,19 @@ def mega_render(
             lights_packed, occ_packed, width, height, sample_mode,
             light_spec=light_spec, sun_off=sun_off, s_near=s_near,
             brdf_ggx=brdf_ggx, stage_cut=stage_cut, ao_img=ao_img,
+            shadow_rows=shadow_rows, shadow_spec=shadow_spec,
         )
     return prepare_launch(
         vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         lights_packed, occ_packed, width, height, sample_mode, light_spec,
-        sun_off, s_near, brdf_ggx, stage_cut, ao_img,
+        sun_off, s_near, brdf_ggx, stage_cut, ao_img, shadow_rows, shadow_spec,
     )()
 
 
 def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
                    lights_packed, occ_packed, width, height, sample_mode, light_spec,
-                   sun_off, s_near, brdf_ggx=False, stage_cut=0, ao_img=None):
+                   sun_off, s_near, brdf_ggx=False, stage_cut=0, ao_img=None,
+                   shadow_rows=None, shadow_spec=None):
     """Check and prepare mega_render's inputs for the CUDA kernel -> a
     function of no arguments that launches the kernel on them and returns
     (rgba, z_eff), the same two tensors at every call. mega_render is one
@@ -404,6 +450,7 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
     if any(int(r) >= inputs["lights"].shape[0] for r, _t in light_spec):
         raise ValueError("mega_render: light_spec names a row past the light table")
     llist = _light_list(light_spec, dev)
+    shadow, lshadow, sun_map = _shadow_launch_tables(shadow_rows, shadow_spec, light_spec, dev)
     ns = planes.shape[0] // GROUP
     lib = _cuda.library()
     smem = lib.rx_mega_smem_bytes(ns, llist.shape[0], inputs["occ"].shape[0])
@@ -423,12 +470,16 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         ptr(inputs["params"].data_ptr()), ptr(inputs["lights"].data_ptr()),
         ptr(llist.data_ptr()), ptr(inputs["occ"].data_ptr()),
         ptr(None if ao_img is None else ao_img.data_ptr()),
+        ptr(None if shadow is None else shadow.data_ptr()),
+        ptr(None if lshadow is None else lshadow.data_ptr()),
         ptr(rgba.data_ptr()), ptr(zeff.data_ptr()),
         ns, attr.shape[1], inputs["atlas"].numel(),
         llist.shape[0], inputs["occ"].shape[0], height, width,
         int(sample_mode), int(bool(sun_off)), int(bool(brdf_ggx)), int(stage_cut),
+        int(sun_map[0]), int(sun_map[1]),
     )
-    keep = (planes, attr, sboxes, cboxes, inputs, llist, ao_img)  # alive while the closure is
+    # alive while the closure is
+    keep = (planes, attr, sboxes, cboxes, inputs, llist, ao_img, shadow, lshadow)
 
     def launch():
         global launches
@@ -566,24 +617,29 @@ def mega_render_reference(
     occ_packed, width: int, height: int, sample_mode: int = 0,
     light_spec: tuple = None, sun_off: bool = False, s_near=None,
     brdf_ggx: bool = False, return_work: bool = False, stage_cut: int = 0,
-    ao_img=None,
+    ao_img=None, shadow_rows=None, shadow_spec: tuple = None,
 ):
     """Plain torch version of the megakernel: the kernel body's per-pixel
     math transcribed op for op (the JAX kernel's `_mega_kernel` stages 1-6),
     vectorised over pixels and chunked over candidates in sorted order.
     Same inputs and outputs as mega_render; with `return_work`, a third
-    output counts the pixel-candidate visibility tests the scan performed
-    (gated by the boxes and stopped early as the kernel is). `stage_cut` 1
-    and 2 stop where the kernel's cuts do (see mega_render)."""
+    output counts the work this data needs: "vis_tests", the
+    pixel-candidate visibility tests the scan performed (gated by the boxes
+    and stopped early as the kernel is), and "cube_reads" / "sun_reads",
+    the shadow-map texels read (live pixels only, as the kernel reads
+    them). `stage_cut` 1 and 2 stop where the kernel's cuts do (see
+    mega_render)."""
     if light_spec is None or s_near is None:
         raise ValueError("mega_render_reference needs light_spec and s_near")
     if stage_cut not in (0, 1, 2):
         raise ValueError(f"mega_render_reference: stage_cut {stage_cut} is not 0, 1 or 2")
     ao_img = _check_ao(ao_img, height, width, vis_planes.device)
+    _shadow_launch_tables(shadow_rows, shadow_spec, light_spec, vis_planes.device)
     planes, attr, sboxes, cboxes = _prepare(vis_planes, alive, bbox, attr)
     hp = height + (-height % TILE_H)
     wp = width + (-width % TILE_W)
     best, idx, tests = _visibility(planes, sboxes, cboxes, s_near.float(), hp, wp)
+    work = {"vis_tests": tests, "cube_reads": 0, "sun_reads": 0}
     # a tile shades when any of its pixels, padding included, has a winner
     tile_hit = (idx >= 0).reshape(hp // TILE_H, TILE_H, wp // TILE_W, TILE_W).any(dim=3).any(dim=1)
     tile_hit = tile_hit.repeat_interleave(TILE_H, 0).repeat_interleave(TILE_W, 1)[:height, :width]
@@ -591,7 +647,7 @@ def mega_render_reference(
     idx = idx[:height, :width]
     if stage_cut == 1:
         out = (idx.contiguous(), best.contiguous())
-        return out + (tests,) if return_work else out
+        return out + (work,) if return_work else out
     hit = idx >= 0
     a = attr[torch.clamp(idx, min=0).long()]  # (H, W, n_attr)
     a = torch.where(hit[..., None], a, 0.0)
@@ -636,7 +692,7 @@ def mega_render_reference(
     if stage_cut == 2:
         texel = pack(q(tex_r), q(tex_g), q(tex_b), q(tex_a))
         out = (torch.where(tile_hit, texel, bg_u32), best.contiguous())
-        return out + (tests,) if return_work else out
+        return out + (work,) if return_work else out
 
     # ---- stage 4: lighting (rasterizer.rs:1319-1412 + light.rs:491-653) ----
     x_ndc = 2.0 * (xg / P[41]) - 1.0
@@ -676,6 +732,30 @@ def mega_render_reference(
     hemi = 0.5 * (uy + 1.0)
     if ao_img is not None:
         hemi = hemi * ao_img
+
+    # ---- per-light geometry shadows (ops/shadow.py's lookup, in the JAX
+    # kernel's expression order); texels are read only for live pixels:
+    # covered and, for a cube, inside the light's range (Chebyshev ma0 <=
+    # dist, so ma0 >= end means no radiance)
+    Lp = lights_packed.float()
+    shadow_cube, sun_shadow = {}, None
+    if shadow_spec is not None:
+        sun_entry, cube_entries = shadow_spec
+        sp = P[59:75]  # max shadow distance, bias, the sun camera
+        for entry in cube_entries:
+            lrow = Lp[entry[0]]
+            ma0 = torch.maximum((wx - lrow[0]).abs(),
+                                torch.maximum((wy - lrow[1]).abs(), (wz - lrow[2]).abs()))
+            shadow_cube[entry[0]], reads = shadow_factor(
+                shadow_rows, sp, entry, wx, wy, wz, ux, uy, uz, lpos=lrow[0:3],
+                live=hit & (ma0 < lrow[5]), return_reads=True)
+            if return_work:
+                work["cube_reads"] += int(reads.sum())
+        if sun_entry is not None and not sun_off:
+            sun_shadow, reads = shadow_factor(shadow_rows, sp, sun_entry, wx, wy, wz, ux, uy, uz,
+                                              live=hit, return_reads=True)
+            if return_work:
+                work["sun_reads"] = int(reads.sum())
 
     occlusion = torch.ones_like(wx)
     occ = occ_packed.float()
@@ -745,10 +825,10 @@ def mega_render_reference(
         slen = torch.sqrt(sdx * sdx + sdy * sdy + sdz * sdz)
         inv_slen = 1.0 / torch.clamp(slen, min=1e-30)
         day = P[47]
-        sr, sg, sb = brdf(
-            sdx * inv_slen, sdy * inv_slen, sdz * inv_slen,
-            day * P[55], day * P[56], day * P[57],
-        )
+        day_rgb = [day * P[55], day * P[56], day * P[57]]
+        if sun_shadow is not None:
+            day_rgb = [c * sun_shadow for c in day_rgb]
+        sr, sg, sb = brdf(sdx * inv_slen, sdy * inv_slen, sdz * inv_slen, *day_rgb)
         lit_r = lit_r + P[43] * sr
         lit_g = lit_g + P[43] * sg
         lit_b = lit_b + P[43] * sb
@@ -760,7 +840,6 @@ def mega_render_reference(
     lit_g = lit_g + amb_g * kd_g * hemi
     lit_b = lit_b + amb_b * kd_b * hemi
 
-    Lp = lights_packed.float()
     for li, lt in light_spec:
         lrow = Lp[li]
         start, end, intensity, valid = lrow[4], lrow[5], lrow[6], lrow[20]
@@ -809,6 +888,8 @@ def mega_render_reference(
             rad = ok_f * scale * lam
         else:
             rad = ok_f * scale * 1.0
+        if li in shadow_cube:
+            rad = rad * shadow_cube[li]
         rad_r, rad_g, rad_b = lrow[7] * rad, lrow[8] * rad, lrow[9] * rad
         cr, cg, cb = brdf(ldx, ldy, ldz, rad_r, rad_g, rad_b)
         has_rad = ((rad_r != 0.0) | (rad_g != 0.0) | (rad_b != 0.0)).float()
@@ -837,4 +918,4 @@ def mega_render_reference(
     wrote = hit & (a_u8 >= 255)
     rgba = torch.where(wrote, pack(q(out_r), q(out_g), q(out_b), a_u8), bg_u32)
     zeff = torch.where(wrote, z, 1.0)
-    return (rgba, zeff, tests) if return_work else (rgba, zeff)
+    return (rgba, zeff, work) if return_work else (rgba, zeff)

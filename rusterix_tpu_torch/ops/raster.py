@@ -10,9 +10,12 @@ occlusion, GGX reflections or sky light, the visibility pre-pass (B2) gives
 the winners before shading: the screen-space AO factor (`ops/ao.py`) feeds
 B1's ambient terms, the reflection rays (at full or reduced resolution) and
 the sky-light rays go through the ray-intersect kernel (B3), and their
-terms are composited over the opaque frame. With SSAA the frame renders at
-n times the size and is box-filtered down. The 2D line overlay is drawn
-last, on the host. Every feature outside that slice raises
+terms are composited over the opaque frame. With shadows, the casting
+lights' cube maps and the sun's map are baked once per scene and light set
+(`ops/shadow.py`, cached in `_SHADOW_CACHE`) and looked up by B1's shadow
+variant and by the reflection hits. With SSAA the frame renders at n times
+the size and is box-filtered down. The 2D line overlay is drawn last, on
+the host. Every feature outside that slice raises
 `NotImplementedError` naming it; none degrades silently.
 """
 
@@ -78,7 +81,8 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
                  light_spec: tuple = None, sun_off: bool = False,
                  brdf_ggx: bool = False, refl_samples: int = 0,
                  refl_scale: int = 1, ao_taps: tuple = None,
-                 sky_light: bool = False) -> dict:
+                 sky_light: bool = False, shadow_rows=None, shadow_params=None,
+                 shadow_spec: tuple = None) -> dict:
     """The frame's preparation before its kernels: setup pass, megakernel
     table, Morton + front-to-back sort and the parameter packs -> dict with
     the setup pass's `attr` and `tri_id`, the sorted `vis_s`, `alive_s`,
@@ -88,8 +92,9 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
     d3/atlas: packed_to_torch tensors; lights/uniforms: the host (numpy)
     dicts the Rasterizer builds each frame (pack_light_params,
     pack_mega_params and pack_occ_params carry them to the device);
-    background (H, W, 4) f32 on the device. The reflection, AO and sky-light
-    settings are read by render_frame."""
+    background (H, W, 4) f32 on the device; shadow_rows / shadow_params /
+    shadow_spec: a bake of shadow.bake_shadow_pack (None: no shadows). The
+    reflection, AO and sky-light settings are read by render_frame."""
     dev = d3["pos"].device
     vis, attr, bbox, alive, tri_id = setup_pass(
         d3["pos"], d3["uv"], d3["nrm"], d3["valid"], d3["cull"],
@@ -104,7 +109,8 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
     args = (
         vis_s, alive_s, bbox_s, table_s, atlas["flat_u32"],
         pack_background_u32(background),
-        pack_mega_params(uniforms, width, height, atlas["w"], dev, has_fog),
+        pack_mega_params(uniforms, width, height, atlas["w"], dev, has_fog,
+                         shadow_params=shadow_params),
         pack_light_params(lights, dev),
         pack_occ_params(uniforms, dev),
         width, height, sample_mode,
@@ -114,7 +120,8 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
         "vis_s": vis_s, "alive_s": alive_s, "bbox_s": bbox_s, "sort_perm": sort_perm,
         "mega_args": args,
         "mega_kwargs": {"light_spec": light_spec, "sun_off": sun_off, "s_near": s_near,
-                        "brdf_ggx": brdf_ggx},
+                        "brdf_ggx": brdf_ggx, "shadow_rows": shadow_rows,
+                        "shadow_spec": shadow_spec},
     }
 
 
@@ -143,7 +150,8 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
                  light_spec: tuple = None, sun_off: bool = False,
                  brdf_ggx: bool = False, refl_samples: int = 0,
                  refl_scale: int = 1, ao_taps: tuple = None,
-                 sky_light: bool = False):
+                 sky_light: bool = False, shadow_rows=None, shadow_params=None,
+                 shadow_spec: tuple = None):
     """One 3D frame on the device -> (H, W, 4) uint8 tensor: the JAX
     render_frame's megakernel branch (ops/raster.py:233-411 and :500
     there). The opaque frame comes from the megakernel (B1). With AO
@@ -153,10 +161,12 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
     (at 1/refl_scale resolution) and the sky-light pass trace their rays
     through the ray-intersect kernel (B3), and each term is composited in
     f32 over the quantized opaque frame, the sky light scaled by the AO
-    factor. Arguments as for frame_inputs."""
+    factor. With a shadow bake, B1 and the reflection hits look up the same
+    maps. Arguments as for frame_inputs."""
     fi = frame_inputs(
         d3, lights, atlas, uniforms, background, width, height, sample_mode,
         has_fog, light_spec, sun_off, brdf_ggx,
+        shadow_rows=shadow_rows, shadow_params=shadow_params, shadow_spec=shadow_spec,
     )
     pre = visibility_prepass(fi, width, height) if (ao_taps or refl_samples or sky_light) else None
     ao_img = ambient_occlusion(pre, uniforms, height, ao_taps) if ao_taps else None
@@ -170,6 +180,7 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
         refl, rmask = reflection_pass_scaled(
             *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms,
             width, height, sample_mode, refl_samples, scale=refl_scale,
+            shadow=None if shadow_spec is None else (shadow_rows, shadow_params, shadow_spec),
         )
         frame = apply_reflections(frame, refl, rmask)
     if sky_light:
@@ -221,6 +232,11 @@ def draw_lines_bresenham(pixels: np.ndarray, segments: np.ndarray, colors: np.nd
 #: the reference constructs a fresh Rasterizer::setup every frame)
 _SCENE_CACHE: dict = {}
 _BG_CACHE: dict = {}
+#: shadow-map bakes: (scene key, settings, casting lights' rows, positions
+#: and ranges, sun direction, max shadow distance, transmittance steps)
+#: -> (flat table on the device, params (40,) np.float32, spec). A static
+#: scene with static lights bakes once; a casting light that moves re-bakes.
+_SHADOW_CACHE: dict = {}
 
 
 def _unported(feature: str):
@@ -265,6 +281,12 @@ class Rasterizer:
         self._fog_density = 0.0
         #: range cap of reflection rays (RenderSettings max_sky_distance)
         self._rs_sky_distance = 50.0
+        #: shadow occluder range cap and transparency steps (RenderSettings
+        #: max_shadow_distance / max_shadow_steps)
+        self._rs_shadow_distance = 50.0
+        self._rs_shadow_steps = 16.0
+        #: per-light geometry shadows, None = off (set_shadows)
+        self.shadow_settings = None
         #: direct-light BRDF: "fast" (Blinn-Phong) or "ggx" (set_brdf)
         self.brdf = "fast"
         #: GGX reflection rays per pixel, 0 = off (set_reflections)
@@ -286,7 +308,6 @@ class Rasterizer:
         # features of the JAX Rasterizer outside the ported slice; set them
         # and rasterize() raises NotImplementedError naming them
         self.tonemap = "srgb"
-        self.shadow_settings = None
         self.render_graph = None
         self.brush_preview = None
         #: the last frame's render_frame arguments (every tensor in it is
@@ -324,6 +345,30 @@ class Rasterizer:
         reaches the sky, sky_rgb * max(N.y, 0) * albedo (* AO when AO is on)
         is added (SceneVM `sky_contribution`, 3d_shader.wgsl:744-758)."""
         self.sky_light_enabled = bool(enabled)
+        return self
+
+    def set_shadows(self, enabled: bool = True, *, res: int = 128, sun_res: int = 256,
+                    max_lights: int = 4, bias: float = 0.05,
+                    dynamic_casters: bool = True) -> "Rasterizer":
+        """Per-light geometry shadows (the reference's SceneVM trace_shadow
+        family, 3d_shader.wgsl:436-517): up to `max_lights` brightest
+        point/spot lights render 6-face cube depth maps at `res`^2, the sun
+        one `sun_res`^2 map (ops/shadow.py). The maps bake from the static
+        geometry and stay cached until the scene revision, a casting
+        light's position or range, or the sun changes. max_shadow_distance
+        and max_shadow_steps come from apply_render_settings.
+        `dynamic_casters` is kept for the frames with dynamic batches,
+        which the port refuses."""
+        if enabled:
+            self.shadow_settings = {
+                "res": int(res),
+                "sun_res": int(sun_res),
+                "max_lights": int(max_lights),
+                "bias": float(bias),
+                "dynamic_casters": bool(dynamic_casters),
+            }
+        else:
+            self.shadow_settings = None
         return self
 
     def set_ambient_occlusion(self, enabled: bool = True, samples: int = None,
@@ -371,9 +416,9 @@ class Rasterizer:
 
     def apply_render_settings(self, rs, hour: float = None) -> "Rasterizer":
         """Sky color, sun, ambient, exp^2 fog, the AO samples and radius,
-        the reflection samples and their range cap from a RenderSettings
-        block (reference src/render_settings.rs:10-120). The block's shadow
-        knobs belong to an unported pass."""
+        the reflection samples and their range cap, the shadow range cap
+        and steps from a RenderSettings block (reference
+        src/render_settings.rs:10-120)."""
         if hour is not None:
             self.hour = hour
         if rs.simulation.enabled:
@@ -388,6 +433,8 @@ class Rasterizer:
             self.day_factor = 0.0
         amb = np.asarray(rs.ambient_color, np.float32) * float(rs.ambient_strength)
         self.ambient_color = np.concatenate([amb, [1.0]]).astype(np.float32)
+        self._rs_shadow_distance = float(rs.max_shadow_distance)
+        self._rs_shadow_steps = float(rs.max_shadow_steps)
         self._rs_ao_samples = float(rs.ao_samples)
         self._rs_ao_radius = float(rs.ao_radius)
         self._rs_sky_distance = float(rs.max_sky_distance)
@@ -510,13 +557,52 @@ class Rasterizer:
             return None  # compute_ao's early return
         return tap_offsets(n)
 
+    def _shadow_pack(self, cache, packed, lights, scene_key):
+        """Bake (or fetch the cached) shadow maps of this frame's casting
+        lights -> (flat table, params (40,) np.float32, spec), or three
+        Nones when nothing casts. The casting lights are the `max_lights`
+        brightest valid point/spot rows (the first rows among equals)."""
+        cfg = self.shadow_settings
+        types = np.asarray(lights["type"])
+        valid = np.asarray(lights["valid"])
+        inten = np.asarray(lights["intensity"])
+        rows_idx = [i for i in range(len(types)) if valid[i] > 0.5 and int(types[i]) in (0, 3)]
+        rows_idx.sort(key=lambda i: -float(inten[i]))
+        cast = sorted(rows_idx[: cfg["max_lights"]])
+        sun_dir = self.sun_dir if (self.sun_dir is not None and self.day_factor > 0) else None
+        if not cast and sun_dir is None:
+            return None, None, None
+        # the spec carries the transmittance steps without their layers:
+        # those need opacity batches, which the port refuses before here
+        trans_steps = int(np.clip(self._rs_shadow_steps, 1, 4))
+        light_key = tuple(
+            (i, tuple(np.round(lights["position"][i], 4).tolist()),
+             round(float(lights["end"][i]), 4))
+            for i in cast
+        )
+        sun_key = tuple(np.round(sun_dir, 4).tolist()) if sun_dir is not None else None
+        key = (scene_key, tuple(sorted(cfg.items())), light_key, sun_key,
+               round(self._rs_shadow_distance, 4), trans_steps)
+        hit = _SHADOW_CACHE.get(key)
+        if hit is not None:
+            return hit
+        from .shadow import bake_shadow_pack, scene_bounds
+
+        rows, params, spec = bake_shadow_pack(
+            cache["d3"], None, lights, cast, sun_dir,
+            res=cfg["res"], sun_res=cfg["sun_res"], trans_steps=trans_steps,
+            max_shadow_distance=self._rs_shadow_distance,
+            bias=cfg["bias"], bounds=scene_bounds(packed.d3.pos, packed.d3.valid),
+        )
+        if len(_SHADOW_CACHE) > 8:
+            _SHADOW_CACHE.clear()
+        _SHADOW_CACHE[key] = (rows, params, spec)
+        return rows, params, spec
+
     def _refuse_unported_settings(self, mesh):
-        refl = self.reflection_samples > 0
         checks = {
             "mesh= (the multi-chip row-sharded frame)": mesh is not None,
             "the scenevm tonemap": self.tonemap != "srgb",
-            "reflections with shadows": refl and self.shadow_settings is not None,
-            "shadows": self.shadow_settings is not None,
             "render-graph sky/fog nodes": self.render_graph is not None,
             "the brush preview": self.brush_preview is not None,
         }
@@ -527,12 +613,18 @@ class Rasterizer:
     def _refuse_unported_scene(self, scene, packed):
         d3 = packed.d3
         opacity = self.render_mode.d3_active and bool(packed.d3_opacity.valid.any())
+        dynamic = bool(scene.d3_dynamic or scene.d3_dynamic_opacity or scene.d2_dynamic)
+        shadows = self.shadow_settings is not None and self.render_mode.d3_active
         checks = {
+            # the parts of the shadow family that need batches the port
+            # refuses, named before those batches
+            "shadow transmittance layers (shadows through opacity batches)": shadows
+            and opacity and self._rs_shadow_steps > 0,
+            "dynamic shadow casters (shadows with dynamic batches)": shadows
+            and dynamic and self.shadow_settings["dynamic_casters"],
             "reflections on transparency layers (transparency_layers > 1)": opacity
             and self.reflection_samples > 0 and self.transparency_layers > 1,
-            "dynamic batches": bool(
-                scene.d3_dynamic or scene.d3_dynamic_opacity or scene.d2_dynamic
-            ),
+            "dynamic batches": dynamic,
             "runtime or baked shaders": bool(getattr(scene, "shaders", None))
             or bool(packed.runtime_shaders),
             "opacity batches": opacity,
@@ -621,6 +713,10 @@ class Rasterizer:
             cache["background"] = hit
         background = hit[1]
 
+        shadow_rows = shadow_params = shadow_spec = None
+        if self.shadow_settings is not None and self.render_mode.d3_active:
+            shadow_rows, shadow_params, shadow_spec = self._shadow_pack(cache, packed, lights, key)
+
         frame_args = dict(
             d3=d3, lights=lights, atlas=cache["atlas"], uniforms=uniforms,
             background=background, width=width, height=height,
@@ -633,6 +729,7 @@ class Rasterizer:
             refl_scale=self.reflection_scale,
             ao_taps=self._ao_taps() if self.render_mode.d3_active else None,
             sky_light=self.sky_light_enabled and self.render_mode.d3_active,
+            shadow_rows=shadow_rows, shadow_params=shadow_params, shadow_spec=shadow_spec,
         )
         self.frame_args = frame_args
         frame = render_frame(**frame_args)

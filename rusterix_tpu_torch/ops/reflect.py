@@ -13,8 +13,11 @@ axis and upsamples the result bilinearly, as `jax.image.resize` does
 (`_resize_bilinear`). `sky_light_pass` casts one mirror ray per pixel
 through the same kernel and adds sky-tinted ambient where it escapes.
 
-Ported: no shadow maps at the hits, the sRGB transfer. The scenevm
-tonemap raises NotImplementedError.
+With a shadow bake (`ops/shadow.py`), the hit shading looks up the same
+maps as the frame: the sun's factor scales the sun, each casting light's
+cube factor that light (the WGSL traces its shadow rays inside the
+pbr_lighting of every reflection hit). The display transfer is sRGB; the
+scenevm tonemap raises NotImplementedError.
 
 The sampling math is written in the rounding XLA's CPU build gives the
 JAX package's expressions (`_fma` where XLA fuses a product into a sum),
@@ -33,6 +36,7 @@ import torch
 from ..utils.color import linear_to_srgb_fast, srgb_to_linear_fast
 from .rt_kernel import intersect_rays_pallas
 from .shade import _div, _dot, _fma, _normalize, gbuffer_pass, resolve_texel
+from .shadow import shadow_factor
 
 
 def _hash33(px, py, pz):
@@ -62,7 +66,7 @@ def _f64_then_f32(fn, x):
 
 
 def _shade_reflection_hits(t, tri, ox, oy, oz, dx, dy, dz, d3, atlas, lights,
-                           uniforms, sample_mode: int, sky_rgb):
+                           uniforms, sample_mode: int, sky_rgb, shadow=None):
     """Radiance arriving along each reflection ray -> (H, W, 3) linear.
 
     Hits shade as the WGSL's reflection branch (3d_shader.wgsl:797-815):
@@ -71,7 +75,9 @@ def _shade_reflection_hits(t, tri, ox, oy, oz, dx, dy, dz, d3, atlas, lights,
     uniform; misses return `sky_rgb` ((3,) tensor). d3: the packed d3
     tensors; lights and uniforms: the Rasterizer's host dicts. Light rows
     that are not valid contribute exactly 0 and are skipped; the type of
-    each row is known on the host, so only its own branch is evaluated."""
+    each row is known on the host, so only its own branch is evaluated.
+    shadow: (flat table, params (40,), spec) of shadow.bake_shadow_pack, or
+    None; the maps are read at the hits only."""
     dev = t.device
     hit = tri >= 0
     ti = torch.clamp(tri, min=0).long()
@@ -195,12 +201,24 @@ def _shade_reflection_hits(t, tri, ox, oy, oz, dx, dy, dz, d3, atlas, lights,
             torch.where(dead, 0.0, ((1.0 - fb) * dd * alb_b + sp_b * n_dot_l) * rad_b),
         )
 
+    # per-light geometry shadows at the hit (3d_shader.wgsl:578-580 via the
+    # hit shading at :846-852): one table element per shadowed light
+    sun_f = 1.0
+    cube_by_li = {}
+    if shadow is not None:
+        sh_rows, sh_params, (sun_entry, cube_entries) = shadow
+        sh_params = torch.from_numpy(np.asarray(sh_params, np.float32)).to(dev)
+        if sun_entry is not None:
+            sun_f = shadow_factor(sh_rows, sh_params, sun_entry, wxh, wyh, wzh, nx, ny, nz,
+                                  live=hit)
+        cube_by_li = {e[0]: e for e in cube_entries}
+
     # sun (f32 scalars computed as the JAX package does on the device)
     sun_c = np.asarray(uniforms.get("sun_color", np.ones(3, np.float32)), np.float32)
     day = np.float32(uniforms["day_factor"]) * np.float32(uniforms["has_sun"])
     sd = _normalize(-torch.from_numpy(np.asarray(uniforms["sun_dir"], np.float32))).tolist()
-    lit_r, lit_g, lit_b = ggx(sd[0], sd[1], sd[2], float(day * sun_c[0]),
-                              float(day * sun_c[1]), float(day * sun_c[2]))
+    lit_r, lit_g, lit_b = ggx(sd[0], sd[1], sd[2], float(day * sun_c[0]) * sun_f,
+                              float(day * sun_c[1]) * sun_f, float(day * sun_c[2]) * sun_f)
 
     # light rows (light_radiance semantics; the lambert factor rides the
     # radiance as in radiance_at, light.rs:504-533)
@@ -257,6 +275,9 @@ def _shade_reflection_hits(t, tri, ox, oy, oz, dx, dy, dz, d3, atlas, lights,
             sc = scale * lambert
         if valid is not None:
             sc = torch.where(valid, sc, 0.0)
+        if i in cube_by_li:
+            sc = sc * shadow_factor(sh_rows, sh_params, cube_by_li[i], wxh, wyh, wzh,
+                                    nx, ny, nz, lpos=lights["position"][i], live=hit)
         col = [float(c) for c in np.asarray(lights["color"][i], np.float32)]
         cr, cg, cb = ggx(-dpx, -dpy, -dpz, col[0] * sc, col[1] * sc, col[2] * sc,
                          clamp_spec=True)
@@ -355,7 +376,7 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
 
 def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniforms,
                     width: int, height: int, sample_mode: int = 0, samples: int = 1,
-                    stride: int = 1):
+                    stride: int = 1, shadow=None):
     """GGX reflection radiance for every covered pixel -> ((H, W, 3) linear,
     (H, W) applied mask; pixels whose samples all faced away keep 0).
 
@@ -365,7 +386,8 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
     uniforms["refl_dist"] (max_sky_distance). With `stride` > 1 the inputs
     are every stride-th pixel of a full-resolution frame (its G-buffer and
     ray seeds at those pixels), and the result equals the full-resolution
-    pass subsampled there."""
+    pass subsampled there. `shadow` shades the hits with a shadow bake (see
+    _shade_reflection_hits)."""
     dev = z.device
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
                      width, height, sample_mode, stride=stride)
@@ -381,7 +403,7 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
         t, tri = intersect_rays_pallas(d3["pos"], d3["valid"], *ray, max_dist, height, width)
         tri = torch.where(r["ok"], tri, -1)
         color = _shade_reflection_hits(t, tri, *ray, d3, atlas, lights, uniforms,
-                                       sample_mode, sky_rgb)
+                                       sample_mode, sky_rgb, shadow)
         x = torch.clamp(1.0 - torch.clamp(r["vdh"], min=0.0), 0.0, 1.0)
         x5 = (x * x) * (x * x) * x
         fres = f0 + (1.0 - f0) * x5[..., None]
@@ -443,7 +465,7 @@ def _resize_bilinear(img, height: int, width: int):
 
 def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                            uniforms, width: int, height: int, sample_mode: int = 0,
-                           samples: int = 1, scale: int = 1):
+                           samples: int = 1, scale: int = 1, shadow=None):
     """reflection_pass at 1/scale resolution, bilinearly upsampled.
 
     scale 1 is the full-resolution pass. With scale > 1 the pass traces
@@ -451,15 +473,15 @@ def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
     rays per sample), the radiance (zero where no sample applied) and the
     applied mask are upsampled as jax.image.resize does, and a pixel takes
     the upsampled radiance where the upsampled mask exceeds 0.5 and the
-    full-resolution pre-pass covers it."""
+    full-resolution pre-pass covers it. `shadow` as for reflection_pass."""
     if scale <= 1:
         return reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
-                               uniforms, width, height, sample_mode, samples)
+                               uniforms, width, height, sample_mode, samples, shadow=shadow)
     hs, ws = height // scale, width // scale
     sl = (slice(0, hs * scale, scale), slice(0, ws * scale, scale))
     refl_lo, mask_lo = reflection_pass(
         z[sl], idx[sl], hit[sl], attr_planes, tri_id, d3, atlas, lights, uniforms,
-        ws, hs, sample_mode, samples, stride=scale,
+        ws, hs, sample_mode, samples, stride=scale, shadow=shadow,
     )
     refl_lo = torch.where(mask_lo[..., None], refl_lo, 0.0)
     up = _resize_bilinear(refl_lo, height, width)

@@ -40,8 +40,12 @@ CULL_BACK = 2
 def _fma(a, b, c):
     """f32 a*b + c with the product kept exact, as a fused multiply-add:
     the f32 product is exact in f64, and the f64 sum rounded to f32 equals
-    the fused result except at rare double-rounding ties."""
-    return (a.double() * b.double() + c.double()).float()
+    the fused result except at rare double-rounding ties. Operands are f32
+    tensors or numbers that are f32 values (at least one a tensor)."""
+    def wide(x):
+        return x.double() if isinstance(x, torch.Tensor) else float(x)
+
+    return (wide(a) * wide(b) + wide(c)).float()
 
 
 def _dot3(a, b):

@@ -11,17 +11,25 @@ bit across paths.
 plain version (`megakernel.mega_render_reference`) run: a block of
 candidates against a block of pixels at once, resolved exactly as the
 sequential strict-`>` scan would resolve it.
+
+`plane_fma=True` evaluates every plane as `fma(a, xs, c) + b*ys`, the
+rounding XLA's CPU build gives the JAX package's XLA visibility pass (it
+fuses the row term, not the broadcast add). The shadow bake takes it: the
+JAX bake runs that XLA pass, and its depth maps are then equal texel for
+texel. The kernels' plain versions keep the unfused order the kernels use.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .setup_pass import _fma
+
 DEAD_PLANE = (0.0, 0.0, -1.0) * 3 + (0.0, 0.0, 1.0)
 
 
 def scan_candidates(planes, xs, ys, best, idx, base: int, gate=None,
-                    z_ceil=None):
+                    z_ceil=None, plane_fma: bool = False):
     """Fold K candidates into the running per-pixel winner.
 
     planes (K, 12); xs and ys broadcast to the pixel block with a trailing
@@ -29,7 +37,8 @@ def scan_candidates(planes, xs, ys, best, idx, base: int, gate=None,
     best (pixels) f32 in the max-1/z domain; idx (pixels) i32; base: slot of
     planes[0]; gate (pixels..., K) bool or None restricts which candidates
     each pixel may take; z_ceil (pixels) keeps only candidates strictly
-    farther than the bound (invz < z_ceil).
+    farther than the bound (invz < z_ceil); plane_fma: see the module
+    docstring.
 
     Equivalent to visiting the K candidates in order with
     `if cov and invz > best: best, idx = invz, slot`: the winner is the
@@ -37,7 +46,8 @@ def scan_candidates(planes, xs, ys, best, idx, base: int, gate=None,
     p = [planes[:, i] for i in range(12)]
 
     def ev(a, b, c):
-        return (p[a] * xs + p[c]) + p[b] * ys
+        row = _fma(p[a], xs, p[c]) if plane_fma else p[a] * xs + p[c]
+        return row + p[b] * ys
 
     e0, e1, e2 = ev(0, 1, 2), ev(3, 4, 5), ev(6, 7, 8)
     invz = ev(9, 10, 11)
@@ -58,13 +68,15 @@ def scan_candidates(planes, xs, ys, best, idx, base: int, gate=None,
 
 
 def visibility_pass(vis_planes, alive, width: int, height: int, chunk: int = 8,
-                    y0=0, z_ceil=None, return_invz: bool = False):
+                    y0=0, z_ceil=None, return_invz: bool = False,
+                    plane_fma: bool = False):
     """vis_planes (T2, 12), alive (T2,) -> (z (H,W), idx (H,W) i32, hit).
 
     z starts at 1.0 (reference z_buffer init); idx = -1 where no triangle
     won. `y0` offsets the pixel rows. `z_ceil` (H,W) in 1/z space keeps only
     candidates strictly farther than the bound (depth peeling); with
-    `return_invz` the raw winning 1/z comes back as a fourth output."""
+    `return_invz` the raw winning 1/z comes back as a fourth output;
+    `plane_fma`: see the module docstring."""
     dev = vis_planes.device
     dead = torch.tensor(DEAD_PLANE, dtype=torch.float32, device=dev)
     planes = torch.where((alive > 0.5)[:, None], vis_planes, dead)
@@ -76,7 +88,8 @@ def visibility_pass(vis_planes, alive, width: int, height: int, chunk: int = 8,
     idx = torch.full((height, width), -1, dtype=torch.int32, device=dev)
     for base in range(0, planes.shape[0], chunk):
         best, idx = scan_candidates(
-            planes[base : base + chunk], xs, ys, best, idx, base, z_ceil=z_ceil
+            planes[base : base + chunk], xs, ys, best, idx, base, z_ceil=z_ceil,
+            plane_fma=plane_fma,
         )
     hit = idx >= 0
     if return_invz:

@@ -14,6 +14,18 @@ GGX BRDF and one reflection ray per pixel. `build_map_ao_scene`,
 `map_1920x1080_ssaa2` configurations. `build_sky_light_scene` is the
 repo's own sky-light scene (a floor the sky can light; the map's walls all
 face sideways).
+
+`build_map_shadow_scene` is the bench's `map_1920x1080_shadow_fps`
+configuration (bench.py `build_map_shadow_scene`): the map plus a point
+light at (15, 2.5, 15), a sun and `set_shadows(True)` with its defaults
+(cube maps of 128², a sun map of 256², at most 4 casting lights, bias
+0.05). Its docstring says the map's spot light casts a cube map; with
+those defaults it does not: the four casting lights are the brightest
+point/spot rows, the map's point lights of intensity 2.0 (the first four
+of eight), ahead of the spot (1.5) and the added point light (1.8).
+`build_map_shadow_refl_scene` is the GGX-reflection map
+(`build_map_refl_scene`) with `set_shadows(True)`: the reflection hits
+look up the same maps.
 """
 
 from __future__ import annotations
@@ -149,3 +161,27 @@ def build_sky_light_scene(width: int, height: int, device=None):
     rast.background((60, 110, 220, 255))
     rast.set_sky_light(True).set_ambient_occlusion(True, samples=8, radius=0.6)
     return rast, scene, Assets.default()
+
+
+def build_map_shadow_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the map plus a point light at (15,
+    2.5, 15) of intensity 1.8 reaching 14 units, a sun and shadow maps with
+    set_shadows' defaults (bench.py:443-460)."""
+    rast, scene, assets = build_map_scene(width, height, device=device)
+    point = Light(LightType.Point).with_position([15.0, 2.5, 15.0]).with_intensity(1.8)
+    point.end_distance = 14.0
+    scene.lights.append(point.compile())
+    rast.sun_dir = np.array([0.4, -1.0, 0.25], np.float32)
+    rast.sun_color = np.array([1.0, 1.0, 0.95], np.float32)
+    rast.day_factor = 1.0
+    rast.set_shadows(True)
+    return rast, scene, assets
+
+
+def build_map_shadow_refl_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the GGX-reflection map (sun, GGX,
+    one reflection ray per pixel) with shadow maps at set_shadows'
+    defaults; B1 and the reflection hits read the same maps."""
+    rast, scene, assets = build_map_refl_scene(width, height, device=device)
+    rast.set_shadows(True)
+    return rast, scene, assets

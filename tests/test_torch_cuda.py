@@ -1,9 +1,10 @@
 """The CUDA kernels on the card: the megakernel (B1, both BRDFs, the
 ambient-occlusion input, the profiling cuts), the visibility pre-pass
 (B2), the ray intersect (B3) and its preparation kernel against their
-plain torch versions on the same inputs, and the whole CUDA frames (opaque,
-with GGX reflections at full and half scale, with AO, with sky light, with
-SSAA) against the CPU frames.
+plain torch versions on the same inputs (B1 also with shadow maps), and the
+whole CUDA frames (opaque, with GGX reflections at full and half scale,
+with AO, with sky light, with SSAA, with shadows, with shadowed
+reflections) against the CPU frames.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
 jax, so they also run on a machine without it:
@@ -33,8 +34,9 @@ from rusterix_tpu_torch import (  # noqa: E402
     Scene,
     Texture,
 )
-from rusterix_tpu_torch.models import RenderSettings, Tile  # noqa: E402
+from rusterix_tpu_torch.models import CullMode, RenderSettings, Tile  # noqa: E402
 from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas  # noqa: E402
+from rusterix_tpu_torch.ops.matrices import look_at_rh, perspective_fov_rh_zo  # noqa: E402
 from rusterix_tpu_torch.ops.raster import frame_inputs  # noqa: E402
 from rusterix_tpu_torch.ops.setup_pass import setup_pass  # noqa: E402
 from rusterix_tpu_torch.scenes import (  # noqa: E402
@@ -42,6 +44,8 @@ from rusterix_tpu_torch.scenes import (  # noqa: E402
     build_map_refl_half_scene,
     build_map_refl_scene,
     build_map_scene,
+    build_map_shadow_refl_scene,
+    build_map_shadow_scene,
     build_map_ssaa2_scene,
     build_sky_light_scene,
 )
@@ -421,13 +425,67 @@ def test_ao_kernel_matches_plain_version(cuda, case):
     (build_sky_light_scene, 256, 128),
     (build_map_refl_half_scene, 256, 128),
     (build_map_ssaa2_scene, 128, 64),
-], ids=["ao", "sky_light", "refl_half", "ssaa2"])
+    (build_map_shadow_scene, 256, 128),
+    (build_map_shadow_refl_scene, 256, 128),
+], ids=["ao", "sky_light", "refl_half", "ssaa2", "shadow", "shadow_refl"])
 def test_cuda_frame_of_a_later_path_matches_cpu_frame(cuda, build, width, height):
-    """The AO map, the sky-light scene, the half-scale reflection map and
-    the SSAA2 map through Rasterizer on the card and on the CPU."""
+    """The AO map, the sky-light scene, the half-scale reflection map, the
+    SSAA2 map and the shadowed maps (without and with GGX reflections)
+    through Rasterizer on the card and on the CPU."""
     frames = []
     for device in (cuda, "cpu"):
         rast, scene, assets = build(width, height, device=device)
         frames.append(rast.rasterize(scene, width, height, 40, assets).astype(np.int32))
     assert frames[0].shape == (height, width, 4)
     assert np.abs(frames[0] - frames[1]).max() <= 1
+
+
+def _room_shadow_inputs():
+    """tests/test_shadow_render.py's room (a floor, a wall, a point light)
+    with the bench sun and shadow maps at set_shadows' defaults, rendered on
+    the CPU -> B1's inputs, the bake among them."""
+    floor = (Batch3D.from_box(-5.0, -0.1, -5.0, 10.0, 0.1, 10.0)
+             .set_source(PixelSource.pixel((200, 200, 200, 255)))
+             .set_cull_mode(CullMode.Off).with_computed_normals())
+    wall = (Batch3D.from_box(2.0, 0.0, -2.0, 0.2, 2.0, 4.0)
+            .set_source(PixelSource.pixel((150, 100, 80, 255)))
+            .set_cull_mode(CullMode.Off).with_computed_normals())
+    light = (Light(LightType.Point).with_position([0.0, 1.2, 0.0]).with_intensity(1.5)
+             .with_color([1.0, 1.0, 1.0]).with_range(0.5, 30.0))
+    scene = Scene.from_static([], [floor, wall]).set_lights([light.compile()])
+    view = look_at_rh(np.array([0.0, 9.0, 5.0], np.float32), np.array([1.5, 0.0, 0.0], np.float32),
+                      np.array([0.0, 1.0, 0.0], np.float32))
+    rast = Rasterizer.setup(None, view, perspective_fov_rh_zo(1.2, 128.0, 96.0, 0.1, 100.0),
+                            device="cpu")
+    rast.background((10, 10, 10, 255)).ambient([0.12, 0.12, 0.12, 1.0])
+    rast.sun_dir, rast.day_factor = np.array([0.6, -1.0, 0.0], np.float32), 1.0
+    rast.set_shadows(True).rasterize(scene, 128, 96, 32, Assets.default())
+    fi = frame_inputs(**rast.frame_args)
+    return fi["mega_args"], fi["mega_kwargs"]
+
+
+def _map_shadow_inputs(width, height):
+    """The shadowed map's (path G's scene) B1 inputs at a small size."""
+    rast, scene, assets = build_map_shadow_scene(width, height, device="cpu")
+    rast.rasterize(scene, width, height, 40, assets)
+    fi = frame_inputs(**rast.frame_args)
+    return fi["mega_args"], fi["mega_kwargs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["room", "map_256x128"])
+def test_shadow_kernel_matches_plain_version(cuda, case):
+    """B1's shadow variant (the point light's cube map and the sun's map on
+    the room; four cube maps and the sun's on the map), z_eff and RGBA8 bit
+    for bit against the plain version on the same inputs."""
+    inputs = _room_shadow_inputs() if case == "room" else _map_shadow_inputs(256, 128)
+    args, kwargs = _to(*inputs, cuda)
+    assert kwargs["shadow_rows"].is_cuda and kwargs["shadow_spec"][0] is not None
+    rgba, z = megakernel.mega_render(*args, **kwargs)
+    ref_rgba, ref_z = megakernel.mega_render_reference(*args, **kwargs)
+    plain, _ = megakernel.mega_render(*args, **dict(kwargs, shadow_rows=None, shadow_spec=None))
+    torch.cuda.synchronize()
+    assert torch.equal(z, ref_z)
+    assert torch.equal(rgba, ref_rgba)
+    if case == "room":
+        assert int((rgba != plain).sum()) > 300, "the maps shadowed nothing"

@@ -74,11 +74,15 @@ NO_JAX_PACKAGE_SCRIPT = textwrap.dedent(
     import sys
 
     import rusterix_tpu_torch
-    from rusterix_tpu_torch.scenes import build_map_refl_scene
+    from rusterix_tpu_torch.scenes import build_map_refl_scene, build_map_shadow_refl_scene
 
     rast, scene, assets = build_map_refl_scene(64, 32, device="cpu")
     frame = rast.rasterize(scene, 64, 32, 40, assets)
     assert frame.shape == (32, 64, 4) and frame.dtype.name == "uint8", frame.shape
+    rast, scene, assets = build_map_shadow_refl_scene(64, 32, device="cpu")
+    frame = rast.set_shadows(True, res=16, sun_res=32).rasterize(scene, 64, 32, 40, assets)
+    assert frame.shape == (32, 64, 4) and rast.frame_args["shadow_spec"][0] is not None
+    assert "rusterix_tpu_torch.ops.shadow" in sys.modules
     jax_pkg = os.path.join(os.getcwd(), "rusterix_tpu") + os.sep
     files = [getattr(m, "__file__", None) or "" for m in list(sys.modules.values())]
     from_jax_pkg = sorted(f for f in files if os.path.abspath(f).startswith(jax_pkg))
@@ -91,8 +95,9 @@ NO_JAX_PACKAGE_SCRIPT = textwrap.dedent(
 
 
 def test_port_loads_no_file_of_the_jax_package():
-    """The reflection frame (every module of the slice) renders without
-    loading any file of rusterix_tpu/ and without importing jax."""
+    """The reflection frame and the shadowed reflection frame (every module
+    of the slice, the shadow maps among them) render without loading any
+    file of rusterix_tpu/ and without importing jax."""
     proc = subprocess.run(
         [sys.executable, "-c", NO_JAX_PACKAGE_SCRIPT],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
