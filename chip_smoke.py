@@ -14,7 +14,12 @@ at half scale (B3 on 960x540 rays); F, the map with 2x2 SSAA (B1 at
 3840x2160); G, the bench's shadowed map (a sun and shadow maps: B1's shadow
 variant reading four cube maps and the sun's, baked in plain torch on the
 first frame); H, the GGX-reflection map with shadow maps (B1's GGX variant
-with shadows, B2, B3, and the maps looked up at the reflection hits). For
+with shadows, B2, B3, and the maps looked up at the reflection hits); I,
+the glazed map under the render graph's sky and fog (B1's transmittance
+and tonemap variants, the sky miss pass, two depth-peeled opacity layers in
+plain torch, the bake with transmittance layers); J, I with GGX
+reflections (B1's GGX variant with both, B2, and B3 on the opaque frame's
+rays and on each layer's). For
 each path it checks that the frame went through exactly
 the kernels of the path (launch counts zeroed before it and read right
 after it),
@@ -24,9 +29,10 @@ for bit), checks the CUDA
 frames against the CPU frames at a small size, times the frames, the
 kernels and the plain versions with CUDA events (B1's kernel alone at
 stage_cut 0, 1 and 2, which splits its time into the scan, the texel stage
-and the lighting; on G with and without the shadow table), times the
-shadow bake apart from the steady frames, and breaks the frames down: host
-wall time per step, and
+and the lighting; on G with and without the shadow table; on I with and
+without each of its variants), times the shadow bake apart from the
+steady frames, and breaks the frames down: host wall time per step (on I
+also the layer loop and the sky miss pass), and
 under torch.profiler the device time, device ops, busy share and each
 kernel's device time per frame. It prints each kernel's registers, shared
 memory and resident blocks an SM, and its bound. Every phase raises on
@@ -57,13 +63,23 @@ EXPECTED_LAUNCHES = {
     "F": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
     "G": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
     "H": {"B1": 1, "B2": 1, "B3": 1, "B3prep": 1},
+    # the opacity layers run through the plain visibility pass, as the JAX
+    # package runs them through XLA; with reflections the walk and its
+    # preparation run once for the opaque frame and once per layer
+    "I": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
+    "J": {"B1": 1, "B2": 1, "B3": 3, "B3prep": 3},
 }
 # the shadowed paths: B1 equals its plain version bit for bit, and their
 # steady frames are counted after a first frame that bakes the maps
-SHADOWED = ("G", "H")
+SHADOWED = ("G", "H", "I", "J")
+# the paths with glass: their maps carry transmittance layers
+GLASS = ("I", "J")
+# frames profiled on the glass paths (~9,000-13,000 device ops a frame
+# each: the profiler's records take longer to read than the frames)
+N_PROF_GLASS = 5
 # pixels where a later path's CUDA frame differs from its CPU frame at the
 # small size (each within RGBA_TOL); see PERF.md
-SMALL_PINNED = {"C": 0, "D": 0, "E": 0, "F": 0, "G": 0, "H": 0}
+SMALL_PINNED = {"C": 0, "D": 0, "E": 0, "F": 0, "G": 0, "H": 0, "I": 0, "J": 0}
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, f32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -101,6 +117,16 @@ OPS_AO = 1  # the ao_img variant: hemi * ao
 # 5 each, range tests 5, depth compare 4, sun colour scale 3)
 OPS_CUBE_SHADOW = 52
 OPS_SUN_SHADOW = 60
+# the transmittance variant, per layer step of a live lookup: two texel
+# reads (counted as bytes), the two depth tests (2 subtractions, 2
+# compares) and the factor's (1 - alpha) and multiply
+OPS_TRANS_STEP = 6
+# the tonemap variant, per shaded pixel, beyond the sRGB encode it replaces
+# (max, square root, 3 multiplies and a subtraction a channel): Reinhard
+# (max, add, divide), max, logf, multiply and expf a channel, counting
+# expf and logf as 8 f32 operations each (a special-function-unit op at a
+# quarter of the f32 rate, with its range reduction and correction)
+OPS_TONEMAP_EXTRA = 3 * (3 + 1 + 8 + 1 + 8) - 3 * 6
 # f32 operations per ray of the preparation (12 min/max + 6 NaN tests + the
 # live test) and per (block, cell) key (gaps, distance, cull, compares)
 OPS_PREP_PER_RAY = 19
@@ -153,20 +179,23 @@ def wall_ms(fn, iters: int = 20) -> float:
     return sorted(out)[iters // 2]
 
 
-def profile_calls(fn, n: int):
+def profile_calls(fn, n: int, host_records: bool = True):
     """Device activity of `n` calls of `fn` under torch.profiler -> None
     when the profiler recorded no device activity, else "calls" (n), per
     call the device ms (the union of the device intervals: kernels, copies,
     memsets) and the device ops, and by name the total device ms and the
     number of records over all n calls. The profiler can lose records of a
     long run, so a reader that needs one kernel's time divides its total by
-    its own count of records, not by n."""
+    its own count of records, not by n. `host_records=False` records the
+    device activity alone (the host's operator records of a call with
+    hundreds of thousands of ops take long to read)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_records else [])
+    with profile(activities=activities) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -195,21 +224,24 @@ def is_kernel(name: str, symbol: str) -> bool:
 
 
 def report_profile(label, prof, frame_ms, gpu, kernels: dict) -> dict:
-    """Print a frame's profile; -> {kernel: device ms per launch}. Each named
-    kernel is launched once per frame (the launch counters hold that), so
-    more records than frames is an error; fewer means the profiler lost
-    records, and then the frame's device ms and ops are lower bounds."""
+    """Print a frame's profile; -> {kernel: device ms per launch}. `kernels`
+    maps a key to the kernel's symbol, or to (symbol, launches per frame)
+    where a frame launches it more than once (the launch counters hold
+    those counts), so more records than that is an error; fewer means the
+    profiler lost records, and then the frame's device ms and ops are lower
+    bounds."""
     if prof is None:
         print(f"profiler, {label}: no device activity recorded; device time not measured")
         return {k: None for k in kernels}
     out, n, lost = {}, prof["calls"], False
     for key, symbol in kernels.items():
+        symbol, per = symbol if isinstance(symbol, tuple) else (symbol, 1)
         seen = [(ms, c) for name, (ms, c) in prof["by_name"].items() if is_kernel(name, symbol)]
-        if len(seen) != 1 or not 1 <= seen[0][1] <= n:
-            raise SystemExit(f"profiler, {label}: expected one {symbol} launch per frame, "
+        if len(seen) != 1 or not 1 <= seen[0][1] <= n * per:
+            raise SystemExit(f"profiler, {label}: expected {per} {symbol} launches per frame, "
                              f"saw (total ms, records) {seen} in {n} frames")
         out[key] = seen[0][0] / seen[0][1]
-        lost = lost or seen[0][1] < n
+        lost = lost or seen[0][1] < n * per
     if lost:
         print(f"profiler, {label}: the profiler lost records of some launches; the frame's "
               f"device ms and ops below are lower bounds, each kernel's ms is per record kept")
@@ -283,17 +315,28 @@ def reflection_kernel_inputs(rast_r, fi, scale: int = 1, sky: bool = False) -> d
 def bake_call(rast, shadow):
     """A function of no arguments that bakes the shadow maps of the frame
     `rast` last rendered, as its Rasterizer baked them (shadow: the port's
-    ops.shadow module) -> (flat table, params, spec)."""
+    ops.shadow module; with the transmittance layers where its maps have
+    them) -> (flat table, params, spec)."""
     fa = rast.frame_args
     sun_entry, cubes = fa["shadow_spec"]
     params, d3 = fa["shadow_params"], fa["d3"]
+    with_trans = any(c[3] >= 0 for c in cubes) or (sun_entry is not None and sun_entry[2] >= 0)
     bounds = shadow.scene_bounds(d3["pos"].cpu().numpy(), d3["valid"].cpu().numpy())
     cfg = rast.shadow_settings
     return lambda: shadow.bake_shadow_pack(
-        d3, None, fa["lights"], [c[0] for c in cubes],
+        d3, fa["d3_op"] if with_trans else None, fa["lights"], [c[0] for c in cubes],
         rast.sun_dir if sun_entry is not None else None, res=cfg["res"],
-        sun_res=cfg["sun_res"], trans_steps=int(np.clip(rast._rs_shadow_steps, 1, 4)),
+        sun_res=cfg["sun_res"], with_trans=with_trans,
+        trans_steps=int(np.clip(rast._rs_shadow_steps, 1, 4)),
         max_shadow_distance=float(params[0]), bias=float(params[1]), bounds=bounds)
+
+
+def opaque_maps(spec):
+    """A shadow spec with its transmittance layers taken out (the depth
+    maps alone), to measure B1 without the transmittance variant."""
+    sun_entry, cubes = spec
+    sun = None if sun_entry is None else (sun_entry[0], sun_entry[1], -1, sun_entry[3])
+    return sun, tuple(tuple(c[:3]) + (-1, c[4]) for c in cubes)
 
 
 def main() -> int:
@@ -301,13 +344,24 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+
+    def phase(label):
+        print(f"[{time.perf_counter() - t_start:.1f} s] phase {label}", flush=True)
     from rusterix_tpu_torch import _cuda
     from rusterix_tpu_torch.ops import megakernel, reflect, rt_kernel, shadow, visibility_pallas
-    from rusterix_tpu_torch.ops.raster import ambient_occlusion, frame_inputs, visibility_prepass
+    from rusterix_tpu_torch.ops.composite import sky_miss_pass
+    from rusterix_tpu_torch.ops.raster import (
+        ambient_occlusion,
+        frame_inputs,
+        opacity_layers,
+        visibility_prepass,
+    )
     from rusterix_tpu_torch.ops.setup_pass import setup_pass
     from rusterix_tpu_torch.ops.shade import gbuffer_pass
     from rusterix_tpu_torch.scenes import (
         build_map_ao_scene,
+        build_map_glass_refl_scene,
+        build_map_glass_scene,
         build_map_refl_half_scene,
         build_map_refl_scene,
         build_map_scene,
@@ -348,6 +402,7 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("ptxas:", line.strip())
 
+    phase("3")
     # 3. main path A: the opaque map at 1920x1080 through rasterize
     rast, scene, assets = build_map_scene(W, H, device="cuda")
     zero_counts()
@@ -365,6 +420,7 @@ def main() -> int:
     if covered < W * H // 20:
         raise SystemExit(f"only {covered} pixels covered: the map did not render")
 
+    phase("4")
     # 4. main path B: the map with the sun, GGX and one reflection ray per pixel
     rast_r, scene_r, assets_r = build_map_refl_scene(W, H, device="cuda")
     zero_counts()
@@ -382,6 +438,7 @@ def main() -> int:
           f"launches {counts_b}, px changed by the reflections {reflected}")
     if reflected < W * H // 50:
         raise SystemExit(f"the reflections changed only {reflected} pixels")
+    phase("4b")
     # 4b. the later paths C-F at 1920x1080, each with its exact launch counts
     later = {
         "C": ("AO map", build_map_ao_scene),
@@ -390,6 +447,8 @@ def main() -> int:
         "F": ("SSAA2 map, 3840x2160 inside", build_map_ssaa2_scene),
         "G": ("shadowed map", build_map_shadow_scene),
         "H": ("shadowed GGX reflection map", build_map_shadow_refl_scene),
+        "I": ("glazed map under the sky, two layers, scenevm tonemap", build_map_glass_scene),
+        "J": ("glazed map under the sky with GGX reflections", build_map_glass_refl_scene),
     }
     paths = {}
     for key, (label, build) in later.items():
@@ -427,7 +486,7 @@ def main() -> int:
             raise SystemExit(f"path {key}'s feature changed only {changed} pixels")
     # what the shadow maps change in G and H (the bench map's walls shade
     # each other only in a few places)
-    for key in SHADOWED:
+    for key in ("G", "H"):
         p_ = paths[key]
         r_, s_, a_ = p_["rast"], p_["scene"], p_["assets"]
         off = r_.set_shadows(False).rasterize(s_, W, H, 40, a_)
@@ -440,6 +499,7 @@ def main() -> int:
     launches = {k: counts_a[k] + counts_b[k] + sum(p_["counts"][k] for p_ in paths.values())
                 for k in counts_a}
 
+    phase("5")
     # 5. every kernel against its plain version on the frames' own inputs
     fi_o = frame_inputs(**rast.frame_args)
     args, kwargs = fi_o["mega_args"], fi_o["mega_kwargs"]
@@ -526,6 +586,7 @@ def main() -> int:
     if not (torch.equal(i3, i3p) and torch.equal(t3, t3p)):
         raise SystemExit("the ray-intersect kernel disagrees with its plain version")
 
+    phase("5b")
     # 5b. the later paths' kernels against their plain versions on each
     # frame's own inputs: B1 (with the AO factor on C and D, at 3840x2160 on
     # F), B2 (C, D, E), the preparation and the walk on the sky rays (D) and
@@ -545,14 +606,16 @@ def main() -> int:
         rgba_lp, z_lp, work_b1 = megakernel.mega_render_reference(*a_, **k_, return_work=True)
         tests = work_b1["vis_tests"]
         p_["shadow_reads"] = (work_b1["cube_reads"], work_b1["sun_reads"])
+        p_["trans_steps"] = work_b1["trans_steps"]
         cut1 = megakernel.mega_render(*a_, **k_, stage_cut=1)[0]
         torch.cuda.synchronize()
         if not torch.equal(z_l, z_lp):
             raise SystemExit(f"B1 path {key}: z_eff differs at {int((z_l != z_lp).sum())} px")
         diff = rgba_diff(rgba_l, rgba_lp)
         p_["b1_err"], p_["b1_tests"], p_["covered"] = int(diff.max()), tests, int((cut1 >= 0).sum())
-        # the shadow table counts the texels read (at most its size)
-        reads = sum(p_["shadow_reads"])
+        # the shadow table counts the texels read (at most its size): a
+        # depth texel per lookup, a depth and an alpha texel per layer step
+        reads = sum(p_["shadow_reads"]) + 2 * p_["trans_steps"]
         table = k_.get("shadow_rows")
         p_["b1_bytes"] = nbytes(*[a for a in a_ if isinstance(a, torch.Tensor)], rgba_l, z_l,
                                 *([k_["ao_img"]] if "ao_img" in k_ else [])) + (
@@ -571,7 +634,27 @@ def main() -> int:
                   f"{k_['shadow_spec']}")
             if cube_reads == 0 or sun_reads == 0:
                 raise SystemExit(f"B1 path {key}: a shadow lookup read no texel")
-        if key in ("F", "G"):
+        if key in GLASS:
+            # what the new variants and passes do on this frame
+            no_trans, _ = megakernel.mega_render(
+                *a_, **dict(k_, shadow_spec=opaque_maps(k_["shadow_spec"])))
+            srgb, _ = megakernel.mega_render(*a_, **dict(k_, tonemap=False))
+            torch.cuda.synchronize()
+            by_trans = int((no_trans != rgba_l).sum())
+            by_tonemap = int((srgb != rgba_l).sum())
+            sky_px = int((z_l >= 1.0).sum())
+            layers = opacity_layers(fa_["d3_op"], fa_["atlas"], fa_["uniforms"], W, H,
+                                    fa_["sample_mode"], fa_["transparency_layers"])
+            glass_px = [int(((zo < 1.0) & (z_l > zo)).sum()) for _c, zo in layers]
+            p_["sky_px"], p_["glass_px"] = sky_px, glass_px
+            print(f"path {key}: {p_['trans_steps']} transmittance layer steps read; px changed "
+                  f"by the transmittance {by_trans}, by the tonemap {by_tonemap}; px the sky "
+                  f"miss pass paints (z_eff 1) {sky_px}; px of each opacity layer in front "
+                  f"of the opaque frame {glass_px}")
+            if not (p_["trans_steps"] and by_trans and by_tonemap > W * H // 20
+                    and sky_px > W * H // 50 and min(glass_px) > 0):
+                raise SystemExit(f"path {key}: a new variant or pass did nothing")
+        if key in ("F", "G", "I"):
             continue
         kin_ = reflection_kernel_inputs(r_, fi_, scale=fa_["refl_scale"], sky=key == "D")
         z2_, i2_, _h2 = visibility_pallas.visibility_pass_pallas(*kin_["b2_in"])
@@ -603,6 +686,7 @@ def main() -> int:
         if bad_ or not (torch.equal(i3_, i3p_) and torch.equal(t3_, t3p_)):
             raise SystemExit(f"B3 path {key}: a ray kernel disagrees with its plain version")
 
+    phase("6")
     # 6. the CUDA frames against the CPU (plain) frames at a small size
     for label, build in (("opaque", build_map_scene), ("reflection", build_map_refl_scene)):
         small = []
@@ -626,6 +710,7 @@ def main() -> int:
         if d.max() > RGBA_TOL or int((d > 0).sum()) != SMALL_PINNED[key]:
             raise SystemExit(f"the CUDA path {key} frame disagrees with the CPU frame")
 
+    phase("7")
     # 7. steady-state times (the rasterize figures include their host work)
     frame_t = cuda_times(lambda: rast.rasterize(scene, W, H, 40, assets, readback=False), 40)
     frame_r_t = cuda_times(
@@ -639,7 +724,8 @@ def main() -> int:
     b2_plain_t = cuda_times(lambda: visibility_pallas.visibility_pass_pallas_reference(*b2_in), 3,
                             warmup=1)
     b3_t = cuda_times(lambda: rt_kernel.intersect_rays_pallas(*b3_in), 40)
-    b3_plain_t = cuda_times(lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in), 3, warmup=1)
+    b3_plain_t = cuda_times(lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in), 2,
+                            warmup=1)
     prep_t = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*b3_in), 40)
     prep_plain_t = cuda_times(lambda: rt_kernel.rt_prepare(*b3_in), 10)
     fields = rt_kernel._ray_fields(*b3_in[2:8])
@@ -705,7 +791,7 @@ def main() -> int:
             p_["prep_t"] = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*b3_in_), 40)
             p_["b3_t"] = cuda_times(lambda: rt_kernel.intersect_rays_pallas(*b3_in_), 40)
             p_["b3_plain_t"] = cuda_times(
-                lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in_), 3, warmup=1)
+                lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in_), 2, warmup=1)
             print(f"B3 path {key} ({b3_in_[-1]}x{b3_in_[-2]} rays): walk alone "
                   f"{summary(p_['walk_t'])}; rt_prepare_cuda {summary(p_['prep_t'])}; "
                   f"intersect_rays_pallas {summary(p_['b3_t'])}; plain "
@@ -718,18 +804,38 @@ def main() -> int:
     print(f"B1 kernel alone on the shadowed map's inputs (stage_cut 0): with the shadow table "
           f"{paths['G']['alone']:.4f} ms, without {no_shadow_alone:.4f} ms (medians of 100) "
           f"on {gpu}")
+    # I: B1 alone with and without each of its new variants
+    a_i, k_i = paths["I"]["mega"]
+    variants_i = {"both": k_i, "without the tonemap": dict(k_i, tonemap=False),
+                  "without the transmittance": dict(k_i, shadow_spec=opaque_maps(
+                      k_i["shadow_spec"])),
+                  "without either": dict(k_i, tonemap=False,
+                                         shadow_spec=opaque_maps(k_i["shadow_spec"]))}
+    alone_i = {name: median(cuda_times(megakernel.prepare_launch(*a_i, **kw), 100))
+               for name, kw in variants_i.items()}
+    print("B1 kernel alone on the glazed map's inputs (stage_cut 0): "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in alone_i.items())
+          + f" (medians of 100) on {gpu}")
     for key in SHADOWED:
         p_ = paths[key]
+        if key in ("H", "J"):  # the maps of G and I again: the first frame only
+            print(f"first frame (path {key}, with the bake of path "
+                  f"{ {'H': 'G', 'J': 'I'}[key]}'s maps): {p_['first_ms']:.4f} ms of wall time "
+                  f"on {gpu}")
+            continue
         bake = bake_call(p_["rast"], shadow)
         if not torch.equal(bake()[0], p_["rast"].frame_args["shadow_rows"]):
             raise SystemExit(f"path {key}: the bake timed here is not the frame's bake")
-        p_["bake_ms"] = wall_ms(bake, 3)
-        bake_prof = profile_calls(bake, 1)
+        n_bake = 1 if key in GLASS else 2
+        p_["bake_ms"] = wall_ms(bake, n_bake)
+        bake_prof = profile_calls(bake, 1, host_records=False)
         bake_dev = ("device time not measured" if bake_prof is None else
                     f"device {bake_prof['device_ms']:.4f} ms in {bake_prof['ops']:.1f} device ops")
-        print(f"shadow bake (path {key}, plain torch, 25 depth renders): first frame "
+        layers_txt = (", with 4 transmittance layers a map (1 + 4 peels a camera)"
+                      if key in GLASS else "")
+        print(f"shadow bake (path {key}, plain torch, 25 depth renders{layers_txt}): first frame "
               f"{p_['first_ms']:.4f} ms of wall time with the bake; bake alone median "
-              f"{p_['bake_ms']:.4f} ms of wall time (n=3), {bake_dev} on {gpu}")
+              f"{p_['bake_ms']:.4f} ms of wall time (n={n_bake}), {bake_dev} on {gpu}")
     a_c, k_c = paths["C"]["mega"]
     no_ao_alone = median(cuda_times(
         megakernel.prepare_launch(*a_c, **dict(k_c, ao_img=None)), 100))
@@ -747,6 +853,7 @@ def main() -> int:
     print(f"ssao_pass (plain torch, {len(fa_c['ao_taps'])} taps, {W}x{H}): {summary(ssao_t)}; "
           f"{ssao_dev} per call on {gpu}")
 
+    phase("8")
     # 8. where the frames' time goes: host wall per step (synchronized)
     fa_o = rast.frame_args
     d3, unif = fa_o["d3"], fa_o["uniforms"]
@@ -793,10 +900,30 @@ def main() -> int:
     }
     for name, fn in steps.items():
         print(f"step wall {name}: median {wall_ms(fn):.4f} ms (n=20) on {gpu}")
+    # I's plain passes after B1: the layer loop (a setup pass of the opacity
+    # pack, a visibility pass and _shade_opacity a layer) and the sky miss
+    # pass, each as host wall, events and profiler
+    fa_i = paths["I"]["rast"].frame_args
+    frame_i = torch.rand((H, W, 4), device="cuda")
+    z_i = megakernel.mega_render(*a_i, **k_i)[1]
+    glass_steps = {
+        "layer loop": lambda: opacity_layers(fa_i["d3_op"], fa_i["atlas"], fa_i["uniforms"], W, H,
+                                             fa_i["sample_mode"], fa_i["transparency_layers"]),
+        "sky_miss_pass": lambda: sky_miss_pass(frame_i, z_i, fa_i["sky_pre"], fa_i["uniforms"],
+                                               W, H),
+    }
+    for name, fn in glass_steps.items():
+        wall = wall_ms(fn, 5)
+        ev = cuda_times(fn, 5, warmup=1)
+        prof = profile_calls(fn, 2)
+        dev = ("device time not measured" if prof is None else
+               f"device {prof['device_ms']:.4f} ms in {prof['ops']:.1f} device ops")
+        print(f"step path I {name} (plain torch, {W}x{H}): wall median {wall:.4f} ms (n=5), "
+              f"events {summary(ev)}, {dev} per call on {gpu}")
 
     # device time per frame under torch.profiler; the busy share's
     # denominator is the unprofiled frame median above (same run)
-    n_prof = 20
+    n_prof = 10
     dev_a = report_profile(
         f"opaque rasterize(readback=False) x{n_prof}",
         profile_calls(lambda: rast.rasterize(scene, W, H, 40, assets, readback=False), n_prof),
@@ -813,14 +940,18 @@ def main() -> int:
                           "B3prep": "rt_prepare_kernel"},
                     "F": {"B1": "mega_kernel"}}
     path_kernels["E"] = path_kernels["H"] = path_kernels["D"]
-    path_kernels["G"] = path_kernels["F"]
+    path_kernels["G"] = path_kernels["I"] = path_kernels["F"]
+    path_kernels["J"] = {"B1": "mega_kernel", "B2": "visibility_kernel",
+                         "B3": ("rt_kernel", 3), "B3prep": ("rt_prepare_kernel", 3)}
     for key, p_ in paths.items():
         r_, s_, as_ = p_["rast"], p_["scene"], p_["assets"]
+        n_key = N_PROF_GLASS if key in GLASS else n_prof
         p_["dev"] = report_profile(
-            f"path {key} rasterize(readback=False) x{n_prof}",
-            profile_calls(lambda: r_.rasterize(s_, W, H, 40, as_, readback=False), n_prof),
+            f"path {key} rasterize(readback=False) x{n_key}",
+            profile_calls(lambda: r_.rasterize(s_, W, H, 40, as_, readback=False), n_key),
             median(p_["frame_t"]), gpu, path_kernels[key])
 
+    phase("9")
     # 9. what each kernel takes on the card (registers a thread, shared
     # memory a block, blocks an SM holds at once: occupancy API)
     ns = fi["vis_s"].shape[0] // 128
@@ -834,6 +965,8 @@ def main() -> int:
     a_g, k_g = paths["G"]["mega"]
     res["B1 shadows (G)"] = _cuda.resources("mega", a_g[0].shape[0] // 128,
                                             len(k_g["light_spec"]), int(a_g[8].shape[0]))
+    res["B1 glass (I)"] = _cuda.resources("mega", a_i[0].shape[0] // 128,
+                                          len(k_i["light_spec"]), int(a_i[8].shape[0]))
     for key, r in res.items():
         warps = 32 if key == "B3" else 8  # B3's walk: 1024 threads a block, the others 256
         print(f"resources {key}: {r['registers']} registers, "
@@ -841,6 +974,7 @@ def main() -> int:
               f"{r['blocks_per_sm']} blocks of {warps * 32} threads an SM "
               f"({r['blocks_per_sm'] * warps} of 64 warps) on {gpu}")
 
+    phase("10")
     # 10. bounds: each input read once and each output written once over the
     # memory rate, against the f32 operations this data needs over the f32
     # rate: visibility tests, B1's stages 2-6 per pixel with a winner (by
@@ -880,14 +1014,19 @@ def main() -> int:
                       ("D", "mega_render ao_img (sky-light scene)"),
                       ("F", "mega_render 3840x2160 (SSAA2 map)"),
                       ("G", "mega_render shadows (shadowed map)"),
-                      ("H", "mega_render brdf_ggx shadows (shadowed reflection map)")):
+                      ("H", "mega_render brdf_ggx shadows (shadowed reflection map)"),
+                      ("I", "mega_render shadows transmittance tonemap (glazed map)"),
+                      ("J", "mega_render brdf_ggx shadows transmittance tonemap (glazed "
+                            "reflection map)")):
         p_ = paths[key]
         a_, k_ = p_["mega"]
         n_occ_ = int(a_[8].shape[0])
         cube_reads, sun_reads = p_["shadow_reads"]
         ops = (p_["b1_tests"] * OPS_PER_VIS_TEST
                + shade_ops(p_["covered"], 0, k_, n_occ_, int(a_[11]))
-               + cube_reads * OPS_CUBE_SHADOW + sun_reads * OPS_SUN_SHADOW)
+               + cube_reads * OPS_CUBE_SHADOW + sun_reads * OPS_SUN_SHADOW
+               + p_["trans_steps"] * OPS_TRANS_STEP
+               + (p_["covered"] * OPS_TONEMAP_EXTRA if k_.get("tonemap") else 0))
         ms, by = bound(p_["b1_bytes"], ops)
         print(f"bound B1 path {key}: {p_['b1_bytes']} bytes, {ops} f32 ops "
               f"({p_['b1_tests']} tests, {p_['covered']} px shaded) -> {ms:.6f} ms, bound by {by}; "
@@ -902,7 +1041,9 @@ def main() -> int:
             **_cuda.resources("mega", a_[0].shape[0] // 128, len(k_["light_spec"]), n_occ_),
         })
     for key, name in (("D", "intersect_rays_pallas (sky rays)"),
-                      ("E", "intersect_rays_pallas (960x540 reflection rays)")):
+                      ("E", "intersect_rays_pallas (960x540 reflection rays)"),
+                      ("J", "intersect_rays_pallas (glazed reflection map, the opaque "
+                            "frame's rays; 3 launches a frame)")):
         p_ = paths[key]
         b3_in_, (t3_, i3_), work_ = p_["kin"]["b3_in"], p_["b3_out"], p_["b3_work"]
         nb = nbytes(*b3_in_[:8], t3_, i3_)

@@ -10,9 +10,13 @@ each wrapper: the wrapper (CUDA events, median of 40), and under
 torch.profiler (20 calls) all device time of the call and the device time
 of each hand-written kernel by name. The megakernel is timed at stage_cut
 0, 1 and 2 on both frames' inputs, so the differences split its time into
-the scan, the interpolation + texel fetch, and the lighting + fog + pack.
+the scan, the interpolation + texel fetch, and the lighting + fog + pack;
+the opaque frame itself (`rasterize`, path A) is timed the same way, which
+gives its device ops per frame.
 Where the tree has the shadowed map (`scenes.build_map_shadow_scene`), the
-megakernel is also timed on its inputs with and without the shadow table.
+megakernel is also timed on its inputs with and without the shadow table;
+where it has the glazed map (`scenes.build_map_glass_scene`), on its inputs
+with its transmittance and tonemap variants and without each.
 Each tree's line also gives the megakernel's registers, shared memory,
 resident blocks an SM and ptxas's spill report.
 
@@ -76,6 +80,9 @@ def measure(tree: str) -> dict:
         for cut in (0, 1, 2):
             times[f"B1 {label} stage_cut={cut}"] = timed(
                 lambda: megakernel.mega_render(*args, **kwargs, stage_cut=cut))
+        if label == "opaque":  # the whole frame: its device ops are mostly plain torch
+            times["frame A rasterize(readback=False)"] = timed(
+                lambda: rast.rasterize(scene, cs.W, cs.H, 40, assets, readback=False))
     b1 = _cuda.resources("mega", args[0].shape[0] // 128, len(kwargs["light_spec"]),
                          int(args[8].shape[0]))
     with open(_cuda.BUILD_LOG) as f:  # csrc/megakernel.cu compiles first
@@ -93,6 +100,16 @@ def measure(tree: str) -> dict:
         no_table = dict(kwargs, shadow_rows=None, shadow_spec=None)
         times["B1 shadowed map without the table"] = timed(
             lambda: megakernel.mega_render(*args, **no_table))
+    if hasattr(scenes, "build_map_glass_scene"):
+        rast, scene, assets = scenes.build_map_glass_scene(cs.W, cs.H, device="cuda")
+        rast.rasterize(scene, cs.W, cs.H, 40, assets)
+        fi = frame_inputs(**rast.frame_args)
+        args, kwargs = fi["mega_args"], fi["mega_kwargs"]
+        no_trans = dict(kwargs, shadow_spec=cs.opaque_maps(kwargs["shadow_spec"]))
+        for label, kw in (("", kwargs), (" without the tonemap", dict(kwargs, tonemap=False)),
+                          (" without the transmittance", no_trans)):
+            times["B1 glazed map" + label] = timed(
+                lambda kw=kw: megakernel.mega_render(*args, **kw))
     gpu = cs._run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     return {"tree": os.path.abspath(tree), "gpu": gpu.splitlines()[0], "b1": b1,
             "times": times}

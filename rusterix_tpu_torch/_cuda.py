@@ -106,7 +106,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rx_mega_render.restype = i32
-    lib.rx_mega_render.argtypes = [vp] * 16 + [i32, i32, i64] + [i32] * 10 + [vp]
+    lib.rx_mega_render.argtypes = [vp] * 16 + [i32, i32, i64] + [i32] * 13 + [vp]
     for fn, n_int in ((lib.rx_mega_resources, 3), (lib.rx_visibility_resources, 1),
                       (lib.rx_rt_resources, 2)):
         fn.restype = i32
@@ -119,6 +119,8 @@ def library() -> ctypes.CDLL:
     lib.rx_rt_intersect.argtypes = [vp] * 13 + [i32] * 5 + [vp]
     lib.rx_rt_prepare.restype = i32
     lib.rx_rt_prepare.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 3 + [i32] * 5 + [vp]
+    lib.rx_xla_fma.restype = i32
+    lib.rx_xla_fma.argtypes = [vp] * 4 + [i64, vp]
     lib.rx_error_string.restype = ctypes.c_char_p
     lib.rx_error_string.argtypes = [i32]
     _lib = lib

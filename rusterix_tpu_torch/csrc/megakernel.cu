@@ -11,8 +11,11 @@
 // occlusion boxes, batch ambient and the five light types; in the `ao_img`
 // variant the two ambient terms scaled by the frame's ambient-occlusion
 // factor at the pixel; in the shadow variant each casting light's radiance
-// and the sun's scaled by a depth-compare lookup in its shadow map), (5)
-// linear or exp^2 fog, and (6) the composite over
+// and the sun's scaled by a depth-compare lookup in its shadow map and, in
+// its transmittance form, by the transparent layers between the light and
+// the receiver), the display encode (the fast sRGB polynomial or, in the
+// `tonemap` variant, the SceneVM transform: Reinhard, then gamma 1/2.2 as
+// expf(logf(t) / 2.2)), (5) linear or exp^2 fog, and (6) the composite over
 // the background and the RGBA8 pack. Outputs: packed RGBA8 per pixel and the effective z (1.0
 // where the opaque pass did not write). `stage_cut` 1 and 2 are the JAX
 // kernel's profiling cuts: stop after the scan (output the winning slot
@@ -86,6 +89,22 @@
 // distance below its end; beyond it the light adds nothing), sun lookups
 // inside the sun map. The table (1.8 MB on the shadowed 1080p map) stays
 // in L2; it is not staged in shared memory.
+//
+// Transmittance: a map baked with opacity batches carries `steps` (at most
+// 4) depth-peeled transparent layers, a depth plane and an alpha plane
+// each, laid out like the map itself (ops/shadow.py). For a live pixel the
+// lookup walks the layers one (depth, alpha) read pair at a time and
+// multiplies the factor, kept in one register, by (1 - alpha) for each
+// layer strictly between the light and the receiver (depth < receiver -
+// bias) and within the max shadow distance. The walk reuses the texel
+// offset of the depth map as one 32-bit offset into the table, so it adds
+// the layer index and the factor to the live values of the lookup: held
+// to 64 registers, the kernel does not spill (ptxas; other shapes of the
+// loop spilled 4-116 bytes, see PERF.md).
+//
+// The tonemap variant uses the full-precision expf and logf (not __expf):
+// the plain version's torch.exp and torch.log on the card are the same
+// functions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,11 +134,14 @@ struct MegaArgs {
     const float* occ;      // (n_occ, 5)
     const float* ao;       // (H, W) ambient-occlusion factor, or null
     const float* shadow;   // flat shadow-map table, or null
-    const int* lshadow;    // (n_lights, 2) [cube base (-1: none), res] per listed light
+    const int* lshadow;    // (n_lights, 4) [cube base (-1: none), res, trans base (-1: none),
+                           // trans steps] per listed light
     uint32_t* rgba;        // (H, W) out
     float* zeff;           // (H, W) out
     int ns, n_attr, n_lights, n_occ, height, width, sample_mode, sun_off, brdf_ggx, stage_cut;
     int sun_base, sun_res;  // the sun map (base -1: none)
+    int sun_tbase, sun_steps;  // its transmittance layers (base -1: none)
+    int tonemap;            // SceneVM display transform instead of sRGB
     long long n_atlas;
 };
 
@@ -129,7 +151,7 @@ struct Consts {
     const float* L;    // n_lights rows of 24, in light-list order
     const int* ltype;  // n_lights type codes
     const float* occ;  // n_occ rows of 5
-    const int* lshadow;  // n_lights [cube base, res], in light-list order
+    const int* lshadow;  // n_lights [cube base, res, trans base, steps], in light-list order
 };
 
 __device__ __forceinline__ float jmin(float a, float b) {
@@ -147,6 +169,12 @@ __device__ __forceinline__ float srgb_to_linear(float x) {
 __device__ __forceinline__ float linear_to_srgb(float x) {
     float sq = sqrtf(jmax(x, 0.0f));
     return K(1.055) * sq - K(0.055) * (sq * sq);
+}
+// the SceneVM display transform, as the JAX kernel writes it
+__device__ __forceinline__ float tonemap_scenevm(float x) {
+    float t = jmax(x, 0.0f);
+    t = t / (t + 1.0f);
+    return expf(logf(jmax(t, K(1e-30))) * K(1.0 / 2.2));
 }
 __device__ __forceinline__ float smoothstep(float e0, float e1, float x) {
     float t = jclip((x - e0) / (e1 - e0), 0.0f, 1.0f);
@@ -237,16 +265,41 @@ __device__ __forceinline__ float dot3_xla(float x, float y, float z, float a, fl
     return xla_fma(z, c, xla_fma(x, a, y * b));
 }
 
+// the depth compare of a shadow texel and, with transmittance layers, the
+// walk through them: the factor (0 or 1) times (1 - alpha) of every layer
+// strictly between the light and the receiver at distance d
+__device__ __forceinline__ float shadow_compare(const MegaArgs& a, const float* P, int flat,
+                                                int base, float d, int tbase, int steps,
+                                                int msize) {
+    const float msd = P[59], bias = P[60];
+    const float stored = __ldg(a.shadow + flat);
+    float factor = ((stored < d - bias) && (d - stored <= msd)) ? 0.0f : 1.0f;
+    if (tbase >= 0) {
+        // one 32-bit texel offset walks the layers (a 64-bit pointer, or
+        // the texel's offset kept apart from the layer's, spilled at 64
+        // registers)
+        int off = tbase + (flat - base);
+        for (int k = 0; k < steps; ++k) {
+            const float dk = __ldg(a.shadow + off);
+            const float ak = __ldg(a.shadow + off + msize);
+            if ((dk < d - bias) && (d - dk <= msd)) factor = factor * (1.0f - ak);
+            off += 2 * msize;
+        }
+    }
+    return factor;
+}
+
 // the cube-map factor (0 or 1) of one casting light at a covered pixel:
 // shadow.shadow_factor's cube branch for a live pixel; 1 outside the
 // light's range, where nothing is read
 __device__ __forceinline__ float cube_shadow(const MegaArgs& a, const float* P, float wx,
                                              float wy, float wz, float ux, float uy, float uz,
-                                             const float* L, int base, int res) {
+                                             const float* L, const int* ls) {
+    const int base = ls[0], res = ls[1];
     const float tpx0 = wx - L[0], tpy0 = wy - L[1], tpz0 = wz - L[2];
     const float ma0 = jmax(fabsf(tpx0), jmax(fabsf(tpy0), fabsf(tpz0)));
     if (!(ma0 < L[5])) return 1.0f;
-    const float msd = P[59], bias = P[60];
+    const float bias = P[60];
     // the texel footprint 2K/res, a constant of the f32 rounding of 4/res
     const float offs = xla_fma(ma0, (float)(4.0 / (double)res), bias);
     const float tpx = xla_fma(ux, offs, tpx0);
@@ -268,8 +321,7 @@ __device__ __forceinline__ float cube_shadow(const MegaArgs& a, const float* P, 
     const float sx = jclip(floorf(xla_fma(u_num / ma_safe, half, half)), 0.0f, (float)(res - 1));
     const float sy = jclip(floorf(xla_fma(-v_num / ma_safe, half, half)), 0.0f, (float)(res - 1));
     const int flat = base + face * res * res + (int)sy * res + (int)sx;
-    const float stored = __ldg(a.shadow + flat);
-    return ((stored < ma - bias) && (ma - stored <= msd)) ? 0.0f : 1.0f;
+    return shadow_compare(a, P, flat, base, ma, ls[2], ls[3], 6 * res * res);
 }
 
 // the sun map's factor (0 or 1) at a covered pixel: shadow.shadow_factor's
@@ -277,7 +329,7 @@ __device__ __forceinline__ float cube_shadow(const MegaArgs& a, const float* P, 
 __device__ __forceinline__ float sun_shadow(const MegaArgs& a, const float* P, float wx,
                                             float wy, float wz, float ux, float uy, float uz) {
     const int res = a.sun_res;
-    const float msd = P[59], bias = P[60], f = P[73];
+    const float bias = P[60], f = P[73];
     const float vz0 = dot3_xla(wx - P[61], wy - P[62], wz - P[63], P[70], P[71], P[72]);
     // the footprint 2K/(f*res) is an f32 product and an f32 division
     const float offs = xla_fma(jmax(vz0, 0.0f), 4.0f / (f * (float)res), bias);
@@ -295,8 +347,7 @@ __device__ __forceinline__ float sun_shadow(const MegaArgs& a, const float* P, f
     if (!((vz > P[74]) && (sxf >= 0.0f) && (sxf < fres) && (syf >= 0.0f) && (syf < fres)))
         return 1.0f;
     const int flat = a.sun_base + (int)syf * res + (int)sxf;
-    const float stored = __ldg(a.shadow + flat);
-    return ((stored < vz - bias) && (vz - stored <= msd)) ? 0.0f : 1.0f;
+    return shadow_compare(a, P, flat, a.sun_base, vz, a.sun_tbase, a.sun_steps, res * res);
 }
 
 struct Surface {
@@ -536,9 +587,8 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
         } else {
             rad = ok_f * scale * 1.0f;
         }
-        if (a.shadow && k.lshadow[2 * n] >= 0)
-            rad = rad * cube_shadow(a, P, wx, wy, wz, s.ux, s.uy, s.uz, L, k.lshadow[2 * n],
-                                    k.lshadow[2 * n + 1]);
+        if (a.shadow && k.lshadow[4 * n] >= 0)
+            rad = rad * cube_shadow(a, P, wx, wy, wz, s.ux, s.uy, s.uz, L, k.lshadow + 4 * n);
         const float rad_r = L[7] * rad, rad_g = L[8] * rad, rad_b = L[9] * rad;
         float cr, cg, cb;
         light_brdf(a, s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
@@ -549,9 +599,16 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
         lit_b = lit_b + has_rad * cb;
     }
 
-    float out_r = linear_to_srgb(lit_r);
-    float out_g = linear_to_srgb(lit_g);
-    float out_b = linear_to_srgb(lit_b);
+    float out_r, out_g, out_b;
+    if (a.tonemap) {
+        out_r = tonemap_scenevm(lit_r);
+        out_g = tonemap_scenevm(lit_g);
+        out_b = tonemap_scenevm(lit_b);
+    } else {
+        out_r = linear_to_srgb(lit_r);
+        out_g = linear_to_srgb(lit_g);
+        out_b = linear_to_srgb(lit_b);
+    }
     // fullbright batches bypass lighting entirely (raw sRGB texel)
     out_r = fullbright * tex[0] + (1.0f - fullbright) * out_r;
     out_g = fullbright * tex[1] + (1.0f - fullbright) * out_g;
@@ -588,12 +645,12 @@ struct __align__(16) BlockState {
 // shared memory, in this order: ScanRing | BlockState | list best (f32),
 // slot (i32) x pixels of the slice | s_near (ns) | meet bits ((ns+31)/32) |
 // params (80) | lights (n_lights*24) | light types (n_lights) | occlusion
-// boxes (n_occ*5) | cube maps of the lights (n_lights*2) | list pixel
+// boxes (n_occ*5) | cube maps of the lights (n_lights*4) | list pixel
 // (u16) x pixels of the slice
 static size_t mega_smem_bytes(int ns, int n_lights, int n_occ) {
     const size_t px = (size_t)SLICE_ROWS(CL) * TILE_W;
     return sizeof(ScanRing) + sizeof(BlockState) + px * 12 + 4 * (size_t)ns +
-           4 * (size_t)((ns + 31) / 32) + 4 * (80 + 27 * (size_t)n_lights + 5 * (size_t)n_occ) +
+           4 * (size_t)((ns + 31) / 32) + 4 * (80 + 29 * (size_t)n_lights + 5 * (size_t)n_occ) +
            16;
 }
 
@@ -612,7 +669,7 @@ __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
     int* c_ltype = reinterpret_cast<int*>(c_lights + 24 * a.n_lights);
     float* c_occ = reinterpret_cast<float*>(c_ltype + a.n_lights);
     int* c_lshadow = reinterpret_cast<int*>(c_occ + 5 * a.n_occ);
-    unsigned short* l_pix = reinterpret_cast<unsigned short*>(c_lshadow + 2 * a.n_lights);
+    unsigned short* l_pix = reinterpret_cast<unsigned short*>(c_lshadow + 4 * a.n_lights);
 
     const int x0 = blockIdx.x * TILE_W;
     const int y0 = (blockIdx.y / CL) * TILE_H;
@@ -748,7 +805,7 @@ __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
             c_ltype[i] = __ldg(a.light_list + 2 * i + 1);
         for (int i = tid; i < 5 * a.n_occ; i += THREADS) c_occ[i] = __ldg(a.occ + i);
         if (a.shadow)
-            for (int i = tid; i < 2 * a.n_lights; i += THREADS) c_lshadow[i] = __ldg(a.lshadow + i);
+            for (int i = tid; i < 4 * a.n_lights; i += THREADS) c_lshadow[i] = __ldg(a.lshadow + i);
         __syncthreads();
         Consts kc;
         kc.P = c_params;
@@ -791,7 +848,8 @@ extern "C" int rx_mega_render(
     const float* lights, const int* light_list, const float* occ, const float* ao,
     const float* shadow, const int* lshadow, int* rgba, float* zeff, int ns, int n_attr,
     long long n_atlas, int n_lights, int n_occ, int height, int width, int sample_mode,
-    int sun_off, int brdf_ggx, int stage_cut, int sun_base, int sun_res, void* stream) {
+    int sun_off, int brdf_ggx, int stage_cut, int sun_base, int sun_res, int sun_tbase,
+    int sun_steps, int tonemap, void* stream) {
     MegaArgs a;
     a.planes = planes;
     a.attr = attr;
@@ -809,6 +867,9 @@ extern "C" int rx_mega_render(
     a.lshadow = lshadow;
     a.sun_base = shadow ? sun_base : -1;
     a.sun_res = sun_res;
+    a.sun_tbase = sun_tbase;
+    a.sun_steps = sun_steps;
+    a.tonemap = tonemap;
     a.rgba = reinterpret_cast<uint32_t*>(rgba);
     a.zeff = zeff;
     a.ns = ns;
@@ -823,6 +884,22 @@ extern "C" int rx_mega_render(
     a.brdf_ggx = brdf_ggx;
     a.stage_cut = stage_cut;
     return launch_mega(a, static_cast<cudaStream_t>(stream));
+}
+
+// B1's lookup FMA (xla_fma) over n elements, so that it can be held to the
+// plain version's `_fma` on the card
+__global__ void xla_fma_kernel(const float* a, const float* b, const float* c, float* out,
+                               long long n) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = xla_fma(a[i], b[i], c[i]);
+}
+
+extern "C" int rx_xla_fma(const float* a, const float* b, const float* c, float* out,
+                          long long n, void* stream) {
+    if (n <= 0) return 0;
+    xla_fma_kernel<<<(unsigned)((n + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        a, b, c, out, n);
+    return (int)cudaGetLastError();
 }
 
 extern "C" const char* rx_error_string(int err) {

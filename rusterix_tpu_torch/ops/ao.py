@@ -96,21 +96,29 @@ def ssao_pass(z_ndc, hit, depth_a, depth_b, radius, px_scale, taps: tuple):
 
     bias = _scalar(_BIAS, dev) * radius
     r_fall = torch.maximum(radius, _scalar(1e-6, dev))
+    # every tap at once along a leading axis (K, H, W); the sums below keep
+    # the taps' order
+    def per_tap(values):
+        return torch.tensor([float(np.float32(v)) for v in values], dtype=torch.float32,
+                            device=dev)[:, None, None]
+
+    reach = per_tap([math.hypot(dx, dy) for dx, dy in taps]) * px_scale
+    tdx, tdy = per_tap([dx for dx, _dy in taps]), per_tap([dy for _dx, dy in taps])
+    d_tap = torch.stack([_shift_edge(d, dy, dx) for dx, dy in taps])
+    delta = d - d_tap
+    lam = reach * torch.minimum(d, d_tap)
+    dc = delta - _fma(tdx, gx, tdy * gy)
+    # the square root in f64, rounded once: correctly rounded on the card and
+    # on the CPU (torch's f32 CPU sqrt is not, in the last bit)
+    dist = torch.sqrt(_fma(delta, delta, lam * lam).double()).float()
+    near = (dc > bias) & (dist < radius)
+    fall = torch.where(near, torch.clamp(1.0 - dist / r_fall, min=0.0), 0.0)
+    inside = (reach * d < radius).float()
     occ = torch.zeros_like(d)
     n_eff = torch.zeros_like(d)
-    for dx, dy in taps:
-        reach = _scalar(math.hypot(dx, dy), dev) * px_scale
-        d_tap = _shift_edge(d, dy, dx)
-        delta = d - d_tap
-        lam = reach * torch.minimum(d, d_tap)
-        dc = delta - _fma(dx, gx, dy * gy)
-        # the square root in f64, rounded once: correctly rounded on the
-        # card and on the CPU (torch's f32 CPU sqrt is not, in the last bit)
-        dist = torch.sqrt(_fma(delta, delta, lam * lam).double()).float()
-        near = (dc > bias) & (dist < radius)
-        fall = torch.clamp(1.0 - dist / r_fall, min=0.0)
-        occ = occ + torch.where(near, fall, 0.0)
-        n_eff = n_eff + (reach * d < radius).float()
+    for k in range(len(taps)):
+        occ = occ + fall[k]
+        n_eff = n_eff + inside[k]
 
     ao = 1.0 - occ / torch.clamp(n_eff, min=1.0)
     return torch.where(hit, torch.clamp(ao, 0.0, 1.0), 1.0)

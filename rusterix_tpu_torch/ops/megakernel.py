@@ -262,8 +262,8 @@ def unpack_frame_u32(rgba_u32) -> torch.Tensor:
 # ---------------------------------------------------------------- the call
 
 
-def _check_variants(has_blend, has_material, has_matmap, tonemap,
-                    shadow_rows, shadow_spec, light_spec, s_near, stage_cut=0):
+def _check_variants(has_blend, has_material, has_matmap, shadow_rows, shadow_spec,
+                    light_spec, s_near, stage_cut=0):
     if stage_cut in (3, 4):
         # the JAX kernel's cuts 3 and 4 sit inside TPU mechanisms: 3 skips
         # the per-chunk pull-in of the winners' attribute rows into VMEM
@@ -281,13 +281,6 @@ def _check_variants(has_blend, has_material, has_matmap, tonemap,
         "has_blend (vertex blend)": has_blend,
         "has_material": has_material,
         "has_matmap": has_matmap,
-        "tonemap (scenevm)": tonemap,
-        # the maps' transmittance planes need opacity batches in the frame
-        "shadow transmittance layers (shadow_spec with a trans base >= 0)": (
-            shadow_spec is not None and (
-                (shadow_spec[0] is not None and shadow_spec[0][2] >= 0)
-                or any(e[3] >= 0 for e in shadow_spec[1]))
-        ),
         "light_spec=None (generic one-hot light blend)": light_spec is None,
     }
     for name, on in refused.items():
@@ -332,26 +325,36 @@ def _light_list(light_spec, device) -> torch.Tensor:
 
 def _shadow_launch_tables(shadow_rows, shadow_spec, light_spec, device):
     """The shadow variant's launch inputs -> (flat f32 table or None,
-    (n_lights, 2) i32 [cube base, res] per light of the light list (base
-    -1: the light casts no map) or None, (sun base, sun res) with base -1
-    when there is no sun map)."""
+    (n_lights, 4) i32 [cube base, res, transmittance base, steps] per light
+    of the light list (base -1: the light casts no map; transmittance base
+    -1: no transparent layers) or None, (sun base, sun res, transmittance
+    base, steps) with base -1 when there is no sun map)."""
     if shadow_rows is None:
-        return None, None, (-1, 0)
+        return None, None, (-1, 0, -1, 0)
     if shadow_rows.device != device or shadow_rows.dtype != torch.float32:
         raise ValueError(f"mega_render: shadow_rows is {shadow_rows.dtype} on "
                          f"{shadow_rows.device}, not float32 on {device}")
     sun_entry, cube_entries = shadow_spec
+    # each map, and each transmittance region: `steps` (depth, alpha) pairs
+    # of map-sized planes
     maps = [(int(e[1]), 6 * int(e[2]) ** 2) for e in cube_entries]
+    maps += [(int(e[3]), 12 * int(e[4]) * int(e[2]) ** 2) for e in cube_entries if e[3] >= 0]
     if sun_entry is not None:
         maps.append((int(sun_entry[0]), int(sun_entry[1]) ** 2))
+        if sun_entry[2] >= 0:
+            maps.append((int(sun_entry[2]), 2 * int(sun_entry[3]) * int(sun_entry[1]) ** 2))
+    for e in list(cube_entries) + ([sun_entry] if sun_entry is not None else []):
+        steps = int(e[-1])
+        if e[-2] >= 0 and not 1 <= steps <= 4:
+            raise ValueError(f"mega_render: {steps} transmittance steps, not 1-4")
     n = shadow_rows.numel()
     for base, size in maps:
         if base < 0 or base + size > n:
             raise ValueError(f"mega_render: a map of {size} texels at {base} leaves the "
                              f"{n}-texel shadow table")
-    cube = {int(e[0]): (int(e[1]), int(e[2])) for e in cube_entries}
-    rows = tuple(cube.get(int(r), (-1, 0)) for r, _t in light_spec)
-    sun_map = (-1, 0) if sun_entry is None else (int(sun_entry[0]), int(sun_entry[1]))
+    cube = {int(e[0]): tuple(int(v) for v in e[1:5]) for e in cube_entries}
+    rows = tuple(cube.get(int(r), (-1, 0, -1, 0)) for r, _t in light_spec)
+    sun_map = (-1, 0, -1, 0) if sun_entry is None else tuple(int(v) for v in sun_entry)
     return shadow_rows.contiguous(), device_table(rows, torch.int32, device), sun_map
 
 
@@ -378,7 +381,13 @@ def mega_render(
     planes' device) with its `shadow_spec` adds per-light geometry shadows:
     each casting light's cube factor scales that light's radiance, the sun
     map's factor the sun's (params 59-74 from pack_mega_params'
-    shadow_params).
+    shadow_params). Where a map has transmittance layers (a spec entry
+    with a transmittance base >= 0), each of its `steps` depth-peeled
+    transparent layers that lies strictly between the light and the
+    receiver, within the max shadow distance, scales the factor by
+    (1 - its alpha). `tonemap` encodes the lit colour with the SceneVM
+    transform (Reinhard, then gamma 1/2.2 as exp(log(t) / 2.2)) in place
+    of the fast sRGB polynomial; fullbright texels keep their raw bytes.
 
     `stage_cut` is the JAX kernel's profiling instrument: the kernel stops
     after a stage, so that timing cuts 1, 2 and 0 splits its time into the
@@ -392,27 +401,28 @@ def mega_render(
 
     CUDA tensors launch the hand-written kernel (csrc/megakernel.cu); CPU
     tensors run mega_render_reference."""
-    _check_variants(has_blend, has_material, has_matmap, tonemap,
-                    shadow_rows, shadow_spec, light_spec, s_near, stage_cut)
+    _check_variants(has_blend, has_material, has_matmap, shadow_rows, shadow_spec,
+                    light_spec, s_near, stage_cut)
     if vis_planes.device.type != "cuda":
         return mega_render_reference(
             vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
             lights_packed, occ_packed, width, height, sample_mode,
             light_spec=light_spec, sun_off=sun_off, s_near=s_near,
             brdf_ggx=brdf_ggx, stage_cut=stage_cut, ao_img=ao_img,
-            shadow_rows=shadow_rows, shadow_spec=shadow_spec,
+            shadow_rows=shadow_rows, shadow_spec=shadow_spec, tonemap=tonemap,
         )
     return prepare_launch(
         vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         lights_packed, occ_packed, width, height, sample_mode, light_spec,
         sun_off, s_near, brdf_ggx, stage_cut, ao_img, shadow_rows, shadow_spec,
+        tonemap,
     )()
 
 
 def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
                    lights_packed, occ_packed, width, height, sample_mode, light_spec,
                    sun_off, s_near, brdf_ggx=False, stage_cut=0, ao_img=None,
-                   shadow_rows=None, shadow_spec=None):
+                   shadow_rows=None, shadow_spec=None, tonemap=False):
     """Check and prepare mega_render's inputs for the CUDA kernel -> a
     function of no arguments that launches the kernel on them and returns
     (rgba, z_eff), the same two tensors at every call. mega_render is one
@@ -476,7 +486,8 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         ns, attr.shape[1], inputs["atlas"].numel(),
         llist.shape[0], inputs["occ"].shape[0], height, width,
         int(sample_mode), int(bool(sun_off)), int(bool(brdf_ggx)), int(stage_cut),
-        int(sun_map[0]), int(sun_map[1]),
+        int(sun_map[0]), int(sun_map[1]), int(sun_map[2]), int(sun_map[3]),
+        int(bool(tonemap)),
     )
     # alive while the closure is
     keep = (planes, attr, sboxes, cboxes, inputs, llist, ao_img, shadow, lshadow)
@@ -494,6 +505,26 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
     return launch
 
 
+def lookup_fma_cuda(a, b, c):
+    """a*b + c through B1's shadow-lookup FMA (`xla_fma`, __fmaf_rn) on the
+    card, element for element (f32 CUDA tensors of one shape): the
+    operation the plain version writes as `_fma`, for holding the two
+    to each other."""
+    from .. import _cuda
+
+    a, b, c = (t.float().contiguous() for t in (a, b, c))
+    if not (a.is_cuda and a.shape == b.shape == c.shape and a.device == b.device == c.device):
+        raise ValueError("lookup_fma_cuda takes three f32 CUDA tensors of one shape")
+    out = torch.empty_like(a)
+    ptr = ctypes.c_void_p
+    err = _cuda.library().rx_xla_fma(ptr(a.data_ptr()), ptr(b.data_ptr()), ptr(c.data_ptr()),
+                                     ptr(out.data_ptr()), a.numel(),
+                                     ptr(torch.cuda.current_stream(a.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"xla_fma launch failed: CUDA error {err} ({_cuda.error_string(err)})")
+    return out
+
+
 # -------------------------------------------------- the plain torch version
 
 
@@ -504,6 +535,14 @@ def _srgb_to_linear(x):
 def _linear_to_srgb(x):
     sq = torch.sqrt(torch.clamp(x, min=0.0))
     return 1.055 * sq - 0.055 * (sq * sq)
+
+
+def _tonemap_scenevm(x):
+    """The SceneVM display transform as the JAX kernel writes it (Reinhard,
+    then gamma 1/2.2 through exp and log, 3d_shader.wgsl:871-873)."""
+    t = torch.clamp(x, min=0.0)
+    t = t / (t + 1.0)
+    return torch.exp(torch.log(torch.clamp(t, min=1e-30)) * (1.0 / 2.2))
 
 
 def _smoothstep(edge0, edge1, x):
@@ -617,7 +656,7 @@ def mega_render_reference(
     occ_packed, width: int, height: int, sample_mode: int = 0,
     light_spec: tuple = None, sun_off: bool = False, s_near=None,
     brdf_ggx: bool = False, return_work: bool = False, stage_cut: int = 0,
-    ao_img=None, shadow_rows=None, shadow_spec: tuple = None,
+    ao_img=None, shadow_rows=None, shadow_spec: tuple = None, tonemap: bool = False,
 ):
     """Plain torch version of the megakernel: the kernel body's per-pixel
     math transcribed op for op (the JAX kernel's `_mega_kernel` stages 1-6),
@@ -625,9 +664,10 @@ def mega_render_reference(
     Same inputs and outputs as mega_render; with `return_work`, a third
     output counts the work this data needs: "vis_tests", the
     pixel-candidate visibility tests the scan performed (gated by the boxes
-    and stopped early as the kernel is), and "cube_reads" / "sun_reads",
-    the shadow-map texels read (live pixels only, as the kernel reads
-    them). `stage_cut` 1 and 2 stop where the kernel's cuts do (see
+    and stopped early as the kernel is), "cube_reads" / "sun_reads", the
+    shadow-map depth texels read (live pixels only, as the kernel reads
+    them), and "trans_steps", the transmittance layer steps taken (each
+    reads a depth and an alpha texel). `stage_cut` 1 and 2 stop where the kernel's cuts do (see
     mega_render)."""
     if light_spec is None or s_near is None:
         raise ValueError("mega_render_reference needs light_spec and s_near")
@@ -639,7 +679,7 @@ def mega_render_reference(
     hp = height + (-height % TILE_H)
     wp = width + (-width % TILE_W)
     best, idx, tests = _visibility(planes, sboxes, cboxes, s_near.float(), hp, wp)
-    work = {"vis_tests": tests, "cube_reads": 0, "sun_reads": 0}
+    work = {"vis_tests": tests, "cube_reads": 0, "sun_reads": 0, "trans_steps": 0}
     # a tile shades when any of its pixels, padding included, has a winner
     tile_hit = (idx >= 0).reshape(hp // TILE_H, TILE_H, wp // TILE_W, TILE_W).any(dim=3).any(dim=1)
     tile_hit = tile_hit.repeat_interleave(TILE_H, 0).repeat_interleave(TILE_W, 1)[:height, :width]
@@ -751,11 +791,13 @@ def mega_render_reference(
                 live=hit & (ma0 < lrow[5]), return_reads=True)
             if return_work:
                 work["cube_reads"] += int(reads.sum())
+                work["trans_steps"] += int(reads.sum()) * (entry[4] if entry[3] >= 0 else 0)
         if sun_entry is not None and not sun_off:
             sun_shadow, reads = shadow_factor(shadow_rows, sp, sun_entry, wx, wy, wz, ux, uy, uz,
                                               live=hit, return_reads=True)
             if return_work:
                 work["sun_reads"] = int(reads.sum())
+                work["trans_steps"] += int(reads.sum()) * (sun_entry[3] if sun_entry[2] >= 0 else 0)
 
     occlusion = torch.ones_like(wx)
     occ = occ_packed.float()
@@ -897,9 +939,10 @@ def mega_render_reference(
         lit_g = lit_g + has_rad * cg
         lit_b = lit_b + has_rad * cb
 
-    out_r = _linear_to_srgb(lit_r)
-    out_g = _linear_to_srgb(lit_g)
-    out_b = _linear_to_srgb(lit_b)
+    encode = _tonemap_scenevm if tonemap else _linear_to_srgb
+    out_r = encode(lit_r)
+    out_g = encode(lit_g)
+    out_b = encode(lit_b)
     # fullbright batches bypass lighting entirely (raw sRGB texel)
     out_r = fullbright * tex_r + (1.0 - fullbright) * out_r
     out_g = fullbright * tex_g + (1.0 - fullbright) * out_g

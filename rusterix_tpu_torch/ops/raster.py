@@ -13,15 +13,25 @@ the sky-light rays go through the ray-intersect kernel (B3), and their
 terms are composited over the opaque frame. With shadows, the casting
 lights' cube maps and the sun's map are baked once per scene and light set
 (`ops/shadow.py`, cached in `_SHADOW_CACHE`) and looked up by B1's shadow
-variant and by the reflection hits. With SSAA the frame renders at n times
-the size and is box-filtered down. The 2D line overlay is drawn last, on
-the host. Every feature outside that slice raises
-`NotImplementedError` naming it; none degrades silently.
+variant and by the reflection hits; with opacity batches the maps also
+bake depth-peeled transparent layers, which attenuate the light through
+glass (B1's transmittance). After the opaque frame come, in the JAX
+package's order, the reflections and the sky light, the render graph's sky
+miss pass (`composite.sky_miss_pass`), the editor's brush preview, and the
+opacity batches: `transparency_layers` depth-peeled layers (plain torch:
+a setup pass of the opacity pack, then per layer a visibility pass and
+`_shade_opacity`, with GGX reflections per layer when they are on),
+blended back to front. `set_tonemap("scenevm")` encodes the lit colour
+with the SceneVM transform in B1 and in the reflection composite. With
+SSAA the frame renders at n times the size and is box-filtered down. The
+2D line overlay is drawn last, on the host. Every feature outside that
+slice raises `NotImplementedError` naming it; none degrades silently.
 """
 
 from __future__ import annotations
 
 import uuid
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -31,7 +41,7 @@ from .. import native
 from ..device import resolve_device
 from ..models import Assets, SampleMode, pack_lights
 from ..models.blend import RenderMode
-from ..utils.color import hash_u32, srgb_to_linear_fast
+from ..utils.color import hash_u32, linear_to_srgb_fast, srgb_to_linear_fast
 from .megakernel import (
     light_spec_from,
     mega_render,
@@ -44,19 +54,21 @@ from .megakernel import (
     unpack_frame_u32,
 )
 from .ao import ssao_pass, tap_offsets
-from .composite import frame_to_u8
+from .composite import blend_opacity, brush_preview_pass, frame_to_u8, sky_miss_pass
 from .matrices import invert
 from .reflect import apply_reflections, reflection_pass_scaled, sky_light_pass
 from .scene_pack import PackedScene, next_pow2
 from .setup_pass import setup_pass
-from .shade import _div
+from .shade import _div, resolve_texel
+from .visibility import visibility_pass
 from .visibility_pallas import visibility_pass_pallas
 
 
 def packed_to_torch(packed: PackedScene, device) -> dict:
     """The JAX package's numpy PackedScene -> the port's device tensors:
-    {"d3": {field: tensor}, "atlas": {"flat_u32" (N,) i32 holding the u32
-    texels, "w" int, "rects", "tile_first", "tile_count"}}."""
+    {"d3": {field: tensor}, "d3_op": {field: tensor} (the opacity batches),
+    "atlas": {"flat_u32" (N,) i32 holding the u32 texels, "w" int, "rects",
+    "tile_first", "tile_count"}}."""
     dev = resolve_device(device)
 
     def put(a):
@@ -66,6 +78,7 @@ def packed_to_torch(packed: PackedScene, device) -> dict:
     texels = np.ascontiguousarray(atlas.data.reshape(-1, 4)).view(np.int32).reshape(-1)
     return {
         "d3": {k: put(v) for k, v in vars(packed.d3).items() if v is not None},
+        "d3_op": {k: put(v) for k, v in vars(packed.d3_opacity).items() if v is not None},
         "atlas": {
             "flat_u32": put(texels),
             "w": int(atlas.data.shape[1]),
@@ -82,12 +95,14 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
                  brdf_ggx: bool = False, refl_samples: int = 0,
                  refl_scale: int = 1, ao_taps: tuple = None,
                  sky_light: bool = False, shadow_rows=None, shadow_params=None,
-                 shadow_spec: tuple = None) -> dict:
+                 shadow_spec: tuple = None, tonemap: bool = False, **_later) -> dict:
     """The frame's preparation before its kernels: setup pass, megakernel
     table, Morton + front-to-back sort and the parameter packs -> dict with
     the setup pass's `attr` and `tri_id`, the sorted `vis_s`, `alive_s`,
     `bbox_s`, the sorted position -> slot permutation `sort_perm`, and
-    `mega_args` / `mega_kwargs` for mega_render.
+    `mega_args` / `mega_kwargs` for mega_render. Takes render_frame's
+    arguments; those of the passes after the opaque frame (`_later`) are
+    read by render_frame.
 
     d3/atlas: packed_to_torch tensors; lights/uniforms: the host (numpy)
     dicts the Rasterizer builds each frame (pack_light_params,
@@ -121,7 +136,7 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
         "mega_args": args,
         "mega_kwargs": {"light_spec": light_spec, "sun_off": sun_off, "s_near": s_near,
                         "brdf_ggx": brdf_ggx, "shadow_rows": shadow_rows,
-                        "shadow_spec": shadow_spec},
+                        "shadow_spec": shadow_spec, "tonemap": tonemap},
     }
 
 
@@ -145,51 +160,155 @@ def ambient_occlusion(pre, uniforms, height: int, ao_taps: tuple):
                      px_scale, ao_taps)
 
 
+#: candidates a step of the opacity layers' visibility pass takes; the
+#: result does not depend on it (see shadow.BAKE_CHUNK)
+LAYER_CHUNK = 64
+
+
+def _shade_opacity(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms, width: int,
+                   height: int, sample_mode: int = 0):
+    """Opacity-pass shading: texel only, no lighting (reference
+    d3_rasterize_opacity, src/rasterizer.rs:1425-1690; the JAX package's
+    `_shade_opacity` without runtime shaders) -> (color (H, W, 4) f32 with
+    the alpha times the batch opacity, z_eff (1.0 where no layer surface),
+    tri id (H, W))."""
+    dev = z.device
+    slot = torch.clamp(idx, min=0).long()
+    t = tri_id[slot].long()
+    planes = attr_planes[slot]
+    px = (torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5).expand(
+        height, width)
+    py = (torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5).expand(
+        height, width)
+
+    def interp(i):
+        return planes[..., 3 * i] * px + planes[..., 3 * i + 1] * py + planes[..., 3 * i + 2]
+
+    inv_w = interp(0)
+    u = interp(1) / inv_w
+    v = interp(2) / inv_w
+    texel = resolve_texel(meta["kind"][t], meta["tex_slot"][t], meta["rgba"][t],
+                          meta["repeat"][t], u, v, atlas, uniforms["anim_frame"], sample_mode)
+    lin = srgb_to_linear_fast(texel[..., :3])
+    # whole-batch alpha multiplier (fading door billboards,
+    # scene_handler.rs:703-728 DynamicObject::with_opacity)
+    opac = texel[..., 3] * meta["opacity"][t]
+    # the srgb -> linear -> srgb round trip through the fast polynomials, as
+    # the reference's pipeline has it (rasterizer.rs:1634-1676)
+    out = torch.cat([linear_to_srgb_fast(lin), opac[..., None]], dim=-1)
+    z_eff = torch.where(hit, z, 1.0)
+    color = torch.where(hit[..., None], out, 0.0)
+    return color, z_eff, t
+
+
+def opacity_layers(d3_op, atlas, uniforms, width: int, height: int, sample_mode: int = 0,
+                   layers: int = 1, reflect_layer=None):
+    """The opacity batches' depth-peeled layers -> [(color (H, W, 4),
+    z_eff (H, W))], nearest first: layer k is the k-th nearest transparent
+    surface of each pixel (strictly farther than layer k-1 through the raw
+    1/z ceiling), as the JAX package's render_frame peels them
+    (rusterix_tpu/ops/raster.py:423-482). The layers' visibility is the
+    plain pass in XLA's plane rounding (`plane_fma`), as the JAX package
+    runs them through its XLA pass. `reflect_layer(z, idx, hit, attr,
+    tri_id, color)` -> color composites a layer's reflections (None: off)."""
+    view = torch.from_numpy(uniforms["view"]).to(d3_op["pos"].device)
+    proj = torch.from_numpy(uniforms["proj"]).to(d3_op["pos"].device)
+    vis_o, attr_o, _bbox, alive_o, tri_id_o = setup_pass(
+        d3_op["pos"], d3_op["uv"], d3_op["nrm"], d3_op["valid"], d3_op["cull"], view, proj,
+        width, height,
+    )
+    alive_of = alive_o.float()
+    out, ceil = [], None
+    for _layer in range(layers):
+        z_o, idx_o, hit_o, inv_o = visibility_pass(
+            vis_o, alive_of, width, height, chunk=LAYER_CHUNK, z_ceil=ceil, return_invz=True,
+            plane_fma=True)
+        color_o, zeff_o, _t = _shade_opacity(z_o, idx_o, hit_o, attr_o, tri_id_o, d3_op, atlas,
+                                             uniforms, width, height, sample_mode)
+        if reflect_layer is not None:
+            color_o = reflect_layer(z_o, idx_o, hit_o, attr_o, tri_id_o, color_o)
+        out.append((color_o, zeff_o))
+        ceil = inv_o
+    return out
+
+
 def render_frame(d3, lights, atlas, uniforms, background, width: int,
                  height: int, sample_mode: int = 0, has_fog: bool = False,
                  light_spec: tuple = None, sun_off: bool = False,
                  brdf_ggx: bool = False, refl_samples: int = 0,
                  refl_scale: int = 1, ao_taps: tuple = None,
                  sky_light: bool = False, shadow_rows=None, shadow_params=None,
-                 shadow_spec: tuple = None):
+                 shadow_spec: tuple = None, tonemap: bool = False, d3_op=None,
+                 has_opacity: bool = False, transparency_layers: int = 1,
+                 preserve_transparency: bool = False, has_sky: bool = False,
+                 sky_pre: dict = None, has_brush: bool = False):
     """One 3D frame on the device -> (H, W, 4) uint8 tensor: the JAX
-    render_frame's megakernel branch (ops/raster.py:233-411 and :500
-    there). The opaque frame comes from the megakernel (B1). With AO
-    (`ao_taps` from tap_offsets, radius uniforms["ao_radius"]), reflections
-    or sky light, the visibility pre-pass (B2) gives the winners before
-    shading; the AO factor scales B1's ambient terms; the reflection pass
-    (at 1/refl_scale resolution) and the sky-light pass trace their rays
-    through the ray-intersect kernel (B3), and each term is composited in
-    f32 over the quantized opaque frame, the sky light scaled by the AO
-    factor. With a shadow bake, B1 and the reflection hits look up the same
-    maps. Arguments as for frame_inputs."""
+    render_frame's megakernel branch (ops/raster.py:233-500 there). The
+    opaque frame comes from the megakernel (B1). With AO (`ao_taps` from
+    tap_offsets, radius uniforms["ao_radius"]), reflections or sky light,
+    the visibility pre-pass (B2) gives the winners before shading; the AO
+    factor scales B1's ambient terms; the reflection pass (at 1/refl_scale
+    resolution) and the sky-light pass trace their rays through the
+    ray-intersect kernel (B3), and each term is composited in f32 over the
+    quantized opaque frame, the sky light scaled by the AO factor. With a
+    shadow bake, B1 and the reflection hits look up the same maps. `tonemap`
+    selects the SceneVM display transform. Then, in f32: the sky miss pass
+    (`has_sky`, sky_pre from shapefx.render.sky_device_params) on the pixels
+    B1 left to the background, the brush preview (`has_brush`, the brush_*
+    uniforms), and with `has_opacity` the `transparency_layers` layers of
+    the opacity pack `d3_op`, each with its own reflections when
+    refl_samples > 0 (its G-buffer from its own surfaces, its rays traced
+    and shaded against the opaque pack), blended back to front. Arguments
+    as for frame_inputs."""
     fi = frame_inputs(
         d3, lights, atlas, uniforms, background, width, height, sample_mode,
         has_fog, light_spec, sun_off, brdf_ggx,
         shadow_rows=shadow_rows, shadow_params=shadow_params, shadow_spec=shadow_spec,
+        tonemap=tonemap,
     )
     pre = visibility_prepass(fi, width, height) if (ao_taps or refl_samples or sky_light) else None
     ao_img = ambient_occlusion(pre, uniforms, height, ao_taps) if ao_taps else None
-    rgba_u32, _z_eff = mega_render(*fi["mega_args"], **fi["mega_kwargs"], ao_img=ao_img)
-    if not (refl_samples or sky_light):
+    rgba_u32, z_eff = mega_render(*fi["mega_args"], **fi["mega_kwargs"], ao_img=ao_img)
+    if not (has_sky or has_opacity or has_brush or refl_samples or sky_light):
         return unpack_frame_u32(rgba_u32)
     # the passes after the opaque frame blend in f32 over its quantized
     # bytes, as the reference's u8 tile buffer does (rasterizer.rs:464-495)
     frame = unpack_frame_u32(rgba_u32).float() * (1.0 / 255.0)
+    shadow = None if shadow_spec is None else (shadow_rows, shadow_params, shadow_spec)
     if refl_samples:
         refl, rmask = reflection_pass_scaled(
             *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms,
-            width, height, sample_mode, refl_samples, scale=refl_scale,
-            shadow=None if shadow_spec is None else (shadow_rows, shadow_params, shadow_spec),
+            width, height, sample_mode, refl_samples, scale=refl_scale, shadow=shadow,
         )
-        frame = apply_reflections(frame, refl, rmask)
+        frame = apply_reflections(frame, refl, rmask, tonemap=tonemap)
     if sky_light:
         sky_term, sky_mask = sky_light_pass(
             *pre, fi["attr"], fi["tri_id"], d3, atlas, uniforms, width, height, sample_mode,
         )
         if ao_taps:
             sky_term = sky_term * ao_img[..., None]
-        frame = apply_reflections(frame, sky_term, sky_mask)
+        frame = apply_reflections(frame, sky_term, sky_mask, tonemap=tonemap)
+    if has_sky:
+        frame = sky_miss_pass(frame, z_eff, sky_pre, uniforms, width, height)
+    if has_brush:
+        frame = brush_preview_pass(frame, z_eff, uniforms, width, height)
+    if has_opacity:
+        reflect_layer = None
+        if refl_samples:
+            def reflect_layer(z_o, idx_o, hit_o, attr_o, tri_id_o, color_o):
+                refl_o, rmask_o = reflection_pass_scaled(
+                    z_o, idx_o, hit_o, attr_o, tri_id_o, d3_op, atlas, lights, uniforms,
+                    width, height, sample_mode, refl_samples, scale=refl_scale,
+                    shadow=shadow, scene_d3=d3,
+                )
+                # the layer colour is display-encoded with the fast sRGB
+                # pair (_shade_opacity) whatever the frame's tonemap is
+                return apply_reflections(color_o, refl_o, rmask_o, tonemap=False)
+
+        layers = opacity_layers(d3_op, atlas, uniforms, width, height, sample_mode,
+                                transparency_layers, reflect_layer)
+        for color_o, zeff_o in reversed(layers):
+            frame = blend_opacity(frame, z_eff, color_o, zeff_o, preserve_transparency)
     return frame_to_u8(frame)
 
 
@@ -237,6 +356,19 @@ _BG_CACHE: dict = {}
 #: -> (flat table on the device, params (40,) np.float32, spec). A static
 #: scene with static lights bakes once; a casting light that moves re-bakes.
 _SHADOW_CACHE: dict = {}
+#: id(Sky node) -> (node, device sky params, snapshot of its precomputed
+#: vec4s, device): the node rides along so that its id() cannot be reused
+#: by another node while cached
+_SKY_DEV_CACHE: dict = {}
+
+
+@dataclass
+class BrushPreview:
+    """Editor brush highlight (reference rasterizer.rs:13-17)."""
+
+    position: np.ndarray
+    radius: float = 1.0
+    falloff: float = 0.5
 
 
 def _unported(feature: str):
@@ -265,6 +397,7 @@ class Rasterizer:
         self.sample_mode = SampleMode.Nearest
         self.background_color: Optional[tuple] = None
         self.ambient_color: Optional[np.ndarray] = None
+        self.preserve_transparency = False
         self.hour = 12.0
         self.time = 0.0
         self.sun_dir: Optional[np.ndarray] = None
@@ -305,10 +438,13 @@ class Rasterizer:
         self._rs_ao_radius = 0.5
         #: supersampled antialiasing factor (set_supersample)
         self.supersample = 1
-        # features of the JAX Rasterizer outside the ported slice; set them
-        # and rasterize() raises NotImplementedError naming them
+        #: display transform of lit 3D pixels: "srgb" or "scenevm" (set_tonemap)
         self.tonemap = "srgb"
+        #: a ShapeFXGraph whose Render node's hit/miss chains add the Sky
+        #: node (sun, day factor, ambient and the sky miss pass) and the Fog
+        #: node (linear distance fog); None = off
         self.render_graph = None
+        #: editor brush highlight on the background (BrushPreview or None)
         self.brush_preview = None
         #: the last frame's render_frame arguments (every tensor in it is
         #: held by the scene cache anyway); checks re-run the kernel and
@@ -328,6 +464,18 @@ class Rasterizer:
         if model not in ("fast", "ggx"):
             raise ValueError(f"unknown brdf model '{model}' (fast|ggx)")
         self.brdf = model
+        return self
+
+    def set_tonemap(self, mode: str) -> "Rasterizer":
+        """Display transform of lit 3D pixels: "srgb" (the fast sRGB
+        polynomial of the Rust renderer, rasterizer.rs:27-33) or "scenevm"
+        (Reinhard, then gamma 2.2, 3d_shader.wgsl:871-873). It applies to
+        B1's shading and the reflection composite; fullbright texels and the
+        unlit opacity layers keep their raw sRGB bytes."""
+        mode = str(mode).lower()
+        if mode not in ("srgb", "scenevm"):
+            raise ValueError(f"unknown tonemap '{mode}' (srgb|scenevm)")
+        self.tonemap = mode
         return self
 
     def set_reflections(self, samples: int, scale: int = None) -> "Rasterizer":
@@ -561,7 +709,9 @@ class Rasterizer:
         """Bake (or fetch the cached) shadow maps of this frame's casting
         lights -> (flat table, params (40,) np.float32, spec), or three
         Nones when nothing casts. The casting lights are the `max_lights`
-        brightest valid point/spot rows (the first rows among equals)."""
+        brightest valid point/spot rows (the first rows among equals). With
+        opacity batches and max_shadow_steps > 0, each map also bakes up to
+        4 depth-peeled transparent layers (the transmittance)."""
         cfg = self.shadow_settings
         types = np.asarray(lights["type"])
         valid = np.asarray(lights["valid"])
@@ -572,8 +722,9 @@ class Rasterizer:
         sun_dir = self.sun_dir if (self.sun_dir is not None and self.day_factor > 0) else None
         if not cast and sun_dir is None:
             return None, None, None
-        # the spec carries the transmittance steps without their layers:
-        # those need opacity batches, which the port refuses before here
+        with_trans = self._rs_shadow_steps > 0 and bool(packed.d3_opacity.valid.any())
+        # the reference walks up to max_shadow_steps transparent surfaces per
+        # shadow ray (3d_shader.wgsl:484); the maps keep at most 4 layers
         trans_steps = int(np.clip(self._rs_shadow_steps, 1, 4))
         light_key = tuple(
             (i, tuple(np.round(lights["position"][i], 4).tolist()),
@@ -582,15 +733,16 @@ class Rasterizer:
         )
         sun_key = tuple(np.round(sun_dir, 4).tolist()) if sun_dir is not None else None
         key = (scene_key, tuple(sorted(cfg.items())), light_key, sun_key,
-               round(self._rs_shadow_distance, 4), trans_steps)
+               round(self._rs_shadow_distance, 4), with_trans, trans_steps)
         hit = _SHADOW_CACHE.get(key)
         if hit is not None:
             return hit
         from .shadow import bake_shadow_pack, scene_bounds
 
         rows, params, spec = bake_shadow_pack(
-            cache["d3"], None, lights, cast, sun_dir,
-            res=cfg["res"], sun_res=cfg["sun_res"], trans_steps=trans_steps,
+            cache["d3"], cache["d3_op"] if with_trans else None, lights, cast, sun_dir,
+            res=cfg["res"], sun_res=cfg["sun_res"], with_trans=with_trans,
+            trans_steps=trans_steps,
             max_shadow_distance=self._rs_shadow_distance,
             bias=cfg["bias"], bounds=scene_bounds(packed.d3.pos, packed.d3.valid),
         )
@@ -599,35 +751,65 @@ class Rasterizer:
         _SHADOW_CACHE[key] = (rows, params, spec)
         return rows, params, spec
 
-    def _refuse_unported_settings(self, mesh):
-        checks = {
-            "mesh= (the multi-chip row-sharded frame)": mesh is not None,
-            "the scenevm tonemap": self.tonemap != "srgb",
-            "render-graph sky/fog nodes": self.render_graph is not None,
-            "the brush preview": self.brush_preview is not None,
-        }
-        for name, on in checks.items():
-            if on:
-                raise _unported(name)
+    def _render_graph_hooks(self):
+        """The render graph's hit and miss hooks (reference
+        rasterizer.rs:227-253) -> (has_sky, has_fog, sky_pre): the Sky node
+        sets the sun direction, the day factor and the ambient colour and,
+        on the miss chain, adds the sky miss pass (its device parameters
+        cached per node and content in _SKY_DEV_CACHE); the Fog node on the
+        hit chain sets the linear distance fog."""
+        has_sky, has_fog, sky_pre = False, self._rs_has_fog, None
+        if self.render_graph is None:
+            return has_sky, has_fog, sky_pre
+        from ..shapefx import ShapeFXRole
+        from ..shapefx.render import sky_device_params
 
-    def _refuse_unported_scene(self, scene, packed):
+        hit_nodes = self.render_graph.collect_nodes_from(0, 0)
+        miss_nodes = self.render_graph.collect_nodes_from(0, 1)
+        for ni in hit_nodes + miss_nodes:
+            node = self.render_graph.nodes[ni]
+            result = node.render_setup(self.hour)
+            if node.role == ShapeFXRole.Sky:
+                if result is not None:
+                    self.sun_dir, self.day_factor = result
+                amb = node.render_ambient_color(self.hour)
+                if amb is not None:
+                    self.ambient_color = amb
+                if ni in miss_nodes:
+                    has_sky = True
+                    # keyed on the precomputed content: sky_setup also reads
+                    # node.values, so the hour alone is not enough
+                    snap = tuple(a.tobytes() for a in node.precomputed)
+                    hit = _SKY_DEV_CACHE.get(id(node))
+                    if (hit is not None and hit[0] is node and hit[2] == snap
+                            and hit[3] == self.device):
+                        sky_pre = hit[1]
+                    else:
+                        if len(_SKY_DEV_CACHE) > 32:
+                            _SKY_DEV_CACHE.clear()
+                        sky_pre = sky_device_params(node, self.device)
+                        _SKY_DEV_CACHE[id(node)] = (node, sky_pre, snap, self.device)
+            elif node.role == ShapeFXRole.Fog and ni in hit_nodes:
+                has_fog = True
+                self._fog_color = node.precomputed[0]
+                self._fog_end = float(node.precomputed[1][0])
+                self._fog_fade = float(node.precomputed[1][1])
+                self._fog_mode = 0.0  # the node's linear fade
+        return has_sky, has_fog, sky_pre
+
+    def _refuse_unported_scene(self, scene, packed, mesh):
         d3 = packed.d3
-        opacity = self.render_mode.d3_active and bool(packed.d3_opacity.valid.any())
         dynamic = bool(scene.d3_dynamic or scene.d3_dynamic_opacity or scene.d2_dynamic)
         shadows = self.shadow_settings is not None and self.render_mode.d3_active
         checks = {
-            # the parts of the shadow family that need batches the port
+            "mesh= (the multi-chip row-sharded frame)": mesh is not None,
+            # the part of the shadow family that needs batches the port
             # refuses, named before those batches
-            "shadow transmittance layers (shadows through opacity batches)": shadows
-            and opacity and self._rs_shadow_steps > 0,
             "dynamic shadow casters (shadows with dynamic batches)": shadows
             and dynamic and self.shadow_settings["dynamic_casters"],
-            "reflections on transparency layers (transparency_layers > 1)": opacity
-            and self.reflection_samples > 0 and self.transparency_layers > 1,
             "dynamic batches": dynamic,
             "runtime or baked shaders": bool(getattr(scene, "shaders", None))
             or bool(packed.runtime_shaders),
-            "opacity batches": opacity,
             "2D batches": self.render_mode.d2_active and bool(packed.d2.valid.any()),
             "vertex blend": bool((d3.kind2 >= 0).any()),
             "material": bool((d3.rough != 0.5).any() or d3.metal.any()),
@@ -657,7 +839,6 @@ class Rasterizer:
         by the JAX package) instead of packing the scene. With
         set_supersample(n) the frame renders at (n*H, n*W) and is
         box-filtered down to (H, W) on the device before the readback."""
-        self._refuse_unported_settings(mesh)
         if assets is None:
             assets = Assets.default()
         self.hash_anim = hash_u32(scene.animation_frame & 0xFFFFFFFF)
@@ -665,6 +846,7 @@ class Rasterizer:
         # matrix depends on the aspect only)
         ss = max(1, int(self.supersample))
         width, height = width * ss, height * ss
+        has_sky, has_fog, sky_pre = self._render_graph_hooks()
 
         # device-resident scene cache, keyed by uuid tokens (not id(), which
         # CPython reuses after GC) and the device
@@ -681,7 +863,7 @@ class Rasterizer:
             _SCENE_CACHE.clear()  # one live packed scene per process is enough
             _SCENE_CACHE[key] = cache
         packed = cache["packed"]
-        self._refuse_unported_scene(scene, packed)
+        self._refuse_unported_scene(scene, packed, mesh)
         d3 = cache["d3"]
         if not self.render_mode.d3_active:
             d3 = dict(d3, valid=torch.zeros_like(d3["valid"]))
@@ -696,6 +878,10 @@ class Rasterizer:
         lights["flicker_factor"] = self._flicker_factors(lights)
 
         uniforms = self._uniforms(scene)
+        if self.brush_preview is not None:
+            uniforms["brush_pos"] = np.asarray(self.brush_preview.position, np.float32)
+            uniforms["brush_radius"] = np.float32(self.brush_preview.radius)
+            uniforms["brush_falloff"] = np.float32(self.brush_preview.falloff)
         if packed.occlusion is not None:
             uniforms["occ_box"] = packed.occlusion["occ_box"]
             uniforms["occ_val"] = packed.occlusion["occ_val"]
@@ -721,7 +907,7 @@ class Rasterizer:
             d3=d3, lights=lights, atlas=cache["atlas"], uniforms=uniforms,
             background=background, width=width, height=height,
             sample_mode=int(self.sample_mode),
-            has_fog=self._rs_has_fog,
+            has_fog=has_fog,
             light_spec=light_spec_from(lights),
             sun_off=not (self.sun_dir is not None and self.day_factor > 0),
             brdf_ggx=self.brdf == "ggx",
@@ -730,6 +916,13 @@ class Rasterizer:
             ao_taps=self._ao_taps() if self.render_mode.d3_active else None,
             sky_light=self.sky_light_enabled and self.render_mode.d3_active,
             shadow_rows=shadow_rows, shadow_params=shadow_params, shadow_spec=shadow_spec,
+            tonemap=self.tonemap == "scenevm",
+            d3_op=cache["d3_op"],
+            has_opacity=self.render_mode.d3_active and bool(packed.d3_opacity.valid.any()),
+            transparency_layers=self.transparency_layers,
+            preserve_transparency=self.preserve_transparency,
+            has_sky=has_sky, sky_pre=sky_pre,
+            has_brush=self.brush_preview is not None,
         )
         self.frame_args = frame_args
         frame = render_frame(**frame_args)

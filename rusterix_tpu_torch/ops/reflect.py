@@ -16,8 +16,11 @@ through the same kernel and adds sky-tinted ambient where it escapes.
 With a shadow bake (`ops/shadow.py`), the hit shading looks up the same
 maps as the frame: the sun's factor scales the sun, each casting light's
 cube factor that light (the WGSL traces its shadow rays inside the
-pbr_lighting of every reflection hit). The display transfer is sRGB; the
-scenevm tonemap raises NotImplementedError.
+pbr_lighting of every reflection hit). `apply_reflections` decodes and
+re-encodes with the frame's display transfer: the fast sRGB pair or the
+SceneVM tonemap and its inverse. A transparency layer's reflections take
+their G-buffer from the layer's own surfaces and trace and shade their rays
+against the opaque pack (`scene_d3`).
 
 The sampling math is written in the rounding XLA's CPU build gives the
 JAX package's expressions (`_fma` where XLA fuses a product into a sum),
@@ -33,7 +36,12 @@ import math
 import numpy as np
 import torch
 
-from ..utils.color import linear_to_srgb_fast, srgb_to_linear_fast
+from ..utils.color import (
+    linear_to_srgb_fast,
+    srgb_to_linear_fast,
+    tonemap_scenevm,
+    tonemap_scenevm_inverse,
+)
 from .rt_kernel import intersect_rays_pallas
 from .shade import _div, _dot, _fma, _normalize, gbuffer_pass, resolve_texel
 from .shadow import shadow_factor
@@ -323,7 +331,8 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
     vx, vy, vz = vdir.unbind(-1)
     wx, wy, wz = g["world"].unbind(-1)
 
-    # an orthonormal basis around N (robust tangent pick)
+    # an orthonormal basis around N (robust tangent pick); the three
+    # components of a vector go through one `_fma` as an (H, W, 3) tensor
     picky = nyg.abs() < 0.9
     upx = torch.where(picky, 0.0, 1.0)
     upy = torch.where(picky, 1.0, 0.0)
@@ -331,10 +340,10 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
     ty = -upx * nzg
     tz = _fma(upx, nyg, -(upy * nxg))
     inv_tl = 1.0 / torch.clamp(torch.sqrt(_fma(tz, tz, _fma(ty, ty, tx * tx))), min=1e-20)
-    tx, ty, tz = tx * inv_tl, ty * inv_tl, tz * inv_tl
-    bx = _fma(nyg, tz, -(nzg * ty))
-    by = _fma(nzg, tx, -(nxg * tz))
-    bz = _fma(nxg, ty, -(nyg * tx))
+    t = torch.stack([tx, ty, tz], dim=-1) * inv_tl[..., None]
+    yzx, zxy = [1, 2, 0], [2, 0, 1]
+    # b = N x T: (ny tz - nz ty, nz tx - nx tz, nx ty - ny tx)
+    b = _fma(normal[..., yzx], t[..., zxy], -(normal[..., zxy] * t[..., yzx]))
     a_r = rough * rough
     a2 = a_r * a_r
 
@@ -350,21 +359,20 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
     sin_t = torch.sqrt(torch.clamp(_fma(-cos_t, cos_t, 1.0), min=0.0))
     hx_t = _f64_then_f32(torch.cos, phi) * sin_t
     hy_t = _f64_then_f32(torch.sin, phi) * sin_t
-    hhx = _fma(nxg, cos_t, _fma(bx, hy_t, tx * hx_t))
-    hhy = _fma(nyg, cos_t, _fma(by, hy_t, ty * hx_t))
-    hhz = _fma(nzg, cos_t, _fma(bz, hy_t, tz * hx_t))
+    # H = N cos + B hy + T hx, each component fma(n, cos, fma(b, hy, t*hx))
+    hh = _fma(normal, cos_t[..., None], _fma(b, hy_t[..., None], t * hx_t[..., None]))
+    hhx, hhy, hhz = hh.unbind(-1)
     # L = reflect(-V, H) = 2 (V.H) H - V
     vdh = _fma(vz, hhz, _fma(vy, hhy, vx * hhx))
-    lx = _fma(2.0 * vdh, hhx, -vx)
-    ly = _fma(2.0 * vdh, hhy, -vy)
-    lz = _fma(2.0 * vdh, hhz, -vz)
+    lx, ly, lz = _fma(2.0 * vdh[..., None], hh, -vdir).unbind(-1)
     ndl = torch.clamp(_fma(nzg, lz, _fma(nyg, ly, nxg * lx)), min=0.0)
     ok = live & (ndl > 0.0)
+    ox, oy, oz = _fma(normal, 0.01, g["world"]).unbind(-1)
     return {
         # parked dead rays: one far point with a down-facing ray
-        "o_x": torch.where(live, _fma(nxg, 0.01, wx), 1e8),
-        "o_y": torch.where(live, _fma(nyg, 0.01, wy), 1e8),
-        "o_z": torch.where(live, _fma(nzg, 0.01, wz), 1e8),
+        "o_x": torch.where(live, ox, 1e8),
+        "o_y": torch.where(live, oy, 1e8),
+        "o_z": torch.where(live, oz, 1e8),
         "d_x": torch.where(ok, lx, 0.0),
         "d_y": torch.where(ok, ly, -1.0),
         "d_z": torch.where(ok, lz, 0.0),
@@ -376,7 +384,7 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
 
 def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniforms,
                     width: int, height: int, sample_mode: int = 0, samples: int = 1,
-                    stride: int = 1, shadow=None):
+                    stride: int = 1, shadow=None, scene_d3=None):
     """GGX reflection radiance for every covered pixel -> ((H, W, 3) linear,
     (H, W) applied mask; pixels whose samples all faced away keep 0).
 
@@ -387,8 +395,12 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
     are every stride-th pixel of a full-resolution frame (its G-buffer and
     ray seeds at those pixels), and the result equals the full-resolution
     pass subsampled there. `shadow` shades the hits with a shadow bake (see
-    _shade_reflection_hits)."""
+    _shade_reflection_hits). `scene_d3` is the pack the rays are traced and
+    shaded against (default `d3`, the G-buffer's pack): a transparency
+    layer takes its G-buffer from the opacity pack and its rays from the
+    opaque one."""
     dev = z.device
+    sd3 = d3 if scene_d3 is None else scene_d3
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
                      width, height, sample_mode, stride=stride)
     f0 = 0.04 + (g["base"] - 0.04) * g["metallic"][..., None]
@@ -400,9 +412,9 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
     for s in range(samples):
         r = reflection_rays(g, hit, width, height, s, stride)
         ray = (r["o_x"], r["o_y"], r["o_z"], r["d_x"], r["d_y"], r["d_z"])
-        t, tri = intersect_rays_pallas(d3["pos"], d3["valid"], *ray, max_dist, height, width)
+        t, tri = intersect_rays_pallas(sd3["pos"], sd3["valid"], *ray, max_dist, height, width)
         tri = torch.where(r["ok"], tri, -1)
-        color = _shade_reflection_hits(t, tri, *ray, d3, atlas, lights, uniforms,
+        color = _shade_reflection_hits(t, tri, *ray, sd3, atlas, lights, uniforms,
                                        sample_mode, sky_rgb, shadow)
         x = torch.clamp(1.0 - torch.clamp(r["vdh"], min=0.0), 0.0, 1.0)
         x5 = (x * x) * (x * x) * x
@@ -465,7 +477,7 @@ def _resize_bilinear(img, height: int, width: int):
 
 def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                            uniforms, width: int, height: int, sample_mode: int = 0,
-                           samples: int = 1, scale: int = 1, shadow=None):
+                           samples: int = 1, scale: int = 1, shadow=None, scene_d3=None):
     """reflection_pass at 1/scale resolution, bilinearly upsampled.
 
     scale 1 is the full-resolution pass. With scale > 1 the pass traces
@@ -473,15 +485,17 @@ def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
     rays per sample), the radiance (zero where no sample applied) and the
     applied mask are upsampled as jax.image.resize does, and a pixel takes
     the upsampled radiance where the upsampled mask exceeds 0.5 and the
-    full-resolution pre-pass covers it. `shadow` as for reflection_pass."""
+    full-resolution pre-pass covers it. `shadow` and `scene_d3` as for
+    reflection_pass."""
     if scale <= 1:
         return reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
-                               uniforms, width, height, sample_mode, samples, shadow=shadow)
+                               uniforms, width, height, sample_mode, samples, shadow=shadow,
+                               scene_d3=scene_d3)
     hs, ws = height // scale, width // scale
     sl = (slice(0, hs * scale, scale), slice(0, ws * scale, scale))
     refl_lo, mask_lo = reflection_pass(
         z[sl], idx[sl], hit[sl], attr_planes, tri_id, d3, atlas, lights, uniforms,
-        ws, hs, sample_mode, samples, stride=scale, shadow=shadow,
+        ws, hs, sample_mode, samples, stride=scale, shadow=shadow, scene_d3=scene_d3,
     )
     refl_lo = torch.where(mask_lo[..., None], refl_lo, 0.0)
     up = _resize_bilinear(refl_lo, height, width)
@@ -543,13 +557,14 @@ def sky_light_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
 
 def apply_reflections(frame_rgba_f32, refl, rmask, tonemap: bool = False):
     """Composite reflection radiance onto the display-encoded f32 frame:
-    decode with the fast sRGB pair, add the linear term, re-encode, on the
-    pixels the pass touched only (the others keep their exact bytes)."""
-    if tonemap:
-        raise NotImplementedError(
-            "the scenevm tonemap is not ported to rusterix_tpu_torch yet"
-        )
+    decode with the frame's transfer (`tonemap` False: the fast sRGB pair;
+    True: the SceneVM tonemap's numerical inverse), add the linear term,
+    re-encode, on the pixels the pass touched only (the others keep their
+    exact bytes)."""
     rgb = frame_rgba_f32[..., :3]
-    new = torch.clamp(linear_to_srgb_fast(srgb_to_linear_fast(rgb) + refl), 0.0, 1.0)
+    if tonemap:
+        new = torch.clamp(tonemap_scenevm(tonemap_scenevm_inverse(rgb) + refl), 0.0, 1.0)
+    else:
+        new = torch.clamp(linear_to_srgb_fast(srgb_to_linear_fast(rgb) + refl), 0.0, 1.0)
     out = torch.where(rmask[..., None], new, rgb)
     return torch.cat([out, frame_rgba_f32[..., 3:]], dim=-1)

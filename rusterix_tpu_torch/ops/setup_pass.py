@@ -21,13 +21,14 @@ Output: for each of the 2*T candidate triangles
 Products are written out term by term instead of going through a matmul,
 in the rounding the JAX package's CPU build (XLA) gives the same
 expressions: XLA fuses `a*b + c` into FMAs and sums 4-term dots pairwise.
-`_fma` emulates the fused rounding, so the planes here are bit-equal to
+`_fma` computes the fused rounding, so the planes here are bit-equal to
 the JAX package's on the CPU and the same on the GPU; the edge planes
 decide coverage and z-tie winners, where one bit shows as a pixel.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEAR_PLANE = 0.1  # reference batch3d.rs:566
@@ -38,14 +39,36 @@ CULL_BACK = 2
 
 
 def _fma(a, b, c):
-    """f32 a*b + c with the product kept exact, as a fused multiply-add:
-    the f32 product is exact in f64, and the f64 sum rounded to f32 equals
-    the fused result except at rare double-rounding ties. Operands are f32
-    tensors or numbers that are f32 values (at least one a tensor)."""
-    def wide(x):
-        return x.double() if isinstance(x, torch.Tensor) else float(x)
+    """f32 a*b + c rounded once, as a fused multiply-add (XLA's CPU build
+    fuses the JAX package's `a*b + c`; B1's shadow lookup uses __fmaf_rn).
+    Each operand is an f32 tensor or a number taken as the f32 constant JAX
+    would use (at least one operand a tensor).
 
-    return (wide(a) * wide(b) + wide(c)).float()
+    The f32 product is exact in f64. Its f64 sum with c is made
+    round-to-odd (an inexact sum with an even last bit steps one ulp toward
+    the exact value, read from the TwoSum error), so that the final rounding
+    to f32 is the single correct rounding: a plain f64 sum rounds twice and
+    misses it where the sum lands on an f32 rounding tie."""
+
+    def f32(x):
+        return x if torch.is_tensor(x) else float(np.float32(x))
+
+    a, b, c = f32(a), f32(b), f32(c)
+    # one operand widened; the others are promoted inside each kernel
+    if torch.is_tensor(a):
+        p = a.double() * b
+    elif torch.is_tensor(b):
+        p = b.double() * a
+    else:
+        p = torch.tensor(a * b, dtype=torch.float64, device=c.device)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    # the neighbour toward the exact sum; NaN where the sum is exact (and
+    # where it is not finite, which then keeps s)
+    toward = torch.nextafter(s, err * float("inf"))
+    odd = torch.where(((s.view(torch.int64) & 1) == 0) & (toward == toward), toward, s)
+    return odd.float()
 
 
 def _dot3(a, b):
@@ -182,25 +205,16 @@ def _slot_planes(tri10, slot_valid, cull, proj, width, height):
     inv_z = 1.0 / p[:, :, 2]  # 1/z_ndc per vertex (rasterizer.rs:1051-1053)
     inv_w = 1.0 / p[:, :, 3]
 
-    def plane(fvals):  # (N, 3) -> (N, 3): sum_i f_i * lam_i
-        return _dot3(fvals[:, None, :], lam.transpose(1, 2))
-
-    attr = torch.cat(
-        [
-            plane(inv_w),
-            plane(uv[:, :, 0] * inv_w),
-            plane(uv[:, :, 1] * inv_w),
-            plane(nn[:, :, 0]),
-            plane(nn[:, :, 1]),
-            plane(nn[:, :, 2]),
-            plane(bw * inv_w),
-        ],
-        dim=1,
-    )
+    # the eight planes sum_i f_i * lam_i at once (N, 8 planes, 3 coeffs):
+    # 1/w, u/w, v/w, the normal, b/w, then 1/z
+    fvals = torch.stack([inv_w, uv[:, :, 0] * inv_w, uv[:, :, 1] * inv_w, nn[:, :, 0],
+                         nn[:, :, 1], nn[:, :, 2], bw * inv_w, inv_z], dim=1)
+    planes = _dot3(fvals[:, :, None, :], lam.transpose(1, 2)[:, None])
+    attr = planes[:, :7].reshape(-1, 21)
     ok = slot_valid & visible & ~degenerate
     dead_edge = torch.tensor([0.0, 0.0, -1.0], device=p.device)
     edges = [torch.where(ok[:, None], e, dead_edge) for e in (edge0, edge1, edge2)]
-    vis = torch.cat(edges + [plane(inv_z)], dim=1)
+    vis = torch.cat(edges + [planes[:, 7]], dim=1)
     bbox = torch.stack(
         [
             p[:, :, 0].amin(dim=1),
@@ -253,15 +267,14 @@ def setup_pass(pos, uv, nrm, valid, cull, view, proj, width: int, height: int,
     ok0 = alive & torch.where(early_culled, torch.ones_like(alive), count >= 3)
     ok1 = alive & ~early_culled & (count == 4)
 
-    w = float(width)
-    h = float(height)
-    vis0, attr0, bbox0, fin0 = _slot_planes(tri0, ok0, cull, proj, w, h)
-    vis1, attr1, bbox1, fin1 = _slot_planes(tri1, ok1, cull, proj, w, h)
+    # both candidate slots of every triangle in one pass (slot 0 rows, then
+    # slot 1 rows), interleaved per triangle afterwards
+    vis, attr, bbox, fin = _slot_planes(
+        torch.cat([tri0, tri1]), torch.cat([ok0, ok1]), torch.cat([cull, cull]), proj,
+        float(width), float(height))
     tri_id = torch.arange(t, dtype=torch.int32, device=pos.device).repeat_interleave(2)
-    return (
-        torch.stack([vis0, vis1], dim=1).reshape(2 * t, 12),
-        torch.stack([attr0, attr1], dim=1).reshape(2 * t, 21),
-        torch.stack([bbox0, bbox1], dim=1).reshape(2 * t, 4),
-        torch.stack([fin0, fin1], dim=1).reshape(2 * t),
-        tri_id,
-    )
+
+    def interleave(x):
+        return torch.stack([x[:t], x[t:]], dim=1).reshape(2 * t, *x.shape[1:])
+
+    return interleave(vis), interleave(attr), interleave(bbox), interleave(fin), tri_id

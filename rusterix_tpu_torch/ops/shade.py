@@ -26,6 +26,7 @@ import torch
 
 from ..utils.color import srgb_to_linear_fast
 from .scene_pack import SRC_PIXEL, SRC_TEXTURE
+from .setup_pass import _fma
 
 REPEAT_XY = 1
 REPEAT_X = 2
@@ -130,16 +131,6 @@ def resolve_texel(kind, tex_slot, rgba, repeat, u, v, atlas, anim_frame,
     black = torch.zeros_like(rgba)
     black[..., 3] = default_alpha
     return torch.where(is_other[..., None], black, texel)
-
-
-def _fma(a, b, c):
-    """f32 a*b + c rounded once, as XLA's CPU build fuses it; each operand
-    a tensor or a number (taken as the f32 constant JAX would use)."""
-
-    def f64(x):
-        return x.double() if torch.is_tensor(x) else float(np.float32(x))
-
-    return (f64(a) * f64(b) + f64(c)).float()
 
 
 def _dot(a, b):

@@ -26,6 +26,18 @@ of eight), ahead of the spot (1.5) and the added point light (1.8).
 `build_map_shadow_refl_scene` is the GGX-reflection map
 (`build_map_refl_scene`) with `set_shadows(True)`: the reflection hits
 look up the same maps.
+
+`build_map_glass_scene` glazes the shadowed map's doorways: each 2-unit
+doorway becomes a wall of a translucent "glass" texture, which D3Builder
+routes into opacity batches (three 1-unit bands a doorway: 300 batches of
+600 triangles, beside 625 opaque batches), under the render graph's sky
+and fog at hour 14, with two depth-peeled transparency layers, the
+SceneVM tonemap and shadow maps whose transmittance layers the glass
+fills (max_shadow_steps 16 -> 4 peeled layers per map). It is the
+reference's game look on a map with windows (the JAX package's
+`examples/map.py` sets the same sky graph). `build_map_glass_refl_scene`
+adds the GGX BRDF and one reflection ray per pixel, on the opaque frame
+and on both transparency layers.
 """
 
 from __future__ import annotations
@@ -53,13 +65,18 @@ set_default("wall_height", 3.0)
 """
 
 
-def build_map_scene(width: int, height: int, device=None):
-    """-> (Rasterizer on `device`, scene, assets) for the map at W x H."""
+def build_map_scene(width: int, height: int, device=None, glazed: bool = False):
+    """-> (Rasterizer on `device`, scene, assets) for the map at W x H.
+    `glazed` closes each doorway with a wall of the translucent "glass"
+    texture (RGBA 120, 180, 220, 110) instead of leaving it open."""
     from .ops.raster import Rasterizer
 
     assets = Assets.default()
     assets.textures["brick"] = Texture.checkerboard(32, 8)
     assets.textures["floor"] = Texture.checkerboard(32, 4)
+    if glazed:
+        assets.textures["glass"] = Texture.from_color((120, 180, 220, 110))
+    doorway = ['wall(2)', 'set("wall_tex", "glass")'] if glazed else ["move_forward(2)"]
 
     lines = [MAP_SOURCE_HEADER]
     for ry in range(5):
@@ -68,7 +85,7 @@ def build_map_scene(width: int, height: int, device=None):
             lines.append(f"move_to({ox}, {oy})")
             for _ in range(4):
                 lines.append("wall(4)")
-                lines.append("move_forward(2)")
+                lines.extend(doorway)
                 lines.append("wall(4)")
                 lines.append("turn_right()")
             if (rx + ry) % 3 == 0:
@@ -163,11 +180,12 @@ def build_sky_light_scene(width: int, height: int, device=None):
     return rast, scene, Assets.default()
 
 
-def build_map_shadow_scene(width: int, height: int, device=None):
+def build_map_shadow_scene(width: int, height: int, device=None, glazed: bool = False):
     """-> (Rasterizer, scene, assets): the map plus a point light at (15,
     2.5, 15) of intensity 1.8 reaching 14 units, a sun and shadow maps with
-    set_shadows' defaults (bench.py:443-460)."""
-    rast, scene, assets = build_map_scene(width, height, device=device)
+    set_shadows' defaults (bench.py:443-460). `glazed` as for
+    build_map_scene."""
+    rast, scene, assets = build_map_scene(width, height, device=device, glazed=glazed)
     point = Light(LightType.Point).with_position([15.0, 2.5, 15.0]).with_intensity(1.8)
     point.end_distance = 14.0
     scene.lights.append(point.compile())
@@ -184,4 +202,29 @@ def build_map_shadow_refl_scene(width: int, height: int, device=None):
     defaults; B1 and the reflection hits read the same maps."""
     rast, scene, assets = build_map_refl_scene(width, height, device=device)
     rast.set_shadows(True)
+    return rast, scene, assets
+
+
+def build_map_glass_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the shadowed map (bench.py:443-460)
+    with glazed doorways, the render graph's sky and fog at hour 14, two
+    transparency layers, the SceneVM tonemap and shadow maps at
+    set_shadows' defaults with transmittance (the default
+    max_shadow_steps, 16, keeps 4 layers per map)."""
+    from .shapefx import ShapeFXGraph
+
+    rast, scene, assets = build_map_shadow_scene(width, height, device=device, glazed=True)
+    rast.render_graph = ShapeFXGraph.default_render_graph(with_sky=True, with_fog=True)
+    rast.hour = 14.0
+    rast.transparency_layers = 2
+    rast.set_tonemap("scenevm")
+    return rast, scene, assets
+
+
+def build_map_glass_refl_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): build_map_glass_scene with the GGX
+    BRDF and one GGX reflection ray per pixel, on the opaque frame and on
+    both transparency layers."""
+    rast, scene, assets = build_map_glass_scene(width, height, device=device)
+    rast.set_brdf("ggx").set_reflections(1)
     return rast, scene, assets

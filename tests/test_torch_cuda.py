@@ -1,10 +1,12 @@
 """The CUDA kernels on the card: the megakernel (B1, both BRDFs, the
 ambient-occlusion input, the profiling cuts), the visibility pre-pass
 (B2), the ray intersect (B3) and its preparation kernel against their
-plain torch versions on the same inputs (B1 also with shadow maps), and the
-whole CUDA frames (opaque, with GGX reflections at full and half scale,
-with AO, with sky light, with SSAA, with shadows, with shadowed
-reflections) against the CPU frames.
+plain torch versions on the same inputs (B1 also with shadow maps, their
+transmittance layers and the scenevm tonemap), the whole CUDA frames
+(opaque, with GGX reflections at full and half scale, with AO, with sky
+light, with SSAA, with shadows, with shadowed reflections, the glazed map
+under the sky without and with reflections) against the CPU frames, and
+the port's map example.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
 jax, so they also run on a machine without it:
@@ -41,6 +43,8 @@ from rusterix_tpu_torch.ops.raster import frame_inputs  # noqa: E402
 from rusterix_tpu_torch.ops.setup_pass import setup_pass  # noqa: E402
 from rusterix_tpu_torch.scenes import (  # noqa: E402
     build_map_ao_scene,
+    build_map_glass_refl_scene,
+    build_map_glass_scene,
     build_map_refl_half_scene,
     build_map_refl_scene,
     build_map_scene,
@@ -489,3 +493,101 @@ def test_shadow_kernel_matches_plain_version(cuda, case):
     assert torch.equal(rgba, ref_rgba)
     if case == "room":
         assert int((rgba != plain).sum()) > 300, "the maps shadowed nothing"
+
+
+def _glass_inputs(width, height, device):
+    """Path I's B1 inputs (the glazed map under the sky: shadow maps with
+    transmittance layers, the scenevm tonemap) at width x height, rendered
+    on `device`."""
+    rast, scene, assets = build_map_glass_scene(width, height, device=device)
+    rast.rasterize(scene, width, height, 40, assets)
+    fi = frame_inputs(**rast.frame_args)
+    return fi["mega_args"], fi["mega_kwargs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,height", [(256, 128), (1920, 1080)])
+def test_glass_kernel_matches_plain_version(cuda, width, height):
+    """B1's transmittance and tonemap variants on path I's inputs, z_eff and
+    RGBA8 bit for bit against the plain version; each variant changes the
+    frame."""
+    args, kwargs = _glass_inputs(width, height, cuda)
+    sun_entry, cubes = kwargs["shadow_spec"]
+    assert kwargs["tonemap"] and sun_entry[2] >= 0 and all(c[3] >= 0 for c in cubes)
+    rgba, z = megakernel.mega_render(*args, **kwargs)
+    ref_rgba, ref_z = megakernel.mega_render_reference(*args, **kwargs)
+    opaque_maps = ((sun_entry[0], sun_entry[1], -1, sun_entry[3]),
+                   tuple(c[:3] + (-1, c[4]) for c in cubes))
+    no_trans, _ = megakernel.mega_render(*args, **dict(kwargs, shadow_spec=opaque_maps))
+    srgb, _ = megakernel.mega_render(*args, **dict(kwargs, tonemap=False))
+    torch.cuda.synchronize()
+    assert torch.equal(z, ref_z)
+    assert torch.equal(rgba, ref_rgba)
+    assert int((rgba != no_trans).sum()) > 0, "the transmittance layers changed nothing"
+    assert int((rgba != srgb).sum()) > width * height // 20, "the tonemap changed nothing"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", [build_map_glass_scene, build_map_glass_refl_scene],
+                         ids=["glass", "glass_refl"])
+def test_cuda_glass_frame_matches_cpu_frame(cuda, build):
+    """Paths I and J (the glazed map under the sky, without and with GGX
+    reflections) at 256x128 through Rasterizer on the card and on the CPU:
+    equal bytes."""
+    frames = []
+    for device in (cuda, "cpu"):
+        rast, scene, assets = build(256, 128, device=device)
+        frames.append(rast.rasterize(scene, 256, 128, 40, assets).astype(np.int32))
+    assert int((frames[0] != frames[1]).any(-1).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_map_example_runs_on_the_card(cuda, tmp_path):
+    """examples/map_torch.py renders its 800x600 frame through B1 and saves
+    it."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = tmp_path / "map_torch.png"
+    run = subprocess.run([sys.executable, str(root / "examples" / "map_torch.py"),
+                          "--out", str(out)], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert out.exists() and "launches" in run.stdout
+
+
+def _near_fma_ties(rng, n):
+    """Seeded a, b, c whose exact a*b + c lies within 2^-30 relative of an
+    f32 rounding tie (both sides, both signs), plus random ones
+    (tests/test_torch_composite.py's set)."""
+    c = (rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-20, 20, n)).astype(np.float32)
+    c = np.where(rng.uniform(size=n) < 0.5, c, -c).astype(np.float32)
+    j = rng.integers(15, 22, n)
+    a = (np.spacing(np.abs(c)).astype(np.float64) / 2 * (1 + 2.0 ** -j)).astype(np.float32)
+    a = a * np.where(rng.uniform(size=n) < 0.5, 1.0, -1.0).astype(np.float32)
+    b = (1 - 2.0 ** -j).astype(np.float32)
+    r = rng.normal(size=(3, n)).astype(np.float32)
+    return (np.concatenate([a, r[0]]), np.concatenate([b, r[1]]), np.concatenate([c, r[2]]))
+
+
+@pytest.mark.cuda
+def test_fma_equals_b1_lookup_fma_on_the_card(cuda):
+    """The port's `_fma` (one rounding) on the card and on the CPU equals
+    B1's lookup FMA (__fmaf_rn): on the double-rounding input
+    (64.0000076, not 64.0000153) and on seeded near-ties."""
+    from rusterix_tpu_torch.ops.setup_pass import _fma
+
+    a, b, c = _near_fma_ties(np.random.default_rng(6), 20000)
+    a = np.concatenate([[np.float32(2.0 ** -18 * (1 + 2.0 ** -15))], a]).astype(np.float32)
+    b = np.concatenate([[np.float32(1 - 2.0 ** -15)], b]).astype(np.float32)
+    c = np.concatenate([[np.float32(64 + 2.0 ** -17)], c]).astype(np.float32)
+    ta, tb, tc = (torch.from_numpy(x).to(cuda) for x in (a, b, c))
+    kernel = megakernel.lookup_fma_cuda(ta, tb, tc).cpu()
+    on_card = _fma(ta, tb, tc).cpu()
+    on_cpu = _fma(*(torch.from_numpy(x) for x in (a, b, c)))
+    assert float(kernel[0]) == float(np.float32(64 + 2.0 ** -17))
+    assert torch.equal(on_card, kernel) and torch.equal(on_cpu, kernel)
+    twice = torch.from_numpy((a.astype(np.float64) * b + c).astype(np.float32))
+    assert int((twice != kernel).sum()) > 1000

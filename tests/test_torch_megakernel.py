@@ -299,21 +299,17 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize(
-    "variant",
-    ["has_blend", "has_material", "has_matmap", "shadow_spec", "tonemap", "shadow_rows",
-     "ao_img"],
+    "variant", ["has_blend", "has_material", "has_matmap", "shadow_rows", "ao_img"],
 )
 def test_mega_render_refuses_unported_variants(variant):
     """Each unported variant raises NotImplementedError by name; `ao_img` is
-    ported and refuses only a factor that is not (H, W) f32. Shadow maps are
-    ported: a `shadow_spec` refuses only transmittance layers (a trans base
-    >= 0, which needs opacity batches), and `shadow_rows` without its spec
-    is a ValueError."""
+    ported and refuses only a factor that is not (H, W) f32, and
+    `shadow_rows` without its spec is a ValueError. Shadow maps with their
+    transmittance layers and the scenevm tonemap are ported (held against
+    the JAX kernel in tests/test_torch_glass.py)."""
     args, kwargs = _box_inputs("point")
     targs, tkw = _torch_args(args, kwargs)
     tkw[variant] = torch.ones(1) if variant in ("shadow_rows", "ao_img") else True
-    if variant == "shadow_spec":
-        tkw.update(shadow_rows=torch.ones(128), shadow_spec=(None, ((0, 0, 2, 24, 1),)))
     error = ValueError if variant in ("ao_img", "shadow_rows") else NotImplementedError
     with pytest.raises(error, match=variant):
         tm.mega_render(*targs, W, H, **tkw)

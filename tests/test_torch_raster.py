@@ -171,13 +171,6 @@ def _shadows(rast, scene, packed):
     rast.set_shadows(True, res=16, sun_res=16)
 
 
-def _both_mutations(*mutations):
-    def mutate(rast, scene, packed):
-        for m in mutations:
-            m(rast, scene, packed)
-    return mutate
-
-
 def _shader(rast, scene, packed):
     scene.shaders.append(object())
 
@@ -191,28 +184,22 @@ def _reflect(*mutations):
 
 
 UNPORTED = {
-    "opacity batches": _packed_field("d3_opacity", "valid", 1.0),
     "2D batches": _packed_field("d2", "valid", 1.0),
     "dynamic batches": _dynamic,
     "shaders": _shader,
-    "render-graph": _set("render_graph", object()),
-    "brush preview": _set("brush_preview", object()),
-    "shadows": _both_mutations(_shadows, _packed_field("d3_opacity", "valid", 1.0)),
     "reflections with shadows": _reflect(_shadows, _dynamic),
-    "transparency layers": _reflect(_set("transparency_layers", 2),
-                                    _packed_field("d3_opacity", "valid", 1.0)),
-    "scenevm tonemap": _set("tonemap", "scenevm"),
     "vertex blend": _packed_field("d3", "kind2", 1),
     "material": _packed_field("d3", "rough", 0.3),
     "matmap": _packed_field("d3", "m1_slot", 0),
 }
 
 
-# shadows, with and without reflections, are ported; what of them is not
-# (the maps' transmittance layers, which need opacity batches, and dynamic
-# casters, which need dynamic batches) raises by its own name
+# shadows with reflections are ported; what of them is not (dynamic
+# casters, which need dynamic batches) raises by its own name. Opacity
+# batches, transparency layers, shadow transmittance, the render graph's
+# sky and fog, the brush preview and the scenevm tonemap are ported (held
+# against the JAX package in tests/test_torch_glass.py)
 REFUSED_AS = {
-    "shadows": "shadow transmittance layers",
     "reflections with shadows": "dynamic shadow casters",
 }
 
