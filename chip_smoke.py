@@ -19,20 +19,26 @@ the glazed map under the render graph's sky and fog (B1's transmittance
 and tonemap variants, the sky miss pass, two depth-peeled opacity layers in
 plain torch, the bake with transmittance layers); J, I with GGX
 reflections (B1's GGX variant with both, B2, and B3 on the opaque frame's
-rays and on each layer's). For
+rays and on each layer's); K, the map with closed doorways and vertex-
+blended floors (B1's has_blend variant); L, K with a sun, GGX and one
+reflection ray per pixel (B1's GGX and has_blend variants, B2, the
+G-buffer's blend branch, B3); M, the bench's cube at 800x600 (B1, then
+the 2D pass over the bench's 2D rectangle); N, the 2D map view of K's map
+(the 3D pass off: B1 over no candidate, then the 2D pass's ~800 triangle
+steps lit by the map's lights with its walls blocking them). For
 each path it checks that the frame went through exactly
 the kernels of the path (launch counts zeroed before it and read right
 after it),
 holds every kernel against its plain torch version on the frame's own
-inputs (B1 also at the profiling cuts stage_cut 1 and 2; with shadows bit
-for bit), checks the CUDA
+inputs (B1 also at the profiling cuts stage_cut 1 and 2; with shadows and
+on K-N bit for bit), checks the CUDA
 frames against the CPU frames at a small size, times the frames, the
 kernels and the plain versions with CUDA events (B1's kernel alone at
 stage_cut 0, 1 and 2, which splits its time into the scan, the texel stage
 and the lighting; on G with and without the shadow table; on I with and
-without each of its variants), times the shadow bake apart from the
-steady frames, and breaks the frames down: host wall time per step (on I
-also the layer loop and the sky miss pass), and
+without each of its variants; on K with and without has_blend), times the
+shadow bake apart from the steady frames, and breaks the frames down: host
+wall time per step (on I also the layer loop and the sky miss pass), and
 under torch.profiler the device time, device ops, busy share and each
 kernel's device time per frame. It prints each kernel's registers, shared
 memory and resident blocks an SM, and its bound. Every phase raises on
@@ -68,7 +74,25 @@ EXPECTED_LAUNCHES = {
     # preparation run once for the opaque frame and once per layer
     "I": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
     "J": {"B1": 1, "B2": 1, "B3": 3, "B3prep": 3},
+    "K": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
+    "L": {"B1": 1, "B2": 1, "B3": 1, "B3prep": 1},
+    # the 2D pass is plain torch (XLA code in the JAX package); N's 3D pass
+    # is off, and B1 still composes the (empty) opaque frame, as in the JAX
+    # package
+    "M": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
+    "N": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
 }
+# the frame size of a path where it is not 1920x1080 (M: the bench's cube)
+SIZES = {"M": (800, 600)}
+# the slice's paths: B1 equals its plain version bit for bit at stage_cut 0,
+# 1 and 2 on their inputs
+BLEND_2D = ("K", "L", "M", "N")
+# frames timed a path where not 20: the glazed paths' take ~0.5 s, N's
+# ~2.6 s (the 2D pass is one torch step a triangle)
+N_FRAMES = {"I": 10, "J": 10, "N": 5}
+# frames profiled: 10 on A and B, 6 on the later paths, fewer on the slow ones
+N_PROF_LATER = 6
+N_PROF_2D = 3
 # the shadowed paths: B1 equals its plain version bit for bit, and their
 # steady frames are counted after a first frame that bakes the maps
 SHADOWED = ("G", "H", "I", "J")
@@ -79,7 +103,7 @@ GLASS = ("I", "J")
 N_PROF_GLASS = 5
 # pixels where a later path's CUDA frame differs from its CPU frame at the
 # small size (each within RGBA_TOL); see PERF.md
-SMALL_PINNED = {"C": 0, "D": 0, "E": 0, "F": 0, "G": 0, "H": 0, "I": 0, "J": 0}
+SMALL_PINNED = {k: 0 for k in "CDEFGHIJKLMN"}
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, f32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -127,6 +151,13 @@ OPS_TRANS_STEP = 6
 # expf and logf as 8 f32 operations each (a special-function-unit op at a
 # quarter of the f32 rate, with its range reduction and correction)
 OPS_TONEMAP_EXTRA = 3 * (3 + 1 + 8 + 1 + 8) - 3 * 6
+# the has_blend variant, per shaded pixel: a second texel (counted as the
+# first: OPS_TEXEL_NEAREST, or with the bilinear extra), the weight plane
+# (2 multiplies, 2 adds, the divide by 1/w; its clip is counted with the
+# mix) and the mix (the gate, 1 - w, a multiply-add pair a channel); the
+# table's 16 more floats a row are in its bytes
+OPS_BLEND_WEIGHT = 5
+OPS_BLEND_MIX = 8
 # f32 operations per ray of the preparation (12 min/max + 6 NaN tests + the
 # live test) and per (block, cell) key (gaps, distance, cull, compares)
 OPS_PREP_PER_RAY = 19
@@ -284,6 +315,8 @@ def shade_ops(covered: int, stage_cut: int, kwargs: dict, n_occ: int, sample_mod
         per_px += sum(OPS_PER_LIGHT[int(t)] + brdf for _row, t in kwargs["light_spec"])
         if kwargs.get("ao_img") is not None:
             per_px += OPS_AO
+    if kwargs.get("has_blend"):
+        per_px += texel + OPS_BLEND_WEIGHT + OPS_BLEND_MIX
     return covered * per_px
 
 
@@ -304,7 +337,8 @@ def reflection_kernel_inputs(rast_r, fi, scale: int = 1, sky: bool = False) -> d
     sl = (slice(0, hs * scale, scale), slice(0, ws * scale, scale))
     z, idx, hit = (t[sl] for t in pre)
     g = gbuffer_pass(z, idx, hit, fi["attr"], fi["tri_id"], fa["d3"], fa["atlas"],
-                     fa["uniforms"], ws, hs, fa["sample_mode"], stride=scale)
+                     fa["uniforms"], ws, hs, fa["sample_mode"],
+                     has_blend=fa.get("has_blend", False), stride=scale)
     rays = reflect.sky_rays(g, hit) if sky else reflect.reflection_rays(g, hit, ws, hs, 0, scale)
     b3_in = (fa["d3"]["pos"], fa["d3"]["valid"], rays["o_x"], rays["o_y"], rays["o_z"],
              rays["d_x"], rays["d_y"], rays["d_z"], float(fa["uniforms"]["refl_dist"]), hs, ws)
@@ -359,7 +393,11 @@ def main() -> int:
     from rusterix_tpu_torch.ops.setup_pass import setup_pass
     from rusterix_tpu_torch.ops.shade import gbuffer_pass
     from rusterix_tpu_torch.scenes import (
+        build_cube_scene,
+        build_map_2d_scene,
         build_map_ao_scene,
+        build_map_blend_refl_scene,
+        build_map_blend_scene,
         build_map_glass_refl_scene,
         build_map_glass_scene,
         build_map_refl_half_scene,
@@ -449,33 +487,38 @@ def main() -> int:
         "H": ("shadowed GGX reflection map", build_map_shadow_refl_scene),
         "I": ("glazed map under the sky, two layers, scenevm tonemap", build_map_glass_scene),
         "J": ("glazed map under the sky with GGX reflections", build_map_glass_refl_scene),
+        "K": ("map with vertex-blended floors", build_map_blend_scene),
+        "L": ("blended map with GGX reflections", build_map_blend_refl_scene),
+        "M": ("the bench's cube with its 2D rectangle, 800x600", build_cube_scene),
+        "N": ("2D map view, 3D off", build_map_2d_scene),
     }
     paths = {}
     for key, (label, build) in later.items():
-        r_, s_, a_ = build(W, H, device="cuda")
+        pw, ph = SIZES.get(key, (W, H))
+        r_, s_, a_ = build(pw, ph, device="cuda")
         first_ms = None
         if key in SHADOWED:
             # the first frame bakes the maps; the launches are counted on a
             # steady frame after it (the bake launches none of the kernels)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            r_.rasterize(s_, W, H, 40, a_, readback=False)
+            r_.rasterize(s_, pw, ph, 40, a_, readback=False)
             torch.cuda.synchronize()
             first_ms = (time.perf_counter() - t0) * 1e3
         zero_counts()
-        f_ = r_.rasterize(s_, W, H, 40, a_)
+        f_ = r_.rasterize(s_, pw, ph, 40, a_)
         torch.cuda.synchronize()
         counts = read_counts()
         if counts != EXPECTED_LAUNCHES[key]:
             raise SystemExit(f"path {key} ({label}) launched {counts}, expected "
                              f"{EXPECTED_LAUNCHES[key]}")
-        if f_.shape != (H, W, 4) or f_.dtype != np.uint8:
+        if f_.shape != (ph, pw, 4) or f_.dtype != np.uint8:
             raise SystemExit(f"path {key} frame is {f_.shape} {f_.dtype}")
         fa_ = r_.frame_args
         print(f"main path {key} ({label}): frame {f_.shape} {f_.dtype}, rendered at "
               f"{fa_['width']}x{fa_['height']}, launches {counts}")
         paths[key] = {"label": label, "rast": r_, "scene": s_, "assets": a_, "frame": f_,
-                      "counts": counts, "first_ms": first_ms}
+                      "counts": counts, "first_ms": first_ms, "size": (pw, ph)}
     # what each path adds to the opaque map, in pixels that changed by more than 1
     for key, base in (("C", frame), ("E", frame_o), ("F", frame)):
         d = np.abs(paths[key]["frame"].astype(int) - base.astype(int)).max(-1)
@@ -496,6 +539,19 @@ def main() -> int:
               f"(by more than 1: {int((d > 1).sum())})")
         if int((d > 0).sum()) == 0:
             raise SystemExit(f"path {key}'s shadow maps changed no pixel")
+    # the slice's frames: K and L are the map with floors (more covered
+    # pixels than A); M's 2D rectangle leaves the gradient opaque; N draws
+    # the wall strips, lit unevenly by the map's lights
+    cov_k = int((paths["K"]["frame"] != bg).any(axis=-1).sum())
+    f_m, f_n = paths["M"]["frame"], paths["N"]["frame"]
+    walls = f_n[..., 3] > 0
+    lit = f_n[..., 0][walls].astype(int)
+    print(f"path K: covered px {cov_k} (A: {covered}); path M: opaque px "
+          f"{int((f_m[..., 3] == 255).sum())} of {f_m.shape[0] * f_m.shape[1]}; path N: wall "
+          f"px {int(walls.sum())}, red channel {int(lit.min())}-{int(lit.max())}")
+    if not (cov_k > covered and (f_m[..., 3] == 255).all() and walls.sum() > W * H // 200
+            and lit.max() > lit.min() + 30):
+        raise SystemExit("a frame of the slice (K, M or N) did not render as expected")
     launches = {k: counts_a[k] + counts_b[k] + sum(p_["counts"][k] for p_ in paths.values())
                 for k in counts_a}
 
@@ -625,8 +681,25 @@ def main() -> int:
               f"{p_['b1_err']} (tolerance {RGBA_TOL}), px differing "
               f"{int((diff.amax(-1) > 0).sum())}, visibility tests {tests}, "
               f"px with a winner {p_['covered']}")
-        if p_["b1_err"] > (0 if key in SHADOWED else RGBA_TOL):
+        if p_["b1_err"] > (0 if key in SHADOWED + BLEND_2D else RGBA_TOL):
             raise SystemExit(f"B1 path {key}: the megakernel disagrees with its plain version")
+        if key in BLEND_2D:
+            for cut in (1, 2):
+                out_k = megakernel.mega_render(*a_, **k_, stage_cut=cut)
+                out_p = megakernel.mega_render_reference(*a_, **k_, stage_cut=cut)
+                torch.cuda.synchronize()
+                if not (torch.equal(out_k[0], out_p[0]) and torch.equal(out_k[1], out_p[1])):
+                    raise SystemExit(f"B1 path {key} stage_cut={cut} differs from the plain "
+                                     "version")
+            print(f"B1 stage_cut 1 and 2 vs plain (path {key}): both outputs equal")
+        if key in ("K", "L"):
+            no_blend, _ = megakernel.mega_render(*a_, **dict(k_, has_blend=False))
+            torch.cuda.synchronize()
+            p_["by_blend"] = int((no_blend != rgba_l).sum())
+            print(f"path {key}: has_blend {k_['has_blend']}, table {a_[3].shape[1]} columns, "
+                  f"px changed by the blend {p_['by_blend']}")
+            if not (k_["has_blend"] and p_["by_blend"] > W * H // 20):
+                raise SystemExit(f"path {key}: B1's blend branch did nothing")
         if key in SHADOWED:
             cube_reads, sun_reads = p_["shadow_reads"]
             print(f"B1 shadow lookups (path {key}): {cube_reads} cube texels and {sun_reads} sun "
@@ -654,7 +727,7 @@ def main() -> int:
             if not (p_["trans_steps"] and by_trans and by_tonemap > W * H // 20
                     and sky_px > W * H // 50 and min(glass_px) > 0):
                 raise SystemExit(f"path {key}: a new variant or pass did nothing")
-        if key in ("F", "G", "I"):
+        if key in ("F", "G", "I", "K", "M", "N"):
             continue
         kin_ = reflection_kernel_inputs(r_, fi_, scale=fa_["refl_scale"], sky=key == "D")
         z2_, i2_, _h2 = visibility_pallas.visibility_pass_pallas(*kin_["b2_in"])
@@ -700,6 +773,7 @@ def main() -> int:
             raise SystemExit(f"the CUDA {label} frame disagrees with the CPU frame")
     for key, (label, build) in later.items():
         sw, sh = (SMALL_W // 2, SMALL_H // 2) if key == "F" else (SMALL_W, SMALL_H)
+        phase(f"6 {key}")
         small = []
         for dev in ("cuda", "cpu"):
             r, s, a = build(sw, sh, device=dev)
@@ -774,12 +848,14 @@ def main() -> int:
     for key, p_ in paths.items():
         r_, s_, as_ = p_["rast"], p_["scene"], p_["assets"]
         a_, k_ = p_["mega"]
-        p_["frame_t"] = cuda_times(lambda: r_.rasterize(s_, W, H, 40, as_, readback=False), 20)
+        pw, ph = p_["size"]
+        p_["frame_t"] = cuda_times(lambda: r_.rasterize(s_, pw, ph, 40, as_, readback=False),
+                                   N_FRAMES.get(key, 20))
         p_["b1_t"] = cuda_times(lambda: megakernel.mega_render(*a_, **k_), 40)
         p_["b1_plain_t"] = cuda_times(lambda: megakernel.mega_render_reference(*a_, **k_), 3,
                                       warmup=1)
         p_["alone"] = median(cuda_times(megakernel.prepare_launch(*a_, **k_), 100))
-        print(f"rasterize(readback=False) path {key} ({p_['label']}) {W}x{H}: "
+        print(f"rasterize(readback=False) path {key} ({p_['label']}) {pw}x{ph}: "
               f"{summary(p_['frame_t'])} on {gpu}")
         print(f"B1 mega_render path {key}: {summary(p_['b1_t'])}; plain "
               f"{summary(p_['b1_plain_t'])}; kernel alone {p_['alone']:.4f} ms (median of 100) "
@@ -790,8 +866,10 @@ def main() -> int:
             p_["walk_t"] = cuda_times(lambda: rt_kernel._launch(prep_k_, fields_), 40)
             p_["prep_t"] = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*b3_in_), 40)
             p_["b3_t"] = cuda_times(lambda: rt_kernel.intersect_rays_pallas(*b3_in_), 40)
+            # L's plain walk takes ~5 s a call: one
             p_["b3_plain_t"] = cuda_times(
-                lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in_), 2, warmup=1)
+                lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in_), 1 if key == "L" else 2,
+                warmup=1)
             print(f"B3 path {key} ({b3_in_[-1]}x{b3_in_[-2]} rays): walk alone "
                   f"{summary(p_['walk_t'])}; rt_prepare_cuda {summary(p_['prep_t'])}; "
                   f"intersect_rays_pallas {summary(p_['b3_t'])}; plain "
@@ -836,6 +914,13 @@ def main() -> int:
         print(f"shadow bake (path {key}, plain torch, 25 depth renders{layers_txt}): first frame "
               f"{p_['first_ms']:.4f} ms of wall time with the bake; bake alone median "
               f"{p_['bake_ms']:.4f} ms of wall time (n={n_bake}), {bake_dev} on {gpu}")
+    # K: B1 alone with and without its blend branch, beside A's
+    a_k, k_k = paths["K"]["mega"]
+    no_blend_alone = median(cuda_times(
+        megakernel.prepare_launch(*a_k, **dict(k_k, has_blend=False)), 100))
+    print(f"B1 kernel alone on the blended map's inputs (stage_cut 0): with has_blend "
+          f"{paths['K']['alone']:.4f} ms, without {no_blend_alone:.4f} ms; the opaque map (A) "
+          f"{cut_t['opaque', 0]:.4f} ms (medians of 100) on {gpu}")
     a_c, k_c = paths["C"]["mega"]
     no_ao_alone = median(cuda_times(
         megakernel.prepare_launch(*a_c, **dict(k_c, ao_img=None)), 100))
@@ -912,6 +997,12 @@ def main() -> int:
         "sky_miss_pass": lambda: sky_miss_pass(frame_i, z_i, fa_i["sky_pre"], fa_i["uniforms"],
                                                W, H),
     }
+    # N's frame is its 2D pass but for B1 over no candidate (its profile
+    # below): the lights and their wall test, then one step a triangle
+    fa_n = paths["N"]["rast"].frame_args
+    print(f"path N: {int(fa_n['d2']['valid'].sum())} 2D triangles, "
+          f"{int(fa_n['uniforms']['seg_valid'].sum())} wall segments, "
+          f"{len(fa_n['light_spec'])} lights")
     for name, fn in glass_steps.items():
         wall = wall_ms(fn, 5)
         ev = cuda_times(fn, 5, warmup=1)
@@ -943,12 +1034,16 @@ def main() -> int:
     path_kernels["G"] = path_kernels["I"] = path_kernels["F"]
     path_kernels["J"] = {"B1": "mega_kernel", "B2": "visibility_kernel",
                          "B3": ("rt_kernel", 3), "B3prep": ("rt_prepare_kernel", 3)}
+    path_kernels["L"] = path_kernels["D"]
+    path_kernels["K"] = path_kernels["M"] = path_kernels["N"] = path_kernels["F"]
     for key, p_ in paths.items():
         r_, s_, as_ = p_["rast"], p_["scene"], p_["assets"]
-        n_key = N_PROF_GLASS if key in GLASS else n_prof
+        pw, ph = p_["size"]
+        n_key = N_PROF_GLASS if key in GLASS else N_PROF_2D if key == "N" else N_PROF_LATER
         p_["dev"] = report_profile(
             f"path {key} rasterize(readback=False) x{n_key}",
-            profile_calls(lambda: r_.rasterize(s_, W, H, 40, as_, readback=False), n_key),
+            profile_calls(lambda: r_.rasterize(s_, pw, ph, 40, as_, readback=False), n_key,
+                          host_records=key != "N"),
             median(p_["frame_t"]), gpu, path_kernels[key])
 
     phase("9")
@@ -1017,7 +1112,9 @@ def main() -> int:
                       ("H", "mega_render brdf_ggx shadows (shadowed reflection map)"),
                       ("I", "mega_render shadows transmittance tonemap (glazed map)"),
                       ("J", "mega_render brdf_ggx shadows transmittance tonemap (glazed "
-                            "reflection map)")):
+                            "reflection map)"),
+                      ("K", "mega_render has_blend (blended map)"),
+                      ("L", "mega_render brdf_ggx has_blend (blended reflection map)")):
         p_ = paths[key]
         a_, k_ = p_["mega"]
         n_occ_ = int(a_[8].shape[0])

@@ -16,7 +16,9 @@ gives its device ops per frame.
 Where the tree has the shadowed map (`scenes.build_map_shadow_scene`), the
 megakernel is also timed on its inputs with and without the shadow table;
 where it has the glazed map (`scenes.build_map_glass_scene`), on its inputs
-with its transmittance and tonemap variants and without each.
+with its transmittance and tonemap variants and without each; where it has
+the blended map (`scenes.build_map_blend_scene`), on its inputs with and
+without the has_blend variant.
 Each tree's line also gives the megakernel's registers, shared memory,
 resident blocks an SM and ptxas's spill report.
 
@@ -109,6 +111,14 @@ def measure(tree: str) -> dict:
         for label, kw in (("", kwargs), (" without the tonemap", dict(kwargs, tonemap=False)),
                           (" without the transmittance", no_trans)):
             times["B1 glazed map" + label] = timed(
+                lambda kw=kw: megakernel.mega_render(*args, **kw))
+    if hasattr(scenes, "build_map_blend_scene"):
+        rast, scene, assets = scenes.build_map_blend_scene(cs.W, cs.H, device="cuda")
+        rast.rasterize(scene, cs.W, cs.H, 40, assets)
+        fi = frame_inputs(**rast.frame_args)
+        args, kwargs = fi["mega_args"], fi["mega_kwargs"]
+        for label, kw in (("", kwargs), (" without has_blend", dict(kwargs, has_blend=False))):
+            times["B1 blended map" + label] = timed(
                 lambda kw=kw: megakernel.mega_render(*args, **kw))
     gpu = cs._run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     return {"tree": os.path.abspath(tree), "gpu": gpu.splitlines()[0], "b1": b1,

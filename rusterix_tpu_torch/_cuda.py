@@ -106,7 +106,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rx_mega_render.restype = i32
-    lib.rx_mega_render.argtypes = [vp] * 16 + [i32, i32, i64] + [i32] * 13 + [vp]
+    lib.rx_mega_render.argtypes = [vp] * 16 + [i32, i32, i64] + [i32] * 14 + [vp]
     for fn, n_int in ((lib.rx_mega_resources, 3), (lib.rx_visibility_resources, 1),
                       (lib.rx_rt_resources, 2)):
         fn.restype = i32

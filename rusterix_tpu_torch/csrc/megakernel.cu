@@ -6,8 +6,10 @@
 // Morton-sorted super-chunks of 128 candidate slots and chunks of 4, with
 // max 1/z and a strict `>`, (2) plane interpolation of 1/w, u, v and the
 // normal, (3) the atlas texel fetch, nearest or bilinear, with the repeat
-// modes, (4) the lighting chain (hemisphere ambient, sun with the fast
-// Blinn-Phong BRDF or, in the `brdf_ggx` variant, Cook-Torrance GGX,
+// modes (in the `has_blend` variant mixed toward a second source's texel by
+// the clipped perspective-correct vertex weight), (4) the lighting chain
+// (hemisphere ambient, sun with the fast Blinn-Phong BRDF or, in the
+// `brdf_ggx` variant, Cook-Torrance GGX,
 // occlusion boxes, batch ambient and the five light types; in the `ao_img`
 // variant the two ambient terms scaled by the frame's ambient-occlusion
 // factor at the pixel; in the shadow variant each casting light's radiance
@@ -105,6 +107,24 @@
 // The tonemap variant uses the full-precision expf and logf (not __expf):
 // the plain version's torch.exp and torch.log on the card are the same
 // functions.
+//
+// The has_blend variant (vertex-blended floors): a row then has 48 columns,
+// the blend extension at 32-43 (the weight plane, kind2, rgba2, the second
+// rect; material and matmap, which would sit before it, are not taken). A
+// covered pixel of such a frame reads those 12 floats as three more 16-byte
+// loads, fetches the second texel (no read for a pixel colour or no second
+// source, 1 nearest, 4 bilinear) and mixes it in before the lighting. Rows
+// are read at the table's own stride (n_attr), whatever the variant. With
+// the branch in, ptxas spilled 40 bytes at 64 registers (in the scan, for
+// values the shading's pressure pushed out), and forms that did not spill
+// scanned 5% slower (PERF.md lists the forms compared). The kernel now
+// keeps fewer values alive instead: the shading's part of shared memory is
+// located after the scan and reached through one pointer (Consts), the
+// batch ambient is read from the row where it is added, kd = base * 0.96
+// and the view distance are recomputed where they are used, and a texel
+// that is not opaque takes the background before the lighting (the same
+// outputs: the plain version computes and discards that lighting). No
+// spill; B1 alone on the opaque and the shadowed map within 2% of PR 6's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,16 +162,29 @@ struct MegaArgs {
     int sun_base, sun_res;  // the sun map (base -1: none)
     int sun_tbase, sun_steps;  // its transmittance layers (base -1: none)
     int tonemap;            // SceneVM display transform instead of sRGB
+    int has_blend;          // rows carry the blend extension at 32-43
     long long n_atlas;
 };
 
 // the frame's constants in shared memory (one copy per block)
+// (one pointer: the others follow from it and the frame's counts where
+// they are used, so that the shading keeps one address alive, not five)
 struct Consts {
-    const float* P;    // params (80)
-    const float* L;    // n_lights rows of 24, in light-list order
-    const int* ltype;  // n_lights type codes
-    const float* occ;  // n_occ rows of 5
-    const int* lshadow;  // n_lights [cube base, res, trans base, steps], in light-list order
+    const float* P;    // params (80), then:
+    // n_lights rows of 24, in light-list order
+    __device__ const float* L() const { return P + 80; }
+    // n_lights type codes
+    __device__ const int* ltype(const MegaArgs& a) const {
+        return reinterpret_cast<const int*>(P + 80 + 24 * a.n_lights);
+    }
+    // n_occ rows of 5
+    __device__ const float* occ(const MegaArgs& a) const {
+        return reinterpret_cast<const float*>(ltype(a) + a.n_lights);
+    }
+    // n_lights [cube base, res, trans base, steps], in light-list order
+    __device__ const int* lshadow(const MegaArgs& a) const {
+        return reinterpret_cast<const int*>(occ(a) + 5 * a.n_occ);
+    }
 };
 
 __device__ __forceinline__ float jmin(float a, float b) {
@@ -196,10 +229,11 @@ __device__ __forceinline__ float chan(uint32_t t, int c) {
     return (float)((t >> (8 * c)) & 0xFFu);
 }
 
-// the winner's texel color (r, g, b, a) in 0..1 (JAX `_texel_lookup`)
-__device__ __forceinline__ void texel_lookup(const MegaArgs& a, float u, float v, const float* row,
-                             float repeat, int atlas_w, float out[4]) {
-    const float kind = row[18];
+// a source's texel color (r, g, b, a) in 0..1 (JAX `_texel_lookup`): its
+// kind, pixel colour (rgba[0..3]) and anim-resolved atlas rect (rect[0..3])
+__device__ __forceinline__ void texel_lookup(const MegaArgs& a, float u, float v, float kind,
+                                             const float* rgba, const float* rect, float repeat,
+                                             int atlas_w, float out[4]) {
     const bool is_tex = kind == SRC_TEXTURE;
     const bool is_pix = kind == SRC_PIXEL;
     const bool ur = (repeat == 1.0f) || (repeat == 2.0f);
@@ -207,7 +241,7 @@ __device__ __forceinline__ void texel_lookup(const MegaArgs& a, float u, float v
     float uu = ur ? u - floorf(u) : jclip(u, 0.0f, 1.0f);
     float vv = vr ? v - floorf(v) : jclip(v, 0.0f, 1.0f);
     if (!is_tex) { uu = 0.0f; vv = 0.0f; }
-    const float rx = row[28], ry = row[29], rw = row[30], rh = row[31];
+    const float rx = rect[0], ry = rect[1], rw = rect[2], rh = rect[3];
     float tex[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (is_tex) {
         if (a.sample_mode == 0) {
@@ -245,7 +279,7 @@ __device__ __forceinline__ void texel_lookup(const MegaArgs& a, float u, float v
     const float is_pix_f = is_pix ? 1.0f : 0.0f;
     const float other = 1.0f - is_tex_f - is_pix_f;
     for (int c = 0; c < 4; ++c) {
-        float val = is_tex_f * tex[c] * K(1.0 / 255.0) + is_pix_f * row[21 + c];
+        float val = is_tex_f * tex[c] * K(1.0 / 255.0) + is_pix_f * rgba[c];
         if (c == 3) val = val + other;  // SRC_OFF -> opaque black
         out[c] = val;
     }
@@ -353,8 +387,7 @@ __device__ __forceinline__ float sun_shadow(const MegaArgs& a, const float* P, f
 struct Surface {
     float ux, uy, uz;     // shading normal (0 without normals)
     float vdx, vdy, vdz;  // unit view direction
-    float base_r, base_g, base_b;  // linear albedo
-    float kd_r, kd_g, kd_b;        // base * 0.96
+    float base_r, base_g, base_b;  // linear albedo (the diffuse kd = base * 0.96)
 };
 
 // fast Blinn-Phong BRDF with Schlick Fresnel (roughness 0.5, metallic 0)
@@ -375,9 +408,9 @@ __device__ __forceinline__ void brdf(const Surface& s, float ldx, float ldy, flo
     float fr = K(0.04) + K(0.96) * x5;
     float sb = spec_b * n_dot_l;
     bool dead = n_dot_l <= 0.0f;
-    cr = dead ? 0.0f : (s.kd_r * n_dot_l + fr * sb) * rad_r;
-    cg = dead ? 0.0f : (s.kd_g * n_dot_l + fr * sb) * rad_g;
-    cb = dead ? 0.0f : (s.kd_b * n_dot_l + fr * sb) * rad_b;
+    cr = dead ? 0.0f : ((s.base_r * K(0.96)) * n_dot_l + fr * sb) * rad_r;
+    cg = dead ? 0.0f : ((s.base_g * K(0.96)) * n_dot_l + fr * sb) * rad_g;
+    cb = dead ? 0.0f : ((s.base_b * K(0.96)) * n_dot_l + fr * sb) * rad_b;
 }
 
 // Cook-Torrance GGX (GGX NDF, Smith G, Schlick Fresnel) with roughness 0.5
@@ -455,13 +488,38 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
 
     // ---- stage 3: texel resolve ----
     float tex[4];
-    texel_lookup(a, u, v, A, repeat, (int)P[54], tex);
+    texel_lookup(a, u, v, A[18], A + 21, A + 28, repeat, (int)P[54], tex);
+    if (a.has_blend) {
+        // the blend extension, 16 bytes at a time: the weight plane and
+        // kind2 first (folded into the mix weight at once), then rgba2 and
+        // the second rect for the second texel
+        const float4* ext = reinterpret_cast<const float4*>(a.attr + (size_t)slot * a.n_attr + 32);
+        const float4 wk = __ldg(ext);
+        const float b_w = jclip((wk.x * xg + wk.y * yg + wk.z) / safe_w, 0.0f, 1.0f);
+        const float blend_on = (wk.w >= 0.0f ? 1.0f : 0.0f) * b_w;
+        const float4 c2 = __ldg(ext + 1);
+        const float4 r2 = __ldg(ext + 2);
+        const float rgba2[4] = {c2.x, c2.y, c2.z, c2.w};
+        const float rect2[4] = {r2.x, r2.y, r2.z, r2.w};
+        float tex2[4];
+        texel_lookup(a, u, v, wk.w, rgba2, rect2, repeat, (int)P[54], tex2);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) tex[c] = tex[c] * (1.0f - blend_on) + tex2[c] * blend_on;
+    }
     if (a.stage_cut == 2) {  // profiling: the quantized texel, no shading
         a.rgba[o] = (uint32_t)quant(tex[0]) | ((uint32_t)quant(tex[1]) << 8) |
                     ((uint32_t)quant(tex[2]) << 16) | ((uint32_t)quant(tex[3]) << 24);
         a.zeff[o] = best;
         return;
     }
+    // stage 6's decision, taken before the lighting it makes moot: a texel
+    // that is not opaque keeps the background
+    if (quant(tex[3]) < 255.0f) {
+        a.rgba[o] = __ldg(a.bg + o);
+        a.zeff[o] = 1.0f;
+        return;
+    }
+    a.zeff[o] = z;
 
     // ---- stage 4: lighting ----
     const float x_ndc = 2.0f * (xg / P[41]) - 1.0f;
@@ -480,8 +538,7 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
 
     Surface s;
     float vdx = P[32] - wx, vdy = P[33] - wy, vdz = P[34] - wz;
-    const float vlen = sqrtf(vdx * vdx + vdy * vdy + vdz * vdz);
-    const float inv_vlen = 1.0f / jmax(vlen, K(1e-30));
+    const float inv_vlen = 1.0f / jmax(sqrtf(vdx * vdx + vdy * vdy + vdz * vdz), K(1e-30));
     s.vdx = vdx * inv_vlen;
     s.vdy = vdy * inv_vlen;
     s.vdz = vdz * inv_vlen;
@@ -496,9 +553,6 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
     s.base_r = srgb_to_linear(tex[0]);
     s.base_g = srgb_to_linear(tex[1]);
     s.base_b = srgb_to_linear(tex[2]);
-    s.kd_r = s.base_r * K(0.96);
-    s.kd_g = s.base_g * K(0.96);
-    s.kd_b = s.base_b * K(0.96);
     float hemi = 0.5f * (s.uy + 1.0f);
     // the ambient-occlusion factor scales only the two terms hemi feeds
     // (the hemisphere and the batch ambient)
@@ -506,14 +560,14 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
 
     float occlusion = 1.0f;
     for (int bi = 0; bi < a.n_occ; ++bi) {
-        const float* b = k.occ + 5 * bi;
+        const float* b = k.occ(a) + 5 * bi;
         bool inside = (wx >= b[0]) && (wz >= b[1]) && (wx <= b[2]) && (wz <= b[3]);
         occlusion = jmin(occlusion, inside ? b[4] : 1.0f);
     }
 
-    float lit_r = P[35] * P[36] * s.kd_r * hemi;
-    float lit_g = P[35] * P[37] * s.kd_g * hemi;
-    float lit_b = P[35] * P[38] * s.kd_b * hemi;
+    float lit_r = P[35] * P[36] * (s.base_r * K(0.96)) * hemi;
+    float lit_g = P[35] * P[37] * (s.base_g * K(0.96)) * hemi;
+    float lit_b = P[35] * P[38] * (s.base_b * K(0.96)) * hemi;
     if (!a.sun_off) {
         float sdx = -P[44], sdy = -P[45], sdz = -P[46];
         float slen = sqrtf(sdx * sdx + sdy * sdy + sdz * sdz);
@@ -536,13 +590,17 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
     lit_r = lit_r * occlusion;
     lit_g = lit_g * occlusion;
     lit_b = lit_b * occlusion;
-    lit_r = lit_r + A[25] * s.kd_r * hemi;
-    lit_g = lit_g + A[26] * s.kd_g * hemi;
-    lit_b = lit_b + A[27] * s.kd_b * hemi;
+    {
+        // the batch ambient, read from the row here rather than kept alive
+        const float* row = a.attr + (size_t)slot * a.n_attr;
+        lit_r = lit_r + __ldg(row + 25) * (s.base_r * K(0.96)) * hemi;
+        lit_g = lit_g + __ldg(row + 26) * (s.base_g * K(0.96)) * hemi;
+        lit_b = lit_b + __ldg(row + 27) * (s.base_b * K(0.96)) * hemi;
+    }
 
     for (int n = 0; n < a.n_lights; ++n) {
-        const int lt = k.ltype[n];
-        const float* L = k.L + 24 * n;
+        const int lt = k.ltype(a)[n];
+        const float* L = k.L() + 24 * n;
         const float start = L[4], end = L[5], intensity = L[6], valid = L[20];
         const float tpx = wx - L[0], tpy = wy - L[1], tpz = wz - L[2];
         const float dist = sqrtf(tpx * tpx + tpy * tpy + tpz * tpz);
@@ -587,8 +645,8 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
         } else {
             rad = ok_f * scale * 1.0f;
         }
-        if (a.shadow && k.lshadow[4 * n] >= 0)
-            rad = rad * cube_shadow(a, P, wx, wy, wz, s.ux, s.uy, s.uz, L, k.lshadow + 4 * n);
+        if (a.shadow && k.lshadow(a)[4 * n] >= 0)
+            rad = rad * cube_shadow(a, P, wx, wy, wz, s.ux, s.uy, s.uz, L, k.lshadow(a) + 4 * n);
         const float rad_r = L[7] * rad, rad_g = L[8] * rad, rad_b = L[9] * rad;
         float cr, cg, cb;
         light_brdf(a, s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
@@ -615,6 +673,9 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
     out_b = fullbright * tex[2] + (1.0f - fullbright) * out_b;
 
     // ---- stage 5: distance fog (linear node fade or SceneVM exp^2) ----
+    // the view distance again (the expression of the view direction's norm)
+    const float vdx2 = P[32] - wx, vdy2 = P[33] - wy, vdz2 = P[34] - wz;
+    const float vlen = sqrtf(vdx2 * vdx2 + vdy2 * vdy2 + vdz2 * vdz2);
     const float fog_lin = jclip((vlen - P[52]) / P[53], 0.0f, 1.0f);
     const float fog_exp = 1.0f - expf(-P[77] * vlen * vlen);
     const float fog_t = P[48] * (P[76] * fog_exp + (1.0f - P[76]) * fog_lin);
@@ -622,16 +683,9 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
     out_g = out_g * (1.0f - fog_t) + P[50] * fog_t;
     out_b = out_b * (1.0f - fog_t) + P[51] * fog_t;
 
-    // ---- stage 6: compose + RGBA8 pack ----
-    const float a_u8 = quant(tex[3]);
-    if (a_u8 >= 255.0f) {
-        a.rgba[o] = (uint32_t)quant(out_r) | ((uint32_t)quant(out_g) << 8) |
-                    ((uint32_t)quant(out_b) << 16) | ((uint32_t)a_u8 << 24);
-        a.zeff[o] = z;
-    } else {
-        a.rgba[o] = __ldg(a.bg + o);
-        a.zeff[o] = 1.0f;
-    }
+    // ---- stage 6: RGBA8 pack (the texel is opaque) ----
+    a.rgba[o] = (uint32_t)quant(out_r) | ((uint32_t)quant(out_g) << 8) |
+                ((uint32_t)quant(out_b) << 16) | (255u << 24);
 }
 
 // what a block shares with its cluster and keeps across the phases
@@ -664,12 +718,6 @@ __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
     int* l_slot = reinterpret_cast<int*>(l_best + PX);
     float* s_sn = reinterpret_cast<float*>(l_slot + PX);
     uint32_t* meet = reinterpret_cast<uint32_t*>(s_sn + a.ns);
-    float* c_params = reinterpret_cast<float*>(meet + (a.ns + 31) / 32);
-    float* c_lights = c_params + 80;
-    int* c_ltype = reinterpret_cast<int*>(c_lights + 24 * a.n_lights);
-    float* c_occ = reinterpret_cast<float*>(c_ltype + a.n_lights);
-    int* c_lshadow = reinterpret_cast<int*>(c_occ + 5 * a.n_occ);
-    unsigned short* l_pix = reinterpret_cast<unsigned short*>(c_lshadow + 4 * a.n_lights);
 
     const int x0 = blockIdx.x * TILE_W;
     const int y0 = (blockIdx.y / CL) * TILE_H;
@@ -756,6 +804,15 @@ __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
     // shared memory may still be read
     if (shared_state) cluster_arrive();
 
+    // the shading's part of shared memory, located only now that the scan is
+    // done (its pointers would otherwise stay alive through the scan)
+    float* c_params = reinterpret_cast<float*>(meet + (a.ns + 31) / 32);
+    float* c_lights = c_params + 80;
+    int* c_ltype = reinterpret_cast<int*>(c_lights + 24 * a.n_lights);
+    float* c_occ = reinterpret_cast<float*>(c_ltype + a.n_lights);
+    int* c_lshadow = reinterpret_cast<int*>(c_occ + 5 * a.n_occ);
+    unsigned short* l_pix = reinterpret_cast<unsigned short*>(c_lshadow + 4 * a.n_lights);
+
     // ---- the slice's winners: background out, covered pixels into the list ----
     const int gx = x0 + tid % TILE_W;
 #pragma unroll
@@ -809,10 +866,6 @@ __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
         __syncthreads();
         Consts kc;
         kc.P = c_params;
-        kc.L = c_lights;
-        kc.ltype = c_ltype;
-        kc.occ = c_occ;
-        kc.lshadow = c_lshadow;
         for (int i = tid; i < count; i += THREADS) {
             const int pix = l_pix[i];
             shade_pixel(a, kc, x0 + pix % TILE_W, y0 + slice * SLICE_ROWS(CL) + pix / TILE_W,
@@ -849,7 +902,7 @@ extern "C" int rx_mega_render(
     const float* shadow, const int* lshadow, int* rgba, float* zeff, int ns, int n_attr,
     long long n_atlas, int n_lights, int n_occ, int height, int width, int sample_mode,
     int sun_off, int brdf_ggx, int stage_cut, int sun_base, int sun_res, int sun_tbase,
-    int sun_steps, int tonemap, void* stream) {
+    int sun_steps, int tonemap, int has_blend, void* stream) {
     MegaArgs a;
     a.planes = planes;
     a.attr = attr;
@@ -870,6 +923,7 @@ extern "C" int rx_mega_render(
     a.sun_tbase = sun_tbase;
     a.sun_steps = sun_steps;
     a.tonemap = tonemap;
+    a.has_blend = has_blend;
     a.rgba = reinterpret_cast<uint32_t*>(rgba);
     a.zeff = zeff;
     a.ns = ns;

@@ -15,8 +15,10 @@ Mega attr-table layout (f32 columns, the JAX package's layout):
   18 kind | 19 repeat (+4 = fullbright) | 20 has_normals
   21-24 rgba (SRC_PIXEL color) | 25-27 batch ambient rgb
   28-31 anim-resolved atlas rect (rx, ry, rw, rh)
-  material, matmap and blend extensions follow (see the JAX module); the
-  kernel refuses them for now.
+  blend extension (has_blend; without material or matmap it starts at 32):
+  32-34 blend weight plane | 35 kind2 | 36-39 rgba2 | 40-43 second rect |
+  44-47 padding
+  the material and matmap extensions (see the JAX module) are refused.
 """
 
 from __future__ import annotations
@@ -278,7 +280,6 @@ def _check_variants(has_blend, has_material, has_matmap, shadow_rows, shadow_spe
     if stage_cut not in (0, 1, 2):
         raise ValueError(f"mega_render: stage_cut {stage_cut} is not 0, 1 or 2")
     refused = {
-        "has_blend (vertex blend)": has_blend,
         "has_material": has_material,
         "has_matmap": has_matmap,
         "light_spec=None (generic one-hot light blend)": light_spec is None,
@@ -388,6 +389,9 @@ def mega_render(
     (1 - its alpha). `tonemap` encodes the lit colour with the SceneVM
     transform (Reinhard, then gamma 1/2.2 as exp(log(t) / 2.2)) in place
     of the fast sRGB polynomial; fullbright texels keep their raw bytes.
+    `has_blend`: the table carries the blend extension (pack_mega_table with
+    has_blend); where a winner's kind2 >= 0 its texel mixes toward the
+    second source's by the clipped weight plane over 1/w.
 
     `stage_cut` is the JAX kernel's profiling instrument: the kernel stops
     after a stage, so that timing cuts 1, 2 and 0 splits its time into the
@@ -410,19 +414,20 @@ def mega_render(
             light_spec=light_spec, sun_off=sun_off, s_near=s_near,
             brdf_ggx=brdf_ggx, stage_cut=stage_cut, ao_img=ao_img,
             shadow_rows=shadow_rows, shadow_spec=shadow_spec, tonemap=tonemap,
+            has_blend=has_blend,
         )
     return prepare_launch(
         vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         lights_packed, occ_packed, width, height, sample_mode, light_spec,
         sun_off, s_near, brdf_ggx, stage_cut, ao_img, shadow_rows, shadow_spec,
-        tonemap,
+        tonemap, has_blend,
     )()
 
 
 def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
                    lights_packed, occ_packed, width, height, sample_mode, light_spec,
                    sun_off, s_near, brdf_ggx=False, stage_cut=0, ao_img=None,
-                   shadow_rows=None, shadow_spec=None, tonemap=False):
+                   shadow_rows=None, shadow_spec=None, tonemap=False, has_blend=False):
     """Check and prepare mega_render's inputs for the CUDA kernel -> a
     function of no arguments that launches the kernel on them and returns
     (rgba, z_eff), the same two tensors at every call. mega_render is one
@@ -450,8 +455,9 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         raise ValueError(f"mega_render: bg_u32 is {tuple(inputs['bg'].shape)}, not {(height, width)}")
     if inputs["params"].numel() != N_PARAMS or inputs["lights"].shape[1] != 24:
         raise ValueError("mega_render: params must be (80,) and lights (L, 24)")
-    if attr.shape[1] < 32:
-        raise ValueError(f"mega_render: attr table has {attr.shape[1]} columns, needs 32")
+    need = 44 if has_blend else 32
+    if attr.shape[1] < need:
+        raise ValueError(f"mega_render: attr table has {attr.shape[1]} columns, needs {need}")
     if attr.shape[1] % 4:
         # the kernel reads a row as 16-byte loads
         attr = torch.nn.functional.pad(attr, (0, -attr.shape[1] % 4)).contiguous()
@@ -487,7 +493,7 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         llist.shape[0], inputs["occ"].shape[0], height, width,
         int(sample_mode), int(bool(sun_off)), int(bool(brdf_ggx)), int(stage_cut),
         int(sun_map[0]), int(sun_map[1]), int(sun_map[2]), int(sun_map[3]),
-        int(bool(tonemap)),
+        int(bool(tonemap)), int(bool(has_blend)),
     )
     # alive while the closure is
     keep = (planes, attr, sboxes, cboxes, inputs, llist, ao_img, shadow, lshadow)
@@ -657,6 +663,7 @@ def mega_render_reference(
     light_spec: tuple = None, sun_off: bool = False, s_near=None,
     brdf_ggx: bool = False, return_work: bool = False, stage_cut: int = 0,
     ao_img=None, shadow_rows=None, shadow_spec: tuple = None, tonemap: bool = False,
+    has_blend: bool = False,
 ):
     """Plain torch version of the megakernel: the kernel body's per-pixel
     math transcribed op for op (the JAX kernel's `_mega_kernel` stages 1-6),
@@ -718,9 +725,16 @@ def mega_render_reference(
 
     # ---- stage 3: texel resolve ----
     atlas_w = int(P[54].item())
-    tex_r, tex_g, tex_b, tex_a = _texel_lookup(
-        atlas_u32, u, v, rect, kind, rgba_cols, repeat, sample_mode, atlas_w
-    )
+    tex = _texel_lookup(atlas_u32, u, v, rect, kind, rgba_cols, repeat, sample_mode, atlas_w)
+    if has_blend:
+        # the blend extension (mb = 32 without material or matmap)
+        B = [a[..., 32 + i] for i in range(12)]
+        tex2 = _texel_lookup(atlas_u32, u, v, tuple(B[8:12]), B[3], B[4:8], repeat,
+                             sample_mode, atlas_w)
+        b_w = torch.clamp((B[0] * xg + B[1] * yg + B[2]) / safe_w, 0.0, 1.0)
+        blend_on = (B[3] >= 0.0).float() * b_w
+        tex = [t1 * (1.0 - blend_on) + t2 * blend_on for t1, t2 in zip(tex, tex2)]
+    tex_r, tex_g, tex_b, tex_a = tex
 
     def q(x):
         return torch.floor(torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5)

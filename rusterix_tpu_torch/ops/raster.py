@@ -21,11 +21,16 @@ miss pass (`composite.sky_miss_pass`), the editor's brush preview, and the
 opacity batches: `transparency_layers` depth-peeled layers (plain torch:
 a setup pass of the opacity pack, then per layer a visibility pass and
 `_shade_opacity`, with GGX reflections per layer when they are on),
-blended back to front. `set_tonemap("scenevm")` encodes the lit colour
-with the SceneVM transform in B1 and in the reflection composite. With
-SSAA the frame renders at n times the size and is box-filtered down. The
-2D line overlay is drawn last, on the host. Every feature outside that
-slice raises `NotImplementedError` naming it; none degrades silently.
+blended back to front, and last the 2D batches in painter's order
+(`composite.d2_pass`, lit by the 2D lights, the map's walls blocking them).
+Vertex-blended batches (a second source mixed in by a per-vertex weight)
+take B1's has_blend variant and the G-buffer's blend branch.
+`set_tonemap("scenevm")` encodes the lit colour with the SceneVM transform
+in B1 and in the reflection composite. With SSAA the frame renders at n
+times the size and is box-filtered down. The 2D line overlay is drawn
+last, on the host. `screen_to_world` / `screen_ray` pick through the last
+frame's size. Every feature outside that slice raises
+`NotImplementedError` naming it; none degrades silently.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from .megakernel import (
     unpack_frame_u32,
 )
 from .ao import ssao_pass, tap_offsets
-from .composite import blend_opacity, brush_preview_pass, frame_to_u8, sky_miss_pass
+from .composite import blend_opacity, brush_preview_pass, d2_pass, frame_to_u8, sky_miss_pass
 from .matrices import invert
 from .reflect import apply_reflections, reflection_pass_scaled, sky_light_pass
 from .scene_pack import PackedScene, next_pow2
@@ -67,8 +72,8 @@ from .visibility_pallas import visibility_pass_pallas
 def packed_to_torch(packed: PackedScene, device) -> dict:
     """The JAX package's numpy PackedScene -> the port's device tensors:
     {"d3": {field: tensor}, "d3_op": {field: tensor} (the opacity batches),
-    "atlas": {"flat_u32" (N,) i32 holding the u32 texels, "w" int, "rects",
-    "tile_first", "tile_count"}}."""
+    "d2": {field: tensor} (the 2D triangles), "atlas": {"flat_u32" (N,) i32
+    holding the u32 texels, "w" int, "rects", "tile_first", "tile_count"}}."""
     dev = resolve_device(device)
 
     def put(a):
@@ -79,6 +84,7 @@ def packed_to_torch(packed: PackedScene, device) -> dict:
     return {
         "d3": {k: put(v) for k, v in vars(packed.d3).items() if v is not None},
         "d3_op": {k: put(v) for k, v in vars(packed.d3_opacity).items() if v is not None},
+        "d2": {k: put(v) for k, v in vars(packed.d2).items()},
         "atlas": {
             "flat_u32": put(texels),
             "w": int(atlas.data.shape[1]),
@@ -95,7 +101,8 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
                  brdf_ggx: bool = False, refl_samples: int = 0,
                  refl_scale: int = 1, ao_taps: tuple = None,
                  sky_light: bool = False, shadow_rows=None, shadow_params=None,
-                 shadow_spec: tuple = None, tonemap: bool = False, **_later) -> dict:
+                 shadow_spec: tuple = None, tonemap: bool = False, has_blend: bool = False,
+                 **_later) -> dict:
     """The frame's preparation before its kernels: setup pass, megakernel
     table, Morton + front-to-back sort and the parameter packs -> dict with
     the setup pass's `attr` and `tri_id`, the sorted `vis_s`, `alive_s`,
@@ -108,16 +115,19 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
     dicts the Rasterizer builds each frame (pack_light_params,
     pack_mega_params and pack_occ_params carry them to the device);
     background (H, W, 4) f32 on the device; shadow_rows / shadow_params /
-    shadow_spec: a bake of shadow.bake_shadow_pack (None: no shadows). The
-    reflection, AO and sky-light settings are read by render_frame."""
+    shadow_spec: a bake of shadow.bake_shadow_pack (None: no shadows).
+    `has_blend`: the pack has vertex-blended batches (kind2 >= 0); the setup
+    pass then interpolates their blend weight plane and the table carries
+    the blend columns B1 mixes the second texel by. The reflection, AO and
+    sky-light settings are read by render_frame."""
     dev = d3["pos"].device
     vis, attr, bbox, alive, tri_id = setup_pass(
         d3["pos"], d3["uv"], d3["nrm"], d3["valid"], d3["cull"],
         torch.from_numpy(uniforms["view"]).to(dev),
         torch.from_numpy(uniforms["proj"]).to(dev),
-        width, height,
+        width, height, bw=d3["bw"] if has_blend else None,
     )
-    table = pack_mega_table(attr, tri_id, d3, atlas, int(uniforms["anim_frame"]), False)
+    table = pack_mega_table(attr, tri_id, d3, atlas, int(uniforms["anim_frame"]), has_blend)
     vis_s, bbox_s, alive_s, table_s, s_near, sort_perm = morton_ftb_sort(
         vis, bbox, alive.float(), table, width, height, return_perm=True
     )
@@ -136,7 +146,8 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
         "mega_args": args,
         "mega_kwargs": {"light_spec": light_spec, "sun_off": sun_off, "s_near": s_near,
                         "brdf_ggx": brdf_ggx, "shadow_rows": shadow_rows,
-                        "shadow_spec": shadow_spec, "tonemap": tonemap},
+                        "shadow_spec": shadow_spec, "tonemap": tonemap,
+                        "has_blend": has_blend},
     }
 
 
@@ -241,8 +252,10 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
                  shadow_spec: tuple = None, tonemap: bool = False, d3_op=None,
                  has_opacity: bool = False, transparency_layers: int = 1,
                  preserve_transparency: bool = False, has_sky: bool = False,
-                 sky_pre: dict = None, has_brush: bool = False):
-    """One 3D frame on the device -> (H, W, 4) uint8 tensor: the JAX
+                 sky_pre: dict = None, has_brush: bool = False, has_blend: bool = False,
+                 d2=None, has_d2: bool = False, has_lights: bool = False,
+                 has_ambient: bool = False):
+    """One frame on the device -> (H, W, 4) uint8 tensor: the JAX
     render_frame's megakernel branch (ops/raster.py:233-500 there). The
     opaque frame comes from the megakernel (B1). With AO (`ao_taps` from
     tap_offsets, radius uniforms["ao_radius"]), reflections or sky light,
@@ -258,18 +271,21 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
     uniforms), and with `has_opacity` the `transparency_layers` layers of
     the opacity pack `d3_op`, each with its own reflections when
     refl_samples > 0 (its G-buffer from its own surfaces, its rays traced
-    and shaded against the opaque pack), blended back to front. Arguments
-    as for frame_inputs."""
+    and shaded against the opaque pack), blended back to front. Last, with
+    `has_d2`, the 2D triangles `d2` in painter's order (composite.d2_pass,
+    lit when `has_lights` / `has_ambient`). `has_blend` (vertex-blended
+    batches) reaches B1 and every G-buffer. Arguments as for
+    frame_inputs."""
     fi = frame_inputs(
         d3, lights, atlas, uniforms, background, width, height, sample_mode,
         has_fog, light_spec, sun_off, brdf_ggx,
         shadow_rows=shadow_rows, shadow_params=shadow_params, shadow_spec=shadow_spec,
-        tonemap=tonemap,
+        tonemap=tonemap, has_blend=has_blend,
     )
     pre = visibility_prepass(fi, width, height) if (ao_taps or refl_samples or sky_light) else None
     ao_img = ambient_occlusion(pre, uniforms, height, ao_taps) if ao_taps else None
     rgba_u32, z_eff = mega_render(*fi["mega_args"], **fi["mega_kwargs"], ao_img=ao_img)
-    if not (has_sky or has_opacity or has_brush or refl_samples or sky_light):
+    if not (has_sky or has_opacity or has_d2 or has_brush or refl_samples or sky_light):
         return unpack_frame_u32(rgba_u32)
     # the passes after the opaque frame blend in f32 over its quantized
     # bytes, as the reference's u8 tile buffer does (rasterizer.rs:464-495)
@@ -279,11 +295,13 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
         refl, rmask = reflection_pass_scaled(
             *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms,
             width, height, sample_mode, refl_samples, scale=refl_scale, shadow=shadow,
+            has_blend=has_blend,
         )
         frame = apply_reflections(frame, refl, rmask, tonemap=tonemap)
     if sky_light:
         sky_term, sky_mask = sky_light_pass(
             *pre, fi["attr"], fi["tri_id"], d3, atlas, uniforms, width, height, sample_mode,
+            has_blend=has_blend,
         )
         if ao_taps:
             sky_term = sky_term * ao_img[..., None]
@@ -299,7 +317,7 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
                 refl_o, rmask_o = reflection_pass_scaled(
                     z_o, idx_o, hit_o, attr_o, tri_id_o, d3_op, atlas, lights, uniforms,
                     width, height, sample_mode, refl_samples, scale=refl_scale,
-                    shadow=shadow, scene_d3=d3,
+                    shadow=shadow, scene_d3=d3, has_blend=has_blend,
                 )
                 # the layer colour is display-encoded with the fast sRGB
                 # pair (_shade_opacity) whatever the frame's tonemap is
@@ -309,6 +327,9 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
                                 transparency_layers, reflect_layer)
         for color_o, zeff_o in reversed(layers):
             frame = blend_opacity(frame, z_eff, color_o, zeff_o, preserve_transparency)
+    if has_d2:
+        frame = d2_pass(frame, d2, atlas, lights, uniforms, width, height, sample_mode,
+                        preserve_transparency, has_lights=has_lights, has_ambient=has_ambient)
     return frame_to_u8(frame)
 
 
@@ -389,9 +410,19 @@ class Rasterizer:
         self.inverse_projection_matrix = invert(self.projection_matrix)
         self.camera_pos = self.inverse_view_matrix[:3, 3].copy()
         if projection_matrix_2d is not None:
-            self.proj2d = np.asarray(projection_matrix_2d, np.float32)
+            m = np.asarray(projection_matrix_2d, np.float32)
+            self.translationd2 = np.array([m[0, 2], m[1, 2]], np.float32)
+            self.scaled2 = float(m[0, 0])
+            self.proj2d = m
         else:
+            self.translationd2 = np.zeros(2, np.float32)
+            self.scaled2 = 1.0
             self.proj2d = np.eye(3, dtype=np.float32)
+        #: the map's slim collision view (MapMini) whose walls block the 2D
+        #: lights when the scene carries none
+        self.mapmini = None
+        #: the last frame's (width, height) before supersampling (picking)
+        self._last_size = (1, 1)
 
         self.render_mode = RenderMode.render_all()
         self.sample_mode = SampleMode.Nearest
@@ -668,6 +699,9 @@ class Rasterizer:
                 1.0 if (self.sun_dir is not None and self.day_factor > 0) else 0.0
             ),
             "anim_frame": np.int32(scene.animation_frame),
+            "proj2d": np.asarray(self.proj2d, np.float32),
+            "translationd2": np.asarray(self.translationd2, np.float32),
+            "scaled2": np.float32(self.scaled2),
             "time": np.float32(self.time),
             "fog_color": np.asarray(self._fog_color, np.float32),
             "fog_end": np.float32(self._fog_end),
@@ -797,6 +831,28 @@ class Rasterizer:
                 self._fog_mode = 0.0  # the node's linear fade
         return has_sky, has_fog, sky_pre
 
+    def screen_to_world(self, x: float, y: float, z_ndc: float) -> np.ndarray:
+        """reference rasterizer.rs:1707-1728 (host-side picking) -> (3,)
+        f32 world position of the screen point (x, y) at NDC depth z_ndc,
+        for the last frame's size."""
+        w, h = self._last_size
+        ndc = np.array([2.0 * (x / w) - 1.0, 1.0 - 2.0 * (y / h), z_ndc, 1.0], np.float32)
+        view = self.inverse_projection_matrix @ ndc
+        view = view / view[3]
+        world = self.inverse_view_matrix @ view
+        return world[:3]
+
+    def screen_ray(self, x: float, y: float):
+        """reference rasterizer.rs:1844-1871 -> the Ray from the near plane
+        through the screen point (x, y), unit direction."""
+        from ..models.camera import Ray
+
+        near = self.screen_to_world(x, y, -1.0)
+        far = self.screen_to_world(x, y, 1.0)
+        d = far - near
+        d = d / max(np.linalg.norm(d), 1e-20)
+        return Ray(near, d.astype(np.float32))
+
     def _refuse_unported_scene(self, scene, packed, mesh):
         d3 = packed.d3
         dynamic = bool(scene.d3_dynamic or scene.d3_dynamic_opacity or scene.d2_dynamic)
@@ -810,8 +866,6 @@ class Rasterizer:
             "dynamic batches": dynamic,
             "runtime or baked shaders": bool(getattr(scene, "shaders", None))
             or bool(packed.runtime_shaders),
-            "2D batches": self.render_mode.d2_active and bool(packed.d2.valid.any()),
-            "vertex blend": bool((d3.kind2 >= 0).any()),
             "material": bool((d3.rough != 0.5).any() or d3.metal.any()),
             "matmap": bool((d3.m1_slot >= 0).any()),
         }
@@ -842,6 +896,7 @@ class Rasterizer:
         if assets is None:
             assets = Assets.default()
         self.hash_anim = hash_u32(scene.animation_frame & 0xFFFFFFFF)
+        self._last_size = (width, height)
         # SSAA: everything below renders at the scaled size (the projection
         # matrix depends on the aspect only)
         ss = max(1, int(self.supersample))
@@ -878,6 +933,14 @@ class Rasterizer:
         lights["flicker_factor"] = self._flicker_factors(lights)
 
         uniforms = self._uniforms(scene)
+        if ss > 1:
+            # 2D geometry lives in output pixels: at the scaled size the 2D
+            # projection's affine rows and the grid mapping scale by ss
+            p2 = uniforms["proj2d"].copy()
+            p2[:2, :] *= np.float32(ss)
+            uniforms["proj2d"] = p2
+            uniforms["translationd2"] = uniforms["translationd2"] * np.float32(ss)
+            uniforms["scaled2"] = np.float32(uniforms["scaled2"] * ss)
         if self.brush_preview is not None:
             uniforms["brush_pos"] = np.asarray(self.brush_preview.position, np.float32)
             uniforms["brush_radius"] = np.float32(self.brush_preview.radius)
@@ -885,6 +948,12 @@ class Rasterizer:
         if packed.occlusion is not None:
             uniforms["occ_box"] = packed.occlusion["occ_box"]
             uniforms["occ_val"] = packed.occlusion["occ_val"]
+        mini = scene.mapmini if scene.mapmini is not None else self.mapmini
+        if mini is not None and getattr(mini, "all_linedefs", None):
+            segs = mini.pack_device()
+            uniforms["seg_a"] = segs["seg_a"]
+            uniforms["seg_b"] = segs["seg_b"]
+            uniforms["seg_valid"] = segs["seg_valid"]
 
         if self.render_mode.ignore_background_shader and scene.background is not None:
             scene_bg = scene.background
@@ -923,6 +992,11 @@ class Rasterizer:
             preserve_transparency=self.preserve_transparency,
             has_sky=has_sky, sky_pre=sky_pre,
             has_brush=self.brush_preview is not None,
+            has_blend=bool((packed.d3.kind2 >= 0).any()),
+            d2=cache["d2"],
+            has_d2=self.render_mode.d2_active and bool(packed.d2.valid.any()),
+            has_lights=len(live_lights) > 0,
+            has_ambient=self.ambient_color is not None,
         )
         self.frame_args = frame_args
         frame = render_frame(**frame_args)

@@ -384,7 +384,7 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
 
 def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniforms,
                     width: int, height: int, sample_mode: int = 0, samples: int = 1,
-                    stride: int = 1, shadow=None, scene_d3=None):
+                    stride: int = 1, shadow=None, scene_d3=None, has_blend: bool = False):
     """GGX reflection radiance for every covered pixel -> ((H, W, 3) linear,
     (H, W) applied mask; pixels whose samples all faced away keep 0).
 
@@ -398,11 +398,12 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
     _shade_reflection_hits). `scene_d3` is the pack the rays are traced and
     shaded against (default `d3`, the G-buffer's pack): a transparency
     layer takes its G-buffer from the opacity pack and its rays from the
-    opaque one."""
+    opaque one. `has_blend`: the G-buffer mixes vertex-blended batches'
+    second texel in (gbuffer_pass)."""
     dev = z.device
     sd3 = d3 if scene_d3 is None else scene_d3
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
-                     width, height, sample_mode, stride=stride)
+                     width, height, sample_mode, has_blend=has_blend, stride=stride)
     f0 = 0.04 + (g["base"] - 0.04) * g["metallic"][..., None]
     max_dist = float(np.float32(uniforms["refl_dist"]))
     sky_rgb = torch.from_numpy(np.asarray(uniforms["refl_sky"], np.float32))
@@ -477,7 +478,8 @@ def _resize_bilinear(img, height: int, width: int):
 
 def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                            uniforms, width: int, height: int, sample_mode: int = 0,
-                           samples: int = 1, scale: int = 1, shadow=None, scene_d3=None):
+                           samples: int = 1, scale: int = 1, shadow=None, scene_d3=None,
+                           has_blend: bool = False):
     """reflection_pass at 1/scale resolution, bilinearly upsampled.
 
     scale 1 is the full-resolution pass. With scale > 1 the pass traces
@@ -485,17 +487,18 @@ def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
     rays per sample), the radiance (zero where no sample applied) and the
     applied mask are upsampled as jax.image.resize does, and a pixel takes
     the upsampled radiance where the upsampled mask exceeds 0.5 and the
-    full-resolution pre-pass covers it. `shadow` and `scene_d3` as for
-    reflection_pass."""
+    full-resolution pre-pass covers it. `shadow`, `scene_d3` and
+    `has_blend` as for reflection_pass."""
     if scale <= 1:
         return reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                                uniforms, width, height, sample_mode, samples, shadow=shadow,
-                               scene_d3=scene_d3)
+                               scene_d3=scene_d3, has_blend=has_blend)
     hs, ws = height // scale, width // scale
     sl = (slice(0, hs * scale, scale), slice(0, ws * scale, scale))
     refl_lo, mask_lo = reflection_pass(
         z[sl], idx[sl], hit[sl], attr_planes, tri_id, d3, atlas, lights, uniforms,
         ws, hs, sample_mode, samples, stride=scale, shadow=shadow, scene_d3=scene_d3,
+        has_blend=has_blend,
     )
     refl_lo = torch.where(mask_lo[..., None], refl_lo, 0.0)
     up = _resize_bilinear(refl_lo, height, width)
@@ -535,16 +538,17 @@ def sky_rays(g, hit) -> dict:
 
 
 def sky_light_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
-                   width: int, height: int, sample_mode: int = 0):
+                   width: int, height: int, sample_mode: int = 0, has_blend: bool = False):
     """Directional sky-bounce ambient (the WGSL `sky_contribution`,
     3d_shader.wgsl:744-758) -> (radiance (H, W, 3) linear, applied mask).
 
     Per covered pixel ONE mirror ray (sky_rays), range-capped by
     uniforms["refl_dist"], through the ray-intersect kernel (B3); where it
     escapes, the pixel gains refl_sky * max(N.y, 0) * albedo. The caller
-    scales the term by the AO factor where AO is on."""
+    scales the term by the AO factor where AO is on. `has_blend` as for
+    reflection_pass."""
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
-                     width, height, sample_mode)
+                     width, height, sample_mode, has_blend=has_blend)
     r = sky_rays(g, hit)
     ray = (r["o_x"], r["o_y"], r["o_z"], r["d_x"], r["d_y"], r["d_z"])
     max_dist = float(np.float32(uniforms["refl_dist"]))

@@ -110,7 +110,12 @@ def _lambda_planes(p0, p1, p2):
         ],
         dim=1,
     )
-    return lam, area.abs() <= 1e-20
+    # the degenerate test sees the area with both products rounded, as the
+    # JAX package's jitted pass evaluates it there: a sliver whose two
+    # clipped vertices coincide has area exactly 0 and is dropped (the
+    # fused area is the last product's rounding error, not 0)
+    area_rounded = (cx - ax) * (by - ay) - (cy - ay) * (bx - ax)
+    return lam, area_rounded.abs() <= 1e-20
 
 
 def _edge_coeffs(v0, v1):

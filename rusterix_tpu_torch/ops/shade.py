@@ -4,8 +4,10 @@
 `gbuffer_pass` re-derives, per pixel, the world position, the shading
 normal facing the viewer, the linear albedo and the material of the winning
 candidate from the setup pass's attribute planes and the packed scene's
-per-triangle fields. It takes the unblended scenes without material,
-matmap or runtime shaders; the other variants raise NotImplementedError.
+per-triangle fields, with vertex-blended batches mixed toward their second
+texel. Material, matmap and runtime shaders raise NotImplementedError.
+`light_radiance` evaluates every light at every pixel (the 2D pass's
+lights).
 
 The atlas is the port's flat u32 texel array (`packed_to_torch`); a texel
 index outside it reads 255 in every channel, as the JAX package's gather
@@ -175,6 +177,93 @@ def _uniform(uniforms, key, device):
     return torch.from_numpy(np.ascontiguousarray(uniforms[key], np.float32)).to(device)
 
 
+# light type codes (models/light.py LightType)
+LT_POINT = 0
+LT_AMBIENT = 1
+LT_AMBIENT_DAYLIGHT = 2
+LT_SPOT = 3
+LT_AREA = 4
+LT_DAYLIGHT = 5
+
+
+def lights_to_torch(lights, device) -> dict:
+    """The host SoA light dict (models.pack_lights plus "flicker_factor")
+    -> the same fields as tensors on `device`."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in lights.items()}
+
+
+def _smoothstep(edge0, edge1, x):
+    """t*t*(3 - 2t) with 3 - 2t fused, as XLA's CPU build rounds it."""
+    t = torch.clamp((x - edge0) / (edge1 - edge0), 0.0, 1.0)
+    return t * t * _fma(t, -2.0, 3.0)
+
+
+def light_radiance(lights, world, normal, d2: bool = False):
+    """`CompiledLight::radiance_at` over all pixels x lights (JAX
+    `ops/shade.py::light_radiance`; light.rs:491-653).
+
+    lights: lights_to_torch's dict; world (..., 3); normal (..., 3) or
+    None. `d2` takes the 2D area-light footprint (the map view's lights lie
+    in the x/z plane). -> radiance (..., L, 3), zero for invalid or
+    out-of-range contributions."""
+    lp = lights["position"]
+    lt = lights["type"]
+    w = world[..., None, :]
+    to_point = w - lp
+    # the square root in f64: torch's vectorised f32 CPU square root is not
+    # correctly rounded (XLA's and CUDA's are)
+    dist = torch.sqrt(_dot(to_point, to_point).double()).float()
+
+    start = lights["start"]
+    end = lights["end"]
+    intensity = lights["intensity"] * lights["flicker_factor"]
+    color = lights["color"]
+
+    in_range = dist < end
+    smooth_att = torch.where(dist <= start, 1.0, _smoothstep(end, start, dist))
+
+    point_c = intensity * smooth_att
+    ambient_c = intensity.expand(dist.shape)
+    lin_att = torch.where(
+        dist <= start, 1.0, 1.0 - (dist - start) / torch.clamp(end - start, min=1e-20))
+    dir_to_point = to_point / torch.clamp(dist, min=1e-20)[..., None]
+    cosang = torch.clamp(_dot(lights["direction"].expand(dir_to_point.shape), dir_to_point),
+                         -1.0, 1.0)
+    spot_ok = torch.arccos(cosang) <= lights["cone_angle"]
+    spot_c = torch.where(spot_ok, intensity * lin_att, 0.0)
+
+    area = lights["width"] * lights["height"]
+    angle_att = torch.clamp(_dot(lights["normal"].expand(dir_to_point.shape), dir_to_point),
+                            min=0.0)
+    if d2:
+        ax = torch.clamp(1.0 - (to_point[..., 0] / (lights["width"] * 0.5)).abs(), min=0.0)
+        ay = torch.clamp(1.0 - (to_point[..., 1] / (lights["height"] * 0.5)).abs(), min=0.0)
+        area_main = ax * ay * smooth_att * lights["intensity"]
+    else:
+        area_main = angle_att * smooth_att * area * lights["intensity"]
+    area_linedef = smooth_att * area * lights["intensity"]
+    area_c = torch.where(lights["from_linedef"] > 0.5, area_linedef, area_main)
+    area_c = torch.where(dist < 0.1, 1.0, area_c)
+    day_c = angle_att * smooth_att * lights["intensity"]
+
+    is_amb = (lt == LT_AMBIENT) | (lt == LT_AMBIENT_DAYLIGHT)
+    scale = torch.where(lt == LT_POINT, point_c, torch.where(
+        is_amb, ambient_c, torch.where(lt == LT_SPOT, spot_c, torch.where(
+            lt == LT_AREA, area_c, day_c))))
+    # ambient lights have no range; spots add the cone
+    valid = torch.where(is_amb, lights["valid"] > 0.5, (lights["valid"] > 0.5) & in_range)
+    valid = valid & torch.where(lt == LT_SPOT, spot_ok, True)
+    incoming = color * scale[..., None]
+    if normal is not None:
+        to_light = lp - w
+        ldir = to_light / torch.clamp(
+            torch.sqrt(_dot(to_light, to_light).double()).float(), min=1e-30)[..., None]
+        lambert = torch.clamp(_dot(normal[..., None, :], ldir), min=0.0)
+        needs_lambert = ~(is_amb | (lt == LT_DAYLIGHT))
+        incoming = incoming * torch.where(needs_lambert, lambert, 1.0)[..., None]
+    return torch.where(valid[..., None], incoming, 0.0)
+
+
 def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
                  width: int, height: int, sample_mode: int = 0,
                  has_blend: bool = False, has_material: bool = False,
@@ -189,9 +278,11 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
     the Rasterizer's host dict. `stride` > 1: the (height, width) inputs
     are every stride-th pixel of a full-resolution frame; the attribute
     planes (full-resolution screen space) are evaluated at the true pixel
-    centres x*stride + 0.5 and the unprojection uses the full frame's size."""
+    centres x*stride + 0.5 and the unprojection uses the full frame's size.
+    `has_blend`: attr_planes carry the blend weight plane (columns 18-20)
+    and meta kind2 / tex_slot2 / rgba2; where kind2 >= 0 the texel mixes
+    toward the second source by the clipped perspective-correct weight."""
     refused = {
-        "vertex blend (has_blend)": has_blend,
         "material (has_material)": has_material,
         "matmap (has_matmap)": has_matmap,
         "runtime shaders": bool(shaders),
@@ -215,8 +306,13 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
         meta["rgba"].float(),
         meta["ambient"].float(),
     ], dim=1)
-    fused = torch.cat([attr_planes[:, :18], meta_mat[tri_id.long()]], dim=1)
-    g = fused[slot]  # (H, W, 30)
+    cols = [attr_planes[:, :18], meta_mat[tri_id.long()]]
+    if has_blend:
+        blend_mat = torch.cat([meta["kind2"].float()[:, None],
+                               meta["tex_slot2"].float()[:, None],
+                               meta["rgba2"].float()], dim=1)
+        cols += [attr_planes[:, 18:21], blend_mat[tri_id.long()]]
+    g = torch.cat(cols, dim=1)[slot]  # (H, W, 30), with the blend 39
     planes = g[..., :18]
     kind = g[..., 18].to(torch.int32)
     tex_slot = g[..., 19].to(torch.int32)
@@ -251,6 +347,17 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
 
     texel = resolve_texel(kind, tex_slot, rgba, repeat, u, v, atlas,
                           uniforms["anim_frame"], sample_mode)
+    if has_blend:
+        kind2 = g[..., 33].to(torch.int32)
+        # the weight plane and the mix in XLA's CPU rounding:
+        # fma(a, x, b*y) + c, and fma(texel2, w, texel * (1 - w))
+        pb = g[..., 30:33]
+        b_w = torch.clamp((_fma(pb[..., 0], px, pb[..., 1] * py) + pb[..., 2]) / inv_w,
+                          0.0, 1.0)[..., None]
+        texel2 = resolve_texel(kind2, g[..., 34].to(torch.int32), g[..., 35:39], repeat, u, v,
+                               atlas, uniforms["anim_frame"], sample_mode)
+        texel = torch.where((kind2 >= 0)[..., None],
+                            _fma(texel2, b_w, texel * (1.0 - b_w)), texel)
     return {
         "world": world,
         "view_dir": view_dir,

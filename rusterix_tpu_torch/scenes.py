@@ -38,24 +38,54 @@ reference's game look on a map with windows (the JAX package's
 `examples/map.py` sets the same sky graph). `build_map_glass_refl_scene`
 adds the GGX BRDF and one reflection ray per pixel, on the opaque frame
 and on both transparency layers.
+
+`build_map_blend_scene` paints the map's floors as an Eldiron map does:
+each 2-unit doorway is closed by a linedef of wall height 0 (no wall is
+built for it, and no 2D light is blocked by it), so each room is a sector;
+its floor is a sector surface whose `blend_tiles` paint every 1-unit cell
+with one of the 18 non-Solid VertexBlendPresets in turn, toward a second,
+green checkerboard. The sector's texture moves to `cap_source`, which only
+the surface builder reads, so no plain floor lies under the blended one.
+`build_map_blend_refl_scene` adds a sun, the GGX BRDF and one reflection
+ray per pixel. `build_cube_scene` is the bench's `cube_800x600` (bench.py
+`build_cube_scene`, the reference's benches/rasterize_cube.rs): a box with
+a checkerboard tile under an orbit camera over the gray gradient
+background, and a 200x200 2D rectangle. `build_map_2d_scene` is the
+editor's 2D map view (the reference's Client::draw_d2) of the blended
+map: D2Builder's sector floors and 0.1-unit wall strips, a 2D projection
+that fits the 50x50-unit map to the frame, the map's 8 point lights and an
+ambient light lighting it in 2D, the map's walls (MapMini) blocking the
+lights, and the 3D pass off. The 2D pass covers a pixel only where all
+three edge functions are >= 0, one winding; earcut's floor triangles
+(reversed by D2Builder) have the other under this y-down projection, so
+the floors take their steps but draw no pixel, in the JAX package as in
+the port: the frame shows the lit wall strips.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .builders import D3Builder, MapScript
+from .builders import D2Builder, D3Builder, MapScript
+from .map import Surface
 from .models import (
     Assets,
+    Batch2D,
     Batch3D,
+    CullMode,
     D3FirstPCamera,
     D3OrbitCamera,
     Light,
     LightType,
     PixelSource,
+    RenderMode,
     Scene,
     Texture,
+    Tile,
+    VertexBlendPreset,
+    VGrayGradientShader,
 )
+from .ops.matrices import mat3_translation_scale
 
 MAP_SOURCE_HEADER = """
 set_default("wall_tex", "brick")
@@ -65,22 +95,13 @@ set_default("wall_height", 3.0)
 """
 
 
-def build_map_scene(width: int, height: int, device=None, glazed: bool = False):
-    """-> (Rasterizer on `device`, scene, assets) for the map at W x H.
-    `glazed` closes each doorway with a wall of the translucent "glass"
-    texture (RGBA 120, 180, 220, 110) instead of leaving it open."""
-    from .ops.raster import Rasterizer
-
-    assets = Assets.default()
-    assets.textures["brick"] = Texture.checkerboard(32, 8)
-    assets.textures["floor"] = Texture.checkerboard(32, 4)
-    if glazed:
-        assets.textures["glass"] = Texture.from_color((120, 180, 220, 110))
-    doorway = ['wall(2)', 'set("wall_tex", "glass")'] if glazed else ["move_forward(2)"]
-
+def _map_source(doorway, rooms_x: int = 5, rooms_y: int = 5) -> str:
+    """The map's MapScript: a grid of 10-unit rooms (5 x 5 in the bench)
+    whose sides are wall(4), the `doorway` commands and wall(4), with a
+    point light in every third room."""
     lines = [MAP_SOURCE_HEADER]
-    for ry in range(5):
-        for rx in range(5):
+    for ry in range(rooms_y):
+        for rx in range(rooms_x):
             ox, oy = rx * 10, ry * 10
             lines.append(f"move_to({ox}, {oy})")
             for _ in range(4):
@@ -91,10 +112,28 @@ def build_map_scene(width: int, height: int, device=None, glazed: bool = False):
             if (rx + ry) % 3 == 0:
                 lines.append(f"move_to({ox + 5}, {oy + 5})")
                 lines.append('add_point_light("#ffcc88", 2.0, 2.0, 8.0)')
-    m = MapScript(assets).compile("\n".join(lines))
+    return "\n".join(lines)
 
-    scene = Scene.empty()
-    D3Builder().build(m, assets, scene)
+
+def _map_assets(glazed: bool = False, blended: bool = False) -> Assets:
+    assets = Assets.default()
+    assets.textures["brick"] = Texture.checkerboard(32, 8)
+    assets.textures["floor"] = Texture.checkerboard(32, 4)
+    if glazed:
+        assets.textures["glass"] = Texture.from_color((120, 180, 220, 110))
+    if blended:
+        moss = Texture.checkerboard(32, 4)
+        white = moss.data[..., 0] > 0
+        moss.data[..., :3] = np.where(white[..., None], np.array([70, 140, 60], np.uint8),
+                                      np.array([30, 70, 40], np.uint8))
+        assets.textures["moss"] = moss
+    return assets
+
+
+def _map_lights_and_camera(scene, width: int, height: int, device):
+    """The map's spot and ambient lights, and the first-person camera."""
+    from .ops.raster import Rasterizer
+
     spot = Light(LightType.Spot).with_position([25.0, 2.5, 25.0]).with_intensity(1.5)
     spot.end_distance = 12.0
     amb = Light(LightType.Ambient).with_position([25.0, 2.0, 25.0]).with_intensity(0.2)
@@ -104,9 +143,133 @@ def build_map_scene(width: int, height: int, device=None, glazed: bool = False):
     camera = D3FirstPCamera()
     camera.set_parameter_vec3("position", [5.0, 1.6, 5.0])
     camera.set_parameter_vec3("center", [15.0, 1.4, 15.0])
-    rast = Rasterizer.setup(
+    return Rasterizer.setup(
         None, camera.view_matrix(), camera.projection_matrix(width, height), device=device
     ).ambient([0.25, 0.25, 0.3, 1.0])
+
+
+def build_map_scene(width: int, height: int, device=None, glazed: bool = False):
+    """-> (Rasterizer on `device`, scene, assets) for the map at W x H.
+    `glazed` closes each doorway with a wall of the translucent "glass"
+    texture (RGBA 120, 180, 220, 110) instead of leaving it open."""
+    assets = _map_assets(glazed=glazed)
+    doorway = ['wall(2)', 'set("wall_tex", "glass")'] if glazed else ["move_forward(2)"]
+    m = MapScript(assets).compile(_map_source(doorway))
+    scene = Scene.empty()
+    D3Builder().build(m, assets, scene)
+    return _map_lights_and_camera(scene, width, height, device), scene, assets
+
+
+def blend_map(assets, rooms_x: int = 5, rooms_y: int = 5, surfaces: bool = True):
+    """The map with closed doorways (linedefs of wall height 0) -> Map; with
+    `surfaces`, each room's floor becomes a sector surface whose 1-unit
+    cells blend, each with the next non-Solid VertexBlendPreset in turn,
+    toward the "moss" texture, and its texture moves to `cap_source`.
+    rooms_x x rooms_y rooms (the bench's 5 x 5; fewer for small checks)."""
+    script = MapScript(assets)
+    m = script.compile(_map_source(['wall(2)', 'set("wall_height", 0.0)'], rooms_x, rooms_y))
+    # each room closes a loop of its own 12 linedefs, in creation order; the
+    # rooms share wall vertices, and MapScript's loop search closes every
+    # room after the first of a row around the union with its neighbour, so
+    # each sector gets its own room's linedefs back (no floor overlaps
+    # another)
+    rooms = rooms_x * rooms_y
+    if len(m.sectors) != rooms or len(m.linedefs) != 12 * rooms:
+        raise ValueError(f"expected {rooms} sectors of 12 linedefs, got {len(m.sectors)} "
+                         f"sectors and {len(m.linedefs)} linedefs")
+    for r, sector in enumerate(m.sectors):
+        sector.linedefs = [ld.id for ld in m.linedefs[12 * r:12 * r + 12]]
+    if not surfaces:
+        return m
+    moss = PixelSource.tile_id(script._get_texture("moss"))
+    presets = [p for p in VertexBlendPreset if p != VertexBlendPreset.Solid]
+    n = 0
+    for sector in m.sectors:
+        sector.properties.set("cap_source", sector.properties.get_source("source"))
+        sector.properties.remove("source")
+        surface = Surface(sector_id=sector.id)
+        surface.calculate_geometry(m)
+        m.surfaces[surface.id] = surface
+        bb = sector.bounding_box(m)
+        corners = np.array([surface.world_to_uv([x, 0.0, y])
+                            for x in (bb.x, bb.x + bb.width) for y in (bb.y, bb.y + bb.height)])
+        lo = np.floor(corners.min(axis=0) + 1e-4).astype(int)
+        hi = np.ceil(corners.max(axis=0) - 1e-4).astype(int)
+        cells = {}
+        for cy in range(lo[1], hi[1]):
+            for cx in range(lo[0], hi[0]):
+                cells[(cx, cy)] = (presets[n % len(presets)], moss)
+                n += 1
+        sector.properties.set("blend_tiles", cells)
+    return m
+
+
+def build_map_blend_scene(width: int, height: int, device=None, rooms_x: int = 5,
+                          rooms_y: int = 5):
+    """-> (Rasterizer, scene, assets): the map with closed doorways and
+    vertex-blended floors (module docstring), its lights and camera; rooms
+    as for blend_map."""
+    assets = _map_assets(blended=True)
+    scene = Scene.empty()
+    D3Builder().build(blend_map(assets, rooms_x, rooms_y), assets, scene)
+    return _map_lights_and_camera(scene, width, height, device), scene, assets
+
+
+def build_map_blend_refl_scene(width: int, height: int, device=None, rooms_x: int = 5,
+                               rooms_y: int = 5):
+    """-> (Rasterizer, scene, assets): the blended map with a sun, GGX
+    shading and one GGX reflection ray per pixel (B's settings)."""
+    rast, scene, assets = build_map_blend_scene(width, height, device, rooms_x, rooms_y)
+    rast.sun_dir = np.array([0.4, -1.0, 0.25], np.float32)
+    rast.sun_color = np.array([1.0, 1.0, 0.95], np.float32)
+    rast.day_factor = 1.0
+    rast.set_brdf("ggx").set_reflections(1)
+    return rast, scene, assets
+
+
+def build_cube_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the bench's cube (bench.py:23-51): a
+    unit box with a 128x128 checkerboard tile (squares of 16), culling off,
+    under the default orbit camera, over the gray gradient background, and
+    a 200x200 2D rectangle with the default source."""
+    from .ops.raster import Rasterizer
+
+    scene = Scene.from_static(
+        [Batch2D.from_rectangle(0.0, 0.0, 200.0, 200.0)],
+        [
+            Batch3D.from_box(-0.5, -0.5, -0.5, 1.0, 1.0, 1.0)
+            .set_cull_mode(CullMode.Off)
+            .set_source(PixelSource.static_tile_index(0))
+        ],
+    ).set_background(VGrayGradientShader())
+    assets = Assets.default().with_textures([Tile.from_texture(Texture.checkerboard(128, 16))])
+    camera = D3OrbitCamera()
+    rast = Rasterizer.setup(None, camera.view_matrix(), camera.projection_matrix(width, height),
+                            device=device)
+    return rast, scene, assets
+
+
+def build_map_2d_scene(width: int, height: int, device=None, rooms_x: int = 5,
+                       rooms_y: int = 5):
+    """-> (Rasterizer, scene, assets): the 2D map view of the blended map's
+    geometry (module docstring); rooms as for blend_map."""
+    from .ops.raster import Rasterizer
+
+    assets = _map_assets(blended=True)
+    m = blend_map(assets, rooms_x, rooms_y, surfaces=False)
+    scene = Scene.empty()
+    D2Builder().build(m, assets, scene)
+    amb = Light(LightType.Ambient).with_position([25.0, 2.0, 25.0]).with_intensity(0.2)
+    amb.end_distance = 100.0
+    scene.lights = [light.compile() for light in m.lights] + [amb.compile()]
+    scene.mapmini = m.as_mini()
+    ex, ey = 10.0 * rooms_x, 10.0 * rooms_y
+    scale = min(width / ex, height / ey)
+    proj2d = mat3_translation_scale((width - ex * scale) / 2.0, (height - ey * scale) / 2.0,
+                                    scale)
+    eye = np.eye(4, dtype=np.float32)
+    rast = Rasterizer.setup(proj2d, eye, eye, device=device).ambient([0.25, 0.25, 0.3, 1.0])
+    rast.set_render_mode(RenderMode.render_2d())
     return rast, scene, assets
 
 

@@ -2,11 +2,13 @@
 ambient-occlusion input, the profiling cuts), the visibility pre-pass
 (B2), the ray intersect (B3) and its preparation kernel against their
 plain torch versions on the same inputs (B1 also with shadow maps, their
-transmittance layers and the scenevm tonemap), the whole CUDA frames
-(opaque, with GGX reflections at full and half scale, with AO, with sky
-light, with SSAA, with shadows, with shadowed reflections, the glazed map
-under the sky without and with reflections) against the CPU frames, and
-the port's map example.
+transmittance layers, the scenevm tonemap and the has_blend variant, alone
+and with the others), the whole CUDA frames (opaque, with GGX reflections
+at full and half scale, with AO, with sky light, with SSAA, with shadows,
+with shadowed reflections, the glazed map under the sky without and with
+reflections, the blended map without and with reflections, the cube and
+the 2D map views) against the CPU frames, and the port's map and cube
+examples.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
 jax, so they also run on a machine without it:
@@ -39,10 +41,18 @@ from rusterix_tpu_torch import (  # noqa: E402
 from rusterix_tpu_torch.models import CullMode, RenderSettings, Tile  # noqa: E402
 from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas  # noqa: E402
 from rusterix_tpu_torch.ops.matrices import look_at_rh, perspective_fov_rh_zo  # noqa: E402
-from rusterix_tpu_torch.ops.raster import frame_inputs  # noqa: E402
+from rusterix_tpu_torch.ops.raster import (  # noqa: E402
+    ambient_occlusion,
+    frame_inputs,
+    visibility_prepass,
+)
 from rusterix_tpu_torch.ops.setup_pass import setup_pass  # noqa: E402
 from rusterix_tpu_torch.scenes import (  # noqa: E402
+    build_cube_scene,
+    build_map_2d_scene,
     build_map_ao_scene,
+    build_map_blend_refl_scene,
+    build_map_blend_scene,
     build_map_glass_refl_scene,
     build_map_glass_scene,
     build_map_refl_half_scene,
@@ -431,11 +441,17 @@ def test_ao_kernel_matches_plain_version(cuda, case):
     (build_map_ssaa2_scene, 128, 64),
     (build_map_shadow_scene, 256, 128),
     (build_map_shadow_refl_scene, 256, 128),
-], ids=["ao", "sky_light", "refl_half", "ssaa2", "shadow", "shadow_refl"])
+    (build_map_blend_scene, 256, 128),
+    (build_map_blend_refl_scene, 256, 128),
+    (build_cube_scene, 160, 120),
+    (build_map_2d_scene, 256, 128),
+], ids=["ao", "sky_light", "refl_half", "ssaa2", "shadow", "shadow_refl", "blend",
+        "blend_refl", "cube", "map_2d"])
 def test_cuda_frame_of_a_later_path_matches_cpu_frame(cuda, build, width, height):
     """The AO map, the sky-light scene, the half-scale reflection map, the
-    SSAA2 map and the shadowed maps (without and with GGX reflections)
-    through Rasterizer on the card and on the CPU."""
+    SSAA2 map, the shadowed maps (without and with GGX reflections), the
+    blended map (without and with GGX reflections), the cube and the 2D map
+    view through Rasterizer on the card and on the CPU."""
     frames = []
     for device in (cuda, "cpu"):
         rast, scene, assets = build(width, height, device=device)
@@ -591,3 +607,86 @@ def test_fma_equals_b1_lookup_fma_on_the_card(cuda):
     assert torch.equal(on_card, kernel) and torch.equal(on_cpu, kernel)
     twice = torch.from_numpy((a.astype(np.float64) * b + c).astype(np.float32))
     assert int((twice != kernel).sum()) > 1000
+
+
+def _blend_inputs(device, extras: bool):
+    """Path K's B1 inputs (the blended map) at 256x128, rendered on
+    `device`; with `extras`, the map also has a sun, shadow maps (small:
+    cube maps of 16^2, the sun's of 32^2), AO and the scenevm tonemap, so
+    that one launch runs has_blend with the shadow, transmittance-free
+    lookup, ao_img and tonemap variants."""
+    rast, scene, assets = build_map_blend_scene(256, 128, device=device)
+    if extras:
+        rast.sun_dir, rast.day_factor = np.array([0.4, -1.0, 0.25], np.float32), 1.0
+        rast.set_shadows(True, res=16, sun_res=32).set_tonemap("scenevm")
+        rast.set_ambient_occlusion(True, samples=4, radius=0.6)
+    rast.rasterize(scene, 256, 128, 40, assets)
+    fa = rast.frame_args
+    fi = frame_inputs(**fa)
+    kwargs = dict(fi["mega_kwargs"])
+    if extras:
+        pre = visibility_prepass(fi, 256, 128)
+        kwargs["ao_img"] = ambient_occlusion(pre, fa["uniforms"], 128, fa["ao_taps"])
+    return fi["mega_args"], kwargs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extras", [False, True], ids=["alone", "shadows_ao_tonemap"])
+def test_blend_kernel_matches_plain_version(cuda, extras):
+    """B1's has_blend variant on path K's inputs, alone and with shadow
+    maps, ambient occlusion and the tonemap: z_eff and RGBA8 bit for bit
+    against the plain version at stage_cut 0, 1 and 2; the blend changes
+    the frame."""
+    args, kwargs = _blend_inputs(cuda, extras)
+    assert kwargs["has_blend"] and args[3].shape[1] == 48
+    if extras:
+        assert kwargs["shadow_spec"] is not None and kwargs["tonemap"]
+        assert kwargs["ao_img"] is not None
+    for cut in (0, 1, 2):
+        rgba, z = megakernel.mega_render(*args, **kwargs, stage_cut=cut)
+        ref_rgba, ref_z = megakernel.mega_render_reference(*args, **kwargs, stage_cut=cut)
+        torch.cuda.synchronize()
+        assert torch.equal(z, ref_z) and torch.equal(rgba, ref_rgba), f"stage_cut {cut}"
+    rgba, _z = megakernel.mega_render(*args, **kwargs)
+    plain, _ = megakernel.mega_render(*args, **dict(kwargs, has_blend=False))
+    torch.cuda.synchronize()
+    assert int((rgba != plain).sum()) > 256 * 128 // 20, "the blend changed nothing"
+
+
+@pytest.mark.cuda
+def test_d2_pass_on_the_card_matches_the_cpu(cuda):
+    """The 2D pass alone on path N's inputs at 256x128 with a white
+    rectangle over two rooms (tests/test_torch_d2.py's lit map): the same
+    f32 frame on the card and on the CPU."""
+    from rusterix_tpu_torch.models import Batch2D
+    from rusterix_tpu_torch.ops.composite import d2_pass
+
+    out = []
+    for device in (cuda, "cpu"):
+        rast, scene, assets = build_map_2d_scene(256, 128, device=device, rooms_x=2, rooms_y=1)
+        scene.d2_static.append(Batch2D.from_rectangle(0.0, 0.0, 20.0, 10.0)
+                               .set_source(PixelSource.pixel((255, 255, 255, 255))))
+        rast.rasterize(scene, 256, 128, 40, assets)
+        fa = rast.frame_args
+        frame = torch.full((128, 256, 4), 0.25, device=device)
+        out.append(d2_pass(frame, fa["d2"], fa["atlas"], fa["lights"], fa["uniforms"], 256,
+                           128, 0, False, fa["has_lights"], fa["has_ambient"]).cpu())
+    assert torch.equal(out[0], out[1])
+    assert float(out[1][..., 0].amax()) - float(out[1][..., 0].amin()) > 0.3
+
+
+@pytest.mark.cuda
+def test_cube_example_runs_on_the_card(cuda, tmp_path):
+    """examples/cube_torch.py renders its frames through B1 and the 2D pass
+    and saves the last one."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = tmp_path / "cube_torch.png"
+    run = subprocess.run([sys.executable, str(root / "examples" / "cube_torch.py"),
+                          "--out", str(out)], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert out.exists() and "launches" in run.stdout

@@ -298,15 +298,42 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(rgba, ref[0]) and torch.equal(z, ref[1])
 
 
+def test_has_blend_on_cpu_tensors_takes_the_plain_version():
+    """B1's has_blend variant (ported; held against the JAX kernel in
+    tests/test_torch_blend.py) on the box with a blend extension whose
+    weight plane is the 1/w plane (weight 1) toward a pixel colour: CPU
+    tensors take the plain version, and every covered pixel takes the
+    second source's colour before the lighting."""
+    args, kwargs = _box_inputs("point")
+    targs, tkw = _torch_args(args, kwargs)
+    table = targs[3]
+    n = table.shape[0]
+    ext = torch.cat([table[:, 0:3], torch.full((n, 1), 2.0),  # kind2: a pixel colour
+                     torch.tensor([[0.1, 0.8, 0.3, 1.0]]).expand(n, 4),
+                     torch.zeros((n, 8))], dim=1)
+    targs[3] = torch.cat([table, ext], dim=1)
+    before = tm.launches
+    rgba, z = tm.mega_render(*targs, W, H, **dict(tkw, has_blend=True))
+    ref = tm.mega_render_reference(*targs, W, H, **dict(tkw, has_blend=True))
+    plain = tm.mega_render_reference(*targs, W, H, **tkw)
+    assert tm.launches == before
+    assert torch.equal(rgba, ref[0]) and torch.equal(z, ref[1]) and torch.equal(z, plain[1])
+    texel = tm.mega_render_reference(*targs, W, H, **dict(tkw, has_blend=True, stage_cut=2))[0]
+    covered = (z < 1.0).numpy()
+    px = texel.numpy().view(np.uint8).reshape(H, W, 4)[covered]
+    assert covered.sum() > 1000 and (px == np.array([26, 204, 77, 255], np.uint8)).all()
+    assert int((rgba != plain[0]).sum()) > 1000
+
+
 @pytest.mark.parametrize(
-    "variant", ["has_blend", "has_material", "has_matmap", "shadow_rows", "ao_img"],
+    "variant", ["has_material", "has_matmap", "shadow_rows", "ao_img"],
 )
 def test_mega_render_refuses_unported_variants(variant):
     """Each unported variant raises NotImplementedError by name; `ao_img` is
     ported and refuses only a factor that is not (H, W) f32, and
     `shadow_rows` without its spec is a ValueError. Shadow maps with their
-    transmittance layers and the scenevm tonemap are ported (held against
-    the JAX kernel in tests/test_torch_glass.py)."""
+    transmittance layers, the scenevm tonemap (tests/test_torch_glass.py)
+    and has_blend (tests/test_torch_blend.py) are ported."""
     args, kwargs = _box_inputs("point")
     targs, tkw = _torch_args(args, kwargs)
     tkw[variant] = torch.ones(1) if variant in ("shadow_rows", "ao_img") else True

@@ -184,13 +184,23 @@ def _reflect(*mutations):
 
 
 UNPORTED = {
-    "2D batches": _packed_field("d2", "valid", 1.0),
     "dynamic batches": _dynamic,
     "shaders": _shader,
     "reflections with shadows": _reflect(_shadows, _dynamic),
-    "vertex blend": _packed_field("d3", "kind2", 1),
     "material": _packed_field("d3", "rough", 0.3),
     "matmap": _packed_field("d3", "m1_slot", 0),
+}
+
+# refused until 2D batches and vertex blend were ported: each mutation now
+# renders, and is inert on the box (a zero-area padding triangle drawn in
+# 2D; a second source mixed in with weight 0), so the frame equals the
+# unmutated one (the 2D pass runs over the frame in f32 and re-quantizes
+# it exactly; B1's blend branch mixes 0 of the second texel). The passes
+# themselves are held against the JAX package in tests/test_torch_d2.py and
+# tests/test_torch_blend.py.
+FORMERLY_REFUSED = {
+    "2D batches": (_packed_field("d2", "valid", 1.0), "has_d2"),
+    "vertex blend": (_packed_field("d3", "kind2", 1), "has_blend"),
 }
 
 
@@ -211,6 +221,19 @@ def test_unported_feature_raises(feature):
     UNPORTED[feature](rast, scene, packed)
     with pytest.raises(NotImplementedError, match=REFUSED_AS.get(feature, feature)):
         rast.rasterize(scene, 32, 32, 32, Assets.default(), packed=packed)
+
+
+@pytest.mark.parametrize("feature", list(FORMERLY_REFUSED))
+def test_formerly_refused_feature_renders(feature):
+    rast, scene = _small_scene()
+    packed = PackedScene.from_scene(scene, Assets.default(), static_only=True)
+    before = rast.rasterize(scene, 32, 32, 32, Assets.default(), packed=packed)
+    mutate, flag = FORMERLY_REFUSED[feature]
+    mutate(rast, scene, packed)
+    after = rast.rasterize(scene, 32, 32, 32, Assets.default(), packed=packed)
+    assert rast.frame_args[flag]
+    assert (before[..., 3] > 0).sum() > 100
+    np.testing.assert_array_equal(after, before)
 
 
 def test_mesh_argument_raises():
