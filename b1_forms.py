@@ -3,16 +3,20 @@
     python3 b1_forms.py FORM.cu [FORM.cu ...]
 
 Each FORM.cu replaces rusterix_tpu_torch/csrc/megakernel.cu whole and keeps
-its C interface (`rx_mega_render` with the `has_blend` argument). For each
-form this prints ptxas's report of `mega_kernel` (registers, stack frame,
-spill stores and loads; compiled with the package's own nvcc flags), links
-it with the checkout's other kernel sources into a library of its own, and
-times B1 alone (`megakernel.prepare_launch`, CUDA events, median of 200
-after 5 warm-up launches) at stage_cut 0 and 1 on the 1920x1080 inputs of
-paths A (the opaque map), G (the shadowed map) and K (the blended map; only
-for forms whose source has the blend branch), the forms in turns (forward,
-backward, forward, backward) within one process. Every line names the card
-and its power limit. Needs a GPU; imports no jax.
+its C interface (`rx_mega_render` with the `has_blend` and `mat` arguments;
+a form of an earlier tree, which has no `mat`, gets it added to its
+rx_mega_render, unused). For each form this prints ptxas's report of each
+compiled entry of `mega_kernel` (registers, stack frame, spill stores and
+loads; compiled with the package's own nvcc flags), links it with the
+checkout's other kernel sources into a library of its own, and times B1
+alone (`megakernel.prepare_launch`, CUDA events, median of 200 after 5
+warm-up launches) at stage_cut 0 and 1 on the 1920x1080 inputs of paths A
+(the opaque map), G (the shadowed map) and K (the blended map; only for
+forms whose source has the blend branch), and of paths O (the shaded cube,
+800x600) and Q (the material map; only for forms whose source has the
+material template), the forms in turns (forward, backward, forward,
+backward) within one process. Every line names the card and its power
+limit. Needs a GPU; imports no jax.
 """
 
 from __future__ import annotations
@@ -26,11 +30,19 @@ import chip_smoke as cs
 
 def build(form: str, out_dir: str) -> tuple:
     """Compile `form` with the package's other sources into out_dir ->
-    (library path, ptxas summary of mega_kernel)."""
+    (library path, ptxas summary of each entry of mega_kernel)."""
     from rusterix_tpu_torch import _cuda
 
     csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rusterix_tpu_torch", "csrc")
     os.makedirs(out_dir, exist_ok=True)
+    text = open(form).read()
+    if "int mat," not in text:
+        old = "int has_blend, void* stream) {"
+        if old not in text:
+            raise SystemExit(f"{form}: no rx_mega_render with the has_blend argument")
+        form = os.path.join(out_dir, os.path.basename(form))
+        with open(form, "w") as f:
+            f.write(text.replace(old, "int has_blend, int mat, void* stream) {"))
     sources = [form] + [s for s in _cuda.SOURCES if not s.endswith("megakernel.cu")]
     procs = []
     for src in sources:
@@ -44,10 +56,8 @@ def build(form: str, out_dir: str) -> tuple:
         if proc.returncode != 0:
             raise SystemExit(f"{sources[i]}: nvcc failed\n{out[-3000:]}")
         if i == 0:
-            lines = out.splitlines()
-            at = next(j for j, line in enumerate(lines) if "mega_kernel" in line)
-            report = " ".join(" ".join(line.split()) for line in lines[at + 1:at + 4]
-                              if "spill" in line or "Used" in line)
+            report = "; ".join(f"{k}: {v}" for k, v in
+                               sorted(_cuda.ptxas_report(out, "mega_kernel").items()))
     lib = os.path.join(out_dir, "lib.so")
     subprocess.run([_cuda.nvcc_path(), "-shared", "-o", lib, *(o for o, _p in procs)],
                    check=True, capture_output=True)
@@ -80,18 +90,23 @@ def main() -> int:
 
     use(forms[0])
     inputs = {}
-    for key, make in (("A", scenes.build_map_scene), ("G", scenes.build_map_shadow_scene),
-                      ("K", scenes.build_map_blend_scene)):
-        rast, scene, assets = make(cs.W, cs.H, device="cuda")
-        rast.rasterize(scene, cs.W, cs.H, 40, assets)
+    for key, make, (w, h) in (
+            ("A", scenes.build_map_scene, (cs.W, cs.H)),
+            ("G", scenes.build_map_shadow_scene, (cs.W, cs.H)),
+            ("K", scenes.build_map_blend_scene, (cs.W, cs.H)),
+            ("O", scenes.build_cube_shaded_scene, (800, 600)),
+            ("Q", scenes.build_map_material_scene, (cs.W, cs.H))):
+        rast, scene, assets = make(w, h, device="cuda")
+        rast.rasterize(scene, w, h, 40, assets)
         fi = frame_inputs(**rast.frame_args)
         inputs[key] = (fi["mega_args"], fi["mega_kwargs"])
     blend = {f: "a.has_blend" in open(f).read() for f in forms}
+    material = {f: "template <int MAT>" in open(f).read() for f in forms}
     times = {}
     for form in forms + forms[::-1] + forms + forms[::-1]:
         use(form)
         for key, (args, kwargs) in inputs.items():
-            if key == "K" and not blend[form]:
+            if (key == "K" and not blend[form]) or (key in "OQ" and not material[form]):
                 continue
             for cut in (0, 1):
                 launch = megakernel.prepare_launch(*args, **kwargs, stage_cut=cut)

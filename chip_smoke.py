@@ -25,7 +25,13 @@ reflection ray per pixel (B1's GGX and has_blend variants, B2, the
 G-buffer's blend branch, B3); M, the bench's cube at 800x600 (B1, then
 the 2D pass over the bench's 2D rectangle); N, the 2D map view of K's map
 (the 3D pass off: B1 over no candidate, then the 2D pass's ~800 triangle
-steps lit by the map's lights with its walls blocking them). For
+steps lit by the map's lights with its walls blocking them); O, the bench's
+shaded cube at 800x600 (a rusteria wood shader baked at pack time on the
+card, B1's has_material variant); P, the cube under the bench's
+time-dependent shader (16 baked animation frames, two of them rendered);
+Q, the map under per-pixel shader materials with a sun, GGX and one
+reflection ray per pixel (B1's has_material + has_matmap variant with GGX,
+B2, the G-buffer's matmap branch, B3). For
 each path it checks that the frame went through exactly
 the kernels of the path (launch counts zeroed before it and read right
 after it),
@@ -81,12 +87,19 @@ EXPECTED_LAUNCHES = {
     # package
     "M": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
     "N": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
+    # the baked shaders: the bakes launch none of the kernels
+    "O": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
+    "P": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
+    "Q": {"B1": 1, "B2": 1, "B3": 1, "B3prep": 1},
 }
-# the frame size of a path where it is not 1920x1080 (M: the bench's cube)
-SIZES = {"M": (800, 600)}
+# the frame size of a path where it is not 1920x1080 (M, O, P: the bench's cubes)
+SIZES = {"M": (800, 600), "O": (800, 600), "P": (800, 600)}
 # the slice's paths: B1 equals its plain version bit for bit at stage_cut 0,
 # 1 and 2 on their inputs
 BLEND_2D = ("K", "L", "M", "N")
+# the baked-shader paths: B1 bit for bit at stage_cut 0, 1 and 2 as well;
+# their first frame packs the scene and bakes the shaders on the card
+SHADED = ("O", "P", "Q")
 # frames timed a path where not 20: the glazed paths' take ~0.5 s, N's
 # ~2.6 s (the 2D pass is one torch step a triangle)
 N_FRAMES = {"I": 10, "J": 10, "N": 5}
@@ -103,7 +116,9 @@ GLASS = ("I", "J")
 N_PROF_GLASS = 5
 # pixels where a later path's CUDA frame differs from its CPU frame at the
 # small size (each within RGBA_TOL); see PERF.md
-SMALL_PINNED = {k: 0 for k in "CDEFGHIJKLMN"}
+SMALL_PINNED = {k: 0 for k in "CDEFGHIJKLMNOPQ"}
+# the CUDA bake against the CPU bake: at most this far apart in a texel byte
+BAKE_TOL = 1
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, f32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -158,6 +173,25 @@ OPS_TONEMAP_EXTRA = 3 * (3 + 1 + 8 + 1 + 8) - 3 * 6
 # table's 16 more floats a row are in its bytes
 OPS_BLEND_WEIGHT = 5
 OPS_BLEND_MIX = 8
+# the has_material variant, per shaded pixel: the clipped roughness and
+# metallic (4), F0 per channel (3 each), the largest F0 (2), the diffuse
+# scale and albedo (3 + 3), the ambient scale and albedo (2 + 3), and with
+# the fast BRDF the shininess (max, square, divide, subtract, clip: 6) or
+# with GGX its constants (clip 2, square, square, add, square, multiply: 7);
+# per BRDF call beyond the default material's: the Fresnel per channel (3
+# more multiply-add pairs), and the fast BRDF's power exp2(s * log2(n.h))
+# (max, log2 and exp2 at 8 each, a multiply, a compare and a select, less
+# the three multiplies of n.h^6) or GGX's (1 - metallic) factor (2)
+OPS_MATERIAL = 4 + 9 + 2 + 6 + 5
+OPS_MATERIAL_CONST = {False: 6, True: 7}
+OPS_MATERIAL_BRDF = {False: 6 + (1 + 8 + 8 + 1 + 2 - 3), True: 6 + 2}
+# the has_matmap variant, per shaded pixel: two more texels (M1, M2: as the
+# base texel), the normal decode (3 multiply-add pairs, a three-term dot 5,
+# square root, compare, reciprocal, 3 multiplies), the replacement or the
+# mix (3 selects, or 9 + dot 5 + square root + divide + 3 multiplies), the
+# per-pixel roughness and metallic selects (2) and the emissive (a product,
+# 3 multiplies and 3 adds)
+OPS_MATMAP = 6 + 5 + 4 + 3 + 3 + 2 + 7
 # f32 operations per ray of the preparation (12 min/max + 6 NaN tests + the
 # live test) and per (block, cell) key (gaps, distance, cull, compares)
 OPS_PREP_PER_RAY = 19
@@ -299,6 +333,14 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def b1_bytes(args, outs, work, extra=()) -> int:
+    """The bytes one B1 call must move: each input read once, the atlas
+    (args[4]) as the distinct texels this frame reads (4 bytes each, from
+    the plain version's work counts), each output written once."""
+    ins = [a for i, a in enumerate(args) if isinstance(a, torch.Tensor) and i != 4]
+    return nbytes(*ins, *outs, *extra) + 4 * work["atlas_texels"]
+
+
 def shade_ops(covered: int, stage_cut: int, kwargs: dict, n_occ: int, sample_mode: int) -> int:
     """f32 operations of B1's stages 2-6 for `covered` pixels with a winner,
     up to the stage the cut keeps, for this frame's lights, BRDF, sun and
@@ -315,6 +357,13 @@ def shade_ops(covered: int, stage_cut: int, kwargs: dict, n_occ: int, sample_mod
         per_px += sum(OPS_PER_LIGHT[int(t)] + brdf for _row, t in kwargs["light_spec"])
         if kwargs.get("ao_img") is not None:
             per_px += OPS_AO
+        if kwargs.get("has_material"):
+            ggx = bool(kwargs.get("brdf_ggx", False))
+            calls = len(kwargs["light_spec"]) + (0 if kwargs.get("sun_off", False) else 1)
+            per_px += (OPS_MATERIAL + OPS_MATERIAL_CONST[ggx]
+                       + calls * OPS_MATERIAL_BRDF[ggx])
+        if kwargs.get("has_matmap"):
+            per_px += 2 * texel + OPS_MATMAP
     if kwargs.get("has_blend"):
         per_px += texel + OPS_BLEND_WEIGHT + OPS_BLEND_MIX
     return covered * per_px
@@ -338,7 +387,9 @@ def reflection_kernel_inputs(rast_r, fi, scale: int = 1, sky: bool = False) -> d
     z, idx, hit = (t[sl] for t in pre)
     g = gbuffer_pass(z, idx, hit, fi["attr"], fi["tri_id"], fa["d3"], fa["atlas"],
                      fa["uniforms"], ws, hs, fa["sample_mode"],
-                     has_blend=fa.get("has_blend", False), stride=scale)
+                     has_blend=fa.get("has_blend", False),
+                     has_material=fa.get("has_material", False),
+                     has_matmap=fa.get("has_matmap", False), stride=scale)
     rays = reflect.sky_rays(g, hit) if sky else reflect.reflection_rays(g, hit, ws, hs, 0, scale)
     b3_in = (fa["d3"]["pos"], fa["d3"]["valid"], rays["o_x"], rays["o_y"], rays["o_z"],
              rays["d_x"], rays["d_y"], rays["d_z"], float(fa["uniforms"]["refl_dist"]), hs, ws)
@@ -390,16 +441,20 @@ def main() -> int:
         opacity_layers,
         visibility_prepass,
     )
+    from rusterix_tpu_torch.ops.scene_pack import PackedScene
     from rusterix_tpu_torch.ops.setup_pass import setup_pass
     from rusterix_tpu_torch.ops.shade import gbuffer_pass
     from rusterix_tpu_torch.scenes import (
         build_cube_scene,
         build_map_2d_scene,
         build_map_ao_scene,
+        build_cube_shaded_scene,
+        build_cube_timeshader_scene,
         build_map_blend_refl_scene,
         build_map_blend_scene,
         build_map_glass_refl_scene,
         build_map_glass_scene,
+        build_map_material_scene,
         build_map_refl_half_scene,
         build_map_refl_scene,
         build_map_scene,
@@ -491,15 +546,21 @@ def main() -> int:
         "L": ("blended map with GGX reflections", build_map_blend_refl_scene),
         "M": ("the bench's cube with its 2D rectangle, 800x600", build_cube_scene),
         "N": ("2D map view, 3D off", build_map_2d_scene),
+        "O": ("the bench's shaded cube (a baked wood shader), 800x600", build_cube_shaded_scene),
+        "P": ("the bench's cube under a time-dependent shader, 800x600",
+              build_cube_timeshader_scene),
+        "Q": ("the map under per-pixel shader materials with GGX reflections",
+              build_map_material_scene),
     }
     paths = {}
     for key, (label, build) in later.items():
         pw, ph = SIZES.get(key, (W, H))
         r_, s_, a_ = build(pw, ph, device="cuda")
         first_ms = None
-        if key in SHADOWED:
-            # the first frame bakes the maps; the launches are counted on a
-            # steady frame after it (the bake launches none of the kernels)
+        if key in SHADOWED + SHADED:
+            # the first frame bakes the maps (G-J) or packs the scene with its
+            # shader bakes (O-Q); the launches are counted on a steady frame
+            # after it (the bakes launch none of the kernels)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r_.rasterize(s_, pw, ph, 40, a_, readback=False)
@@ -552,6 +613,38 @@ def main() -> int:
     if not (cov_k > covered and (f_m[..., 3] == 255).all() and walls.sum() > W * H // 200
             and lit.max() > lit.min() + 30):
         raise SystemExit("a frame of the slice (K, M or N) did not render as expected")
+    # the baked shaders: the packs' bake slots, the bakes on the card against
+    # the CPU's, P's animation frames, what the materials change
+    for key in SHADED:
+        p_ = paths[key]
+        packs = {dev: PackedScene.from_scene(p_["scene"], p_["assets"], static_only=True,
+                                             device=dev) for dev in ("cuda", "cpu")}
+        ai = {dev: pk.atlas_index for dev, pk in packs.items()}
+        if not (ai["cuda"].shader_slots == ai["cpu"].shader_slots
+                and ai["cuda"].shader_mat_slots == ai["cpu"].shader_mat_slots
+                and packs["cuda"].runtime_shaders == () == packs["cpu"].runtime_shaders):
+            raise SystemExit(f"path {key}: the CUDA and CPU packs differ in their shader slots")
+        d = np.abs(ai["cuda"].atlas.data.astype(int) - ai["cpu"].atlas.data.astype(int))
+        p_["bake_diff"] = (int(d.max()), int((d > 0).sum()))
+        frames = ai["cuda"].atlas.tile_count[ai["cuda"].shader_slots[0][0]]
+        print(f"path {key}: shader slots {ai['cuda'].shader_slots}, material slots "
+              f"{ai['cuda'].shader_mat_slots}, {frames} bake frame(s); CUDA bake vs CPU bake: "
+              f"max diff {p_['bake_diff'][0]} (tolerance {BAKE_TOL}), texel bytes differing "
+              f"{p_['bake_diff'][1]} of {d.size}; first frame (pack + bakes) "
+              f"{p_['first_ms']:.4f} ms of wall time on {gpu}")
+        if p_["bake_diff"][0] > BAKE_TOL:
+            raise SystemExit(f"path {key}: the CUDA bake differs from the CPU bake")
+    fa_p = paths["P"]["rast"].frame_args
+    if not (fa_p["has_material"] and paths["Q"]["rast"].frame_args["has_matmap"]):
+        raise SystemExit("paths P and Q did not take B1's material variants")
+    p_ = paths["P"]
+    p_["scene"].animation_frame = 5
+    f_p5 = p_["rast"].rasterize(p_["scene"], *p_["size"], 40, p_["assets"])
+    p_["scene"].animation_frame = 0
+    moved = int((np.abs(f_p5.astype(int) - p_["frame"].astype(int)).max(-1) > 0).sum())
+    print(f"path P: px differing between animation frames 0 and 5: {moved}")
+    if moved < 1000:
+        raise SystemExit("path P's animation frames do not differ")
     launches = {k: counts_a[k] + counts_b[k] + sum(p_["counts"][k] for p_ in paths.values())
                 for k in counts_a}
 
@@ -562,6 +655,7 @@ def main() -> int:
     rgba_k, z_k = megakernel.mega_render(*args, **kwargs)
     rgba_p, z_p, work = megakernel.mega_render_reference(*args, **kwargs, return_work=True)
     b1_tests = work["vis_tests"]
+    b1_nbytes = {"opaque": b1_bytes(args, (rgba_k, z_k), work)}
     torch.cuda.synchronize()
     if not torch.equal(z_k, z_p):
         raise SystemExit(f"B1: z_eff differs from the plain version at {int((z_k != z_p).sum())} px")
@@ -577,6 +671,7 @@ def main() -> int:
     rgba_k, z_k = megakernel.mega_render(*gargs, **gkwargs)
     rgba_p, z_p, work = megakernel.mega_render_reference(*gargs, **gkwargs, return_work=True)
     ggx_tests = work["vis_tests"]
+    b1_nbytes["ggx"] = b1_bytes(gargs, (rgba_k, z_k), work)
     torch.cuda.synchronize()
     if not torch.equal(z_k, z_p):
         raise SystemExit(f"B1 GGX: z_eff differs at {int((z_k != z_p).sum())} px")
@@ -673,17 +768,17 @@ def main() -> int:
         # depth texel per lookup, a depth and an alpha texel per layer step
         reads = sum(p_["shadow_reads"]) + 2 * p_["trans_steps"]
         table = k_.get("shadow_rows")
-        p_["b1_bytes"] = nbytes(*[a for a in a_ if isinstance(a, torch.Tensor)], rgba_l, z_l,
-                                *([k_["ao_img"]] if "ao_img" in k_ else [])) + (
+        p_["b1_bytes"] = b1_bytes(a_, (rgba_l, z_l), work_b1,
+                                  [k_["ao_img"]] if "ao_img" in k_ else []) + (
             0 if table is None else min(4 * reads, nbytes(table)))
         print(f"B1 vs plain (path {key}, {fa_['width']}x{fa_['height']}"
               f"{', ao_img' if 'ao_img' in k_ else ''}): z_eff equal, rgba max diff "
               f"{p_['b1_err']} (tolerance {RGBA_TOL}), px differing "
               f"{int((diff.amax(-1) > 0).sum())}, visibility tests {tests}, "
               f"px with a winner {p_['covered']}")
-        if p_["b1_err"] > (0 if key in SHADOWED + BLEND_2D else RGBA_TOL):
+        if p_["b1_err"] > (0 if key in SHADOWED + BLEND_2D + SHADED else RGBA_TOL):
             raise SystemExit(f"B1 path {key}: the megakernel disagrees with its plain version")
-        if key in BLEND_2D:
+        if key in BLEND_2D + SHADED:
             for cut in (1, 2):
                 out_k = megakernel.mega_render(*a_, **k_, stage_cut=cut)
                 out_p = megakernel.mega_render_reference(*a_, **k_, stage_cut=cut)
@@ -700,6 +795,16 @@ def main() -> int:
                   f"px changed by the blend {p_['by_blend']}")
             if not (k_["has_blend"] and p_["by_blend"] > W * H // 20):
                 raise SystemExit(f"path {key}: B1's blend branch did nothing")
+        if key in SHADED:
+            no_mat, _ = megakernel.mega_render(*a_, **dict(k_, has_material=False,
+                                                           has_matmap=False))
+            torch.cuda.synchronize()
+            p_["by_material"] = int((no_mat != rgba_l).sum())
+            print(f"path {key}: has_material {k_['has_material']}, has_matmap "
+                  f"{k_['has_matmap']}, table {a_[3].shape[1]} columns, px changed by the "
+                  f"material {p_['by_material']}")
+            if not (k_["has_material"] and p_["by_material"] > 100):
+                raise SystemExit(f"path {key}: B1's material branch did nothing")
         if key in SHADOWED:
             cube_reads, sun_reads = p_["shadow_reads"]
             print(f"B1 shadow lookups (path {key}): {cube_reads} cube texels and {sun_reads} sun "
@@ -727,7 +832,7 @@ def main() -> int:
             if not (p_["trans_steps"] and by_trans and by_tonemap > W * H // 20
                     and sky_px > W * H // 50 and min(glass_px) > 0):
                 raise SystemExit(f"path {key}: a new variant or pass did nothing")
-        if key in ("F", "G", "I", "K", "M", "N"):
+        if key in ("F", "G", "I", "K", "M", "N", "O", "P"):
             continue
         kin_ = reflection_kernel_inputs(r_, fi_, scale=fa_["refl_scale"], sky=key == "D")
         z2_, i2_, _h2 = visibility_pallas.visibility_pass_pallas(*kin_["b2_in"])
@@ -774,10 +879,14 @@ def main() -> int:
     for key, (label, build) in later.items():
         sw, sh = (SMALL_W // 2, SMALL_H // 2) if key == "F" else (SMALL_W, SMALL_H)
         phase(f"6 {key}")
-        small = []
+        small, one_pack = [], None
         for dev in ("cuda", "cpu"):
             r, s, a = build(sw, sh, device=dev)
-            small.append(r.rasterize(s, sw, sh, 40, a).astype(np.int32))
+            if key in SHADED:
+                # both frames from one PackedScene (one bake)
+                one_pack = one_pack or PackedScene.from_scene(s, a, static_only=True,
+                                                              device="cpu")
+            small.append(r.rasterize(s, sw, sh, 40, a, packed=one_pack).astype(np.int32))
         d = np.abs(small[0] - small[1]).max(-1)
         print(f"cuda vs cpu path {key} frame at {sw}x{sh}: max diff {int(d.max())}, "
               f"px differing {int((d > 0).sum())} (pinned {SMALL_PINNED[key]})")
@@ -866,10 +975,10 @@ def main() -> int:
             p_["walk_t"] = cuda_times(lambda: rt_kernel._launch(prep_k_, fields_), 40)
             p_["prep_t"] = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*b3_in_), 40)
             p_["b3_t"] = cuda_times(lambda: rt_kernel.intersect_rays_pallas(*b3_in_), 40)
-            # L's plain walk takes ~5 s a call: one
+            # L's and Q's plain walks take seconds a call: one
             p_["b3_plain_t"] = cuda_times(
-                lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in_), 1 if key == "L" else 2,
-                warmup=1)
+                lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in_),
+                1 if key in ("L", "Q") else 2, warmup=1)
             print(f"B3 path {key} ({b3_in_[-1]}x{b3_in_[-2]} rays): walk alone "
                   f"{summary(p_['walk_t'])}; rt_prepare_cuda {summary(p_['prep_t'])}; "
                   f"intersect_rays_pallas {summary(p_['b3_t'])}; plain "
@@ -914,6 +1023,19 @@ def main() -> int:
         print(f"shadow bake (path {key}, plain torch, 25 depth renders{layers_txt}): first frame "
               f"{p_['first_ms']:.4f} ms of wall time with the bake; bake alone median "
               f"{p_['bake_ms']:.4f} ms of wall time (n={n_bake}), {bake_dev} on {gpu}")
+    # O and Q: B1 alone with and without the material (and the matmap)
+    for key in ("O", "Q"):
+        a_m, k_m = paths[key]["mega"]
+        forms = {"without the material": dict(k_m, has_material=False, has_matmap=False)}
+        if k_m["has_matmap"]:
+            forms["has_material alone"] = dict(k_m, has_matmap=False)
+        alone_m = {name: median(cuda_times(megakernel.prepare_launch(*a_m, **kw), 100))
+                   for name, kw in forms.items()}
+        print(f"B1 kernel alone on path {key}'s inputs (stage_cut 0): with "
+              + ("has_matmap" if k_m["has_matmap"] else "has_material")
+              + f" {paths[key]['alone']:.4f} ms, "
+              + ", ".join(f"{name} {ms:.4f} ms" for name, ms in alone_m.items())
+              + f" (medians of 100) on {gpu}")
     # K: B1 alone with and without its blend branch, beside A's
     a_k, k_k = paths["K"]["mega"]
     no_blend_alone = median(cuda_times(
@@ -1036,6 +1158,8 @@ def main() -> int:
                          "B3": ("rt_kernel", 3), "B3prep": ("rt_prepare_kernel", 3)}
     path_kernels["L"] = path_kernels["D"]
     path_kernels["K"] = path_kernels["M"] = path_kernels["N"] = path_kernels["F"]
+    path_kernels["O"] = path_kernels["P"] = path_kernels["F"]
+    path_kernels["Q"] = path_kernels["D"]
     for key, p_ in paths.items():
         r_, s_, as_ = p_["rast"], p_["scene"], p_["assets"]
         pw, ph = p_["size"]
@@ -1062,6 +1186,10 @@ def main() -> int:
                                             len(k_g["light_spec"]), int(a_g[8].shape[0]))
     res["B1 glass (I)"] = _cuda.resources("mega", a_i[0].shape[0] // 128,
                                           len(k_i["light_spec"]), int(a_i[8].shape[0]))
+    for key, mat in (("O", 1), ("Q", 2)):
+        a_m, k_m = paths[key]["mega"]
+        res[f"B1 material form {mat} ({key})"] = _cuda.resources(
+            "mega", a_m[0].shape[0] // 128, len(k_m["light_spec"]), int(a_m[8].shape[0]), mat)
     for key, r in res.items():
         warps = 32 if key == "B3" else 8  # B3's walk: 1024 threads a block, the others 256
         print(f"resources {key}: {r['registers']} registers, "
@@ -1078,15 +1206,14 @@ def main() -> int:
     # operations; these kernels execute unfused multiplies and adds for bit
     # parity, so half of that peak is the most they can reach. The published
     # peak stays the yardstick.
-    b1_bytes = nbytes(*[a for a in args if isinstance(a, torch.Tensor)], rgba_k, z_k)
     b1_bounds = {}
     for label, k_, tests, n_cov in (("opaque", kwargs, b1_tests, covered["opaque map"]),
                                     ("ggx", gkwargs, ggx_tests, covered["reflection map"])):
         for cut in (0, 1, 2):
             ops = tests * OPS_PER_VIS_TEST + shade_ops(n_cov, cut, k_, n_occ, int(args[11]))
-            b1_bounds[label, cut] = bound(b1_bytes, ops)
+            b1_bounds[label, cut] = bound(b1_nbytes[label], ops)
             ms, by = b1_bounds[label, cut]
-            print(f"bound B1 {label} stage_cut={cut}: {b1_bytes} bytes, {ops} f32 ops "
+            print(f"bound B1 {label} stage_cut={cut}: {b1_nbytes[label]} bytes, {ops} f32 ops "
                   f"({tests} tests, {n_cov} px shaded) -> {ms:.6f} ms, bound by {by}; "
                   f"kernel alone {cut_t[label, cut]:.4f} ms")
     b2_bytes = nbytes(*b2_in[:3], z2, i2)
@@ -1114,7 +1241,12 @@ def main() -> int:
                       ("J", "mega_render brdf_ggx shadows transmittance tonemap (glazed "
                             "reflection map)"),
                       ("K", "mega_render has_blend (blended map)"),
-                      ("L", "mega_render brdf_ggx has_blend (blended reflection map)")):
+                      ("L", "mega_render brdf_ggx has_blend (blended reflection map)"),
+                      ("M", "mega_render (the bench's cube, 800x600)"),
+                      ("N", "mega_render (2D map view, no 3D candidate)"),
+                      ("O", "mega_render has_material (shaded cube, 800x600)"),
+                      ("P", "mega_render has_material (animated shaded cube, 800x600)"),
+                      ("Q", "mega_render brdf_ggx has_material has_matmap (material map)")):
         p_ = paths[key]
         a_, k_ = p_["mega"]
         n_occ_ = int(a_[8].shape[0])
@@ -1135,12 +1267,15 @@ def main() -> int:
             "ms": median(p_["b1_t"]), "plain_ms": median(p_["b1_plain_t"]),
             "bound_ms": ms, "bound_by": by, "library_ms": None,
             "device_ms": p_["dev"]["B1"], "alone_ms": p_["alone"],
-            **_cuda.resources("mega", a_[0].shape[0] // 128, len(k_["light_spec"]), n_occ_),
+            **_cuda.resources("mega", a_[0].shape[0] // 128, len(k_["light_spec"]), n_occ_,
+                              2 if k_.get("has_matmap") else 1 if k_.get("has_material") else 0),
         })
     for key, name in (("D", "intersect_rays_pallas (sky rays)"),
                       ("E", "intersect_rays_pallas (960x540 reflection rays)"),
                       ("J", "intersect_rays_pallas (glazed reflection map, the opaque "
-                            "frame's rays; 3 launches a frame)")):
+                            "frame's rays; 3 launches a frame)"),
+                      ("L", "intersect_rays_pallas (blended reflection map)"),
+                      ("Q", "intersect_rays_pallas (material map)")):
         p_ = paths[key]
         b3_in_, (t3_, i3_), work_ = p_["kin"]["b3_in"], p_["b3_out"], p_["b3_work"]
         nb = nbytes(*b3_in_[:8], t3_, i3_)

@@ -18,9 +18,13 @@ megakernel is also timed on its inputs with and without the shadow table;
 where it has the glazed map (`scenes.build_map_glass_scene`), on its inputs
 with its transmittance and tonemap variants and without each; where it has
 the blended map (`scenes.build_map_blend_scene`), on its inputs with and
-without the has_blend variant.
+without the has_blend variant; where it has the baked-shader paths
+(`scenes.build_cube_shaded_scene`, `scenes.build_map_material_scene`), on
+the shaded cube's inputs (800x600) with and without has_material and on the
+material map's with has_matmap, with has_material alone and without either.
 Each tree's line also gives the megakernel's registers, shared memory,
-resident blocks an SM and ptxas's spill report.
+resident blocks an SM and ptxas's spill report (of each material form where
+the tree compiles the kernel as a template of them).
 
 With `--against DIR` the same measurement runs in a process of its own for
 each turn (DIR holds another version of the package, for example the parent
@@ -87,8 +91,12 @@ def measure(tree: str) -> dict:
                 lambda: rast.rasterize(scene, cs.W, cs.H, 40, assets, readback=False))
     b1 = _cuda.resources("mega", args[0].shape[0] // 128, len(kwargs["light_spec"]),
                          int(args[8].shape[0]))
-    with open(_cuda.BUILD_LOG) as f:  # csrc/megakernel.cu compiles first
-        b1["spill"] = [line.strip() for line in f if "spill" in line][0]
+    with open(_cuda.BUILD_LOG) as f:
+        log = f.read()
+    if hasattr(_cuda, "ptxas_report"):
+        b1["ptxas"] = _cuda.ptxas_report(log, "mega_kernel")
+    else:  # an older tree: csrc/megakernel.cu compiles first, one entry
+        b1["ptxas"] = {"mega_kernel": [ln.strip() for ln in log.splitlines() if "spill" in ln][0]}
     kin = cs.reflection_kernel_inputs(rast, fi)
     b2_in, b3_in = kin["b2_in"], kin["b3_in"]
     times["B2"] = timed(lambda: visibility_pallas.visibility_pass_pallas(*b2_in))
@@ -120,6 +128,22 @@ def measure(tree: str) -> dict:
         for label, kw in (("", kwargs), (" without has_blend", dict(kwargs, has_blend=False))):
             times["B1 blended map" + label] = timed(
                 lambda kw=kw: megakernel.mega_render(*args, **kw))
+    if hasattr(scenes, "build_map_material_scene"):
+        for name, build, (w, h) in (("shaded cube", scenes.build_cube_shaded_scene, (800, 600)),
+                                    ("material map", scenes.build_map_material_scene,
+                                     (cs.W, cs.H))):
+            rast, scene, assets = build(w, h, device="cuda")
+            rast.rasterize(scene, w, h, 40, assets)
+            fi = frame_inputs(**rast.frame_args)
+            args, kwargs = fi["mega_args"], fi["mega_kwargs"]
+            forms = [("", kwargs)]
+            if kwargs["has_matmap"]:
+                forms.append((" has_material alone", dict(kwargs, has_matmap=False)))
+            forms.append((" without the material", dict(kwargs, has_material=False,
+                                                          has_matmap=False)))
+            for label, kw in forms:
+                times[f"B1 {name}" + label] = timed(
+                    lambda kw=kw: megakernel.mega_render(*args, **kw))
     gpu = cs._run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     return {"tree": os.path.abspath(tree), "gpu": gpu.splitlines()[0], "b1": b1,
             "times": times}

@@ -11,8 +11,9 @@ and shape layers (`models`, `builders`, `map`, `utils`, `native`,
 copies of the JAX package's numpy modules.
 
 The exports follow the JAX package's (`rusterix_tpu/__init__.py`) for
-every module the port has; the game client, the `Rusterix` facade and the
-rusteria shader compiler are not ported yet.
+every module the port has (the rusteria shader compiler among them, as
+`Rusteria` and `ShaderProgram`); the game client and the `Rusterix` facade
+are not ported yet.
 """
 
 __version__ = "0.1.0"
@@ -89,6 +90,7 @@ from .server import (  # noqa: F401
     Wallet,
 )
 from .server.server import Server  # noqa: F401
+from .shader import Program as ShaderProgram, Rusteria  # noqa: F401
 from .vm import VM, VMValue  # noqa: F401
 from .utils import (  # noqa: F401
     BLACK,

@@ -106,8 +106,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rx_mega_render.restype = i32
-    lib.rx_mega_render.argtypes = [vp] * 16 + [i32, i32, i64] + [i32] * 14 + [vp]
-    for fn, n_int in ((lib.rx_mega_resources, 3), (lib.rx_visibility_resources, 1),
+    lib.rx_mega_render.argtypes = [vp] * 16 + [i32, i32, i64] + [i32] * 15 + [vp]
+    for fn, n_int in ((lib.rx_mega_resources, 4), (lib.rx_visibility_resources, 1),
                       (lib.rx_rt_resources, 2)):
         fn.restype = i32
         fn.argtypes = [i32] * n_int + [vp]
@@ -130,11 +130,13 @@ def library() -> ctypes.CDLL:
 def resources(kernel: str, *sizes: int) -> dict:
     """What the built `kernel` takes on the card: registers a thread, static
     and dynamic shared memory a block, and the blocks an SM holds at once.
-    kernel and sizes: "mega" (supers, lights, occlusion boxes), "visibility" (supers), "rt_walk" (), "rt_prepare" (cells)."""
+    kernel and sizes: "mega" (supers, lights, occlusion boxes, and the
+    material form: 0 none, 1 has_material, 2 has_matmap; 0 when left out),
+    "visibility" (supers), "rt_walk" (), "rt_prepare" (cells)."""
     lib = library()
     out = (ctypes.c_int * 4)()
     if kernel == "mega":
-        err = lib.rx_mega_resources(*sizes, out)
+        err = lib.rx_mega_resources(*(tuple(sizes) + (0,) * (4 - len(sizes))), out)
     elif kernel == "visibility":
         err = lib.rx_visibility_resources(*sizes, out)
     elif kernel == "rt_walk":
@@ -147,6 +149,23 @@ def resources(kernel: str, *sizes: int) -> dict:
         raise RuntimeError(f"resources({kernel}): CUDA error {err} ({error_string(err)})")
     return {"registers": out[0], "smem_static": out[1], "smem_dynamic": out[2],
             "blocks_per_sm": out[3]}
+
+
+def ptxas_report(text: str, symbol: str) -> dict:
+    """ptxas -v's lines about each compiled entry of the kernel `symbol` in
+    `text` (a build log) -> {mangled entry name: its stack, spill and
+    register lines joined}; a template kernel has one entry per instance
+    (mega_kernel: _Z11mega_kernelILi0EE..., ILi1EE..., ILi2EE... for the
+    material forms 0, 1 and 2)."""
+    out, entry = {}, None
+    mangled = f"_Z{len(symbol)}{symbol}"
+    for line in text.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            name = line.split("'")[1] if "'" in line else line.split()[-1]
+            entry = name if name.startswith(mangled) else None
+        elif entry is not None and ("spill" in line or "Used" in line):
+            out[entry] = " ".join(filter(None, (out.get(entry), " ".join(line.split()))))
+    return out
 
 
 def error_string(err: int) -> str:

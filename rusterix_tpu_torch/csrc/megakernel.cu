@@ -110,7 +110,7 @@
 //
 // The has_blend variant (vertex-blended floors): a row then has 48 columns,
 // the blend extension at 32-43 (the weight plane, kind2, rgba2, the second
-// rect; material and matmap, which would sit before it, are not taken). A
+// rect; after the material columns in a row that has them, see below). A
 // covered pixel of such a frame reads those 12 floats as three more 16-byte
 // loads, fetches the second texel (no read for a pixel colour or no second
 // source, 1 nearest, 4 bilinear) and mixes it in before the lighting. Rows
@@ -125,6 +125,27 @@
 // that is not opaque takes the background before the lighting (the same
 // outputs: the plain version computes and discards that lighting). No
 // spill; B1 alone on the opaque and the shadowed map within 2% of PR 6's.
+//
+// The material variants (baked rusteria shaders, ops/scene_pack.py) are a
+// template parameter of the kernel, MAT: 0 none, 1 has_material (a row's
+// constant roughness and metallic at columns 32-33), 2 has_matmap as well
+// (the M1 / M2 sidecar rects, em_scale, writes_normal and matmap_on at
+// 34-44). Three kernels are compiled; the earlier variants run MAT = 0,
+// whose code and register allocation the material branches do not touch.
+// With a material, F0 is per channel (0.04 mixed toward the albedo by the
+// metallic), the diffuse term scales by (1 - metallic)(1 - max F0), the
+// ambient terms by (1 - metallic) 0.96, the fast BRDF's specular power is
+// exp2f(shininess * log2f(n.h)) (the full-precision functions torch.exp2
+// and torch.log2 use on the card) and GGX takes its constants from the
+// roughness; these are recomputed from (roughness, metallic) where used, so
+// that two values, not seven, stay alive through the light loop. With the
+// matmap, where a row's matmap is on, the M1 and M2 texels at the pixel
+// (the base texel's sampler and repeat mode) give the roughness and
+// metallic, the decoded M2 normal replaces (or, at a bump strength between
+// 0 and 1, mixes into) the shading normal where the shader wrote normals,
+// and the M1 emissive, premultiplied before the lights, is added after
+// them. A row with a material carries its blend extension where the
+// table puts it, at 34 or 45, and reads it one float at a time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,7 +183,7 @@ struct MegaArgs {
     int sun_base, sun_res;  // the sun map (base -1: none)
     int sun_tbase, sun_steps;  // its transmittance layers (base -1: none)
     int tonemap;            // SceneVM display transform instead of sRGB
-    int has_blend;          // rows carry the blend extension at 32-43
+    int has_blend;          // rows carry the blend extension (after the material columns)
     long long n_atlas;
 };
 
@@ -388,9 +409,51 @@ struct Surface {
     float ux, uy, uz;     // shading normal (0 without normals)
     float vdx, vdy, vdz;  // unit view direction
     float base_r, base_g, base_b;  // linear albedo (the diffuse kd = base * 0.96)
+    float rough, metal;   // the material (MAT > 0), clipped to [0, 1]
 };
 
-// fast Blinn-Phong BRDF with Schlick Fresnel (roughness 0.5, metallic 0)
+// a channel's Fresnel F0 under the material: 0.04 mixed toward the albedo
+__device__ __forceinline__ float f0_of(float base, float metal) {
+    return K(0.04) + (base - K(0.04)) * metal;
+}
+
+// the diffuse scale under the material: (1 - metallic)(1 - the largest F0)
+__device__ __forceinline__ float kd_scale_of(const Surface& s) {
+    const float f0_max = jmax(f0_of(s.base_r, s.metal),
+                              jmax(f0_of(s.base_g, s.metal), f0_of(s.base_b, s.metal)));
+    return (1.0f - s.metal) * (1.0f - f0_max);
+}
+
+// the diffuse albedo of one channel: base * 0.96, or base * kd_scale
+template <int MAT>
+__device__ __forceinline__ float kd_of(float base, float kd_scale) {
+    return MAT ? base * kd_scale : base * K(0.96);
+}
+
+// the ambient albedo of one channel: base * 0.96, or base * (1 - metallic) 0.96
+template <int MAT>
+__device__ __forceinline__ float ka_of(const Surface& s, float base) {
+    return MAT ? base * ((1.0f - s.metal) * K(0.96)) : base * K(0.96);
+}
+
+// Schlick Fresnel of the three channels at (1 - cos)^5 = x5
+template <int MAT>
+__device__ __forceinline__ void fresnel(const Surface& s, float x5, float& fr, float& fg,
+                                        float& fb) {
+    if (MAT) {
+        const float f0r = f0_of(s.base_r, s.metal), f0g = f0_of(s.base_g, s.metal),
+                    f0b = f0_of(s.base_b, s.metal);
+        fr = f0r + (1.0f - f0r) * x5;
+        fg = f0g + (1.0f - f0g) * x5;
+        fb = f0b + (1.0f - f0b) * x5;
+    } else {
+        fr = fg = fb = K(0.04) + K(0.96) * x5;
+    }
+}
+
+// fast Blinn-Phong BRDF with Schlick Fresnel (roughness 0.5, metallic 0, or
+// the material's: the specular power exp2(shininess * log2(n.h)))
+template <int MAT>
 __device__ __forceinline__ void brdf(const Surface& s, float ldx, float ldy, float ldz,
                                      float rad_r, float rad_g, float rad_b,
                                      float& cr, float& cg, float& cb) {
@@ -399,26 +462,44 @@ __device__ __forceinline__ void brdf(const Surface& s, float ldx, float ldy, flo
     float hl = sqrtf(hx * hx + hy * hy + hz * hz);
     float inv_hl = 1.0f / jmax(hl, K(1e-30));
     float n_dot_h = jmax((s.ux * hx + s.uy * hy + s.uz * hz) * inv_hl, 0.0f);
-    float nh2 = n_dot_h * n_dot_h;
-    float spec_b = nh2 * nh2 * nh2;
+    float spec_b;
+    if (MAT) {
+        const float alpha_m = jmax(s.rough * s.rough, K(1e-4));
+        const float shininess = jclip(2.0f / alpha_m - 2.0f, 1.0f, 2048.0f);
+        const float p = exp2f(shininess * log2f(jmax(n_dot_h, K(1e-38))));
+        spec_b = n_dot_h > 0.0f ? p : 0.0f;
+    } else {
+        float nh2 = n_dot_h * n_dot_h;
+        spec_b = nh2 * nh2 * nh2;
+    }
     float n_dot_v = jmax(s.ux * s.vdx + s.uy * s.vdy + s.uz * s.vdz, 0.0f);
     float x1 = 1.0f - jclip(n_dot_v, 0.0f, 1.0f);
     float x2 = x1 * x1;
     float x5 = x2 * x2 * x1;
-    float fr = K(0.04) + K(0.96) * x5;
+    float fr, fg, fb;
+    fresnel<MAT>(s, x5, fr, fg, fb);
     float sb = spec_b * n_dot_l;
     bool dead = n_dot_l <= 0.0f;
-    cr = dead ? 0.0f : ((s.base_r * K(0.96)) * n_dot_l + fr * sb) * rad_r;
-    cg = dead ? 0.0f : ((s.base_g * K(0.96)) * n_dot_l + fr * sb) * rad_g;
-    cb = dead ? 0.0f : ((s.base_b * K(0.96)) * n_dot_l + fr * sb) * rad_b;
+    const float kds = MAT ? kd_scale_of(s) : 0.0f;
+    cr = dead ? 0.0f : (kd_of<MAT>(s.base_r, kds) * n_dot_l + fr * sb) * rad_r;
+    cg = dead ? 0.0f : (kd_of<MAT>(s.base_g, kds) * n_dot_l + fg * sb) * rad_g;
+    cb = dead ? 0.0f : (kd_of<MAT>(s.base_b, kds) * n_dot_l + fb * sb) * rad_b;
 }
 
 // Cook-Torrance GGX (GGX NDF, Smith G, Schlick Fresnel) with roughness 0.5
-// and metallic 0 folded into the constants: a2 = 0.5^4, k = 1.5^2 / 8
+// and metallic 0 folded into the constants (a2 = 0.5^4, k = 1.5^2 / 8), or
+// the material's
+template <int MAT>
 __device__ __forceinline__ void brdf_ggx(const Surface& s, float ldx, float ldy, float ldz,
                                          float rad_r, float rad_g, float rad_b,
                                          float& cr, float& cg, float& cb) {
-    const float a2 = K(0.0625), k = K(0.28125);
+    float a2 = K(0.0625), k = K(0.28125);
+    if (MAT) {
+        const float r_g = jclip(s.rough, K(0.045), 1.0f);
+        const float a_g = r_g * r_g;
+        a2 = a_g * a_g;
+        k = (r_g + 1.0f) * (r_g + 1.0f) * K(0.125);
+    }
     float n_dot_l = jmax(s.ux * ldx + s.uy * ldy + s.uz * ldz, 0.0f);
     float n_dot_v = jmax(s.ux * s.vdx + s.uy * s.vdy + s.uz * s.vdz, 0.0f);
     float hx = ldx + s.vdx, hy = ldy + s.vdy, hz = ldz + s.vdz;
@@ -434,26 +515,31 @@ __device__ __forceinline__ void brdf_ggx(const Surface& s, float ldx, float ldy,
     float x1 = 1.0f - jclip(h_dot_v, 0.0f, 1.0f);
     float x2 = x1 * x1;
     float x5 = x2 * x2 * x1;
-    float fr = K(0.04) + K(0.96) * x5;
-    float dd = n_dot_l * K(0.31830988618379);
+    float fr, fg, fb;
+    fresnel<MAT>(s, x5, fr, fg, fb);
+    // (1 - metallic) n.l / pi; without a material 1 - 0 is exact
+    float dd = MAT ? (1.0f - s.metal) * n_dot_l * K(0.31830988618379)
+                   : n_dot_l * K(0.31830988618379);
     float sl = sp * n_dot_l;
     bool dead = n_dot_l <= 0.0f || n_dot_v <= 0.0f;
     cr = dead ? 0.0f : ((1.0f - fr) * dd * s.base_r + fr * sl) * rad_r;
-    cg = dead ? 0.0f : ((1.0f - fr) * dd * s.base_g + fr * sl) * rad_g;
-    cb = dead ? 0.0f : ((1.0f - fr) * dd * s.base_b + fr * sl) * rad_b;
+    cg = dead ? 0.0f : ((1.0f - fg) * dd * s.base_g + fg * sl) * rad_g;
+    cb = dead ? 0.0f : ((1.0f - fb) * dd * s.base_b + fb * sl) * rad_b;
 }
 
 // the frame's direct-light BRDF (block-uniform choice)
+template <int MAT>
 __device__ __forceinline__ void light_brdf(const MegaArgs& a, const Surface& s, float ldx,
                                            float ldy, float ldz, float rad_r, float rad_g,
                                            float rad_b, float& cr, float& cg, float& cb) {
     if (a.brdf_ggx)
-        brdf_ggx(s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
+        brdf_ggx<MAT>(s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
     else
-        brdf(s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
+        brdf<MAT>(s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
 }
 
 // stages 2-6 for one covered pixel -> packed RGBA8 (or the background)
+template <int MAT>
 __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, int gx, int gy,
                                             float best, int slot) {
     const size_t o = (size_t)gy * a.width + gx;
@@ -490,15 +576,23 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
     float tex[4];
     texel_lookup(a, u, v, A[18], A + 21, A + 28, repeat, (int)P[54], tex);
     if (a.has_blend) {
-        // the blend extension, 16 bytes at a time: the weight plane and
-        // kind2 first (folded into the mix weight at once), then rgba2 and
-        // the second rect for the second texel
-        const float4* ext = reinterpret_cast<const float4*>(a.attr + (size_t)slot * a.n_attr + 32);
-        const float4 wk = __ldg(ext);
+        // the blend extension, at column 32 (16 bytes at a time), or after
+        // the material columns at 34 or 45 (unaligned: one float at a
+        // time): the weight plane and kind2 first (folded into the mix
+        // weight at once), then rgba2 and the second rect for the second
+        // texel
+        const float* eb = a.attr + (size_t)slot * a.n_attr + (MAT == 2 ? 45 : MAT ? 34 : 32);
+        const float4* ext = reinterpret_cast<const float4*>(eb);
+        const float4 wk = MAT ? make_float4(__ldg(eb), __ldg(eb + 1), __ldg(eb + 2), __ldg(eb + 3))
+                              : __ldg(ext);
         const float b_w = jclip((wk.x * xg + wk.y * yg + wk.z) / safe_w, 0.0f, 1.0f);
         const float blend_on = (wk.w >= 0.0f ? 1.0f : 0.0f) * b_w;
-        const float4 c2 = __ldg(ext + 1);
-        const float4 r2 = __ldg(ext + 2);
+        const float4 c2 = MAT ? make_float4(__ldg(eb + 4), __ldg(eb + 5), __ldg(eb + 6),
+                                            __ldg(eb + 7))
+                              : __ldg(ext + 1);
+        const float4 r2 = MAT ? make_float4(__ldg(eb + 8), __ldg(eb + 9), __ldg(eb + 10),
+                                            __ldg(eb + 11))
+                              : __ldg(ext + 2);
         const float rgba2[4] = {c2.x, c2.y, c2.z, c2.w};
         const float rect2[4] = {r2.x, r2.y, r2.z, r2.w};
         float tex2[4];
@@ -520,6 +614,45 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
         return;
     }
     a.zeff[o] = z;
+
+    // ---- the material: the row's constants, or the sidecar texels ----
+    float rough = 0.0f, metal = 0.0f, nwx = 0.0f, nwy = 0.0f, nwz = 0.0f;
+    float em_r = 0.0f, em_g = 0.0f, em_b = 0.0f;
+    bool use_n = false, n_dir = false;
+    if (MAT) {
+        const float4* mrow = reinterpret_cast<const float4*>(a.attr + (size_t)slot * a.n_attr + 32);
+        const float4 q32 = __ldg(mrow);
+        rough = jclip(q32.x, 0.0f, 1.0f);
+        metal = jclip(q32.y, 0.0f, 1.0f);
+        if (MAT == 2) {
+            const float4 q36 = __ldg(mrow + 1), q40 = __ldg(mrow + 2);
+            const float m_on = __ldg(mrow + 3).x;
+            const float kindm = m_on > 0.5f ? SRC_TEXTURE : 0.0f;
+            const float zeros4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            float m[4];
+            // M2: the encoded normal | metallic
+            const float rect2[4] = {q36.z, q36.w, q40.x, q40.y};
+            texel_lookup(a, u, v, kindm, zeros4, rect2, repeat, (int)P[54], m);
+            if (m_on > 0.5f) metal = m[3];
+            const float ndx = m[0] * 2.0f - 1.0f, ndy = m[1] * 2.0f - 1.0f,
+                        ndz = m[2] * 2.0f - 1.0f;
+            const float dlen = sqrtf(ndx * ndx + ndy * ndy + ndz * ndz);
+            const float inv_dlen = dlen > K(0.02) ? 1.0f / jmax(dlen, K(1e-30)) : 0.0f;
+            nwx = ndx * inv_dlen;
+            nwy = ndy * inv_dlen;
+            nwz = ndz * inv_dlen;
+            n_dir = inv_dlen > 0.0f;  // a written zero normal stays zero
+            use_n = (q40.w > 0.5f) && (m_on > 0.5f);
+            // M1: the emissive (over em_scale) | roughness
+            const float rect1[4] = {q32.z, q32.w, q36.x, q36.y};
+            texel_lookup(a, u, v, kindm, zeros4, rect1, repeat, (int)P[54], m);
+            if (m_on > 0.5f) rough = m[3];
+            const float em = m_on * q40.z;
+            em_r = m[0] * em;
+            em_g = m[1] * em;
+            em_b = m[2] * em;
+        }
+    }
 
     // ---- stage 4: lighting ----
     const float x_ndc = 2.0f * (xg / P[41]) - 1.0f;
@@ -550,6 +683,27 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
     s.ux = n_ok ? ux * flip : 0.0f;
     s.uy = n_ok ? uy * flip : 0.0f;
     s.uz = n_ok ? uz * flip : 0.0f;
+    if (MAT == 2 && use_n) {
+        // the written normal replaces the shading normal (bump >= 1) or mixes
+        // with it and is renormalised (0 < bump < 1); zero stays zero
+        const float bump_k = P[75];
+        if (bump_k >= 1.0f) {
+            s.ux = nwx;
+            s.uy = nwy;
+            s.uz = nwz;
+        } else if (bump_k > 0.0f) {
+            const float mx = nwx * bump_k + s.ux * (1.0f - bump_k);
+            const float my = nwy * bump_k + s.uy * (1.0f - bump_k);
+            const float mz = nwz * bump_k + s.uz * (1.0f - bump_k);
+            const float mlen = sqrtf(mx * mx + my * my + mz * mz);
+            const float inv_ml = (n_dir && mlen > K(1e-20)) ? 1.0f / jmax(mlen, K(1e-30)) : 0.0f;
+            s.ux = mx * inv_ml;
+            s.uy = my * inv_ml;
+            s.uz = mz * inv_ml;
+        }
+    }
+    s.rough = rough;
+    s.metal = metal;
     s.base_r = srgb_to_linear(tex[0]);
     s.base_g = srgb_to_linear(tex[1]);
     s.base_b = srgb_to_linear(tex[2]);
@@ -565,9 +719,9 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
         occlusion = jmin(occlusion, inside ? b[4] : 1.0f);
     }
 
-    float lit_r = P[35] * P[36] * (s.base_r * K(0.96)) * hemi;
-    float lit_g = P[35] * P[37] * (s.base_g * K(0.96)) * hemi;
-    float lit_b = P[35] * P[38] * (s.base_b * K(0.96)) * hemi;
+    float lit_r = P[35] * P[36] * ka_of<MAT>(s, s.base_r) * hemi;
+    float lit_g = P[35] * P[37] * ka_of<MAT>(s, s.base_g) * hemi;
+    float lit_b = P[35] * P[38] * ka_of<MAT>(s, s.base_b) * hemi;
     if (!a.sun_off) {
         float sdx = -P[44], sdy = -P[45], sdz = -P[46];
         float slen = sqrtf(sdx * sdx + sdy * sdy + sdz * sdz);
@@ -581,7 +735,7 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
             day_g = day_g * sf;
             day_b = day_b * sf;
         }
-        light_brdf(a, s, sdx * inv_slen, sdy * inv_slen, sdz * inv_slen, day_r, day_g, day_b,
+        light_brdf<MAT>(a, s, sdx * inv_slen, sdy * inv_slen, sdz * inv_slen, day_r, day_g, day_b,
                    sr, sg, sb);
         lit_r = lit_r + P[43] * sr;
         lit_g = lit_g + P[43] * sg;
@@ -593,9 +747,9 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
     {
         // the batch ambient, read from the row here rather than kept alive
         const float* row = a.attr + (size_t)slot * a.n_attr;
-        lit_r = lit_r + __ldg(row + 25) * (s.base_r * K(0.96)) * hemi;
-        lit_g = lit_g + __ldg(row + 26) * (s.base_g * K(0.96)) * hemi;
-        lit_b = lit_b + __ldg(row + 27) * (s.base_b * K(0.96)) * hemi;
+        lit_r = lit_r + __ldg(row + 25) * ka_of<MAT>(s, s.base_r) * hemi;
+        lit_g = lit_g + __ldg(row + 26) * ka_of<MAT>(s, s.base_g) * hemi;
+        lit_b = lit_b + __ldg(row + 27) * ka_of<MAT>(s, s.base_b) * hemi;
     }
 
     for (int n = 0; n < a.n_lights; ++n) {
@@ -649,12 +803,19 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
             rad = rad * cube_shadow(a, P, wx, wy, wz, s.ux, s.uy, s.uz, L, k.lshadow(a) + 4 * n);
         const float rad_r = L[7] * rad, rad_g = L[8] * rad, rad_b = L[9] * rad;
         float cr, cg, cb;
-        light_brdf(a, s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
+        light_brdf<MAT>(a, s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
         // has_rad gate: a light with zero radiance adds nothing, even NaN
         const float has_rad = (rad_r != 0.0f || rad_g != 0.0f || rad_b != 0.0f) ? 1.0f : 0.0f;
         lit_r = lit_r + has_rad * cr;
         lit_g = lit_g + has_rad * cg;
         lit_b = lit_b + has_rad * cb;
+    }
+
+    if (MAT == 2) {
+        // the emissive, once, after every light
+        lit_r = lit_r + em_r;
+        lit_g = lit_g + em_g;
+        lit_b = lit_b + em_b;
     }
 
     float out_r, out_g, out_b;
@@ -708,6 +869,7 @@ static size_t mega_smem_bytes(int ns, int n_lights, int n_occ) {
            16;
 }
 
+template <int MAT>
 __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
     constexpr int PPT = SLICE_PPT(CL);
     constexpr int PX = SLICE_ROWS(CL) * TILE_W;
@@ -868,20 +1030,21 @@ __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
         kc.P = c_params;
         for (int i = tid; i < count; i += THREADS) {
             const int pix = l_pix[i];
-            shade_pixel(a, kc, x0 + pix % TILE_W, y0 + slice * SLICE_ROWS(CL) + pix / TILE_W,
+            shade_pixel<MAT>(a, kc, x0 + pix % TILE_W, y0 + slice * SLICE_ROWS(CL) + pix / TILE_W,
                         l_best[i], l_slot[i]);
         }
     }
     if (shared_state) cluster_wait();
 }
 
+template <int MAT>
 static int launch_mega(const MegaArgs& a, cudaStream_t stream) {
     const size_t smem = mega_smem_bytes(a.ns, a.n_lights, a.n_occ);
-    cudaError_t err = cudaFuncSetAttribute(mega_kernel,
+    cudaError_t err = cudaFuncSetAttribute(mega_kernel<MAT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((a.width + TILE_W - 1) / TILE_W, ((a.height + TILE_H - 1) / TILE_H) * CL);
-    return launch_clustered(mega_kernel, grid, THREADS, smem, stream, dim3(1, CL, 1), a);
+    return launch_clustered(mega_kernel<MAT>, grid, THREADS, smem, stream, dim3(1, CL, 1), a);
 }
 
 // shared memory a block needs for this frame
@@ -889,10 +1052,13 @@ extern "C" long long rx_mega_smem_bytes(int ns, int n_lights, int n_occ) {
     return (long long)mega_smem_bytes(ns, n_lights, n_occ);
 }
 
-// out[0..3]: registers, static and dynamic shared memory of the kernel for
-// this frame, and the blocks an SM holds at once
-extern "C" int rx_mega_resources(int ns, int n_lights, int n_occ, int* out) {
-    return kernel_resources(mega_kernel, THREADS, mega_smem_bytes(ns, n_lights, n_occ), out);
+// out[0..3]: registers, static and dynamic shared memory of the kernel of
+// material form `mat` for this frame, and the blocks an SM holds at once
+extern "C" int rx_mega_resources(int ns, int n_lights, int n_occ, int mat, int* out) {
+    const size_t smem = mega_smem_bytes(ns, n_lights, n_occ);
+    if (mat == 2) return kernel_resources(mega_kernel<2>, THREADS, smem, out);
+    if (mat == 1) return kernel_resources(mega_kernel<1>, THREADS, smem, out);
+    return kernel_resources(mega_kernel<0>, THREADS, smem, out);
 }
 
 extern "C" int rx_mega_render(
@@ -902,7 +1068,7 @@ extern "C" int rx_mega_render(
     const float* shadow, const int* lshadow, int* rgba, float* zeff, int ns, int n_attr,
     long long n_atlas, int n_lights, int n_occ, int height, int width, int sample_mode,
     int sun_off, int brdf_ggx, int stage_cut, int sun_base, int sun_res, int sun_tbase,
-    int sun_steps, int tonemap, int has_blend, void* stream) {
+    int sun_steps, int tonemap, int has_blend, int mat, void* stream) {
     MegaArgs a;
     a.planes = planes;
     a.attr = attr;
@@ -937,7 +1103,9 @@ extern "C" int rx_mega_render(
     a.sun_off = sun_off;
     a.brdf_ggx = brdf_ggx;
     a.stage_cut = stage_cut;
-    return launch_mega(a, static_cast<cudaStream_t>(stream));
+    if (mat == 2) return launch_mega<2>(a, static_cast<cudaStream_t>(stream));
+    if (mat == 1) return launch_mega<1>(a, static_cast<cudaStream_t>(stream));
+    return launch_mega<0>(a, static_cast<cudaStream_t>(stream));
 }
 
 // B1's lookup FMA (xla_fma) over n elements, so that it can be held to the

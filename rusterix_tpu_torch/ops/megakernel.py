@@ -15,10 +15,18 @@ Mega attr-table layout (f32 columns, the JAX package's layout):
   18 kind | 19 repeat (+4 = fullbright) | 20 has_normals
   21-24 rgba (SRC_PIXEL color) | 25-27 batch ambient rgb
   28-31 anim-resolved atlas rect (rx, ry, rw, rh)
-  blend extension (has_blend; without material or matmap it starts at 32):
-  32-34 blend weight plane | 35 kind2 | 36-39 rgba2 | 40-43 second rect |
-  44-47 padding
-  the material and matmap extensions (see the JAX module) are refused.
+  material extension (has_material; baked shaders' constant material):
+  32 roughness | 33 metallic
+  matmap extension (has_matmap, which implies has_material; the per-pixel
+  material sidecar tiles of baked shaders):
+  34-37 M1 rect (emissive rgb | roughness texels) | 38-41 M2 rect (encoded
+  normal | metallic texels) | 42 em_scale | 43 writes_normal | 44 matmap_on
+  blend extension (has_blend; it starts at mb = 45 with the matmap, 34 with
+  the material alone, else 32):
+  mb+0..2 blend weight plane | mb+3 kind2 | mb+4..7 rgba2 |
+  mb+8..11 second rect | 4 columns of padding
+The CUDA kernel reads rows 16 bytes at a time, but for a blend extension
+that follows the material columns, which it reads one float at a time.
 """
 
 from __future__ import annotations
@@ -45,7 +53,6 @@ from .visibility_pallas import (
 )
 
 N_PARAMS = 80
-
 #: launches of the CUDA kernel (one per mega_render call on CUDA tensors)
 launches = 0
 #: shared memory one block may use on the card (H100: 227 KB)
@@ -279,9 +286,10 @@ def _check_variants(has_blend, has_material, has_matmap, shadow_rows, shadow_spe
         )
     if stage_cut not in (0, 1, 2):
         raise ValueError(f"mega_render: stage_cut {stage_cut} is not 0, 1 or 2")
+    if has_matmap and not has_material:
+        raise ValueError("mega_render: has_matmap implies has_material (the table's fixed "
+                         "column layout)")
     refused = {
-        "has_material": has_material,
-        "has_matmap": has_matmap,
         "light_spec=None (generic one-hot light blend)": light_spec is None,
     }
     for name, on in refused.items():
@@ -391,7 +399,19 @@ def mega_render(
     of the fast sRGB polynomial; fullbright texels keep their raw bytes.
     `has_blend`: the table carries the blend extension (pack_mega_table with
     has_blend); where a winner's kind2 >= 0 its texel mixes toward the
-    second source's by the clipped weight plane over 1/w.
+    second source's by the clipped weight plane over 1/w. `has_material`:
+    the table carries each batch's constant roughness and metallic, which
+    set the Fresnel F0 (per channel), the diffuse and ambient scales and,
+    in the fast BRDF, the specular power exp2(shininess * log2(n.h)) with
+    shininess = clip(2 / max(roughness^2, 1e-4) - 2, 1, 2048); with
+    `brdf_ggx`, the GGX constants. `has_matmap` (with has_material): where a
+    winner's matmap is on, its roughness, metallic and emissive come from
+    the M1 / M2 sidecar texels at the pixel (the same sampler as the base
+    texel); where its shader wrote normals, the decoded normal (2 m2 - 1,
+    normalised; zero below length 0.02) replaces the shading normal, or at
+    a bump strength (params[75]) between 0 and 1 is mixed with it and
+    renormalised; the emissive (M1 rgb times em_scale) is added after the
+    lights.
 
     `stage_cut` is the JAX kernel's profiling instrument: the kernel stops
     after a stage, so that timing cuts 1, 2 and 0 splits its time into the
@@ -414,20 +434,21 @@ def mega_render(
             light_spec=light_spec, sun_off=sun_off, s_near=s_near,
             brdf_ggx=brdf_ggx, stage_cut=stage_cut, ao_img=ao_img,
             shadow_rows=shadow_rows, shadow_spec=shadow_spec, tonemap=tonemap,
-            has_blend=has_blend,
+            has_blend=has_blend, has_material=has_material, has_matmap=has_matmap,
         )
     return prepare_launch(
         vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         lights_packed, occ_packed, width, height, sample_mode, light_spec,
         sun_off, s_near, brdf_ggx, stage_cut, ao_img, shadow_rows, shadow_spec,
-        tonemap, has_blend,
+        tonemap, has_blend, has_material, has_matmap,
     )()
 
 
 def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
                    lights_packed, occ_packed, width, height, sample_mode, light_spec,
                    sun_off, s_near, brdf_ggx=False, stage_cut=0, ao_img=None,
-                   shadow_rows=None, shadow_spec=None, tonemap=False, has_blend=False):
+                   shadow_rows=None, shadow_spec=None, tonemap=False, has_blend=False,
+                   has_material=False, has_matmap=False):
     """Check and prepare mega_render's inputs for the CUDA kernel -> a
     function of no arguments that launches the kernel on them and returns
     (rgba, z_eff), the same two tensors at every call. mega_render is one
@@ -455,7 +476,11 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         raise ValueError(f"mega_render: bg_u32 is {tuple(inputs['bg'].shape)}, not {(height, width)}")
     if inputs["params"].numel() != N_PARAMS or inputs["lights"].shape[1] != 24:
         raise ValueError("mega_render: params must be (80,) and lights (L, 24)")
-    need = 44 if has_blend else 32
+    _check_variants(has_blend, has_material, has_matmap, shadow_rows, shadow_spec,
+                    light_spec, s_near, stage_cut)
+    mat = 2 if has_matmap else 1 if has_material else 0
+    front = (32, 34, 45)[mat]
+    need = front + (12 if has_blend else 0)
     if attr.shape[1] < need:
         raise ValueError(f"mega_render: attr table has {attr.shape[1]} columns, needs {need}")
     if attr.shape[1] % 4:
@@ -493,7 +518,7 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         llist.shape[0], inputs["occ"].shape[0], height, width,
         int(sample_mode), int(bool(sun_off)), int(bool(brdf_ggx)), int(stage_cut),
         int(sun_map[0]), int(sun_map[1]), int(sun_map[2]), int(sun_map[3]),
-        int(bool(tonemap)), int(bool(has_blend)),
+        int(bool(tonemap)), int(bool(has_blend)), mat,
     )
     # alive while the closure is
     keep = (planes, attr, sboxes, cboxes, inputs, llist, ao_img, shadow, lshadow)
@@ -567,9 +592,11 @@ def _apply_repeat(u, v, repeat):
 
 
 def _texel_lookup(atlas, u, v, rect, kind, rgba_cols, repeat, sample_mode,
-                  atlas_w):
+                  atlas_w, reads=None, live=None):
     """Texel resolve -> (r, g, b, a) f32 0..1, a direct gather on the flat
-    u32 atlas; out-of-range and non-texture pixels read 0."""
+    u32 atlas; out-of-range and non-texture pixels read 0. With a `reads`
+    list, the flat indices read (by the pixels of `live`, if given) are
+    appended to it."""
     is_tex = kind == float(SRC_TEXTURE)
     is_pix = kind == float(SRC_PIXEL)
     uu, vv = _apply_repeat(u, v, repeat)
@@ -581,6 +608,8 @@ def _texel_lookup(atlas, u, v, rect, kind, rgba_cols, repeat, sample_mode,
     def fetch(x, y):
         flat = (ry + y).to(torch.int32) * atlas_w + (rx + x).to(torch.int32)
         ok = is_tex & (flat >= 0) & (flat < n)
+        if reads is not None:
+            reads.append(flat[ok if live is None else ok & live])
         t32 = torch.where(ok, atlas[torch.where(ok, flat, 0).long()], 0)
         return [((t32 >> s) & 0xFF).float() for s in (0, 8, 16, 24)]
 
@@ -663,7 +692,7 @@ def mega_render_reference(
     light_spec: tuple = None, sun_off: bool = False, s_near=None,
     brdf_ggx: bool = False, return_work: bool = False, stage_cut: int = 0,
     ao_img=None, shadow_rows=None, shadow_spec: tuple = None, tonemap: bool = False,
-    has_blend: bool = False,
+    has_blend: bool = False, has_material: bool = False, has_matmap: bool = False,
 ):
     """Plain torch version of the megakernel: the kernel body's per-pixel
     math transcribed op for op (the JAX kernel's `_mega_kernel` stages 1-6),
@@ -673,20 +702,30 @@ def mega_render_reference(
     pixel-candidate visibility tests the scan performed (gated by the boxes
     and stopped early as the kernel is), "cube_reads" / "sun_reads", the
     shadow-map depth texels read (live pixels only, as the kernel reads
-    them), and "trans_steps", the transmittance layer steps taken (each
-    reads a depth and an alpha texel). `stage_cut` 1 and 2 stop where the kernel's cuts do (see
+    them), "trans_steps", the transmittance layer steps taken (each
+    reads a depth and an alpha texel), and "atlas_texels", the distinct
+    atlas texels read (the material sidecars by opaque pixels only, as the
+    kernel reads them). `stage_cut` 1 and 2 stop where the kernel's cuts do (see
     mega_render)."""
     if light_spec is None or s_near is None:
         raise ValueError("mega_render_reference needs light_spec and s_near")
     if stage_cut not in (0, 1, 2):
         raise ValueError(f"mega_render_reference: stage_cut {stage_cut} is not 0, 1 or 2")
+    if has_matmap and not has_material:
+        raise ValueError("mega_render_reference: has_matmap implies has_material")
     ao_img = _check_ao(ao_img, height, width, vis_planes.device)
     _shadow_launch_tables(shadow_rows, shadow_spec, light_spec, vis_planes.device)
     planes, attr, sboxes, cboxes = _prepare(vis_planes, alive, bbox, attr)
     hp = height + (-height % TILE_H)
     wp = width + (-width % TILE_W)
     best, idx, tests = _visibility(planes, sboxes, cboxes, s_near.float(), hp, wp)
-    work = {"vis_tests": tests, "cube_reads": 0, "sun_reads": 0, "trans_steps": 0}
+    work = {"vis_tests": tests, "cube_reads": 0, "sun_reads": 0, "trans_steps": 0,
+            "atlas_texels": 0}
+    reads = [] if return_work else None
+
+    def count_texels():
+        if reads:
+            work["atlas_texels"] = int(torch.unique(torch.cat(reads)).numel())
     # a tile shades when any of its pixels, padding included, has a winner
     tile_hit = (idx >= 0).reshape(hp // TILE_H, TILE_H, wp // TILE_W, TILE_W).any(dim=3).any(dim=1)
     tile_hit = tile_hit.repeat_interleave(TILE_H, 0).repeat_interleave(TILE_W, 1)[:height, :width]
@@ -725,12 +764,14 @@ def mega_render_reference(
 
     # ---- stage 3: texel resolve ----
     atlas_w = int(P[54].item())
-    tex = _texel_lookup(atlas_u32, u, v, rect, kind, rgba_cols, repeat, sample_mode, atlas_w)
+    tex = _texel_lookup(atlas_u32, u, v, rect, kind, rgba_cols, repeat, sample_mode, atlas_w,
+                        reads)
     if has_blend:
-        # the blend extension (mb = 32 without material or matmap)
-        B = [a[..., 32 + i] for i in range(12)]
+        # the blend extension after the material and matmap columns
+        mb = 45 if has_matmap else 34 if has_material else 32
+        B = [a[..., mb + i] for i in range(12)]
         tex2 = _texel_lookup(atlas_u32, u, v, tuple(B[8:12]), B[3], B[4:8], repeat,
-                             sample_mode, atlas_w)
+                             sample_mode, atlas_w, reads)
         b_w = torch.clamp((B[0] * xg + B[1] * yg + B[2]) / safe_w, 0.0, 1.0)
         blend_on = (B[3] >= 0.0).float() * b_w
         tex = [t1 * (1.0 - blend_on) + t2 * blend_on for t1, t2 in zip(tex, tex2)]
@@ -744,9 +785,24 @@ def mega_render_reference(
         return packed.to(torch.uint8).contiguous().view(torch.int32)[..., 0]
 
     if stage_cut == 2:
+        count_texels()
         texel = pack(q(tex_r), q(tex_g), q(tex_b), q(tex_a))
         out = (torch.where(tile_hit, texel, bg_u32), best.contiguous())
         return out + (work,) if return_work else out
+
+    if has_matmap:
+        # the per-pixel material sidecars: M1 = emissive rgb (over em_scale)
+        # | roughness, M2 = encoded normal (n + 1) / 2 | metallic, read
+        # through the base texel's sampler and repeat mode
+        m_on = a[..., 44]
+        kindm = torch.where(m_on > 0.5, float(SRC_TEXTURE), 0.0)
+        zeros4 = [torch.zeros_like(u)] * 4
+        opaque = q(tex_a) >= 255.0
+        m1 = _texel_lookup(atlas_u32, u, v, tuple(a[..., 34 + i] for i in range(4)), kindm,
+                           zeros4, repeat, sample_mode, atlas_w, reads, opaque)
+        m2 = _texel_lookup(atlas_u32, u, v, tuple(a[..., 38 + i] for i in range(4)), kindm,
+                           zeros4, repeat, sample_mode, atlas_w, reads, opaque)
+    count_texels()
 
     # ---- stage 4: lighting (rasterizer.rs:1319-1412 + light.rs:491-653) ----
     x_ndc = 2.0 * (xg / P[41]) - 1.0
@@ -777,12 +833,69 @@ def mega_render_reference(
     uy = torch.where(n_ok, uy * flip, 0.0)
     uz = torch.where(n_ok, uz * flip, 0.0)
 
+    if has_matmap:
+        # a written normal replaces the interpolated one unflipped (or, at a
+        # bump strength below 1, mixes with it); byte-127 "zero" texels
+        # decode below length 0.02 and keep hemisphere-only lighting
+        ndx, ndy, ndz = m2[0] * 2.0 - 1.0, m2[1] * 2.0 - 1.0, m2[2] * 2.0 - 1.0
+        dlen = torch.sqrt(ndx * ndx + ndy * ndy + ndz * ndz)
+        inv_dlen = torch.where(dlen > 0.02, 1.0 / torch.clamp(dlen, min=1e-30), 0.0)
+        use_n = (a[..., 43] > 0.5) & (m_on > 0.5)
+        bump_k = P[75]
+        wx_n, wy_n, wz_n = ndx * inv_dlen, ndy * inv_dlen, ndz * inv_dlen
+        mixed_x = wx_n * bump_k + ux * (1.0 - bump_k)
+        mixed_y = wy_n * bump_k + uy * (1.0 - bump_k)
+        mixed_z = wz_n * bump_k + uz * (1.0 - bump_k)
+        mlen = torch.sqrt(mixed_x * mixed_x + mixed_y * mixed_y + mixed_z * mixed_z)
+        inv_ml = torch.where((inv_dlen > 0.0) & (mlen > 1e-20),
+                             1.0 / torch.clamp(mlen, min=1e-30), 0.0)
+        use_full = use_n & (bump_k >= 1.0)
+        use_mix = use_n & (bump_k > 0.0) & (bump_k < 1.0)
+        ux = torch.where(use_full, wx_n, torch.where(use_mix, mixed_x * inv_ml, ux))
+        uy = torch.where(use_full, wy_n, torch.where(use_mix, mixed_y * inv_ml, uy))
+        uz = torch.where(use_full, wz_n, torch.where(use_mix, mixed_z * inv_ml, uz))
+
     base_r = _srgb_to_linear(tex_r)
     base_g = _srgb_to_linear(tex_g)
     base_b = _srgb_to_linear(tex_b)
-    kd_r = base_r * 0.96
-    kd_g = base_g * 0.96
-    kd_b = base_b * 0.96
+    if has_material:
+        # the batch's constant material (per pixel from the sidecars where
+        # the matmap is on): F0 per channel, the diffuse scale by the
+        # largest F0, the ambient by the constant 0.04 F0
+        m_rough = torch.clamp(a[..., 32], 0.0, 1.0)
+        m_metal = torch.clamp(a[..., 33], 0.0, 1.0)
+        if has_matmap:
+            m_rough = torch.where(m_on > 0.5, m1[3], m_rough)
+            m_metal = torch.where(m_on > 0.5, m2[3], m_metal)
+        f0_r = 0.04 + (base_r - 0.04) * m_metal
+        f0_g = 0.04 + (base_g - 0.04) * m_metal
+        f0_b = 0.04 + (base_b - 0.04) * m_metal
+        f0_max = torch.maximum(f0_r, torch.maximum(f0_g, f0_b))
+        kd_scale = (1.0 - m_metal) * (1.0 - f0_max)
+        kd_r, kd_g, kd_b = base_r * kd_scale, base_g * kd_scale, base_b * kd_scale
+        ka_scale = (1.0 - m_metal) * 0.96
+        ka_r, ka_g, ka_b = base_r * ka_scale, base_g * ka_scale, base_b * ka_scale
+        alpha_m = torch.clamp(m_rough * m_rough, min=1e-4)
+        shininess = torch.clamp(2.0 / alpha_m - 2.0, 1.0, 2048.0)
+        r_g = torch.clamp(m_rough, 0.045, 1.0)
+        a_g = r_g * r_g
+        a2, k_g, metal_g = a_g * a_g, (r_g + 1.0) * (r_g + 1.0) * 0.125, m_metal
+    else:
+        kd_r = base_r * 0.96
+        kd_g = base_g * 0.96
+        kd_b = base_b * 0.96
+        ka_r, ka_g, ka_b = kd_r, kd_g, kd_b
+        f0_r = f0_g = f0_b = None
+        # roughness 0.5 and metallic 0 folded into the GGX constants:
+        # a2 = 0.5^4, Smith k = 1.5^2 / 8
+        a2, k_g, metal_g = 0.0625, 0.28125, None
+
+    def fresnel(x5):
+        if f0_r is None:
+            fr = 0.04 + 0.96 * x5
+            return fr, fr, fr
+        return f0_r + (1.0 - f0_r) * x5, f0_g + (1.0 - f0_g) * x5, f0_b + (1.0 - f0_b) * x5
+
     hemi = 0.5 * (uy + 1.0)
     if ao_img is not None:
         hemi = hemi * ao_img
@@ -819,9 +932,9 @@ def mega_render_reference(
         inside = (wx >= occ[bi, 0]) & (wz >= occ[bi, 1]) & (wx <= occ[bi, 2]) & (wz <= occ[bi, 3])
         occlusion = torch.minimum(occlusion, torch.where(inside, occ[bi, 4], 1.0))
 
-    lit_r = P[35] * P[36] * kd_r * hemi
-    lit_g = P[35] * P[37] * kd_g * hemi
-    lit_b = P[35] * P[38] * kd_b * hemi
+    lit_r = P[35] * P[36] * ka_r * hemi
+    lit_g = P[35] * P[37] * ka_g * hemi
+    lit_b = P[35] * P[38] * ka_b * hemi
 
     def brdf_fast(ldx, ldy, ldz, rad_r, rad_g, rad_b):
         n_dot_l = torch.clamp(ux * ldx + uy * ldy + uz * ldz, min=0.0)
@@ -829,26 +942,30 @@ def mega_render_reference(
         hl = torch.sqrt(hx * hx + hy * hy + hz * hz)
         inv_hl = 1.0 / torch.clamp(hl, min=1e-30)
         n_dot_h = torch.clamp((ux * hx + uy * hy + uz * hz) * inv_hl, min=0.0)
-        nh2 = n_dot_h * n_dot_h
-        spec_b = nh2 * nh2 * nh2
+        if has_material:
+            spec_b = torch.where(
+                n_dot_h > 0.0,
+                torch.exp2(shininess * torch.log2(torch.clamp(n_dot_h, min=1e-38))), 0.0)
+        else:
+            nh2 = n_dot_h * n_dot_h
+            spec_b = nh2 * nh2 * nh2
         n_dot_v = torch.clamp(ux * vdx + uy * vdy + uz * vdz, min=0.0)
         x1 = 1.0 - torch.clamp(n_dot_v, 0.0, 1.0)
         x2 = x1 * x1
         x5 = x2 * x2 * x1
-        fr = 0.04 + 0.96 * x5
+        fr, fg, fb = fresnel(x5)
         sb = spec_b * n_dot_l
         dead = n_dot_l <= 0.0
         return (
             torch.where(dead, 0.0, (kd_r * n_dot_l + fr * sb) * rad_r),
-            torch.where(dead, 0.0, (kd_g * n_dot_l + fr * sb) * rad_g),
-            torch.where(dead, 0.0, (kd_b * n_dot_l + fr * sb) * rad_b),
+            torch.where(dead, 0.0, (kd_g * n_dot_l + fg * sb) * rad_g),
+            torch.where(dead, 0.0, (kd_b * n_dot_l + fb * sb) * rad_b),
         )
 
     def brdf_ggx_fn(ldx, ldy, ldz, rad_r, rad_g, rad_b):
-        # Cook-Torrance with roughness 0.5 and metallic 0 folded into the
-        # constants: a2 = 0.5^4, Smith k = 1.5^2 / 8 (the JAX kernel's
-        # `brdf` closure without material)
-        a2, k = 0.0625, 0.28125
+        # Cook-Torrance GGX (the JAX kernel's `brdf` closure): the material's
+        # constants, or roughness 0.5 and metallic 0 folded in
+        k = k_g
         n_dot_l = torch.clamp(ux * ldx + uy * ldy + uz * ldz, min=0.0)
         n_dot_v = torch.clamp(ux * vdx + uy * vdy + uz * vdz, min=0.0)
         hx, hy, hz = ldx + vdx, ldy + vdy, ldz + vdz
@@ -864,14 +981,16 @@ def mega_render_reference(
         x1 = 1.0 - torch.clamp(h_dot_v, 0.0, 1.0)
         x2 = x1 * x1
         x5 = x2 * x2 * x1
-        fr = 0.04 + 0.96 * x5
-        dd = n_dot_l * 0.31830988618379
+        fr, fg, fb = fresnel(x5)
+        # (1 - metallic) * n.l / pi; without material 1 - 0 is exact
+        dd = n_dot_l * 0.31830988618379 if metal_g is None else \
+            (1.0 - metal_g) * n_dot_l * 0.31830988618379
         sl = s * n_dot_l
         dead = (n_dot_l <= 0.0) | (n_dot_v <= 0.0)
         return (
             torch.where(dead, 0.0, ((1.0 - fr) * dd * base_r + fr * sl) * rad_r),
-            torch.where(dead, 0.0, ((1.0 - fr) * dd * base_g + fr * sl) * rad_g),
-            torch.where(dead, 0.0, ((1.0 - fr) * dd * base_b + fr * sl) * rad_b),
+            torch.where(dead, 0.0, ((1.0 - fg) * dd * base_g + fg * sl) * rad_g),
+            torch.where(dead, 0.0, ((1.0 - fb) * dd * base_b + fb * sl) * rad_b),
         )
 
     brdf = brdf_ggx_fn if brdf_ggx else brdf_fast
@@ -892,9 +1011,9 @@ def mega_render_reference(
     lit_r = lit_r * occlusion
     lit_g = lit_g * occlusion
     lit_b = lit_b * occlusion
-    lit_r = lit_r + amb_r * kd_r * hemi
-    lit_g = lit_g + amb_g * kd_g * hemi
-    lit_b = lit_b + amb_b * kd_b * hemi
+    lit_r = lit_r + amb_r * ka_r * hemi
+    lit_g = lit_g + amb_g * ka_g * hemi
+    lit_b = lit_b + amb_b * ka_b * hemi
 
     for li, lt in light_spec:
         lrow = Lp[li]
@@ -952,6 +1071,13 @@ def mega_render_reference(
         lit_r = lit_r + has_rad * cr
         lit_g = lit_g + has_rad * cg
         lit_b = lit_b + has_rad * cb
+
+    if has_matmap:
+        # emissive, once, after every light
+        em = m_on * a[..., 42]
+        lit_r = lit_r + m1[0] * em
+        lit_g = lit_g + m1[1] * em
+        lit_b = lit_b + m1[2] * em
 
     encode = _tonemap_scenevm if tonemap else _linear_to_srgb
     out_r = encode(lit_r)

@@ -24,7 +24,14 @@ a setup pass of the opacity pack, then per layer a visibility pass and
 blended back to front, and last the 2D batches in painter's order
 (`composite.d2_pass`, lit by the 2D lights, the map's walls blocking them).
 Vertex-blended batches (a second source mixed in by a per-vertex weight)
-take B1's has_blend variant and the G-buffer's blend branch.
+take B1's has_blend variant and the G-buffer's blend branch. Batches
+under a rusteria shader (`Scene.add_shader`, `Batch3D.set_shader`) render
+through the shader's pack-time bake (`ops/scene_pack.py`, evaluated by
+`shader/jaxc.py` on the rasterizer's device): its atlas tile, one frame or
+16 animation frames, with the constant roughness / metallic it wrote
+(B1's has_material) or its per-pixel material sidecar tiles (has_matmap:
+emissive, roughness, metallic and a written normal); the G-buffer reads
+the same. A shader that reads its inputs cannot bake and is refused.
 `set_tonemap("scenevm")` encodes the lit colour with the SceneVM transform
 in B1 and in the reflection composite. With SSAA the frame renders at n
 times the size and is box-filtered down. The 2D line overlay is drawn
@@ -102,6 +109,7 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
                  refl_scale: int = 1, ao_taps: tuple = None,
                  sky_light: bool = False, shadow_rows=None, shadow_params=None,
                  shadow_spec: tuple = None, tonemap: bool = False, has_blend: bool = False,
+                 has_material: bool = False, has_matmap: bool = False,
                  **_later) -> dict:
     """The frame's preparation before its kernels: setup pass, megakernel
     table, Morton + front-to-back sort and the parameter packs -> dict with
@@ -118,8 +126,12 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
     shadow_spec: a bake of shadow.bake_shadow_pack (None: no shadows).
     `has_blend`: the pack has vertex-blended batches (kind2 >= 0); the setup
     pass then interpolates their blend weight plane and the table carries
-    the blend columns B1 mixes the second texel by. The reflection, AO and
-    sky-light settings are read by render_frame."""
+    the blend columns B1 mixes the second texel by. `has_material`: the
+    pack has batches with a constant roughness / metallic other than the
+    defaults (0.5, 0), from baked shaders; `has_matmap`: batches whose baked
+    shader wrote per-pixel material (the M1 / M2 sidecar tiles; implies
+    has_material). Both add their table columns and B1's variants. The
+    reflection, AO and sky-light settings are read by render_frame."""
     dev = d3["pos"].device
     vis, attr, bbox, alive, tri_id = setup_pass(
         d3["pos"], d3["uv"], d3["nrm"], d3["valid"], d3["cull"],
@@ -127,7 +139,8 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
         torch.from_numpy(uniforms["proj"]).to(dev),
         width, height, bw=d3["bw"] if has_blend else None,
     )
-    table = pack_mega_table(attr, tri_id, d3, atlas, int(uniforms["anim_frame"]), has_blend)
+    table = pack_mega_table(attr, tri_id, d3, atlas, int(uniforms["anim_frame"]), has_blend,
+                            has_material, has_matmap)
     vis_s, bbox_s, alive_s, table_s, s_near, sort_perm = morton_ftb_sort(
         vis, bbox, alive.float(), table, width, height, return_perm=True
     )
@@ -147,7 +160,8 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
         "mega_kwargs": {"light_spec": light_spec, "sun_off": sun_off, "s_near": s_near,
                         "brdf_ggx": brdf_ggx, "shadow_rows": shadow_rows,
                         "shadow_spec": shadow_spec, "tonemap": tonemap,
-                        "has_blend": has_blend},
+                        "has_blend": has_blend, "has_material": has_material,
+                        "has_matmap": has_matmap},
     }
 
 
@@ -254,7 +268,8 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
                  preserve_transparency: bool = False, has_sky: bool = False,
                  sky_pre: dict = None, has_brush: bool = False, has_blend: bool = False,
                  d2=None, has_d2: bool = False, has_lights: bool = False,
-                 has_ambient: bool = False):
+                 has_ambient: bool = False, has_material: bool = False,
+                 has_matmap: bool = False):
     """One frame on the device -> (H, W, 4) uint8 tensor: the JAX
     render_frame's megakernel branch (ops/raster.py:233-500 there). The
     opaque frame comes from the megakernel (B1). With AO (`ao_taps` from
@@ -274,13 +289,14 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
     and shaded against the opaque pack), blended back to front. Last, with
     `has_d2`, the 2D triangles `d2` in painter's order (composite.d2_pass,
     lit when `has_lights` / `has_ambient`). `has_blend` (vertex-blended
-    batches) reaches B1 and every G-buffer. Arguments as for
-    frame_inputs."""
+    batches), `has_material` and `has_matmap` (baked shader materials)
+    reach B1 and every G-buffer. Arguments as for frame_inputs."""
     fi = frame_inputs(
         d3, lights, atlas, uniforms, background, width, height, sample_mode,
         has_fog, light_spec, sun_off, brdf_ggx,
         shadow_rows=shadow_rows, shadow_params=shadow_params, shadow_spec=shadow_spec,
-        tonemap=tonemap, has_blend=has_blend,
+        tonemap=tonemap, has_blend=has_blend, has_material=has_material,
+        has_matmap=has_matmap,
     )
     pre = visibility_prepass(fi, width, height) if (ao_taps or refl_samples or sky_light) else None
     ao_img = ambient_occlusion(pre, uniforms, height, ao_taps) if ao_taps else None
@@ -295,13 +311,13 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
         refl, rmask = reflection_pass_scaled(
             *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms,
             width, height, sample_mode, refl_samples, scale=refl_scale, shadow=shadow,
-            has_blend=has_blend,
+            has_blend=has_blend, has_material=has_material, has_matmap=has_matmap,
         )
         frame = apply_reflections(frame, refl, rmask, tonemap=tonemap)
     if sky_light:
         sky_term, sky_mask = sky_light_pass(
             *pre, fi["attr"], fi["tri_id"], d3, atlas, uniforms, width, height, sample_mode,
-            has_blend=has_blend,
+            has_blend=has_blend, has_material=has_material, has_matmap=has_matmap,
         )
         if ao_taps:
             sky_term = sky_term * ao_img[..., None]
@@ -318,6 +334,7 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
                     z_o, idx_o, hit_o, attr_o, tri_id_o, d3_op, atlas, lights, uniforms,
                     width, height, sample_mode, refl_samples, scale=refl_scale,
                     shadow=shadow, scene_d3=d3, has_blend=has_blend,
+                    has_material=has_material, has_matmap=has_matmap,
                 )
                 # the layer colour is display-encoded with the fast sRGB
                 # pair (_shade_opacity) whatever the frame's tonemap is
@@ -854,7 +871,6 @@ class Rasterizer:
         return Ray(near, d.astype(np.float32))
 
     def _refuse_unported_scene(self, scene, packed, mesh):
-        d3 = packed.d3
         dynamic = bool(scene.d3_dynamic or scene.d3_dynamic_opacity or scene.d2_dynamic)
         shadows = self.shadow_settings is not None and self.render_mode.d3_active
         checks = {
@@ -864,10 +880,11 @@ class Rasterizer:
             "dynamic shadow casters (shadows with dynamic batches)": shadows
             and dynamic and self.shadow_settings["dynamic_casters"],
             "dynamic batches": dynamic,
-            "runtime or baked shaders": bool(getattr(scene, "shaders", None))
-            or bool(packed.runtime_shaders),
-            "material": bool((d3.rough != 0.5).any() or d3.metal.any()),
-            "matmap": bool((d3.m1_slot >= 0).any()),
+            # baked shaders render through their atlas tiles; a shader that
+            # reads its inputs (color, normal, hitpoint, material) stays a
+            # per-pixel runtime shader, 3D or 2D, which the port refuses
+            "runtime shaders (rusteria shaders that read their inputs)":
+            bool(packed.runtime_shaders),
         }
         for name, on in checks.items():
             if on:
@@ -913,7 +930,8 @@ class Rasterizer:
         cache = _SCENE_CACHE.get(key)
         if cache is None or packed is not None:
             if packed is None:
-                packed = PackedScene.from_scene(scene, assets, static_only=True)
+                packed = PackedScene.from_scene(scene, assets, static_only=True,
+                                                device=self.device)
             cache = {"packed": packed, **packed_to_torch(packed, self.device)}
             _SCENE_CACHE.clear()  # one live packed scene per process is enough
             _SCENE_CACHE[key] = cache
@@ -993,6 +1011,11 @@ class Rasterizer:
             has_sky=has_sky, sky_pre=sky_pre,
             has_brush=self.brush_preview is not None,
             has_blend=bool((packed.d3.kind2 >= 0).any()),
+            # as the JAX package derives them (its ops/raster.py:1495-1500):
+            # a matmap implies a material
+            has_material=bool((packed.d3.rough != 0.5).any() or packed.d3.metal.any()
+                              or (packed.d3.m1_slot >= 0).any()),
+            has_matmap=bool((packed.d3.m1_slot >= 0).any()),
             d2=cache["d2"],
             has_d2=self.render_mode.d2_active and bool(packed.d2.valid.any()),
             has_lights=len(live_lights) > 0,

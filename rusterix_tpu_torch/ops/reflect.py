@@ -384,7 +384,8 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
 
 def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniforms,
                     width: int, height: int, sample_mode: int = 0, samples: int = 1,
-                    stride: int = 1, shadow=None, scene_d3=None, has_blend: bool = False):
+                    stride: int = 1, shadow=None, scene_d3=None, has_blend: bool = False,
+                    has_material: bool = False, has_matmap: bool = False):
     """GGX reflection radiance for every covered pixel -> ((H, W, 3) linear,
     (H, W) applied mask; pixels whose samples all faced away keep 0).
 
@@ -399,11 +400,13 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
     shaded against (default `d3`, the G-buffer's pack): a transparency
     layer takes its G-buffer from the opacity pack and its rays from the
     opaque one. `has_blend`: the G-buffer mixes vertex-blended batches'
-    second texel in (gbuffer_pass)."""
+    second texel in; `has_material` / `has_matmap`: it reads baked shaders'
+    roughness, metallic and written normals (gbuffer_pass)."""
     dev = z.device
     sd3 = d3 if scene_d3 is None else scene_d3
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
-                     width, height, sample_mode, has_blend=has_blend, stride=stride)
+                     width, height, sample_mode, has_blend=has_blend,
+                     has_material=has_material, has_matmap=has_matmap, stride=stride)
     f0 = 0.04 + (g["base"] - 0.04) * g["metallic"][..., None]
     max_dist = float(np.float32(uniforms["refl_dist"]))
     sky_rgb = torch.from_numpy(np.asarray(uniforms["refl_sky"], np.float32))
@@ -479,7 +482,8 @@ def _resize_bilinear(img, height: int, width: int):
 def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                            uniforms, width: int, height: int, sample_mode: int = 0,
                            samples: int = 1, scale: int = 1, shadow=None, scene_d3=None,
-                           has_blend: bool = False):
+                           has_blend: bool = False, has_material: bool = False,
+                           has_matmap: bool = False):
     """reflection_pass at 1/scale resolution, bilinearly upsampled.
 
     scale 1 is the full-resolution pass. With scale > 1 the pass traces
@@ -487,18 +491,19 @@ def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
     rays per sample), the radiance (zero where no sample applied) and the
     applied mask are upsampled as jax.image.resize does, and a pixel takes
     the upsampled radiance where the upsampled mask exceeds 0.5 and the
-    full-resolution pre-pass covers it. `shadow`, `scene_d3` and
-    `has_blend` as for reflection_pass."""
+    full-resolution pre-pass covers it. `shadow`, `scene_d3`, `has_blend`,
+    `has_material` and `has_matmap` as for reflection_pass."""
     if scale <= 1:
         return reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                                uniforms, width, height, sample_mode, samples, shadow=shadow,
-                               scene_d3=scene_d3, has_blend=has_blend)
+                               scene_d3=scene_d3, has_blend=has_blend,
+                               has_material=has_material, has_matmap=has_matmap)
     hs, ws = height // scale, width // scale
     sl = (slice(0, hs * scale, scale), slice(0, ws * scale, scale))
     refl_lo, mask_lo = reflection_pass(
         z[sl], idx[sl], hit[sl], attr_planes, tri_id, d3, atlas, lights, uniforms,
         ws, hs, sample_mode, samples, stride=scale, shadow=shadow, scene_d3=scene_d3,
-        has_blend=has_blend,
+        has_blend=has_blend, has_material=has_material, has_matmap=has_matmap,
     )
     refl_lo = torch.where(mask_lo[..., None], refl_lo, 0.0)
     up = _resize_bilinear(refl_lo, height, width)
@@ -538,17 +543,19 @@ def sky_rays(g, hit) -> dict:
 
 
 def sky_light_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
-                   width: int, height: int, sample_mode: int = 0, has_blend: bool = False):
+                   width: int, height: int, sample_mode: int = 0, has_blend: bool = False,
+                   has_material: bool = False, has_matmap: bool = False):
     """Directional sky-bounce ambient (the WGSL `sky_contribution`,
     3d_shader.wgsl:744-758) -> (radiance (H, W, 3) linear, applied mask).
 
     Per covered pixel ONE mirror ray (sky_rays), range-capped by
     uniforms["refl_dist"], through the ray-intersect kernel (B3); where it
     escapes, the pixel gains refl_sky * max(N.y, 0) * albedo. The caller
-    scales the term by the AO factor where AO is on. `has_blend` as for
-    reflection_pass."""
+    scales the term by the AO factor where AO is on. `has_blend`,
+    `has_material` and `has_matmap` as for reflection_pass."""
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
-                     width, height, sample_mode, has_blend=has_blend)
+                     width, height, sample_mode, has_blend=has_blend,
+                     has_material=has_material, has_matmap=has_matmap)
     r = sky_rays(g, hit)
     ray = (r["o_x"], r["o_y"], r["o_z"], r["d_x"], r["d_y"], r["d_z"])
     max_dist = float(np.float32(uniforms["refl_dist"]))

@@ -57,7 +57,9 @@ class AtlasIndex:
     shader_mat_slots: Dict[int, tuple] = None
 
     @staticmethod
-    def build(assets, scene) -> "AtlasIndex":
+    def build(assets, scene, device=None) -> "AtlasIndex":
+        """`device` runs the shader bakes (Rusteria.bake_state; None is
+        CUDA, as resolve_device has it)."""
         tiles: List[Tile] = []
         static_offset = 0
         tiles.extend(assets.tile_list)
@@ -101,14 +103,15 @@ class AtlasIndex:
             from ..models.texture import Texture
             from ..shader.jaxc import Rusteria
 
-            state = Rusteria.bake_state(prog, 128, assets.palette, time=0.0)
+            state = Rusteria.bake_state(prog, 128, assets.palette, time=0.0,
+                                        device=device)
             states = [state]
             if getattr(prog, "uses_time", False):
                 # syntactic `time` reads don't prove animation (the reference
                 # wood shader does `time * 0.0`) — probe at an irrational
                 # second time so periodic shaders can't alias
                 state1 = Rusteria.bake_state(
-                    prog, 128, assets.palette, time=0.7318531
+                    prog, 128, assets.palette, time=0.7318531, device=device
                 )
                 if any(
                     not np.array_equal(state[k], state1[k]) for k in state
@@ -117,7 +120,7 @@ class AtlasIndex:
                     states = [state] + [
                         Rusteria.bake_state(
                             prog, 128, assets.palette,
-                            time=i * SHADER_ANIM_DT,
+                            time=i * SHADER_ANIM_DT, device=device,
                         )
                         for i in range(1, SHADER_ANIM_FRAMES)
                     ]
@@ -603,12 +606,14 @@ class PackedScene:
         d2_capacity: Optional[int] = None,
         light_capacity: Optional[int] = None,
         static_only: bool = False,
+        device=None,
     ) -> "PackedScene":
         """static_only=True leaves the dynamic batch lists out — they pack
         per frame via pack_dynamic() and concatenate on device, so entity
-        motion never re-uploads the static world."""
+        motion never re-uploads the static world. `device` runs the shader
+        bakes (AtlasIndex.build)."""
         inc = not static_only
-        atlas_index = AtlasIndex.build(assets, scene)
+        atlas_index = AtlasIndex.build(assets, scene, device)
         d3 = pack_batches_3d(
             scene.all_d3_batches(include_dynamic=inc), atlas_index, d3_capacity
         )

@@ -5,7 +5,9 @@
 normal facing the viewer, the linear albedo and the material of the winning
 candidate from the setup pass's attribute planes and the packed scene's
 per-triangle fields, with vertex-blended batches mixed toward their second
-texel. Material, matmap and runtime shaders raise NotImplementedError.
+texel and baked shaders' materials (the batch's constant roughness and
+metallic, or the per-pixel M1 / M2 sidecar texels with the emissive and a
+written normal). Runtime shaders raise NotImplementedError.
 `light_radiance` evaluates every light at every pixel (the 2D pass's
 lights).
 
@@ -133,6 +135,13 @@ def resolve_texel(kind, tex_slot, rgba, repeat, u, v, atlas, anim_frame,
     black = torch.zeros_like(rgba)
     black[..., 3] = default_alpha
     return torch.where(is_other[..., None], black, texel)
+
+
+def _sqrt_f32(x):
+    """The correctly rounded f32 square root (XLA's and CUDA's), taken in
+    f64 (torch's vectorised f32 CPU square root misses the last bit on some
+    inputs)."""
+    return torch.sqrt(x.double()).float()
 
 
 def _dot(a, b):
@@ -281,23 +290,26 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
     centres x*stride + 0.5 and the unprojection uses the full frame's size.
     `has_blend`: attr_planes carry the blend weight plane (columns 18-20)
     and meta kind2 / tex_slot2 / rgba2; where kind2 >= 0 the texel mixes
-    toward the second source by the clipped perspective-correct weight."""
-    refused = {
-        "material (has_material)": has_material,
-        "matmap (has_matmap)": has_matmap,
-        "runtime shaders": bool(shaders),
-    }
-    for name, on in refused.items():
-        if on:
-            raise NotImplementedError(
-                f"gbuffer_pass with {name} is not ported to rusterix_tpu_torch yet")
+    toward the second source by the clipped perspective-correct weight.
+    `has_material`: meta rough / metal are the batches' constant material
+    (clipped to [0, 1]); `has_matmap` (with has_material): where a winner's
+    m1_slot >= 0 its roughness, metallic and emissive (M1 rgb times
+    em_scale) come from the M1 / M2 sidecar texels at the pixel, and where
+    its nmap is set the decoded M2 normal replaces the shading normal (or,
+    at uniforms["bump_strength"] between 0 and 1, mixes into it), as the
+    JAX package's gbuffer_pass computes them."""
+    if shaders:
+        raise NotImplementedError(
+            "gbuffer_pass with runtime shaders is not ported to rusterix_tpu_torch yet")
+    if has_matmap and not has_material:
+        raise ValueError("gbuffer_pass: has_matmap implies has_material")
     dev = z.device
     slot = torch.clamp(idx, min=0).long()
 
     # one fused row gather: the 18 plane floats and the meta fields of the
     # winner; receives_light=False rides the repeat column as +4
     repeat_enc = meta["repeat"].float() + 4.0 * (meta["receives_light"] < 0.5).float()
-    meta_mat = torch.cat([
+    meta_cols = [
         meta["kind"].float()[:, None],
         meta["tex_slot"].float()[:, None],
         repeat_enc[:, None],
@@ -305,14 +317,21 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
         meta["shader"].float()[:, None],
         meta["rgba"].float(),
         meta["ambient"].float(),
-    ], dim=1)
-    cols = [attr_planes[:, :18], meta_mat[tri_id.long()]]
+    ]
+    if has_material:
+        meta_cols += [meta["rough"].float()[:, None], meta["metal"].float()[:, None]]
+    if has_matmap:
+        meta_cols += [meta["m1_slot"].float()[:, None], meta["m2_slot"].float()[:, None],
+                      meta["em_scale"].float()[:, None], meta["nmap"].float()[:, None]]
+    cols = [attr_planes[:, :18], torch.cat(meta_cols, dim=1)[tri_id.long()]]
+    # the blend columns follow the material and matmap ones
+    mb = 30 + (2 if has_material else 0) + (4 if has_matmap else 0)
     if has_blend:
         blend_mat = torch.cat([meta["kind2"].float()[:, None],
                                meta["tex_slot2"].float()[:, None],
                                meta["rgba2"].float()], dim=1)
         cols += [attr_planes[:, 18:21], blend_mat[tri_id.long()]]
-    g = torch.cat(cols, dim=1)[slot]  # (H, W, 30), with the blend 39
+    g = torch.cat(cols, dim=1)[slot]  # (H, W, mb), with the blend mb + 9
     planes = g[..., :18]
     kind = g[..., 18].to(torch.int32)
     tex_slot = g[..., 19].to(torch.int32)
@@ -348,23 +367,61 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
     texel = resolve_texel(kind, tex_slot, rgba, repeat, u, v, atlas,
                           uniforms["anim_frame"], sample_mode)
     if has_blend:
-        kind2 = g[..., 33].to(torch.int32)
+        kind2 = g[..., mb + 3].to(torch.int32)
         # the weight plane and the mix in XLA's CPU rounding:
         # fma(a, x, b*y) + c, and fma(texel2, w, texel * (1 - w))
-        pb = g[..., 30:33]
+        pb = g[..., mb:mb + 3]
         b_w = torch.clamp((_fma(pb[..., 0], px, pb[..., 1] * py) + pb[..., 2]) / inv_w,
                           0.0, 1.0)[..., None]
-        texel2 = resolve_texel(kind2, g[..., 34].to(torch.int32), g[..., 35:39], repeat, u, v,
-                               atlas, uniforms["anim_frame"], sample_mode)
+        texel2 = resolve_texel(kind2, g[..., mb + 4].to(torch.int32), g[..., mb + 5:mb + 9],
+                               repeat, u, v, atlas, uniforms["anim_frame"], sample_mode)
         texel = torch.where((kind2 >= 0)[..., None],
                             _fma(texel2, b_w, texel * (1.0 - b_w)), texel)
+
+    if has_material:
+        roughness = torch.clamp(g[..., 30], 0.0, 1.0)
+        metallic = torch.clamp(g[..., 31], 0.0, 1.0)
+    else:
+        roughness = torch.full_like(u, 0.5)
+        metallic = torch.zeros_like(u)
+    emissive = torch.zeros_like(n_raw)
+    if has_matmap:
+        # the sidecars through the base texel's sampler: M1 = emissive rgb
+        # (over em_scale) | roughness, M2 = encoded normal | metallic
+        m1s, m2s = g[..., 32].to(torch.int32), g[..., 33].to(torch.int32)
+        m_on = m1s >= 0
+        kindm = torch.where(m_on, SRC_TEXTURE, 0)
+        zeros4 = torch.zeros_like(rgba)
+        m1 = resolve_texel(kindm, m1s, zeros4, repeat, u, v, atlas, uniforms["anim_frame"],
+                           sample_mode)
+        m2 = resolve_texel(kindm, m2s, zeros4, repeat, u, v, atlas, uniforms["anim_frame"],
+                           sample_mode)
+        roughness = torch.where(m_on, m1[..., 3], roughness)
+        metallic = torch.where(m_on, m2[..., 3], metallic)
+        emissive = torch.where(m_on[..., None], m1[..., :3] * g[..., 34:35], emissive)
+        # the written normal (byte-127 "zero" texels decode below length
+        # 0.02 and keep hemisphere-only lighting), replacing the shading
+        # normal at bump >= 1 or mixed into it (SceneVM's
+        # normalize(mix(N, N_written, bump))); lengths as XLA fuses the dots
+        n_dec = m2[..., :3] * 2.0 - 1.0
+        dlen = _sqrt_f32(_dot(n_dec, n_dec))[..., None]
+        n_dir = torch.where(dlen > 0.02, n_dec / torch.clamp(dlen, min=1e-30), 0.0)
+        bump_k = float(np.float32(uniforms.get("bump_strength", 1.0)))
+        mixed = _fma(normal, 1.0 - bump_k, n_dir * bump_k)
+        mlen = _sqrt_f32(_dot(mixed, mixed))[..., None]
+        mixed = torch.where((dlen > 0.02) & (mlen > 1e-20),
+                            mixed / torch.clamp(mlen, min=1e-30), 0.0)
+        use_n = (m_on & (g[..., 35] > 0.5))[..., None]
+        normal = torch.where(use_n & (bump_k >= 1.0), n_dir,
+                             torch.where(use_n & (0.0 < bump_k < 1.0), mixed, normal))
     return {
         "world": world,
         "view_dir": view_dir,
         "normal": normal,
         "base": srgb_to_linear_fast(texel[..., :3]),
-        "roughness": torch.full_like(u, 0.5),
-        "metallic": torch.zeros_like(u),
+        "roughness": roughness,
+        "metallic": metallic,
+        "emissive": emissive,
         "texel": texel,
         "fullbright": fullbright,
     }

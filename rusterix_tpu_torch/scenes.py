@@ -391,3 +391,132 @@ def build_map_glass_refl_scene(width: int, height: int, device=None):
     rast, scene, assets = build_map_glass_scene(width, height, device=device)
     rast.set_brdf("ggx").set_reflections(1)
     return rast, scene, assets
+
+
+#: the bench's wood shader (bench.py WOOD_SHADER, the reference's
+#: examples/cube_shaded.rs): it reads `time` only as time * 0.0, so it bakes
+#: to one frame, with the constant roughness 0.6 as the batch's material
+WOOD_SHADER = """
+fn shade() {
+    let t = time * 0.0;
+    let uv2 = uv / 3.0 - vec2(1.5);
+    let n1 = sample(uv2 + vec2(t, 0.0), "fbm_perlin");
+    let n2 = sample(uv2 * 2.0 + vec2(0.0, t*0.7), "fbm_perlin");
+    let turb = 0.65 * n1 + 0.35 * n2;
+    let rings = length(uv2) + 0.22 * (turb - 0.5) * 2.0;
+    let rings_mask = pow(1.0 - abs(sin(rings * 10.0)), 3.0);
+    color = mix(vec3(0.72, 0.52, 0.32), vec3(0.45, 0.30, 0.16), rings_mask);
+    roughness = 0.6;
+}
+"""
+
+#: the bench's time-dependent shader (bench.py build_cube_timeshader_scene):
+#: 16 animation frames, a quarter of a second of shader time apart
+TIME_SHADER = """
+fn shade() {
+    let t = fract(time / 4.0);
+    let uv2 = uv / 3.0 - vec2(1.5);
+    let waves = sin((length(uv2) + t) * 10.0);
+    let mask = pow(1.0 - abs(waves), 3.0);
+    color = mix(vec3(0.72, 0.52, 0.32), vec3(0.45, 0.30, 0.16), mask);
+    roughness = 0.6;
+}
+"""
+
+#: per-pixel material shaders (tests/test_matmap.py): emissive stripes with
+#: roughness and metallic varying over uv, and a written normal
+EMISSIVE_VARYING = """
+fn shade() {
+    color = vec3(0.3, 0.3, 0.35);
+    emissive = vec3(step(0.5, fract(uv.x * 2.0)) * 0.8, 0.0, 0.1);
+    roughness = fract(uv.y * 3.0);
+    metallic = step(0.5, fract(uv.y));
+}
+"""
+
+NORMAL_WRITER = """
+fn shade() {
+    color = vec3(0.6, 0.5, 0.4);
+    normal = vec3(sin(uv.x * 6.28318), 0.6, cos(uv.x * 6.28318));
+}
+"""
+
+
+def build_cube_shaded_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the bench's cube_shaded (bench.py
+    build_cube_shaded_scene, the reference's examples/cube_shaded.rs): a
+    unit box under the wood shader (WOOD_SHADER), a point light at (2, 0.8,
+    1), the gray gradient background, the orbit camera at distance 1.5 and
+    ambient 0.1. The shader bakes to an atlas tile at pack time, on the
+    rasterizer's device."""
+    from .ops.raster import Rasterizer
+
+    scene = Scene.from_static(
+        [],
+        [
+            Batch3D.from_box(-0.5, -0.5, -0.5, 1.0, 1.0, 1.0)
+            .set_cull_mode(CullMode.Off)
+            .with_computed_normals()
+            .set_shader(0)
+        ],
+    ).set_background(VGrayGradientShader()).set_lights(
+        [Light(LightType.Point).with_position([2.0, 0.8, 1.0]).with_intensity(1.0).compile()]
+    )
+    scene.add_shader(WOOD_SHADER)
+    camera = D3OrbitCamera()
+    camera.set_parameter_f32("distance", 1.5)
+    rast = Rasterizer.setup(None, camera.view_matrix(), camera.projection_matrix(width, height),
+                            device=device).ambient([0.1, 0.1, 0.1, 1.0])
+    return rast, scene, Assets.default()
+
+
+def build_cube_timeshader_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): build_cube_shaded_scene under the
+    time-dependent TIME_SHADER (bench.py build_cube_timeshader_scene), which
+    bakes to SHADER_ANIM_FRAMES animation frames; scene.animation_frame
+    picks the frame."""
+    rast, scene, assets = build_cube_shaded_scene(width, height, device=device)
+    scene.shaders.clear()
+    scene.shaders_with_opacity.clear()
+    scene.add_shader(TIME_SHADER)
+    scene.touch()
+    return rast, scene, assets
+
+
+def build_map_material_scene(width: int, height: int, device=None, rooms_x: int = 5,
+                             rooms_y: int = 5):
+    """-> (Rasterizer, scene, assets): the map (bench.py:389-440; rooms_x x
+    rooms_y rooms, 5 x 5 in the bench) under per-pixel materials, with the
+    sun, the GGX BRDF and one reflection ray per pixel of
+    build_map_refl_scene. Every wall batch takes EMISSIVE_VARYING. The map
+    has no floor batches (its open doorways leave MapScript no closed
+    sector), so each room gets a 10 x 10 floor quad at height 0, its uv the
+    world position in units, under NORMAL_WRITER. Both shaders bake to
+    material sidecar tiles (B1's has_matmap); the bump strength keeps its
+    default (1: the written normal replaces the geometric one)."""
+    from .ops.raster import Rasterizer
+
+    assets = _map_assets()
+    m = MapScript(assets).compile(_map_source(["move_forward(2)"], rooms_x, rooms_y))
+    scene = Scene.empty()
+    D3Builder().build(m, assets, scene)
+    for b in scene.all_d3_batches(include_dynamic=False):
+        b.set_shader(0)
+    for ry in range(rooms_y):
+        for rx in range(rooms_x):
+            x0, z0 = 10.0 * rx, 10.0 * ry
+            corners = [(x0, z0), (x0 + 10.0, z0), (x0 + 10.0, z0 + 10.0), (x0, z0 + 10.0)]
+            floor = Batch3D.new(
+                [(x, 0.0, z, 1.0) for x, z in corners], [(0, 1, 2), (0, 2, 3)],
+                [(x, z) for x, z in corners],
+            ).set_cull_mode(CullMode.Off).with_computed_normals().set_shader(1)
+            scene.d3_static.append(floor)
+    scene.add_shader(EMISSIVE_VARYING)
+    scene.add_shader(NORMAL_WRITER)
+    scene.touch()
+    rast = _map_lights_and_camera(scene, width, height, device)
+    rast.sun_dir = np.array([0.4, -1.0, 0.25], np.float32)
+    rast.sun_color = np.array([1.0, 1.0, 0.95], np.float32)
+    rast.day_factor = 1.0
+    rast.set_brdf("ggx").set_reflections(1)
+    return rast, scene, assets

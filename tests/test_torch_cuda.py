@@ -7,7 +7,9 @@ and with the others), the whole CUDA frames (opaque, with GGX reflections
 at full and half scale, with AO, with sky light, with SSAA, with shadows,
 with shadowed reflections, the glazed map under the sky without and with
 reflections, the blended map without and with reflections, the cube and
-the 2D map views) against the CPU frames, and the port's map and cube
+the 2D map views, the baked-shader paths O, P and Q) against the CPU
+frames, B1's has_material and has_matmap variants, the shader bakes on the
+card against the CPU's, and the port's map, cube and shaded-cube
 examples.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
@@ -46,15 +48,20 @@ from rusterix_tpu_torch.ops.raster import (  # noqa: E402
     frame_inputs,
     visibility_prepass,
 )
+from rusterix_tpu_torch.ops.scene_pack import PackedScene  # noqa: E402
 from rusterix_tpu_torch.ops.setup_pass import setup_pass  # noqa: E402
 from rusterix_tpu_torch.scenes import (  # noqa: E402
+    EMISSIVE_VARYING,
     build_cube_scene,
+    build_cube_shaded_scene,
+    build_cube_timeshader_scene,
     build_map_2d_scene,
     build_map_ao_scene,
     build_map_blend_refl_scene,
     build_map_blend_scene,
     build_map_glass_refl_scene,
     build_map_glass_scene,
+    build_map_material_scene,
     build_map_refl_half_scene,
     build_map_refl_scene,
     build_map_scene,
@@ -690,3 +697,115 @@ def test_cube_example_runs_on_the_card(cuda, tmp_path):
                          timeout=600)
     assert run.returncode == 0, run.stderr[-2000:]
     assert out.exists() and "launches" in run.stdout
+
+
+def _shaded_inputs(device, case):
+    """B1's inputs of a baked-shader scene at 256x128, rendered on `device`
+    (the bakes run there too): path O's cube with the fast BRDF or GGX
+    (has_material), path Q's map cut to two rooms at bump strength 1 or 0.5
+    (has_material + has_matmap, GGX), and path K's blended map cut to two
+    rooms under the emissive matmap shader with a sun, shadow maps, AO and
+    the scenevm tonemap (has_matmap with has_blend and the other variants in
+    one launch)."""
+    if case.startswith("cube"):
+        rast, scene, assets = build_cube_shaded_scene(256, 128, device=device)
+        if case == "cube_ggx":
+            rast.set_brdf("ggx")
+    elif case.startswith("material_map"):
+        rast, scene, assets = build_map_material_scene(256, 128, device=device, rooms_x=2,
+                                                       rooms_y=1)
+        rast.set_reflections(0)
+        rast._rs_bump_strength = 0.5 if case == "material_map_bump_0.5" else 1.0
+    else:
+        rast, scene, assets = build_map_blend_scene(256, 128, device=device, rooms_x=2,
+                                                    rooms_y=1)
+        for b in scene.all_d3_batches(include_dynamic=False):
+            b.set_shader(0)
+        scene.add_shader(EMISSIVE_VARYING)
+        scene.touch()
+        rast.sun_dir, rast.day_factor = np.array([0.4, -1.0, 0.25], np.float32), 1.0
+        rast.set_shadows(True, res=16, sun_res=32).set_tonemap("scenevm")
+        rast.set_ambient_occlusion(True, samples=4, radius=0.6)
+    rast.rasterize(scene, 256, 128, 40, assets)
+    fa = rast.frame_args
+    fi = frame_inputs(**fa)
+    kwargs = dict(fi["mega_kwargs"])
+    if fa["ao_taps"]:
+        pre = visibility_prepass(fi, 256, 128)
+        kwargs["ao_img"] = ambient_occlusion(pre, fa["uniforms"], 128, fa["ao_taps"])
+    return fi["mega_args"], kwargs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cube_fast", "cube_ggx", "material_map_bump_1",
+                                  "material_map_bump_0.5", "blend_matmap_extras"])
+def test_material_kernel_matches_plain_version(cuda, case):
+    """B1's has_material and has_matmap variants (with the fast BRDF and
+    GGX, at bump strength 1 and 0.5, and with has_blend, shadow maps, AO
+    and the tonemap): z_eff and RGBA8 bit for bit against the plain version
+    at stage_cut 0, 1 and 2; the material changes the frame."""
+    args, kwargs = _shaded_inputs(cuda, case)
+    assert kwargs["has_material"]
+    assert kwargs["has_matmap"] == (not case.startswith("cube"))
+    assert kwargs["has_blend"] == (case == "blend_matmap_extras")
+    for cut in (0, 1, 2):
+        rgba, z = megakernel.mega_render(*args, **kwargs, stage_cut=cut)
+        ref_rgba, ref_z = megakernel.mega_render_reference(*args, **kwargs, stage_cut=cut)
+        torch.cuda.synchronize()
+        assert torch.equal(z, ref_z) and torch.equal(rgba, ref_rgba), f"stage_cut {cut}"
+    rgba, _z = megakernel.mega_render(*args, **kwargs)
+    plain, _ = megakernel.mega_render(*args, **dict(kwargs, has_material=False, has_matmap=False))
+    torch.cuda.synchronize()
+    assert int((rgba != plain).sum()) > 100, "the material changed nothing"
+
+
+SHADED_BUILDS = {"O": build_cube_shaded_scene, "P": build_cube_timeshader_scene,
+                 "Q": build_map_material_scene}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(SHADED_BUILDS))
+def test_cuda_bake_matches_cpu_bake(cuda, path):
+    """The shader bakes of paths O, P and Q on the card and on the CPU: the
+    same slots, texel bytes at most 1 apart."""
+    packs = []
+    for device in (cuda, "cpu"):
+        _rast, scene, assets = SHADED_BUILDS[path](64, 32, device=device)
+        packs.append(PackedScene.from_scene(scene, assets, static_only=True, device=device))
+    a, b = (p.atlas_index for p in packs)
+    assert a.shader_slots == b.shader_slots and a.shader_mat_slots == b.shader_mat_slots
+    assert packs[0].runtime_shaders == () == packs[1].runtime_shaders
+    assert np.abs(a.atlas.data.astype(int) - b.atlas.data.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(SHADED_BUILDS))
+def test_cuda_shaded_frame_matches_cpu_frame(cuda, path):
+    """Paths O, P (at animation frame 3) and Q (two rooms, with its
+    reflections) at 256x128 through Rasterizer on the card and on the CPU,
+    from one PackedScene."""
+    frames, packed = [], None
+    for device in (cuda, "cpu"):
+        kw = dict(rooms_x=2, rooms_y=1) if path == "Q" else {}
+        rast, scene, assets = SHADED_BUILDS[path](256, 128, device=device, **kw)
+        scene.animation_frame = 3
+        packed = packed or PackedScene.from_scene(scene, assets, static_only=True, device="cpu")
+        frames.append(rast.rasterize(scene, 256, 128, 40, assets, packed=packed).astype(np.int32))
+    assert np.abs(frames[0] - frames[1]).max() == 0
+
+
+@pytest.mark.cuda
+def test_cube_shaded_example_runs_on_the_card(cuda, tmp_path):
+    """examples/cube_shaded_torch.py bakes its shader and renders through
+    B1's has_material variant, and saves the last frame."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = tmp_path / "cube_shaded_torch.png"
+    run = subprocess.run([sys.executable, str(root / "examples" / "cube_shaded_torch.py"),
+                          "--out", str(out)], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert out.exists() and "has_material True" in run.stdout

@@ -88,7 +88,13 @@ NO_JAX_PACKAGE_SCRIPT = textwrap.dedent(
     rast, scene, assets = build_map_glass_refl_scene(64, 32, device="cpu")
     frame = rast.set_shadows(True, res=16, sun_res=32).rasterize(scene, 64, 32, 40, assets)
     assert frame.shape == (32, 64, 4) and rast.frame_args["has_sky"]
-    for mod in ("shapefx.render", "ops.composite", "shader.patterns", "server.entity"):
+    from rusterix_tpu_torch.scenes import build_cube_shaded_scene
+
+    rast, scene, assets = build_cube_shaded_scene(64, 48, device="cpu")
+    frame = rast.rasterize(scene, 64, 48, 40, assets)
+    assert frame.shape == (48, 64, 4) and rast.frame_args["has_material"]
+    for mod in ("shapefx.render", "ops.composite", "shader.patterns", "server.entity",
+                "shader.jaxc", "lang.parser"):
         assert "rusterix_tpu_torch." + mod in sys.modules, mod
     jax_pkg = os.path.join(os.getcwd(), "rusterix_tpu") + os.sep
     files = [getattr(m, "__file__", None) or "" for m in list(sys.modules.values())]
@@ -102,11 +108,12 @@ NO_JAX_PACKAGE_SCRIPT = textwrap.dedent(
 
 
 def test_port_loads_no_file_of_the_jax_package():
-    """The reflection frame, the shadowed reflection frame and the glazed
-    map under the sky with reflections (every module of the port's paths:
-    the shadow maps, the sky, the opacity layers, the host copy of the map
-    script's entities) render without loading any file of rusterix_tpu/
-    and without importing jax."""
+    """The reflection frame, the shadowed reflection frame, the glazed map
+    under the sky with reflections and the shaded cube (every module of the
+    port's paths: the shadow maps, the sky, the opacity layers, the host
+    copy of the map script's entities, the rusteria compiler and its bake)
+    render without loading any file of rusterix_tpu/ and without importing
+    jax."""
     proc = subprocess.run(
         [sys.executable, "-c", NO_JAX_PACKAGE_SCRIPT],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
@@ -140,6 +147,7 @@ def test_port_sources_name_no_jax_package():
                              recursive=True))
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     assert len(files) > 40
+    assert os.path.join(ROOT, "rusterix_tpu_torch", "shader", "jaxc.py") in files
     hits = {os.path.relpath(f, ROOT): _names_jax_package(f) for f in files}
     assert not {f: h for f, h in hits.items() if h}
 
@@ -171,14 +179,25 @@ def test_mounted_packer_matches_jax_package():
 
 @pytest.mark.parametrize("module", ["shader", "shader.jaxc"])
 def test_shader_compiler_fails_loudly_under_the_mount(module):
-    """The rusteria compiler is jax code the port has not ported; both lazy
-    import sites of the copied host layer (`..shader` and the packer's
-    `..shader.jaxc`) land on the port's stub and raise."""
+    """Both lazy import sites of the copied host layer (`..shader` and the
+    packer's `..shader.jaxc`) land on the port's own torch compiler, and
+    what of the shader family the port has not ported, a runtime shader
+    (one that reads its inputs, so it cannot bake), fails loudly by name
+    when rendered."""
     import importlib
 
-    stub = importlib.import_module(f"rusterix_tpu_torch.{module}")
-    with pytest.raises(NotImplementedError, match="shader compiler"):
-        stub.Rusteria  # noqa: B018
+    from rusterix_tpu_torch import Batch3D, D3OrbitCamera, Rasterizer, Scene
+    from rusterix_tpu_torch.shader import jaxc
+
+    site = importlib.import_module(f"rusterix_tpu_torch.{module}")
+    assert site.Rusteria is jaxc.Rusteria
+    assert "jax" not in site.Rusteria.__module__.split(".")[0]
+    scene = Scene.from_static([], [Batch3D.from_box(-0.5, -0.5, -0.5, 1, 1, 1).set_shader(0)])
+    assert scene.add_shader("fn shade() { color = normal * 0.5; }") == 0
+    cam = D3OrbitCamera()
+    rast = Rasterizer.setup(None, cam.view_matrix(), cam.projection_matrix(32, 32), device="cpu")
+    with pytest.raises(NotImplementedError, match="runtime shaders"):
+        rast.rasterize(scene, 32, 32, 32)
 
 
 # ------------------------------------------------ the rest of the host copy

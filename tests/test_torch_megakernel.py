@@ -326,20 +326,40 @@ def test_has_blend_on_cpu_tensors_takes_the_plain_version():
 
 
 @pytest.mark.parametrize(
-    "variant", ["has_material", "has_matmap", "shadow_rows", "ao_img"],
+    "variant", ["has_matmap", "shadow_rows", "ao_img"],
 )
 def test_mega_render_refuses_unported_variants(variant):
-    """Each unported variant raises NotImplementedError by name; `ao_img` is
-    ported and refuses only a factor that is not (H, W) f32, and
-    `shadow_rows` without its spec is a ValueError. Shadow maps with their
-    transmittance layers, the scenevm tonemap (tests/test_torch_glass.py)
-    and has_blend (tests/test_torch_blend.py) are ported."""
+    """What mega_render refuses of the ported variants: has_matmap without
+    has_material (the table's fixed column layout), an `ao_img` that is
+    not (H, W) f32 and `shadow_rows` without its spec are ValueErrors.
+    Shadow maps with their transmittance layers, the scenevm tonemap
+    (tests/test_torch_glass.py), has_blend (tests/test_torch_blend.py) and
+    has_material (tests/test_torch_material.py) are ported."""
     args, kwargs = _box_inputs("point")
     targs, tkw = _torch_args(args, kwargs)
     tkw[variant] = torch.ones(1) if variant in ("shadow_rows", "ao_img") else True
-    error = ValueError if variant in ("ao_img", "shadow_rows") else NotImplementedError
-    with pytest.raises(error, match=variant):
+    with pytest.raises(ValueError, match=variant):
         tm.mega_render(*targs, W, H, **tkw)
+
+
+def test_has_material_on_cpu_tensors_takes_the_plain_version():
+    """B1's has_material variant (ported; held against the JAX kernel in
+    tests/test_torch_material.py) on the box with a material extension of
+    roughness 0.2 and metallic 1: CPU tensors take the plain version, and
+    the metal's F0 and sharper highlight change the lit pixels."""
+    args, kwargs = _box_inputs("point")
+    targs, tkw = _torch_args(args, kwargs)
+    table = targs[3]
+    n = table.shape[0]
+    targs[3] = torch.cat([table, torch.tensor([[0.2, 1.0, 0.0, 0.0]]).expand(n, 4)], dim=1)
+    before = tm.launches
+    rgba, z = tm.mega_render(*targs, W, H, **dict(tkw, has_material=True))
+    ref = tm.mega_render_reference(*targs, W, H, **dict(tkw, has_material=True))
+    plain = tm.mega_render_reference(*targs, W, H, **tkw)
+    assert tm.launches == before
+    assert torch.equal(rgba, ref[0]) and torch.equal(z, ref[1]) and torch.equal(z, plain[1])
+    covered = int((z < 1.0).sum())
+    assert covered > 1000 and int((rgba != plain[0]).sum()) > covered // 2
 
 
 @pytest.mark.parametrize("stage_cut", [3, 4])

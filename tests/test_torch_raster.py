@@ -172,7 +172,17 @@ def _shadows(rast, scene, packed):
 
 
 def _shader(rast, scene, packed):
-    scene.shaders.append(object())
+    # what PackedScene.from_scene keeps of a shader that reads its inputs
+    # (it cannot bake): a runtime shader
+    from rusterix_tpu_torch.shader import Rusteria
+
+    packed.runtime_shaders = (Rusteria.parse_and_compile("fn shade() { color = color * 0.5; }"),)
+
+
+def _padding_field(part, field, value):
+    def mutate(rast, scene, packed):
+        getattr(getattr(packed, part), field)[-1] = value
+    return mutate
 
 
 def _reflect(*mutations):
@@ -187,20 +197,24 @@ UNPORTED = {
     "dynamic batches": _dynamic,
     "shaders": _shader,
     "reflections with shadows": _reflect(_shadows, _dynamic),
-    "material": _packed_field("d3", "rough", 0.3),
-    "matmap": _packed_field("d3", "m1_slot", 0),
 }
 
-# refused until 2D batches and vertex blend were ported: each mutation now
-# renders, and is inert on the box (a zero-area padding triangle drawn in
-# 2D; a second source mixed in with weight 0), so the frame equals the
+# refused until 2D batches, vertex blend and baked shaders' materials were
+# ported: each mutation now renders, and is inert on the box (a zero-area
+# padding triangle drawn in 2D; a second source mixed in with weight 0; a
+# material or a matmap slot on a padding triangle, which turns B1's material
+# variant on for triangles of the default material), so the frame equals the
 # unmutated one (the 2D pass runs over the frame in f32 and re-quantizes
-# it exactly; B1's blend branch mixes 0 of the second texel). The passes
-# themselves are held against the JAX package in tests/test_torch_d2.py and
-# tests/test_torch_blend.py.
+# it exactly; B1's blend branch mixes 0 of the second texel; the material
+# math on roughness 0.5 and metallic 0 gives the default's albedo scales and
+# Fresnel, and a specular power within the bytes). The passes themselves are
+# held against the JAX package in tests/test_torch_d2.py,
+# tests/test_torch_blend.py and tests/test_torch_material.py.
 FORMERLY_REFUSED = {
     "2D batches": (_packed_field("d2", "valid", 1.0), "has_d2"),
     "vertex blend": (_packed_field("d3", "kind2", 1), "has_blend"),
+    "material": (_padding_field("d3", "rough", 0.3), "has_material"),
+    "matmap": (_padding_field("d3", "m1_slot", 0), "has_matmap"),
 }
 
 
