@@ -31,7 +31,16 @@ card, B1's has_material variant); P, the cube under the bench's
 time-dependent shader (16 baked animation frames, two of them rendered);
 Q, the map under per-pixel shader materials with a sun, GGX and one
 reflection ray per pixel (B1's has_material + has_matmap variant with GGX,
-B2, the G-buffer's matmap branch, B3). For
+B2, the G-buffer's matmap branch, B3); R, A's map row-sharded through
+`rasterize(mesh=make_mesh(8, "cuda"))` (8 slabs of 135 rows on the card:
+B1 at its row offset once a slab), with a frame in 7 slabs (the padded
+overhang) and a `render_frame_sharded` call with the generic light loop
+(`light_spec=None`); S, H with AO and sky light in 8 slabs (B1 GGX with
+shadows and the AO factor at its row offset, B2 at its row offset, B3 for
+each slab's reflection and sky rays); and one sharded frame each of I and
+M. The sharded frames are held to the single frames: equal but for the
+pinned pixels of the tie class (tie_pixels: two candidates
+tie on 1/z bit for bit and a slab's scan order keeps another). For
 each path it checks that the frame went through exactly
 the kernels of the path (launch counts zeroed before it and read right
 after it),
@@ -91,7 +100,22 @@ EXPECTED_LAUNCHES = {
     "O": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
     "P": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
     "Q": {"B1": 1, "B2": 1, "B3": 1, "B3prep": 1},
+    # the row-sharded paths, a frame in N_SLABS slabs: B1 (and with S, B2)
+    # once a slab, B3 and its preparation twice a slab (reflection and sky
+    # rays)
+    "R": {"B1": 8, "B2": 0, "B3": 0, "B3prep": 0},
+    "R7": {"B1": 7, "B2": 0, "B3": 0, "B3prep": 0},
+    "S": {"B1": 8, "B2": 8, "B3": 16, "B3prep": 16},
+    "I8": {"B1": 8, "B2": 0, "B3": 0, "B3prep": 0},
+    "M8": {"B1": 8, "B2": 0, "B3": 0, "B3prep": 0},
 }
+# slabs of the sharded paths (one card), and the slab whose inputs the
+# kernels are held on
+N_SLABS = 8
+MID_SLAB = N_SLABS // 2
+# pixels where a sharded frame differs from its single frame; every one of
+# them must be of the tie class (tie_pixels)
+SHARDED_PINNED = {"R": 0, "R7": 55, "S": 0, "I8": 3100, "M8": 0}
 # the frame size of a path where it is not 1920x1080 (M, O, P: the bench's cubes)
 SIZES = {"M": (800, 600), "O": (800, 600), "P": (800, 600)}
 # the slice's paths: B1 equals its plain version bit for bit at stage_cut 0,
@@ -102,7 +126,7 @@ BLEND_2D = ("K", "L", "M", "N")
 SHADED = ("O", "P", "Q")
 # frames timed a path where not 20: the glazed paths' take ~0.5 s, N's
 # ~2.6 s (the 2D pass is one torch step a triangle)
-N_FRAMES = {"I": 10, "J": 10, "N": 5}
+N_FRAMES = {"I": 10, "J": 10, "N": 5, "S": 10}
 # frames profiled: 10 on A and B, 6 on the later paths, fewer on the slow ones
 N_PROF_LATER = 6
 N_PROF_2D = 3
@@ -341,12 +365,26 @@ def b1_bytes(args, outs, work, extra=()) -> int:
     return nbytes(*ins, *outs, *extra) + 4 * work["atlas_texels"]
 
 
-def shade_ops(covered: int, stage_cut: int, kwargs: dict, n_occ: int, sample_mode: int) -> int:
+def light_types(kwargs: dict, lights) -> list:
+    """The type codes B1's light loop visits: light_spec's, or with the
+    generic loop (light_spec None) every row of the packed light table
+    `lights` (L, 24), typed by its one-hot columns as the kernel types it
+    (3 point, 21 ambient, 22 spot, 23 area, none of them daylight)."""
+    if kwargs["light_spec"] is not None:
+        return [int(t) for _row, t in kwargs["light_spec"]]
+    onehot = lights[:, [3, 21, 22, 23]].cpu().numpy() != 0
+    return [(0, 1, 3, 4)[int(np.argmax(row))] if row.any() else 5 for row in onehot]
+
+
+def shade_ops(covered: int, stage_cut: int, kwargs: dict, n_occ: int, sample_mode: int,
+              lights=None) -> int:
     """f32 operations of B1's stages 2-6 for `covered` pixels with a winner,
-    up to the stage the cut keeps, for this frame's lights, BRDF, sun and
-    sampling mode."""
+    up to the stage the cut keeps, for this frame's lights (`lights`, the
+    packed table, where light_spec is None), BRDF, sun and sampling
+    mode."""
     if stage_cut == 1:
         return 0
+    types = light_types(kwargs, lights)
     texel = OPS_TEXEL_NEAREST + (OPS_TEXEL_BILINEAR_EXTRA if sample_mode else 0)
     per_px = OPS_INTERP + texel
     if stage_cut == 0:
@@ -354,12 +392,12 @@ def shade_ops(covered: int, stage_cut: int, kwargs: dict, n_occ: int, sample_mod
         per_px += OPS_SHADE_FIXED + OPS_PER_OCC_BOX * n_occ
         if not kwargs.get("sun_off", False):
             per_px += brdf + OPS_SUN_EXTRA
-        per_px += sum(OPS_PER_LIGHT[int(t)] + brdf for _row, t in kwargs["light_spec"])
+        per_px += sum(OPS_PER_LIGHT[t] + brdf for t in types)
         if kwargs.get("ao_img") is not None:
             per_px += OPS_AO
         if kwargs.get("has_material"):
             ggx = bool(kwargs.get("brdf_ggx", False))
-            calls = len(kwargs["light_spec"]) + (0 if kwargs.get("sun_off", False) else 1)
+            calls = len(types) + (0 if kwargs.get("sun_off", False) else 1)
             per_px += (OPS_MATERIAL + OPS_MATERIAL_CONST[ggx]
                        + calls * OPS_MATERIAL_BRDF[ggx])
         if kwargs.get("has_matmap"):
@@ -395,6 +433,58 @@ def reflection_kernel_inputs(rast_r, fi, scale: int = 1, sky: bool = False) -> d
              rays["d_x"], rays["d_y"], rays["d_z"], float(fa["uniforms"]["refl_dist"]), hs, ws)
     return {"b2_in": (fi["vis_s"], fi["alive_s"], fi["bbox_s"], W, H), "pre": pre, "g": g,
             "rays": rays, "b3_in": b3_in}
+
+
+def tie_pixels(mesh, d3, uniforms, atlas, width: int, height: int, has_blend: bool = False,
+               **_frame):
+    """The pixels where the sharded frame may differ from the single frame
+    -> (H, W) bool on the mesh's first device: where two candidates tie on
+    1/z bit for bit, the scan keeps the first in its order, and a slab's
+    order (its supers sorted by the near bound over its own rows) can put
+    another of them first than the whole frame's order does. Found as the
+    pixels whose visibility pre-pass (B2) winner differs between the slab
+    and the whole frame at an equal 1/z. Takes render_frame_sharded's
+    arguments (the frame_args of the frame). The tests of the sharded
+    frames use it too."""
+    from rusterix_tpu_torch.ops.megakernel import morton_ftb_sort
+    from rusterix_tpu_torch.ops.raster import visibility_prepass
+    from rusterix_tpu_torch.ops.setup_pass import setup_pass
+    from rusterix_tpu_torch.parallel import check_mesh
+
+    mesh = check_mesh(mesh)
+    dev = mesh[0]
+    n = len(mesh)
+    rows = -(-height // n)
+    view = torch.from_numpy(np.asarray(uniforms["view"], np.float32)).to(dev)
+    proj = torch.from_numpy(np.asarray(uniforms["proj"], np.float32)).to(dev)
+    cap = int(d3["valid"].shape[0])
+    # the slabs' candidates, padded to the mesh as render_frame_sharded pads
+    # them; the whole frame's are the first 2 * cap slots
+    pad = (-cap) % n
+    d3 = {k: torch.cat([v.to(dev), v.new_zeros((pad,) + tuple(v.shape[1:])).to(dev)])
+          for k, v in d3.items()}
+    vis, _attr, bbox, alive, _tri = setup_pass(
+        d3["pos"], d3["uv"], d3["nrm"], d3["valid"], d3["cull"], view, proj, width, height,
+        bw=d3["bw"] if has_blend else None)
+
+    def prepass(y0, n_rows, slots):
+        vis_s, bbox_s, alive_s, _t, _sn, perm = morton_ftb_sort(
+            vis[:slots], bbox[:slots], alive[:slots].float(), torch.zeros((slots, 4), device=dev),
+            width, height, y0g=y0, rows_local=n_rows, return_perm=True)
+        fi = {"vis_s": vis_s, "alive_s": alive_s, "bbox_s": bbox_s, "sort_perm": perm}
+        return visibility_prepass(fi, width, n_rows, y0)
+
+    z_w, idx_w, _hit = prepass(0, height, 2 * cap)
+    out = []
+    for k in range(n):
+        y0 = k * rows
+        n_rows = min(rows, height - y0)
+        if n_rows <= 0:
+            break
+        z, idx, _hit = prepass(y0, rows, vis.shape[0])
+        z, idx = z[:n_rows], idx[:n_rows]
+        out.append((z == z_w[y0:y0 + n_rows]) & (idx != idx_w[y0:y0 + n_rows]))
+    return torch.cat(out)
 
 
 def bake_call(rast, shadow):
@@ -444,6 +534,11 @@ def main() -> int:
     from rusterix_tpu_torch.ops.scene_pack import PackedScene
     from rusterix_tpu_torch.ops.setup_pass import setup_pass
     from rusterix_tpu_torch.ops.shade import gbuffer_pass
+    from rusterix_tpu_torch.parallel import (
+        make_mesh,
+        render_frame_sharded,
+        sharded_inputs,
+    )
     from rusterix_tpu_torch.scenes import (
         build_cube_scene,
         build_map_2d_scene,
@@ -645,8 +740,71 @@ def main() -> int:
     print(f"path P: px differing between animation frames 0 and 5: {moved}")
     if moved < 1000:
         raise SystemExit("path P's animation frames do not differ")
-    launches = {k: counts_a[k] + counts_b[k] + sum(p_["counts"][k] for p_ in paths.values())
-                for k in counts_a}
+    phase("4c")
+    # 4c. the row-sharded frame (parallel.render_frame_sharded) through
+    # rasterize(mesh=): R, A's map in N_SLABS slabs of the card; R7, in 7
+    # (the overhang of the last slab padded and cropped); Rg, R's frame
+    # through render_frame_sharded with the generic light loop; S, H with AO
+    # and sky light; I8 and M8, one frame each of I and M. Each is held to
+    # its single frame: the pixels that differ are counted, pinned and all of
+    # the tie class.
+    mesh = make_mesh(N_SLABS, "cuda")
+
+    def held_to_single(key, sharded, single, mesh_, fa_):
+        differ = np.abs(sharded.astype(int) - single.astype(int)).max(-1) > 0
+        ties = tie_pixels(mesh_, **fa_).cpu().numpy()
+        n_diff, off = int(differ.sum()), int((differ & ~ties).sum())
+        print(f"path {key}: px differing from the single frame {n_diff} (pinned "
+              f"{SHARDED_PINNED[key]}), outside the tie class {off}; tie px {int(ties.sum())}")
+        if off or n_diff != SHARDED_PINNED[key]:
+            raise SystemExit(f"path {key}: the sharded frame differs from the single frame")
+
+    def drive_sharded(key, rast_, scene_, assets_, mesh_, size=(W, H)):
+        zero_counts()
+        out = rast_.rasterize(scene_, *size, 40, assets_, mesh=mesh_)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != EXPECTED_LAUNCHES[key]:
+            raise SystemExit(f"path {key} launched {counts}, expected {EXPECTED_LAUNCHES[key]}")
+        if out.shape != (size[1], size[0], 4) or out.dtype != np.uint8:
+            raise SystemExit(f"path {key} frame is {out.shape} {out.dtype}")
+        print(f"main path {key} ({len(mesh_)} slabs): frame {out.shape} {out.dtype}, "
+              f"launches {counts}")
+        return out, counts
+
+    frame_rs, counts_r = drive_sharded("R", rast, scene, assets, mesh)
+    held_to_single("R", frame_rs, frame, mesh, rast.frame_args)
+    mesh7 = make_mesh(7, "cuda")
+    frame_r7, _counts = drive_sharded("R7", rast, scene, assets, mesh7)
+    held_to_single("R7", frame_r7, frame, mesh7, rast.frame_args)
+    fa_r = {k: v for k, v in rast.frame_args.items() if k != "refl_scale"}
+    zero_counts()
+    frame_rg = render_frame_sharded(mesh, **dict(fa_r, light_spec=None)).cpu().numpy()
+    counts_rg = read_counts()
+    print(f"path Rg (render_frame_sharded, light_spec None, {N_SLABS} slabs): launches "
+          f"{counts_rg}, px differing from R's frame "
+          f"{int((frame_rg != frame_rs).any(-1).sum())}")
+    if counts_rg != EXPECTED_LAUNCHES["R"] or not np.array_equal(frame_rg, frame_rs):
+        raise SystemExit("the generic light loop's frame differs from the specialised frame")
+    rast_s, scene_s, assets_s = build_map_shadow_refl_scene(W, H, device="cuda")
+    rast_s.set_ambient_occlusion(True).set_sky_light(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame_s1 = rast_s.rasterize(scene_s, W, H, 40, assets_s)  # bakes the maps
+    torch.cuda.synchronize()
+    first_s = (time.perf_counter() - t0) * 1e3
+    fa_s = {k: v for k, v in rast_s.frame_args.items() if k != "refl_scale"}
+    if not (fa_s["ao_taps"] and fa_s["sky_light"] and fa_s["refl_samples"]
+            and fa_s["shadow_spec"] is not None and fa_s["brdf_ggx"]):
+        raise SystemExit("path S is not H with AO and sky light")
+    frame_ss, counts_s = drive_sharded("S", rast_s, scene_s, assets_s, mesh)
+    held_to_single("S", frame_ss, frame_s1, mesh, rast_s.frame_args)
+    for key, path in (("I8", "I"), ("M8", "M")):
+        p_ = paths[path]
+        f_, _counts = drive_sharded(key, p_["rast"], p_["scene"], p_["assets"], mesh, p_["size"])
+        held_to_single(key, f_, p_["frame"], mesh, p_["rast"].frame_args)
+    launches = {k: counts_a[k] + counts_b[k] + counts_r[k] + counts_s[k]
+                + sum(p_["counts"][k] for p_ in paths.values()) for k in counts_a}
 
     phase("5")
     # 5. every kernel against its plain version on the frames' own inputs
@@ -864,6 +1022,67 @@ def main() -> int:
         if bad_ or not (torch.equal(i3_, i3p_) and torch.equal(t3_, t3p_)):
             raise SystemExit(f"B3 path {key}: a ray kernel disagrees with its plain version")
 
+    phase("5c")
+    # 5c. the row-sharded paths' kernels against their plain versions on the
+    # middle slab's own inputs (parallel.sharded_inputs): B1 at its row offset
+    # on R (stage_cut 0, 1, 2), with the generic light loop on R (also
+    # against the specialised launch), at its row offset on S (GGX, shadows,
+    # the AO factor; stage_cut 0, 1, 2), and B2 at its row offset on S. All
+    # bit for bit.
+    slab_r = sharded_inputs(mesh, **fa_r)[MID_SLAB]
+    slab_s = sharded_inputs(mesh, **fa_s)[MID_SLAB]
+    sharded_forms = {
+        "R": (slab_r["mega_args"], slab_r["mega_kwargs"]),
+        "Rg": (slab_r["mega_args"], dict(slab_r["mega_kwargs"], light_spec=None)),
+        "S": (slab_s["mega_args"], slab_s["mega_kwargs"]),
+    }
+    slab_forms = {}
+    for key, (a_, k_) in sharded_forms.items():
+        rgba_k, z_k = megakernel.mega_render(*a_, **k_)
+        rgba_p, z_p, work_ = megakernel.mega_render_reference(*a_, **k_, return_work=True)
+        cuts = [megakernel.mega_render(*a_, **k_, stage_cut=c) for c in (1, 2)]
+        cuts_p = [megakernel.mega_render_reference(*a_, **k_, stage_cut=c) for c in (1, 2)]
+        torch.cuda.synchronize()
+        equal = torch.equal(rgba_k, rgba_p) and torch.equal(z_k, z_p) and all(
+            torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]) for x, y in zip(cuts, cuts_p))
+        n_cov = int((cuts[0][0] >= 0).sum())
+        reads = work_["cube_reads"] + work_["sun_reads"] + 2 * work_["trans_steps"]
+        table = k_.get("shadow_rows")
+        extra = [k_["ao_img"]] if k_.get("ao_img") is not None else []
+        slab_forms[key] = {
+            "err": int(rgba_diff(rgba_k, rgba_p).max()), "covered": n_cov, "work": work_,
+            "bytes": b1_bytes(a_, (rgba_k, z_k), work_, extra)
+            + (0 if table is None else min(4 * reads, nbytes(table))),
+        }
+        print(f"B1 vs plain (path {key}, slab {MID_SLAB} of {N_SLABS}: rows "
+              f"{slab_r['y0']}-{slab_r['y0'] + slab_r['rows'] - 1}, light_spec "
+              f"{'None' if k_['light_spec'] is None else len(k_['light_spec'])}"
+              f"{', ao_img' if extra else ''}): stage_cut 0, 1, 2 "
+              f"{'bit-equal' if equal else 'DIFFER'}, px with a winner {n_cov}, visibility "
+              f"tests {work_['vis_tests']}")
+        if not equal:
+            raise SystemExit(f"B1 path {key}: the kernel at the row offset disagrees with its "
+                             "plain version")
+    spec_rgba, spec_z = megakernel.mega_render(*sharded_forms["R"][0], **sharded_forms["R"][1])
+    gen_rgba, gen_z = megakernel.mega_render(*sharded_forms["Rg"][0], **sharded_forms["Rg"][1])
+    torch.cuda.synchronize()
+    if not (torch.equal(spec_rgba, gen_rgba) and torch.equal(spec_z, gen_z)):
+        raise SystemExit("B1's generic light loop differs from the specialised launch")
+    print(f"B1 generic light loop (R's slab {MID_SLAB}): {sharded_forms['Rg'][0][7].shape[0]} "
+          f"light rows visited, {len(sharded_forms['R'][1]['light_spec'])} valid; equal to the "
+          "specialised launch")
+    b2s_in = (slab_s["vis_s"], slab_s["alive_s"], slab_s["bbox_s"], W, slab_s["rows"],
+              slab_s["y0"])
+    z2s, i2s, h2s = visibility_pallas.visibility_pass_pallas(*b2s_in)
+    z2sp, i2sp, _h = visibility_pallas.visibility_pass_pallas_reference(*b2s_in)
+    torch.cuda.synchronize()
+    print(f"B2 vs plain (path S, slab {MID_SLAB}, y0 {slab_s['y0']}): idx px differing "
+          f"{int((i2s != i2sp).sum())}, z px differing {int((z2s != z2sp).sum())}, covered px "
+          f"{int(h2s.sum())}")
+    if not (torch.equal(i2s, i2sp) and torch.equal(z2s, z2sp)):
+        raise SystemExit("B2 at the row offset disagrees with its plain version")
+    b2s_tests = visibility_pallas.scan_work(*b2s_in)
+
     phase("6")
     # 6. the CUDA frames against the CPU (plain) frames at a small size
     for label, build in (("opaque", build_map_scene), ("reflection", build_map_refl_scene)):
@@ -1059,6 +1278,39 @@ def main() -> int:
                 f"device {ssao_prof['device_ms']:.4f} ms in {ssao_prof['ops']:.1f} device ops")
     print(f"ssao_pass (plain torch, {len(fa_c['ao_taps'])} taps, {W}x{H}): {summary(ssao_t)}; "
           f"{ssao_dev} per call on {gpu}")
+    # the sharded paths: frames (R beside A's, S beside its single frame),
+    # B1's three forms on the middle slab (wrapper, plain, alone), B2 at its
+    # row offset
+    frame_rs_t = cuda_times(
+        lambda: rast.rasterize(scene, W, H, 40, assets, readback=False, mesh=mesh), 20)
+    frame_rg_t = cuda_times(
+        lambda: render_frame_sharded(mesh, **dict(fa_r, light_spec=None)), 10)
+    frame_ss_t = cuda_times(
+        lambda: rast_s.rasterize(scene_s, W, H, 40, assets_s, readback=False, mesh=mesh),
+        N_FRAMES["S"])
+    frame_s1_t = cuda_times(
+        lambda: rast_s.rasterize(scene_s, W, H, 40, assets_s, readback=False), N_FRAMES["S"])
+    print(f"rasterize(readback=False) path R ({N_SLABS} slabs) {W}x{H}: {summary(frame_rs_t)}; "
+          f"A single {summary(frame_t)} on {gpu}")
+    print(f"render_frame_sharded path Rg (light_spec None, {N_SLABS} slabs): "
+          f"{summary(frame_rg_t)} on {gpu}")
+    print(f"rasterize(readback=False) path S ({N_SLABS} slabs) {W}x{H}: {summary(frame_ss_t)}; "
+          f"its single frame {summary(frame_s1_t)}; first single frame (the bake) "
+          f"{first_s:.4f} ms of wall time on {gpu}")
+    for key, (a_, k_) in sharded_forms.items():
+        f_ = slab_forms[key]
+        f_["t"] = cuda_times(lambda: megakernel.mega_render(*a_, **k_), 40)
+        f_["plain_t"] = cuda_times(lambda: megakernel.mega_render_reference(*a_, **k_), 3,
+                                   warmup=1)
+        f_["alone"] = median(cuda_times(megakernel.prepare_launch(*a_, **k_), 100))
+        print(f"B1 mega_render path {key} slab {MID_SLAB}: {summary(f_['t'])}; plain "
+              f"{summary(f_['plain_t'])}; kernel alone {f_['alone']:.4f} ms (median of 100) "
+              f"on {gpu}")
+    b2s_t = cuda_times(lambda: visibility_pallas.visibility_pass_pallas(*b2s_in), 40)
+    b2s_plain_t = cuda_times(
+        lambda: visibility_pallas.visibility_pass_pallas_reference(*b2s_in), 3, warmup=1)
+    print(f"B2 visibility_pass_pallas path S slab {MID_SLAB} (row offset {slab_s['y0']}): "
+          f"{summary(b2s_t)}; plain {summary(b2s_plain_t)} on {gpu}")
 
     phase("8")
     # 8. where the frames' time goes: host wall per step (synchronized)
@@ -1169,6 +1421,24 @@ def main() -> int:
             profile_calls(lambda: r_.rasterize(s_, pw, ph, 40, as_, readback=False), n_key,
                           host_records=key != "N"),
             median(p_["frame_t"]), gpu, path_kernels[key])
+    per_slab = {"B1": ("mega_kernel", N_SLABS)}
+    dev_r = report_profile(
+        f"path R rasterize(readback=False, mesh) x{N_PROF_LATER}",
+        profile_calls(lambda: rast.rasterize(scene, W, H, 40, assets, readback=False,
+                                             mesh=mesh), N_PROF_LATER),
+        median(frame_rs_t), gpu, per_slab)
+    dev_rg = report_profile(
+        f"path Rg render_frame_sharded(light_spec=None) x{N_PROF_2D}",
+        profile_calls(lambda: render_frame_sharded(mesh, **dict(fa_r, light_spec=None)),
+                      N_PROF_2D),
+        median(frame_rg_t), gpu, per_slab)
+    dev_s = report_profile(
+        f"path S rasterize(readback=False, mesh) x{N_PROF_2D}",
+        profile_calls(lambda: rast_s.rasterize(scene_s, W, H, 40, assets_s, readback=False,
+                                               mesh=mesh), N_PROF_2D, host_records=False),
+        median(frame_ss_t), gpu,
+        dict(per_slab, B2=("visibility_kernel", N_SLABS), B3=("rt_kernel", 2 * N_SLABS),
+             B3prep=("rt_prepare_kernel", 2 * N_SLABS)))
 
     phase("9")
     # 9. what each kernel takes on the card (registers a thread, shared
@@ -1190,6 +1460,9 @@ def main() -> int:
         a_m, k_m = paths[key]["mega"]
         res[f"B1 material form {mat} ({key})"] = _cuda.resources(
             "mega", a_m[0].shape[0] // 128, len(k_m["light_spec"]), int(a_m[8].shape[0]), mat)
+    a_rg = sharded_forms["Rg"][0]
+    res["B1 generic loop (Rg)"] = _cuda.resources("mega", a_rg[0].shape[0] // 128,
+                                                  int(a_rg[7].shape[0]), int(a_rg[8].shape[0]))
     for key, r in res.items():
         warps = 32 if key == "B3" else 8  # B3's walk: 1024 threads a block, the others 256
         print(f"resources {key}: {r['registers']} registers, "
@@ -1290,6 +1563,50 @@ def main() -> int:
             "bound_ms": ms, "bound_by": by, "library_ms": None,
             "device_ms": p_["dev"]["B3"], "alone_ms": median(p_["walk_t"]), **res["B3"],
         })
+    # the row-sharded paths' forms, on the middle slab's inputs: B1 at its
+    # row offset (R), with the generic light loop (Rg), at its row offset
+    # with GGX, shadows and the AO factor (S); B2 at its row offset (S)
+    for key, name, counts, dev in (
+            ("R", "mega_render row offset (R: A's map, slab 4 of 8)", counts_r, dev_r),
+            ("Rg", "mega_render light_spec=None, the generic light loop (Rg, slab 4 of 8)",
+             counts_rg, dev_rg),
+            ("S", "mega_render brdf_ggx shadows ao_img row offset (S, slab 4 of 8)", counts_s,
+             dev_s)):
+        f_ = slab_forms[key]
+        a_, k_ = sharded_forms[key]
+        n_occ_ = int(a_[8].shape[0])
+        work_ = f_["work"]
+        ops = (work_["vis_tests"] * OPS_PER_VIS_TEST
+               + shade_ops(f_["covered"], 0, k_, n_occ_, int(a_[11]), lights=a_[7])
+               + work_["cube_reads"] * OPS_CUBE_SHADOW + work_["sun_reads"] * OPS_SUN_SHADOW
+               + work_["trans_steps"] * OPS_TRANS_STEP)
+        ms, by = bound(f_["bytes"], ops)
+        print(f"bound B1 path {key} slab {MID_SLAB}: {f_['bytes']} bytes, {ops} f32 ops "
+              f"({work_['vis_tests']} tests, {f_['covered']} px shaded) -> {ms:.6f} ms, bound "
+              f"by {by}; kernel alone {f_['alone']:.4f} ms")
+        later_rows.append({
+            "name": name, "route": "cuda", "source": "rusterix_tpu_torch/csrc/megakernel.cu",
+            "replaces": "rusterix_tpu/ops/megakernel.py:250",
+            "launches": counts["B1"], "max_abs_err": f_["err"],
+            "ms": median(f_["t"]), "plain_ms": median(f_["plain_t"]),
+            "bound_ms": ms, "bound_by": by, "library_ms": None,
+            "device_ms": dev["B1"], "alone_ms": f_["alone"],
+            **_cuda.resources("mega", a_[0].shape[0] // 128, int(a_[7].shape[0])
+                              if k_["light_spec"] is None else len(k_["light_spec"]), n_occ_),
+        })
+    b2s_bytes = nbytes(*b2s_in[:3], z2s, i2s)
+    b2s_bound = bound(b2s_bytes, b2s_tests * OPS_PER_VIS_TEST)
+    print(f"bound B2 path S slab {MID_SLAB}: {b2s_bytes} bytes, {b2s_tests * OPS_PER_VIS_TEST} "
+          f"f32 ops -> {b2s_bound[0]:.6f} ms, bound by {b2s_bound[1]}")
+    later_rows.append({
+        "name": "visibility_pass_pallas row offset (S, slab 4 of 8)", "route": "cuda",
+        "source": "rusterix_tpu_torch/csrc/visibility.cu",
+        "replaces": "rusterix_tpu/ops/visibility_pallas.py:42",
+        "launches": counts_s["B2"], "max_abs_err": float((z2s - z2sp).abs().max()),
+        "ms": median(b2s_t), "plain_ms": median(b2s_plain_t),
+        "bound_ms": b2s_bound[0], "bound_by": b2s_bound[1], "library_ms": None,
+        "device_ms": dev_s["B2"], **res["B2"],
+    })
     # B1 has one entry per main path: each launch with its own frame's
     # inputs, times, bound and profile
     b1_rows = (

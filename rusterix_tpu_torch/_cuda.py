@@ -114,7 +114,7 @@ def library() -> ctypes.CDLL:
     lib.rx_mega_smem_bytes.restype = i64
     lib.rx_mega_smem_bytes.argtypes = [i32] * 3
     lib.rx_visibility.restype = i32
-    lib.rx_visibility.argtypes = [vp] * 5 + [i32] * 3 + [vp]
+    lib.rx_visibility.argtypes = [vp] * 5 + [i32] * 4 + [vp]
     lib.rx_rt_intersect.restype = i32
     lib.rx_rt_intersect.argtypes = [vp] * 13 + [i32] * 5 + [vp]
     lib.rx_rt_prepare.restype = i32

@@ -146,6 +146,27 @@
 // and the M1 emissive, premultiplied before the lights, is added after
 // them. A row with a material carries its blend extension where the
 // table puts it, at 34 or 45, and reads it one float at a time.
+//
+// Row-sharded frames: params[58] holds the slab's first row in the frame
+// (0 for a whole frame), as in the JAX kernel. The grid covers the slab's
+// rows; a tile's corner in the frame, y0 = tile row + params[58], places
+// the scan's pixel centres and the box gates, and the shading's pixel
+// centres take the frame's rows too, so the planes, the lighting, the fog
+// and the shadow lookups see global coordinates. The outputs, the
+// background and the AO factor are read and written at the slab's rows.
+// The offset is folded into the scan's y0; after the scan the slab's rows
+// come again from blockIdx, and the shading reads the offset from the
+// staged params, so no value beyond the scan's own y0 stays alive for it.
+//
+// The generic light loop (light_spec None, a null light list): the JAX
+// kernel blends every row's five type terms by the row's one-hot type
+// columns (3 point, 21 ambient, 22 spot, 23 area, none of them daylight).
+// The weights are exact 0 and 1 and the terms they drop are finite, so the
+// blend equals the one term of the row's own type. The block therefore
+// stages every row of the table in order and derives each row's type code
+// from its one-hot columns on the card (row_type), and the loop runs the
+// specialised per-type code: no host read of the lights, and the light
+// loop's code and registers are the specialised loop's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -171,7 +192,7 @@ struct MegaArgs {
     const uint32_t* bg;    // (H, W) packed background
     const float* params;   // (80,)
     const float* lights;   // (L, 24)
-    const int* light_list; // (n_lights, 2) [row, type code]
+    const int* light_list; // (n_lights, 2) [row, type code]; null: every row (generic loop)
     const float* occ;      // (n_occ, 5)
     const float* ao;       // (H, W) ambient-occlusion factor, or null
     const float* shadow;   // flat shadow-map table, or null
@@ -538,7 +559,18 @@ __device__ __forceinline__ void light_brdf(const MegaArgs& a, const Surface& s, 
         brdf<MAT>(s, ldx, ldy, ldz, rad_r, rad_g, rad_b, cr, cg, cb);
 }
 
-// stages 2-6 for one covered pixel -> packed RGBA8 (or the background)
+// the LightType code of a light row from its one-hot type columns (the
+// generic loop): 0 point, 1 ambient, 3 spot, 4 area, 5 daylight
+__device__ __forceinline__ int row_type(const float* row) {
+    if (__ldg(row + 3) != 0.0f) return 0;
+    if (__ldg(row + 21) != 0.0f) return 1;
+    if (__ldg(row + 22) != 0.0f) return 3;
+    if (__ldg(row + 23) != 0.0f) return 4;
+    return 5;
+}
+
+// stages 2-6 for one covered pixel at (gx, gy) of the slab -> packed RGBA8
+// (or the background)
 template <int MAT>
 __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, int gx, int gy,
                                             float best, int slot) {
@@ -558,7 +590,7 @@ __device__ __forceinline__ void shade_pixel(const MegaArgs& a, const Consts& k, 
     }
     const float z = 1.0f / best;
     const float xg = (float)gx + 0.5f;
-    const float yg = (float)gy + 0.5f;
+    const float yg = (float)gy + (P[58] + 0.5f);  // the frame's row (exact: rows < 2^24)
 
     // ---- stage 2: plane interpolation ----
     float interp[6];
@@ -882,7 +914,8 @@ __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
     uint32_t* meet = reinterpret_cast<uint32_t*>(s_sn + a.ns);
 
     const int x0 = blockIdx.x * TILE_W;
-    const int y0 = (blockIdx.y / CL) * TILE_H;
+    // the tile's first row in the frame: its row in the slab + params[58]
+    const int y0 = (blockIdx.y / CL) * TILE_H + (int)__ldg(a.params + 58);
     const int slice = blockIdx.y % CL;
     const int tid = threadIdx.x;
 
@@ -976,11 +1009,13 @@ __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
     unsigned short* l_pix = reinterpret_cast<unsigned short*>(c_lshadow + 4 * a.n_lights);
 
     // ---- the slice's winners: background out, covered pixels into the list ----
+    // from here on rows are the slab's: the tile's first row in it
+    const int ty = (blockIdx.y / CL) * TILE_H;
     const int gx = x0 + tid % TILE_W;
 #pragma unroll
     for (int r = 0; r < PPT; ++r) {
         const int row = slice_row<PPT>(slice, r);
-        const int gy = y0 + row;
+        const int gy = ty + row;
         const bool inside = gx < a.width && gy < a.height;
         const size_t o = (size_t)gy * a.width + gx;
         const bool covered = inside && idx[r] >= 0 && a.stage_cut != 1;
@@ -1018,10 +1053,14 @@ __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
     if (count > 0) {
         // the frame's constants, staged only by blocks that shade
         for (int i = tid; i < 80; i += THREADS) c_params[i] = __ldg(a.params + i);
-        for (int i = tid; i < 24 * a.n_lights; i += THREADS)
-            c_lights[i] = __ldg(a.lights + 24 * __ldg(a.light_list + 2 * (i / 24)) + i % 24);
+        // the listed rows, or every row in order for the generic loop, with
+        // its type code from its one-hot columns
+        for (int i = tid; i < 24 * a.n_lights; i += THREADS) {
+            const int row = a.light_list ? __ldg(a.light_list + 2 * (i / 24)) : i / 24;
+            c_lights[i] = __ldg(a.lights + 24 * row + i % 24);
+        }
         for (int i = tid; i < a.n_lights; i += THREADS)
-            c_ltype[i] = __ldg(a.light_list + 2 * i + 1);
+            c_ltype[i] = a.light_list ? __ldg(a.light_list + 2 * i + 1) : row_type(a.lights + 24 * i);
         for (int i = tid; i < 5 * a.n_occ; i += THREADS) c_occ[i] = __ldg(a.occ + i);
         if (a.shadow)
             for (int i = tid; i < 4 * a.n_lights; i += THREADS) c_lshadow[i] = __ldg(a.lshadow + i);
@@ -1030,7 +1069,7 @@ __global__ void __launch_bounds__(THREADS, 4) mega_kernel(const MegaArgs a) {
         kc.P = c_params;
         for (int i = tid; i < count; i += THREADS) {
             const int pix = l_pix[i];
-            shade_pixel<MAT>(a, kc, x0 + pix % TILE_W, y0 + slice * SLICE_ROWS(CL) + pix / TILE_W,
+            shade_pixel<MAT>(a, kc, x0 + pix % TILE_W, ty + slice * SLICE_ROWS(CL) + pix / TILE_W,
                         l_best[i], l_slot[i]);
         }
     }

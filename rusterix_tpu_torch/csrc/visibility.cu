@@ -25,6 +25,10 @@
 // The ragged edge of the frame is scanned as padding and masked on the
 // write.
 //
+// Row-sharded frames: with a row offset y_off the outputs are the frame's
+// rows [y_off, y_off + height). The pixel centres and the tiles' box gates
+// take the frame's rows (tile row + y_off), the writes the slab's.
+//
 // Bit parity with the plain torch version
 // (visibility_pallas.visibility_pass_pallas_reference): compiled with
 // -fmad=false, the planes evaluate as (a*x + c) + b*y with each op rounded
@@ -40,13 +44,14 @@
 __global__ void __launch_bounds__(THREADS, 4) visibility_kernel(
     const float* __restrict__ planes, const int* __restrict__ sbox,
     const int* __restrict__ cbox, float* __restrict__ z, int* __restrict__ idx_out, int ns,
-    int height, int width) {
+    int height, int width, int y_off) {
     extern __shared__ __align__(16) unsigned char vis_smem[];
     ScanRing* ring = reinterpret_cast<ScanRing*>(vis_smem);
     uint32_t* meet = reinterpret_cast<uint32_t*>(vis_smem + sizeof(ScanRing));
 
     const int x0 = blockIdx.x * TILE_W;
-    const int y0 = (blockIdx.y / VIS_SLICES) * TILE_H;
+    const int ty = (blockIdx.y / VIS_SLICES) * TILE_H;  // the tile's first row in the slab
+    const int y0 = ty + y_off;                          // ... and in the frame
     const int slice = blockIdx.y % VIS_SLICES;
     const int tid = threadIdx.x;
 
@@ -80,7 +85,7 @@ __global__ void __launch_bounds__(THREADS, 4) visibility_kernel(
     if (gx >= width) return;
 #pragma unroll
     for (int r = 0; r < VIS_PPT; ++r) {
-        const int gy = y0 + slice_row<VIS_PPT>(slice, r);
+        const int gy = ty + slice_row<VIS_PPT>(slice, r);
         if (gy < height) {
             const size_t o = (size_t)gy * width + gx;
             z[o] = __fdiv_rn(1.0f, best[r]);
@@ -95,13 +100,14 @@ extern "C" int rx_visibility_resources(int ns, int* out) {
 }
 
 extern "C" int rx_visibility(const float* planes, const int* sbox, const int* cbox, float* z,
-                             int* idx, int ns, int height, int width, void* stream) {
+                             int* idx, int ns, int height, int width, int y_off,
+                             void* stream) {
     dim3 grid((width + TILE_W - 1) / TILE_W, ((height + TILE_H - 1) / TILE_H) * VIS_SLICES);
     const size_t smem = sizeof(ScanRing) + 4 * ((ns + 31) / 32);
     cudaError_t err = cudaFuncSetAttribute(visibility_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     visibility_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        planes, sbox, cbox, z, idx, ns, height, width);
+        planes, sbox, cbox, z, idx, ns, height, width, y_off);
     return (int)cudaGetLastError();
 }

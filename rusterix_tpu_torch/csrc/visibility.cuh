@@ -129,6 +129,9 @@ static __device__ __forceinline__ int next_super(const uint32_t* meet, int s, in
     return ns;
 }
 
+// (x0, y0) below is a tile's corner in the frame's screen coordinates: under
+// row sharding y0 is the slab's row offset plus the tile's row in the slab.
+
 // this thread's pixel centres in slice `slice` of the tile at (x0, y0) and
 // the scan's start: best 1/z = 1.0, no winner. Padded pixels past the frame
 // take part in the scan exactly as in the TPU kernels' padded tiles.

@@ -199,7 +199,8 @@ def _step_uv(k, uv, px, py):
 
 def d2_pass(frame, tris, atlas, lights, uniforms, width: int, height: int,
             sample_mode: int = 0, preserve_transparency: bool = False,
-            has_lights: bool = False, has_ambient: bool = False, shaders: tuple = ()):
+            has_lights: bool = False, has_ambient: bool = False, shaders: tuple = (),
+            y0: int = 0):
     """Ordered 2D rasterization (reference rasterizer.rs:584-899; the JAX
     package's `d2_pass`) -> the updated (H, W, 4) f32 0..1 frame.
 
@@ -210,7 +211,8 @@ def d2_pass(frame, tris, atlas, lights, uniforms, width: int, height: int,
     lights: the host SoA light dict; uniforms: the host dict with proj2d,
     translationd2, scaled2, ambient, anim_frame and, where walls block the
     lights, seg_a / seg_b / seg_valid. Padding triangles are skipped (they
-    cover nothing). Runtime 2D shaders are refused."""
+    cover nothing). `y0` offsets the pixel rows (a slab of a row-sharded
+    frame). Runtime 2D shaders are refused."""
     if shaders:
         raise NotImplementedError("d2_pass with runtime shaders is not ported to "
                                   "rusterix_tpu_torch yet")
@@ -224,8 +226,8 @@ def d2_pass(frame, tris, atlas, lights, uniforms, width: int, height: int,
 
     px = (torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5).expand(
         height, width)
-    py = (torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5).expand(
-        height, width)
+    py = (torch.arange(height, dtype=torch.float32, device=dev)[:, None] + float(y0)
+          + 0.5).expand(height, width)
     # grid-space world position of the integer pixel (rasterizer.rs:664-670)
     trans = np.asarray(uniforms["translationd2"], np.float32)
     scale = float(np.float32(uniforms["scaled2"]))

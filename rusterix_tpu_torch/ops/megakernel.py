@@ -138,12 +138,15 @@ def _tri_near_bound(vis_planes, bbox, alive, width, y0g, rows_local):
 
 
 def morton_ftb_sort(vis_planes, bbox, alive, table, width: int, height: int,
-                    return_perm: bool = False):
+                    y0g=0.0, rows_local: int = None, return_perm: bool = False):
     """Morton + front-to-back super ordering in one row gather.
 
     Pads every array to a multiple of GROUP rows, orders candidates along
     the Morton curve, then orders the super-chunks nearest-first by their
-    near bound. Returns (vis_s, bbox_s, alive_s, table_s, s_near) and, with
+    near bound. `height` is the whole frame's (the Morton curve's
+    normalisation); the near bound clips to rows [y0g, y0g + rows_local),
+    the rows one slab of a row-sharded frame owns (default: the whole
+    frame). Returns (vis_s, bbox_s, alive_s, table_s, s_near) and, with
     `return_perm`, the sorted position -> original slot permutation."""
     t2 = vis_planes.shape[0]
     pad = (-t2) % GROUP
@@ -155,7 +158,8 @@ def morton_ftb_sort(vis_planes, bbox, alive, table, width: int, height: int,
         t2 += pad
     ns = t2 // GROUP
     p1 = morton_perm(bbox, alive, width, height).long()
-    tri_near = _tri_near_bound(vis_planes, bbox, alive, width, 0.0, float(height))
+    rows = float(height if rows_local is None else rows_local)
+    tri_near = _tri_near_bound(vis_planes, bbox, alive, width, float(y0g), rows)
     s_near = tri_near[p1].reshape(ns, GROUP).amax(dim=1)
     # stable: dead supers tie at -inf and must keep their index order
     order = torch.argsort(-s_near, stable=True)
@@ -223,13 +227,12 @@ def pack_mega_params(uniforms, width: int, height: int, atlas_w, device,
                      has_fog: bool = False, y0: int = 0,
                      shadow_params=None) -> torch.Tensor:
     """Camera/ambient/sun scalars, fog at 48-53, the atlas width at 54, the
-    sun color at 55-57, shadow parameters at 59-74, bump strength at 75, fog
-    mode/density at 76-77 -> (80,) f32. shadow_params: the (40,) params of
-    shadow.bake_shadow_pack; its first 16 slots (max shadow distance, bias,
-    the sun camera) go to 59-74. A row offset (58) belongs to the
-    row-sharded frame, which the port does not take yet."""
-    if y0 != 0:
-        raise NotImplementedError("row-sharded frames (y0 != 0) are not ported yet")
+    sun color at 55-57, the row offset at 58, shadow parameters at 59-74,
+    bump strength at 75, fog mode/density at 76-77 -> (80,) f32.
+    `height` is the whole frame's; `y0` is the first row of a slab of a
+    row-sharded frame (0 for a whole frame). shadow_params: the (40,)
+    params of shadow.bake_shadow_pack; its first 16 slots (max shadow
+    distance, bias, the sun camera) go to 59-74."""
     p = np.zeros(N_PARAMS, np.float32)
     p[75] = uniforms.get("bump_strength", 1.0)
     if shadow_params is not None:
@@ -250,6 +253,7 @@ def pack_mega_params(uniforms, width: int, height: int, atlas_w, device,
     p[53] = uniforms["fog_fade"]
     p[54] = atlas_w
     p[55:58] = uniforms.get("sun_color", np.ones(3, np.float32))
+    p[58] = y0
     p[76] = uniforms.get("fog_mode", 0.0)
     p[77] = uniforms.get("fog_density", 0.0)
     return torch.from_numpy(p).to(device)
@@ -272,7 +276,7 @@ def unpack_frame_u32(rgba_u32) -> torch.Tensor:
 
 
 def _check_variants(has_blend, has_material, has_matmap, shadow_rows, shadow_spec,
-                    light_spec, s_near, stage_cut=0):
+                    s_near, stage_cut=0):
     if stage_cut in (3, 4):
         # the JAX kernel's cuts 3 and 4 sit inside TPU mechanisms: 3 skips
         # the per-chunk pull-in of the winners' attribute rows into VMEM
@@ -289,14 +293,6 @@ def _check_variants(has_blend, has_material, has_matmap, shadow_rows, shadow_spe
     if has_matmap and not has_material:
         raise ValueError("mega_render: has_matmap implies has_material (the table's fixed "
                          "column layout)")
-    refused = {
-        "light_spec=None (generic one-hot light blend)": light_spec is None,
-    }
-    for name, on in refused.items():
-        if on:
-            raise NotImplementedError(
-                f"megakernel variant {name} is not ported to rusterix_tpu_torch yet"
-            )
     if s_near is None:
         raise ValueError("mega_render takes inputs presorted by morton_ftb_sort (s_near)")
     if (shadow_rows is None) != (shadow_spec is None):
@@ -326,18 +322,31 @@ def _prepare(vis_planes, alive, bbox, attr):
     return planes, attr.float().contiguous(), sboxes, cboxes
 
 
-def _light_list(light_spec, device) -> torch.Tensor:
-    """light_spec -> (n, 2) i32 [row, type code] for the kernel's loop."""
-    rows = tuple((int(r), int(t)) for r, t in light_spec)
-    return device_table(rows, torch.int32, device).reshape(-1, 2)
+def _light_rows(light_spec, n_rows: int) -> tuple:
+    """The light rows the loop visits: light_spec's (row, type code) pairs,
+    or for light_spec None every row of the table with type None (the
+    generic loop reads each row's type from its one-hot columns)."""
+    if light_spec is None:
+        return tuple((r, None) for r in range(n_rows))
+    return tuple((int(r), int(t)) for r, t in light_spec)
 
 
-def _shadow_launch_tables(shadow_rows, shadow_spec, light_spec, device):
+def _light_list(light_spec, device):
+    """light_spec -> (n, 2) i32 [row, type code] for the kernel's loop, or
+    None for the generic loop, which visits every row in order and derives
+    the type codes from the rows on the card."""
+    if light_spec is None:
+        return None
+    return device_table(_light_rows(light_spec, 0), torch.int32, device).reshape(-1, 2)
+
+
+def _shadow_launch_tables(shadow_rows, shadow_spec, light_rows, device):
     """The shadow variant's launch inputs -> (flat f32 table or None,
     (n_lights, 4) i32 [cube base, res, transmittance base, steps] per light
     of the light list (base -1: the light casts no map; transmittance base
     -1: no transparent layers) or None, (sun base, sun res, transmittance
-    base, steps) with base -1 when there is no sun map)."""
+    base, steps) with base -1 when there is no sun map). `light_rows`:
+    _light_rows' list, in the loop's order."""
     if shadow_rows is None:
         return None, None, (-1, 0, -1, 0)
     if shadow_rows.device != device or shadow_rows.dtype != torch.float32:
@@ -362,7 +371,7 @@ def _shadow_launch_tables(shadow_rows, shadow_spec, light_spec, device):
             raise ValueError(f"mega_render: a map of {size} texels at {base} leaves the "
                              f"{n}-texel shadow table")
     cube = {int(e[0]): tuple(int(v) for v in e[1:5]) for e in cube_entries}
-    rows = tuple(cube.get(int(r), (-1, 0, -1, 0)) for r, _t in light_spec)
+    rows = tuple(cube.get(int(r), (-1, 0, -1, 0)) for r, _t in light_rows)
     sun_map = (-1, 0, -1, 0) if sun_entry is None else tuple(int(v) for v in sun_entry)
     return shadow_rows.contiguous(), device_table(rows, torch.int32, device), sun_map
 
@@ -374,6 +383,7 @@ def mega_render(
     has_matmap: bool = False, light_spec: tuple = None, sun_off: bool = False,
     s_near=None, shadow_rows=None, shadow_spec: tuple = None, ao_img=None,
     brdf_ggx: bool = False, tonemap: bool = False, stage_cut: int = 0,
+    full_height: int = None,
 ):
     """One composed opaque frame -> (rgba_u32 (H,W) i32, z_eff (H,W) f32).
 
@@ -381,7 +391,20 @@ def mega_render(
     s_near, padded to GROUP rows and in front-to-back super order); the
     atlas is the flat u32 texel array as (N,) i32; bg_u32 from
     pack_background_u32; params, lights and occlusion boxes from the pack_*
-    helpers. z_eff is 1.0 where the opaque pass did not write. `brdf_ggx`
+    helpers. z_eff is 1.0 where the opaque pass did not write.
+
+    Row-sharded frames: with a row offset y0 in params[58]
+    (pack_mega_params(y0=)), the (H, W) outputs, bg_u32 and ao_img are the
+    slab of rows [y0, y0 + H) of the frame, and the pixel centres, the
+    tiles' box gates, the planes, the lighting, the fog and the shadow
+    lookups take the frame's rows (the planes and boxes stay in the
+    frame's screen coordinates; params[42] is the frame's height).
+    `full_height` is accepted for the JAX signature and ignored.
+    `light_spec` lists the (row, type code) of the valid light rows; None
+    runs the generic loop, a blend over every row of the table weighted by
+    the one-hot type columns (3, 21, 22, 23), which needs no host read of
+    the lights and gives the specialised frame's bytes (the
+    weights are exact 0 and 1 and the terms they drop finite). `brdf_ggx`
     shades direct light with Cook-Torrance GGX (roughness 0.5, metallic 0)
     instead of the fast Blinn-Phong BRDF. `ao_img`, an (H, W) f32
     ambient-occlusion factor (ops/ao.ssao_pass), multiplies the two ambient
@@ -426,7 +449,7 @@ def mega_render(
     CUDA tensors launch the hand-written kernel (csrc/megakernel.cu); CPU
     tensors run mega_render_reference."""
     _check_variants(has_blend, has_material, has_matmap, shadow_rows, shadow_spec,
-                    light_spec, s_near, stage_cut)
+                    s_near, stage_cut)
     if vis_planes.device.type != "cuda":
         return mega_render_reference(
             vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
@@ -477,7 +500,7 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
     if inputs["params"].numel() != N_PARAMS or inputs["lights"].shape[1] != 24:
         raise ValueError("mega_render: params must be (80,) and lights (L, 24)")
     _check_variants(has_blend, has_material, has_matmap, shadow_rows, shadow_spec,
-                    light_spec, s_near, stage_cut)
+                    s_near, stage_cut)
     mat = 2 if has_matmap else 1 if has_material else 0
     front = (32, 34, 45)[mat]
     need = front + (12 if has_blend else 0)
@@ -488,16 +511,19 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         attr = torch.nn.functional.pad(attr, (0, -attr.shape[1] % 4)).contiguous()
     if sample_mode not in (0, 1):
         raise ValueError(f"mega_render: sample_mode {sample_mode} is not 0 or 1")
-    if any(int(r) >= inputs["lights"].shape[0] for r, _t in light_spec):
+    n_rows = inputs["lights"].shape[0]
+    light_rows = _light_rows(light_spec, n_rows)
+    if any(r >= n_rows for r, _t in light_rows):
         raise ValueError("mega_render: light_spec names a row past the light table")
     llist = _light_list(light_spec, dev)
-    shadow, lshadow, sun_map = _shadow_launch_tables(shadow_rows, shadow_spec, light_spec, dev)
+    n_lights = len(light_rows)
+    shadow, lshadow, sun_map = _shadow_launch_tables(shadow_rows, shadow_spec, light_rows, dev)
     ns = planes.shape[0] // GROUP
     lib = _cuda.library()
-    smem = lib.rx_mega_smem_bytes(ns, llist.shape[0], inputs["occ"].shape[0])
+    smem = lib.rx_mega_smem_bytes(ns, n_lights, inputs["occ"].shape[0])
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
-            f"mega_render: {ns} supers, {llist.shape[0]} lights and {inputs['occ'].shape[0]} "
+            f"mega_render: {ns} supers, {n_lights} lights and {inputs['occ'].shape[0]} "
             f"occlusion boxes need {smem} bytes of shared memory a block; the card has "
             f"{SMEM_PER_BLOCK}")
 
@@ -509,13 +535,13 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
         ptr(cboxes.data_ptr()), ptr(inputs["s_near"].data_ptr()),
         ptr(inputs["atlas"].data_ptr()), ptr(inputs["bg"].data_ptr()),
         ptr(inputs["params"].data_ptr()), ptr(inputs["lights"].data_ptr()),
-        ptr(llist.data_ptr()), ptr(inputs["occ"].data_ptr()),
+        ptr(None if llist is None else llist.data_ptr()), ptr(inputs["occ"].data_ptr()),
         ptr(None if ao_img is None else ao_img.data_ptr()),
         ptr(None if shadow is None else shadow.data_ptr()),
         ptr(None if lshadow is None else lshadow.data_ptr()),
         ptr(rgba.data_ptr()), ptr(zeff.data_ptr()),
         ns, attr.shape[1], inputs["atlas"].numel(),
-        llist.shape[0], inputs["occ"].shape[0], height, width,
+        n_lights, inputs["occ"].shape[0], height, width,
         int(sample_mode), int(bool(sun_off)), int(bool(brdf_ggx)), int(stage_cut),
         int(sun_map[0]), int(sun_map[1]), int(sun_map[2]), int(sun_map[3]),
         int(bool(tonemap)), int(bool(has_blend)), mat,
@@ -650,22 +676,23 @@ def _texel_lookup(atlas, u, v, rect, kind, rgba_cols, repeat, sample_mode,
     return out
 
 
-def _visibility(planes, sboxes, cboxes, s_near, hp, wp):
+def _visibility(planes, sboxes, cboxes, s_near, hp, wp, y0: int = 0):
     """The kernel's scan, tile for tile: supers in front-to-back order,
     super and chunk boxes gating each 64x128 tile, and the tile's early
-    stop once s_near[s] <= min(best over the tile). -> best (hp, wp) in the
-    max-1/z domain, idx (hp, wp) i32 sorted slot or -1, and the number of
-    pixel-candidate tests the scan performed."""
+    stop once s_near[s] <= min(best over the tile). The tiles start at the
+    frame's row y0. -> best (hp, wp) in the max-1/z domain, idx (hp, wp)
+    i32 sorted slot or -1, and the number of pixel-candidate tests the scan
+    performed."""
     dev = planes.device
     n_th, n_tw = hp // TILE_H, wp // TILE_W
     xs = (torch.arange(wp, dtype=torch.float32, device=dev) + 0.5).reshape(
         1, 1, n_tw, TILE_W, 1
     )
-    ys = (torch.arange(hp, dtype=torch.float32, device=dev) + 0.5).reshape(
+    ys = (torch.arange(hp, dtype=torch.float32, device=dev) + float(y0) + 0.5).reshape(
         n_th, TILE_H, 1, 1, 1
     )
-    s_hit = tile_box_hits(sboxes, n_th, n_tw)
-    c_hit = tile_box_hits(cboxes, n_th, n_tw).repeat_interleave(CHUNK, dim=2)  # per slot
+    s_hit = tile_box_hits(sboxes, n_th, n_tw, y0)
+    c_hit = tile_box_hits(cboxes, n_th, n_tw, y0).repeat_interleave(CHUNK, dim=2)  # per slot
     best = torch.ones((n_th, TILE_H, n_tw, TILE_W), device=dev)
     idx = torch.full((n_th, TILE_H, n_tw, TILE_W), -1, dtype=torch.int32, device=dev)
     minb = torch.ones((n_th, n_tw), device=dev)
@@ -684,6 +711,90 @@ def _visibility(planes, sboxes, cboxes, s_near, hp, wp):
             )
         minb = best.amin(dim=(1, 3))
     return best.reshape(hp, wp), idx.reshape(hp, wp), int(tests) * TILE_H * TILE_W
+
+
+def _light_terms(lrow, lt, tpx, tpy, tpz, dist, inv_dist, lambert):
+    """One light row of a known type code `lt` (the specialised loop: only
+    its own type's attenuation path) -> its radiance scale at each pixel
+    before the shadow and the colour. `lambert` is max(N.L, 0)."""
+    start, end, intensity, valid = lrow[4], lrow[5], lrow[6], lrow[20]
+    rng_f = (dist < end).float()
+    near_f = (dist <= start).float()
+    if lt not in (1, 2, 3):  # point, area, daylight
+        smooth_att = near_f + (1.0 - near_f) * _smoothstep(end, start, dist)
+    if lt not in (0, 1, 2, 3):  # area and daylight
+        angle_att = torch.clamp(
+            (lrow[16] * tpx + lrow[17] * tpy + lrow[18] * tpz) * inv_dist, min=0.0
+        )
+    if lt == 0:
+        scale = intensity * smooth_att
+    elif lt in (1, 2):
+        scale = intensity
+    elif lt == 3:
+        lin_att = near_f + (1.0 - near_f) * (
+            1.0 - (dist - start) / torch.clamp(end - start, min=1e-20)
+        )
+        cosang = torch.clamp(
+            (lrow[10] * tpx + lrow[11] * tpy + lrow[12] * tpz) * inv_dist, -1.0, 1.0
+        )
+        spot_ok_f = (cosang >= lrow[13]).float()
+        scale = spot_ok_f * intensity * lin_att
+    elif lt == 4:
+        area = lrow[14] * lrow[15]
+        area_main = angle_att * smooth_att * area * intensity
+        area_linedef = smooth_att * area * intensity
+        area_c = lrow[19] * area_linedef + (1.0 - lrow[19]) * area_main
+        inner_f = (dist < 0.1).float()
+        scale = inner_f + (1.0 - inner_f) * area_c
+    else:
+        scale = angle_att * smooth_att * intensity
+    if lt in (1, 2):
+        ok_f = valid
+    elif lt == 3:
+        ok_f = valid * rng_f * spot_ok_f
+    else:
+        ok_f = valid * rng_f
+    return ok_f * scale * (lambert if lt in (0, 3, 4) else 1.0)
+
+
+def _generic_light_terms(lrow, tpx, tpy, tpz, dist, inv_dist, lambert):
+    """One light row in the generic loop (light_spec None): every type's
+    term, blended by the row's one-hot type columns (3 point, 21 ambient,
+    22 spot, 23 area, none of them daylight), as the JAX kernel writes it
+    (rusterix_tpu/ops/megakernel.py:1144-1272). With exact 0 / 1 weights
+    and finite terms it equals _light_terms of the row's type."""
+    start, end, intensity, valid = lrow[4], lrow[5], lrow[6], lrow[20]
+    f_point, f_amb, f_spot, f_area = lrow[3], lrow[21], lrow[22], lrow[23]
+    f_day = 1.0 - f_point - f_amb - f_spot - f_area
+    rng_f = (dist < end).float()
+    near_f = (dist <= start).float()
+    smooth_att = near_f + (1.0 - near_f) * _smoothstep(end, start, dist)
+    point_c = intensity * smooth_att
+    lin_att = near_f + (1.0 - near_f) * (
+        1.0 - (dist - start) / torch.clamp(end - start, min=1e-20)
+    )
+    cosang = torch.clamp(
+        (lrow[10] * tpx + lrow[11] * tpy + lrow[12] * tpz) * inv_dist, -1.0, 1.0
+    )
+    spot_ok_f = (cosang >= lrow[13]).float()
+    spot_c = spot_ok_f * intensity * lin_att
+    angle_att = torch.clamp(
+        (lrow[16] * tpx + lrow[17] * tpy + lrow[18] * tpz) * inv_dist, min=0.0
+    )
+    area = lrow[14] * lrow[15]
+    area_main = angle_att * smooth_att * area * intensity
+    area_linedef = smooth_att * area * intensity
+    area_c = lrow[19] * area_linedef + (1.0 - lrow[19]) * area_main
+    inner_f = (dist < 0.1).float()
+    area_c = inner_f + (1.0 - inner_f) * area_c
+    day_c = angle_att * smooth_att * intensity
+    scale = (f_point * point_c + f_amb * intensity + f_spot * spot_c + f_area * area_c
+             + f_day * day_c)
+    ok_f = valid * (f_amb + (1.0 - f_amb) * rng_f)
+    ok_f = ok_f * (1.0 - f_spot * (1.0 - spot_ok_f))
+    needs = f_point + f_spot + f_area
+    lam = needs * lambert + (1.0 - needs)
+    return ok_f * scale * lam
 
 
 def mega_render_reference(
@@ -706,19 +817,22 @@ def mega_render_reference(
     reads a depth and an alpha texel), and "atlas_texels", the distinct
     atlas texels read (the material sidecars by opaque pixels only, as the
     kernel reads them). `stage_cut` 1 and 2 stop where the kernel's cuts do (see
-    mega_render)."""
-    if light_spec is None or s_near is None:
-        raise ValueError("mega_render_reference needs light_spec and s_near")
+    mega_render). The row offset is params[58]; light_spec None runs the
+    JAX kernel's generic one-hot light blend over every row, term for term."""
+    if s_near is None:
+        raise ValueError("mega_render_reference needs s_near")
     if stage_cut not in (0, 1, 2):
         raise ValueError(f"mega_render_reference: stage_cut {stage_cut} is not 0, 1 or 2")
     if has_matmap and not has_material:
         raise ValueError("mega_render_reference: has_matmap implies has_material")
     ao_img = _check_ao(ao_img, height, width, vis_planes.device)
-    _shadow_launch_tables(shadow_rows, shadow_spec, light_spec, vis_planes.device)
+    light_rows = _light_rows(light_spec, lights_packed.shape[0])
+    _shadow_launch_tables(shadow_rows, shadow_spec, light_rows, vis_planes.device)
     planes, attr, sboxes, cboxes = _prepare(vis_planes, alive, bbox, attr)
     hp = height + (-height % TILE_H)
     wp = width + (-width % TILE_W)
-    best, idx, tests = _visibility(planes, sboxes, cboxes, s_near.float(), hp, wp)
+    y0 = int(params[58].item())
+    best, idx, tests = _visibility(planes, sboxes, cboxes, s_near.float(), hp, wp, y0)
     work = {"vis_tests": tests, "cube_reads": 0, "sun_reads": 0, "trans_steps": 0,
             "atlas_texels": 0}
     reads = [] if return_work else None
@@ -743,7 +857,7 @@ def mega_render_reference(
 
     z = 1.0 / best
     xg = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    yg = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    yg = (torch.arange(height, dtype=torch.float32, device=dev) + float(y0) + 0.5)[:, None]
 
     # ---- stage 2: plane interpolation ----
     def interp(i):
@@ -1015,54 +1129,17 @@ def mega_render_reference(
     lit_g = lit_g + amb_g * ka_g * hemi
     lit_b = lit_b + amb_b * ka_b * hemi
 
-    for li, lt in light_spec:
+    for li, lt in light_rows:
         lrow = Lp[li]
-        start, end, intensity, valid = lrow[4], lrow[5], lrow[6], lrow[20]
         tpx, tpy, tpz = wx - lrow[0], wy - lrow[1], wz - lrow[2]
         dist = torch.sqrt(tpx * tpx + tpy * tpy + tpz * tpz)
         inv_dist = 1.0 / torch.clamp(dist, min=1e-20)
-        rng_f = (dist < end).float()
-        near_f = (dist <= start).float()
-        if lt not in (1, 2, 3):  # point, area, daylight
-            smooth_att = near_f + (1.0 - near_f) * _smoothstep(end, start, dist)
-        if lt not in (0, 1, 2, 3):  # area and daylight
-            angle_att = torch.clamp(
-                (lrow[16] * tpx + lrow[17] * tpy + lrow[18] * tpz) * inv_dist, min=0.0
-            )
-        if lt == 0:
-            scale = intensity * smooth_att
-        elif lt in (1, 2):
-            scale = intensity
-        elif lt == 3:
-            lin_att = near_f + (1.0 - near_f) * (
-                1.0 - (dist - start) / torch.clamp(end - start, min=1e-20)
-            )
-            cosang = torch.clamp(
-                (lrow[10] * tpx + lrow[11] * tpy + lrow[12] * tpz) * inv_dist, -1.0, 1.0
-            )
-            spot_ok_f = (cosang >= lrow[13]).float()
-            scale = spot_ok_f * intensity * lin_att
-        elif lt == 4:
-            area = lrow[14] * lrow[15]
-            area_main = angle_att * smooth_att * area * intensity
-            area_linedef = smooth_att * area * intensity
-            area_c = lrow[19] * area_linedef + (1.0 - lrow[19]) * area_main
-            inner_f = (dist < 0.1).float()
-            scale = inner_f + (1.0 - inner_f) * area_c
-        else:
-            scale = angle_att * smooth_att * intensity
-        if lt in (1, 2):
-            ok_f = valid
-        elif lt == 3:
-            ok_f = valid * rng_f * spot_ok_f
-        else:
-            ok_f = valid * rng_f
         ldx, ldy, ldz = -tpx * inv_dist, -tpy * inv_dist, -tpz * inv_dist
-        if lt in (0, 3, 4):
-            lam = torch.clamp(ux * ldx + uy * ldy + uz * ldz, min=0.0)
-            rad = ok_f * scale * lam
+        lambert = torch.clamp(ux * ldx + uy * ldy + uz * ldz, min=0.0)
+        if lt is None:
+            rad = _generic_light_terms(lrow, tpx, tpy, tpz, dist, inv_dist, lambert)
         else:
-            rad = ok_f * scale * 1.0
+            rad = _light_terms(lrow, lt, tpx, tpy, tpz, dist, inv_dist, lambert)
         if li in shadow_cube:
             rad = rad * shadow_cube[li]
         rad_r, rad_g, rad_b = lrow[7] * rad, lrow[8] * rad, lrow[9] * rad

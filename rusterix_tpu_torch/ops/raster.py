@@ -102,27 +102,50 @@ def packed_to_torch(packed: PackedScene, device) -> dict:
     }
 
 
+def frame_setup(d3, lights, atlas, uniforms, width: int, height: int, has_blend: bool = False,
+                has_material: bool = False, has_matmap: bool = False, planes=None) -> dict:
+    """What every row of the frame shares before its kernels -> dict with
+    the setup pass's `vis`, `attr`, `bbox`, `alive` (f32) and `tri_id`, the
+    megakernel `table`, and the light and occluder packs `lights` and `occ`,
+    on d3's device. `planes`: the setup pass's five outputs when the caller
+    has them (a row-sharded frame gathers them from its triangle shards)."""
+    dev = d3["pos"].device
+    if planes is None:
+        planes = setup_pass(
+            d3["pos"], d3["uv"], d3["nrm"], d3["valid"], d3["cull"],
+            torch.from_numpy(uniforms["view"]).to(dev),
+            torch.from_numpy(uniforms["proj"]).to(dev),
+            width, height, bw=d3["bw"] if has_blend else None,
+        )
+    vis, attr, bbox, alive, tri_id = planes
+    return {
+        "vis": vis, "attr": attr, "bbox": bbox, "alive": alive.float(), "tri_id": tri_id,
+        "table": pack_mega_table(attr, tri_id, d3, atlas, int(uniforms["anim_frame"]),
+                                 has_blend, has_material, has_matmap),
+        "lights": pack_light_params(lights, dev),
+        "occ": pack_occ_params(uniforms, dev),
+    }
+
+
 def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
                  height: int, sample_mode: int = 0, has_fog: bool = False,
                  light_spec: tuple = None, sun_off: bool = False,
-                 brdf_ggx: bool = False, refl_samples: int = 0,
-                 refl_scale: int = 1, ao_taps: tuple = None,
-                 sky_light: bool = False, shadow_rows=None, shadow_params=None,
+                 brdf_ggx: bool = False, shadow_rows=None, shadow_params=None,
                  shadow_spec: tuple = None, tonemap: bool = False, has_blend: bool = False,
-                 has_material: bool = False, has_matmap: bool = False,
-                 **_later) -> dict:
-    """The frame's preparation before its kernels: setup pass, megakernel
-    table, Morton + front-to-back sort and the parameter packs -> dict with
-    the setup pass's `attr` and `tri_id`, the sorted `vis_s`, `alive_s`,
-    `bbox_s`, the sorted position -> slot permutation `sort_perm`, and
-    `mega_args` / `mega_kwargs` for mega_render. Takes render_frame's
-    arguments; those of the passes after the opaque frame (`_later`) are
-    read by render_frame.
+                 has_material: bool = False, has_matmap: bool = False, y0: int = 0,
+                 rows: int = None, shared: dict = None, **_later) -> dict:
+    """The preparation of B1's rows: frame_setup (the setup pass, megakernel
+    table and packs), the Morton + front-to-back sort and the parameter
+    pack -> dict with the setup pass's `attr` and `tri_id`, the rows `y0`
+    and `rows`, the sorted `vis_s`, `alive_s`, `bbox_s`, the sorted
+    position -> slot permutation `sort_perm`, and `mega_args` /
+    `mega_kwargs` for mega_render. Takes render_frame's arguments; those of
+    the passes after the opaque frame (`_later`) are compose_rows'.
 
     d3/atlas: packed_to_torch tensors; lights/uniforms: the host (numpy)
     dicts the Rasterizer builds each frame (pack_light_params,
     pack_mega_params and pack_occ_params carry them to the device);
-    background (H, W, 4) f32 on the device; shadow_rows / shadow_params /
+    background (rows, W, 4) f32 on the device; shadow_rows / shadow_params /
     shadow_spec: a bake of shadow.bake_shadow_pack (None: no shadows).
     `has_blend`: the pack has vertex-blended batches (kind2 >= 0); the setup
     pass then interpolates their blend weight plane and the table carries
@@ -130,31 +153,28 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
     pack has batches with a constant roughness / metallic other than the
     defaults (0.5, 0), from baked shaders; `has_matmap`: batches whose baked
     shader wrote per-pixel material (the M1 / M2 sidecar tiles; implies
-    has_material). Both add their table columns and B1's variants. The
-    reflection, AO and sky-light settings are read by render_frame."""
+    has_material). Both add their table columns and B1's variants. `y0` and
+    `rows`: B1 renders the rows [y0, y0 + rows) of the height-row frame (a
+    slab of a row-sharded frame; default all of them), and the sort's near
+    bound clips to them. `shared`: frame_setup's result, when the caller
+    has it."""
     dev = d3["pos"].device
-    vis, attr, bbox, alive, tri_id = setup_pass(
-        d3["pos"], d3["uv"], d3["nrm"], d3["valid"], d3["cull"],
-        torch.from_numpy(uniforms["view"]).to(dev),
-        torch.from_numpy(uniforms["proj"]).to(dev),
-        width, height, bw=d3["bw"] if has_blend else None,
-    )
-    table = pack_mega_table(attr, tri_id, d3, atlas, int(uniforms["anim_frame"]), has_blend,
-                            has_material, has_matmap)
+    rows = height if rows is None else rows
+    s = shared or frame_setup(d3, lights, atlas, uniforms, width, height, has_blend,
+                              has_material, has_matmap)
     vis_s, bbox_s, alive_s, table_s, s_near, sort_perm = morton_ftb_sort(
-        vis, bbox, alive.float(), table, width, height, return_perm=True
+        s["vis"], s["bbox"], s["alive"], s["table"], width, height, y0g=y0, rows_local=rows,
+        return_perm=True,
     )
     args = (
         vis_s, alive_s, bbox_s, table_s, atlas["flat_u32"],
         pack_background_u32(background),
-        pack_mega_params(uniforms, width, height, atlas["w"], dev, has_fog,
+        pack_mega_params(uniforms, width, height, atlas["w"], dev, has_fog, y0=y0,
                          shadow_params=shadow_params),
-        pack_light_params(lights, dev),
-        pack_occ_params(uniforms, dev),
-        width, height, sample_mode,
+        s["lights"], s["occ"], width, rows, sample_mode,
     )
     return {
-        "attr": attr, "tri_id": tri_id,
+        "attr": s["attr"], "tri_id": s["tri_id"], "y0": y0, "rows": rows,
         "vis_s": vis_s, "alive_s": alive_s, "bbox_s": bbox_s, "sort_perm": sort_perm,
         "mega_args": args,
         "mega_kwargs": {"light_spec": light_spec, "sun_off": sun_off, "s_near": s_near,
@@ -165,11 +185,20 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
     }
 
 
-def visibility_prepass(fi: dict, width: int, height: int):
+def needs_prepass(ao_taps: tuple = None, refl_samples: int = 0, sky_light: bool = False,
+                  **_frame) -> bool:
+    """Whether a frame with these settings runs the visibility pre-pass (B2):
+    AO, reflections and the sky light need the winners before shading."""
+    return bool(ao_taps) or refl_samples > 0 or bool(sky_light)
+
+
+def visibility_prepass(fi: dict, width: int, height: int, y0: int = 0):
     """The G-buffer's visibility before shading (B2 on the sorted
     candidates) -> (z, idx, hit) with idx mapped back to the setup pass's
-    slots through the sort permutation."""
-    z, i_s, hit = visibility_pass_pallas(fi["vis_s"], fi["alive_s"], fi["bbox_s"], width, height)
+    slots through the sort permutation. `y0`: the rows [y0, y0 + height)
+    of the frame (a slab of a row-sharded frame)."""
+    z, i_s, hit = visibility_pass_pallas(fi["vis_s"], fi["alive_s"], fi["bbox_s"], width, height,
+                                         y0)
     idx = torch.where(hit, fi["sort_perm"][torch.clamp(i_s, min=0).long()], -1)
     return z, idx, hit
 
@@ -191,20 +220,20 @@ LAYER_CHUNK = 64
 
 
 def _shade_opacity(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms, width: int,
-                   height: int, sample_mode: int = 0):
+                   height: int, sample_mode: int = 0, y0: int = 0):
     """Opacity-pass shading: texel only, no lighting (reference
     d3_rasterize_opacity, src/rasterizer.rs:1425-1690; the JAX package's
     `_shade_opacity` without runtime shaders) -> (color (H, W, 4) f32 with
     the alpha times the batch opacity, z_eff (1.0 where no layer surface),
-    tri id (H, W))."""
+    tri id (H, W)). `y0` offsets the pixel rows (row-sharded frames)."""
     dev = z.device
     slot = torch.clamp(idx, min=0).long()
     t = tri_id[slot].long()
     planes = attr_planes[slot]
     px = (torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5).expand(
         height, width)
-    py = (torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5).expand(
-        height, width)
+    py = (torch.arange(height, dtype=torch.float32, device=dev)[:, None] + float(y0)
+          + 0.5).expand(height, width)
 
     def interp(i):
         return planes[..., 3 * i] * px + planes[..., 3 * i + 1] * py + planes[..., 3 * i + 2]
@@ -226,8 +255,21 @@ def _shade_opacity(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms, widt
     return color, z_eff, t
 
 
+def opacity_setup(d3_op, uniforms, width: int, height: int):
+    """The setup pass of the opacity pack for a width x height frame ->
+    (planes, attribute planes, alive as f32, tri id)."""
+    view = torch.from_numpy(uniforms["view"]).to(d3_op["pos"].device)
+    proj = torch.from_numpy(uniforms["proj"]).to(d3_op["pos"].device)
+    vis_o, attr_o, _bbox, alive_o, tri_id_o = setup_pass(
+        d3_op["pos"], d3_op["uv"], d3_op["nrm"], d3_op["valid"], d3_op["cull"], view, proj,
+        width, height,
+    )
+    return vis_o, attr_o, alive_o.float(), tri_id_o
+
+
 def opacity_layers(d3_op, atlas, uniforms, width: int, height: int, sample_mode: int = 0,
-                   layers: int = 1, reflect_layer=None):
+                   layers: int = 1, reflect_layer=None, y0: int = 0, rows: int = None,
+                   setup=None):
     """The opacity batches' depth-peeled layers -> [(color (H, W, 4),
     z_eff (H, W))], nearest first: layer k is the k-th nearest transparent
     surface of each pixel (strictly farther than layer k-1 through the raw
@@ -235,21 +277,19 @@ def opacity_layers(d3_op, atlas, uniforms, width: int, height: int, sample_mode:
     (rusterix_tpu/ops/raster.py:423-482). The layers' visibility is the
     plain pass in XLA's plane rounding (`plane_fma`), as the JAX package
     runs them through its XLA pass. `reflect_layer(z, idx, hit, attr,
-    tri_id, color)` -> color composites a layer's reflections (None: off)."""
-    view = torch.from_numpy(uniforms["view"]).to(d3_op["pos"].device)
-    proj = torch.from_numpy(uniforms["proj"]).to(d3_op["pos"].device)
-    vis_o, attr_o, _bbox, alive_o, tri_id_o = setup_pass(
-        d3_op["pos"], d3_op["uv"], d3_op["nrm"], d3_op["valid"], d3_op["cull"], view, proj,
-        width, height,
-    )
-    alive_of = alive_o.float()
+    tri_id, color)` -> color composites a layer's reflections (None: off).
+    `y0` and `rows`: peel only the rows [y0, y0 + rows) of the frame (a
+    slab of a row-sharded frame; default all `height` rows); `setup`:
+    opacity_setup's result, when the caller has it."""
+    vis_o, attr_o, alive_of, tri_id_o = setup or opacity_setup(d3_op, uniforms, width, height)
+    rows = height if rows is None else rows
     out, ceil = [], None
     for _layer in range(layers):
         z_o, idx_o, hit_o, inv_o = visibility_pass(
-            vis_o, alive_of, width, height, chunk=LAYER_CHUNK, z_ceil=ceil, return_invz=True,
-            plane_fma=True)
+            vis_o, alive_of, width, rows, chunk=LAYER_CHUNK, y0=y0, z_ceil=ceil,
+            return_invz=True, plane_fma=True)
         color_o, zeff_o, _t = _shade_opacity(z_o, idx_o, hit_o, attr_o, tri_id_o, d3_op, atlas,
-                                             uniforms, width, height, sample_mode)
+                                             uniforms, width, rows, sample_mode, y0)
         if reflect_layer is not None:
             color_o = reflect_layer(z_o, idx_o, hit_o, attr_o, tri_id_o, color_o)
         out.append((color_o, zeff_o))
@@ -257,11 +297,8 @@ def opacity_layers(d3_op, atlas, uniforms, width: int, height: int, sample_mode:
     return out
 
 
-def render_frame(d3, lights, atlas, uniforms, background, width: int,
-                 height: int, sample_mode: int = 0, has_fog: bool = False,
-                 light_spec: tuple = None, sun_off: bool = False,
-                 brdf_ggx: bool = False, refl_samples: int = 0,
-                 refl_scale: int = 1, ao_taps: tuple = None,
+def compose_rows(fi, rgba_u32, z_eff, pre, ao_img, d3, lights, atlas, uniforms, width: int,
+                 height: int, sample_mode: int = 0, refl_samples: int = 0, refl_scale: int = 1,
                  sky_light: bool = False, shadow_rows=None, shadow_params=None,
                  shadow_spec: tuple = None, tonemap: bool = False, d3_op=None,
                  has_opacity: bool = False, transparency_layers: int = 1,
@@ -269,7 +306,64 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
                  sky_pre: dict = None, has_brush: bool = False, has_blend: bool = False,
                  d2=None, has_d2: bool = False, has_lights: bool = False,
                  has_ambient: bool = False, has_material: bool = False,
-                 has_matmap: bool = False):
+                 has_matmap: bool = False, op_setup=None, **_inputs):
+    """The passes after B1 on the rows frame_inputs `fi` prepared (fi["y0"],
+    fi["rows"] of the height-row frame) -> (rows, W, 4) uint8 tensor. B1's
+    outputs `rgba_u32` and `z_eff`, the pre-pass `pre` (z, idx, hit) where
+    AO, reflections or the sky light need it, and the AO factor `ao_img`
+    of these rows (or None). Takes render_frame's arguments (those of B1's
+    preparation, `_inputs`, are frame_inputs'); `op_setup`: opacity_setup's
+    result, when the caller has it."""
+    y0, rows = fi["y0"], fi["rows"]
+    if not (has_sky or has_opacity or has_d2 or has_brush or refl_samples or sky_light):
+        return unpack_frame_u32(rgba_u32)
+    # the passes after the opaque frame blend in f32 over its quantized
+    # bytes, as the reference's u8 tile buffer does (rasterizer.rs:464-495)
+    frame = unpack_frame_u32(rgba_u32).float() * (1.0 / 255.0)
+    shadow = None if shadow_spec is None else (shadow_rows, shadow_params, shadow_spec)
+    g_args = {"has_blend": has_blend, "has_material": has_material, "has_matmap": has_matmap,
+              "y0": y0, "full_height": height}
+    if refl_samples:
+        refl, rmask = reflection_pass_scaled(
+            *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms, width, rows,
+            sample_mode, refl_samples, scale=refl_scale, shadow=shadow, **g_args)
+        frame = apply_reflections(frame, refl, rmask, tonemap=tonemap)
+    if sky_light:
+        sky_term, sky_mask = sky_light_pass(
+            *pre, fi["attr"], fi["tri_id"], d3, atlas, uniforms, width, rows, sample_mode,
+            **g_args)
+        if ao_img is not None:
+            sky_term = sky_term * ao_img[..., None]
+        frame = apply_reflections(frame, sky_term, sky_mask, tonemap=tonemap)
+    if has_sky:
+        frame = sky_miss_pass(frame, z_eff, sky_pre, uniforms, width, height, y0)
+    if has_brush:
+        frame = brush_preview_pass(frame, z_eff, uniforms, width, height, y0)
+    if has_opacity:
+        reflect_layer = None
+        if refl_samples:
+            def reflect_layer(z_o, idx_o, hit_o, attr_o, tri_id_o, color_o):
+                refl_o, rmask_o = reflection_pass_scaled(
+                    z_o, idx_o, hit_o, attr_o, tri_id_o, d3_op, atlas, lights, uniforms,
+                    width, rows, sample_mode, refl_samples, scale=refl_scale, shadow=shadow,
+                    scene_d3=d3, **g_args)
+                # the layer colour is display-encoded with the fast sRGB
+                # pair (_shade_opacity) whatever the frame's tonemap is
+                return apply_reflections(color_o, refl_o, rmask_o, tonemap=False)
+
+        layers = opacity_layers(d3_op, atlas, uniforms, width, height, sample_mode,
+                                transparency_layers, reflect_layer, y0=y0, rows=rows,
+                                setup=op_setup)
+        for color_o, zeff_o in reversed(layers):
+            frame = blend_opacity(frame, z_eff, color_o, zeff_o, preserve_transparency)
+    if has_d2:
+        frame = d2_pass(frame, d2, atlas, lights, uniforms, width, rows, sample_mode,
+                        preserve_transparency, has_lights=has_lights, has_ambient=has_ambient,
+                        y0=y0)
+    return frame_to_u8(frame)
+
+
+def render_frame(d3, lights, atlas, uniforms, background, width: int, height: int, **settings):
     """One frame on the device -> (H, W, 4) uint8 tensor: the JAX
     render_frame's megakernel branch (ops/raster.py:233-500 there). The
     opaque frame comes from the megakernel (B1). With AO (`ao_taps` from
@@ -290,64 +384,16 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int,
     `has_d2`, the 2D triangles `d2` in painter's order (composite.d2_pass,
     lit when `has_lights` / `has_ambient`). `has_blend` (vertex-blended
     batches), `has_material` and `has_matmap` (baked shader materials)
-    reach B1 and every G-buffer. Arguments as for frame_inputs."""
-    fi = frame_inputs(
-        d3, lights, atlas, uniforms, background, width, height, sample_mode,
-        has_fog, light_spec, sun_off, brdf_ggx,
-        shadow_rows=shadow_rows, shadow_params=shadow_params, shadow_spec=shadow_spec,
-        tonemap=tonemap, has_blend=has_blend, has_material=has_material,
-        has_matmap=has_matmap,
-    )
-    pre = visibility_prepass(fi, width, height) if (ao_taps or refl_samples or sky_light) else None
+    reach B1 and every G-buffer. `settings`: the keyword arguments of
+    frame_inputs (B1's preparation) and compose_rows (the passes after it);
+    the Rasterizer's frame_args hold every one."""
+    fi = frame_inputs(d3, lights, atlas, uniforms, background, width, height, **settings)
+    pre = visibility_prepass(fi, width, height) if needs_prepass(**settings) else None
+    ao_taps = settings.get("ao_taps")
     ao_img = ambient_occlusion(pre, uniforms, height, ao_taps) if ao_taps else None
     rgba_u32, z_eff = mega_render(*fi["mega_args"], **fi["mega_kwargs"], ao_img=ao_img)
-    if not (has_sky or has_opacity or has_d2 or has_brush or refl_samples or sky_light):
-        return unpack_frame_u32(rgba_u32)
-    # the passes after the opaque frame blend in f32 over its quantized
-    # bytes, as the reference's u8 tile buffer does (rasterizer.rs:464-495)
-    frame = unpack_frame_u32(rgba_u32).float() * (1.0 / 255.0)
-    shadow = None if shadow_spec is None else (shadow_rows, shadow_params, shadow_spec)
-    if refl_samples:
-        refl, rmask = reflection_pass_scaled(
-            *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms,
-            width, height, sample_mode, refl_samples, scale=refl_scale, shadow=shadow,
-            has_blend=has_blend, has_material=has_material, has_matmap=has_matmap,
-        )
-        frame = apply_reflections(frame, refl, rmask, tonemap=tonemap)
-    if sky_light:
-        sky_term, sky_mask = sky_light_pass(
-            *pre, fi["attr"], fi["tri_id"], d3, atlas, uniforms, width, height, sample_mode,
-            has_blend=has_blend, has_material=has_material, has_matmap=has_matmap,
-        )
-        if ao_taps:
-            sky_term = sky_term * ao_img[..., None]
-        frame = apply_reflections(frame, sky_term, sky_mask, tonemap=tonemap)
-    if has_sky:
-        frame = sky_miss_pass(frame, z_eff, sky_pre, uniforms, width, height)
-    if has_brush:
-        frame = brush_preview_pass(frame, z_eff, uniforms, width, height)
-    if has_opacity:
-        reflect_layer = None
-        if refl_samples:
-            def reflect_layer(z_o, idx_o, hit_o, attr_o, tri_id_o, color_o):
-                refl_o, rmask_o = reflection_pass_scaled(
-                    z_o, idx_o, hit_o, attr_o, tri_id_o, d3_op, atlas, lights, uniforms,
-                    width, height, sample_mode, refl_samples, scale=refl_scale,
-                    shadow=shadow, scene_d3=d3, has_blend=has_blend,
-                    has_material=has_material, has_matmap=has_matmap,
-                )
-                # the layer colour is display-encoded with the fast sRGB
-                # pair (_shade_opacity) whatever the frame's tonemap is
-                return apply_reflections(color_o, refl_o, rmask_o, tonemap=False)
-
-        layers = opacity_layers(d3_op, atlas, uniforms, width, height, sample_mode,
-                                transparency_layers, reflect_layer)
-        for color_o, zeff_o in reversed(layers):
-            frame = blend_opacity(frame, z_eff, color_o, zeff_o, preserve_transparency)
-    if has_d2:
-        frame = d2_pass(frame, d2, atlas, lights, uniforms, width, height, sample_mode,
-                        preserve_transparency, has_lights=has_lights, has_ambient=has_ambient)
-    return frame_to_u8(frame)
+    return compose_rows(fi, rgba_u32, z_eff, pre, ao_img, d3, lights, atlas, uniforms, width,
+                        height, **settings)
 
 
 def ssaa_downsample(frame_u8, ss: int):
@@ -870,11 +916,10 @@ class Rasterizer:
         d = d / max(np.linalg.norm(d), 1e-20)
         return Ray(near, d.astype(np.float32))
 
-    def _refuse_unported_scene(self, scene, packed, mesh):
+    def _refuse_unported_scene(self, scene, packed):
         dynamic = bool(scene.d3_dynamic or scene.d3_dynamic_opacity or scene.d2_dynamic)
         shadows = self.shadow_settings is not None and self.render_mode.d3_active
         checks = {
-            "mesh= (the multi-chip row-sharded frame)": mesh is not None,
             # the part of the shadow family that needs batches the port
             # refuses, named before those batches
             "dynamic shadow casters (shadows with dynamic batches)": shadows
@@ -909,7 +954,14 @@ class Rasterizer:
         in that mode). `packed` renders a PackedScene built elsewhere (e.g.
         by the JAX package) instead of packing the scene. With
         set_supersample(n) the frame renders at (n*H, n*W) and is
-        box-filtered down to (H, W) on the device before the readback."""
+        box-filtered down to (H, W) on the device before the readback.
+
+        `mesh` (parallel.make_mesh: a tuple of torch devices) renders the
+        frame row-sharded (parallel.render_frame_sharded): the triangles
+        split over the slabs through the setup pass, the rows through every
+        pass after it, byte-equal to the frame without a mesh. Reflections
+        render at full resolution on this path whatever the reflection
+        scale, as in the JAX package."""
         if assets is None:
             assets = Assets.default()
         self.hash_anim = hash_u32(scene.animation_frame & 0xFFFFFFFF)
@@ -936,7 +988,11 @@ class Rasterizer:
             _SCENE_CACHE.clear()  # one live packed scene per process is enough
             _SCENE_CACHE[key] = cache
         packed = cache["packed"]
-        self._refuse_unported_scene(scene, packed, mesh)
+        if mesh is not None:
+            from ..parallel import check_mesh
+
+            mesh = check_mesh(mesh)
+        self._refuse_unported_scene(scene, packed)
         d3 = cache["d3"]
         if not self.render_mode.d3_active:
             d3 = dict(d3, valid=torch.zeros_like(d3["valid"]))
@@ -1022,7 +1078,13 @@ class Rasterizer:
             has_ambient=self.ambient_color is not None,
         )
         self.frame_args = frame_args
-        frame = render_frame(**frame_args)
+        if mesh is not None:
+            from ..parallel import render_frame_sharded
+
+            fa = {k: v for k, v in frame_args.items() if k != "refl_scale"}
+            frame = render_frame_sharded(mesh, **fa)
+        else:
+            frame = render_frame(**frame_args)
         if ss > 1:
             frame = ssaa_downsample(frame, ss)
         if not readback:

@@ -310,7 +310,7 @@ def _shade_reflection_hits(t, tri, ox, oy, oz, dx, dy, dz, d3, atlas, lights,
 
 
 def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
-                    stride: int = 1) -> dict:
+                    stride: int = 1, y0: int = 0) -> dict:
     """One GGX reflection ray per covered pixel (`hit`) from the G-buffer
     `g` (gbuffer_pass) -> dict of (H, W) fields: origin o_x, o_y, o_z (parked
     at 1e8 where the pixel casts no ray), direction d_x, d_y, d_z ((0, -1,
@@ -322,7 +322,8 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
     reflects the view ray about it. With `stride` > 1 the fields are every
     stride-th pixel of a full-resolution frame and the seeds use its pixel
     coordinates, so each ray equals the full-resolution pass's at the same
-    pixel."""
+    pixel. `y0` offsets the rows (a slab of a row-sharded frame): the seeds
+    take the frame's rows, so each ray equals the whole frame's."""
     dev = g["world"].device
     normal, vdir = g["normal"], g["view_dir"]
     rough = torch.clamp(g["roughness"], 0.045, 1.0)
@@ -350,8 +351,8 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
     # hash seeds in full-resolution pixel coordinates (f32(px) in the WGSL)
     xs = (torch.arange(width, dtype=torch.float32, device=dev) * stride)[None, :].expand(
         height, width)
-    ys = (torch.arange(height, dtype=torch.float32, device=dev) * stride)[:, None].expand(
-        height, width)
+    ys = ((torch.arange(height, dtype=torch.float32, device=dev) + float(y0)) * stride)[
+        :, None].expand(height, width)
     u1, u2 = _hash33(wx + (xs * 0.5 + float(sample)), wy + ys * 0.5,
                      wz + float(np.float32(sample * 7.31)))
     phi = float(np.float32(2.0 * math.pi)) * u1
@@ -385,7 +386,8 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
 def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniforms,
                     width: int, height: int, sample_mode: int = 0, samples: int = 1,
                     stride: int = 1, shadow=None, scene_d3=None, has_blend: bool = False,
-                    has_material: bool = False, has_matmap: bool = False):
+                    has_material: bool = False, has_matmap: bool = False, y0: int = 0,
+                    full_height: int = None):
     """GGX reflection radiance for every covered pixel -> ((H, W, 3) linear,
     (H, W) applied mask; pixels whose samples all faced away keep 0).
 
@@ -401,12 +403,15 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
     layer takes its G-buffer from the opacity pack and its rays from the
     opaque one. `has_blend`: the G-buffer mixes vertex-blended batches'
     second texel in; `has_material` / `has_matmap`: it reads baked shaders'
-    roughness, metallic and written normals (gbuffer_pass)."""
+    roughness, metallic and written normals (gbuffer_pass). `y0` and
+    `full_height`: the inputs are the slab of rows [y0, y0 + height) of a
+    row-sharded frame of that height (gbuffer_pass, reflection_rays)."""
     dev = z.device
     sd3 = d3 if scene_d3 is None else scene_d3
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
                      width, height, sample_mode, has_blend=has_blend,
-                     has_material=has_material, has_matmap=has_matmap, stride=stride)
+                     has_material=has_material, has_matmap=has_matmap, stride=stride,
+                     y0=y0, full_height=full_height)
     f0 = 0.04 + (g["base"] - 0.04) * g["metallic"][..., None]
     max_dist = float(np.float32(uniforms["refl_dist"]))
     sky_rgb = torch.from_numpy(np.asarray(uniforms["refl_sky"], np.float32))
@@ -414,7 +419,7 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
     accum = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
     wsum = torch.zeros((height, width), dtype=torch.float32, device=dev)
     for s in range(samples):
-        r = reflection_rays(g, hit, width, height, s, stride)
+        r = reflection_rays(g, hit, width, height, s, stride, y0)
         ray = (r["o_x"], r["o_y"], r["o_z"], r["d_x"], r["d_y"], r["d_z"])
         t, tri = intersect_rays_pallas(sd3["pos"], sd3["valid"], *ray, max_dist, height, width)
         tri = torch.where(r["ok"], tri, -1)
@@ -483,7 +488,7 @@ def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                            uniforms, width: int, height: int, sample_mode: int = 0,
                            samples: int = 1, scale: int = 1, shadow=None, scene_d3=None,
                            has_blend: bool = False, has_material: bool = False,
-                           has_matmap: bool = False):
+                           has_matmap: bool = False, y0: int = 0, full_height: int = None):
     """reflection_pass at 1/scale resolution, bilinearly upsampled.
 
     scale 1 is the full-resolution pass. With scale > 1 the pass traces
@@ -492,12 +497,17 @@ def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
     applied mask are upsampled as jax.image.resize does, and a pixel takes
     the upsampled radiance where the upsampled mask exceeds 0.5 and the
     full-resolution pre-pass covers it. `shadow`, `scene_d3`, `has_blend`,
-    `has_material` and `has_matmap` as for reflection_pass."""
+    `has_material`, `has_matmap`, `y0` and `full_height` as for
+    reflection_pass; a slab of rows (y0 > 0 or a taller frame) takes scale
+    1 only, as the JAX package's row-sharded frame does."""
     if scale <= 1:
         return reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                                uniforms, width, height, sample_mode, samples, shadow=shadow,
                                scene_d3=scene_d3, has_blend=has_blend,
-                               has_material=has_material, has_matmap=has_matmap)
+                               has_material=has_material, has_matmap=has_matmap, y0=y0,
+                               full_height=full_height)
+    if y0 or (full_height or height) != height:
+        raise ValueError("reflection_pass_scaled: a slab of rows takes scale 1")
     hs, ws = height // scale, width // scale
     sl = (slice(0, hs * scale, scale), slice(0, ws * scale, scale))
     refl_lo, mask_lo = reflection_pass(
@@ -544,7 +554,8 @@ def sky_rays(g, hit) -> dict:
 
 def sky_light_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
                    width: int, height: int, sample_mode: int = 0, has_blend: bool = False,
-                   has_material: bool = False, has_matmap: bool = False):
+                   has_material: bool = False, has_matmap: bool = False, y0: int = 0,
+                   full_height: int = None):
     """Directional sky-bounce ambient (the WGSL `sky_contribution`,
     3d_shader.wgsl:744-758) -> (radiance (H, W, 3) linear, applied mask).
 
@@ -552,10 +563,12 @@ def sky_light_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
     uniforms["refl_dist"], through the ray-intersect kernel (B3); where it
     escapes, the pixel gains refl_sky * max(N.y, 0) * albedo. The caller
     scales the term by the AO factor where AO is on. `has_blend`,
-    `has_material` and `has_matmap` as for reflection_pass."""
+    `has_material`, `has_matmap`, `y0` and `full_height` as for
+    reflection_pass."""
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
                      width, height, sample_mode, has_blend=has_blend,
-                     has_material=has_material, has_matmap=has_matmap)
+                     has_material=has_material, has_matmap=has_matmap, y0=y0,
+                     full_height=full_height)
     r = sky_rays(g, hit)
     ray = (r["o_x"], r["o_y"], r["o_z"], r["d_x"], r["d_y"], r["d_z"])
     max_dist = float(np.float32(uniforms["refl_dist"]))

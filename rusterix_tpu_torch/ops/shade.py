@@ -276,7 +276,8 @@ def light_radiance(lights, world, normal, d2: bool = False):
 def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
                  width: int, height: int, sample_mode: int = 0,
                  has_blend: bool = False, has_material: bool = False,
-                 has_matmap: bool = False, shaders: tuple = (), stride: int = 1):
+                 has_matmap: bool = False, shaders: tuple = (), stride: int = 1,
+                 y0: int = 0, full_height: int = None):
     """Per-pixel G-buffer from the winning candidates -> dict of (H, W)
     and (H, W, 3) fields: world, view_dir, normal, base, roughness,
     metallic, texel (RGBA 0..1), fullbright.
@@ -288,6 +289,9 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
     are every stride-th pixel of a full-resolution frame; the attribute
     planes (full-resolution screen space) are evaluated at the true pixel
     centres x*stride + 0.5 and the unprojection uses the full frame's size.
+    `y0` offsets the pixel rows (a slab of a row-sharded frame) and
+    `full_height` is then the frame's height (default height * stride),
+    which the unprojection takes.
     `has_blend`: attr_planes carry the blend weight plane (columns 18-20)
     and meta kind2 / tex_slot2 / rgba2; where kind2 >= 0 the texel mixes
     toward the second source by the clipped perspective-correct weight.
@@ -342,7 +346,7 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
     rgba = g[..., 23:27]
 
     px = torch.arange(width, dtype=torch.float32, device=dev)[None, :] * stride + 0.5
-    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None] * stride + 0.5
+    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None] * stride + float(y0) + 0.5
     px, py = px.expand(height, width), py.expand(height, width)
 
     def interp(i):
@@ -355,7 +359,7 @@ def gbuffer_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms,
 
     world = screen_to_world(
         px, py, z, _uniform(uniforms, "inv_proj", dev), _uniform(uniforms, "inv_view", dev),
-        float(width * stride), float(height * stride),
+        float(width * stride), float(height * stride if full_height is None else full_height),
     )
 
     # normal: interpolate, then flip toward the viewer (rasterizer.rs:1083-1099)

@@ -93,26 +93,27 @@ def prepare_visibility(vis_planes, alive, bbox):
     )
 
 
-def tile_box_hits(boxes, n_th: int, n_tw: int):
+def tile_box_hits(boxes, n_th: int, n_tw: int, y0: int = 0):
     """(n, 4) i32 merged boxes -> (n_th, n_tw, n) bool: which boxes meet
-    which 64x128 tile of an n_th x n_tw grid (the kernels' gate test)."""
+    which 64x128 tile of an n_th x n_tw grid whose first row is the
+    frame's row y0 (the kernels' gate test)."""
     dev = boxes.device
     tx0 = torch.arange(n_tw, device=dev, dtype=torch.int32) * TILE_W
-    ty0 = torch.arange(n_th, device=dev, dtype=torch.int32) * TILE_H
+    ty0 = torch.arange(n_th, device=dev, dtype=torch.int32) * TILE_H + int(y0)
     hx = (boxes[None, :, 0] < tx0[:, None] + TILE_W) & (boxes[None, :, 2] > tx0[:, None])
     hy = (boxes[None, :, 1] < ty0[:, None] + TILE_H) & (boxes[None, :, 3] > ty0[:, None])
     return hy[:, None, :] & hx[None, :, :]
 
 
-def scan_work(vis_planes, alive, bbox, width: int, height: int) -> int:
+def scan_work(vis_planes, alive, bbox, width: int, height: int, y0: int = 0) -> int:
     """Pixel-candidate tests the tile kernel performs on these inputs: every
     (tile, slot) pair whose super and chunk boxes meet the tile, times the
     tile's TILE_H x TILE_W pixels (padding included, as the kernel scans it).
     Each test evaluates three edge planes and the 1/z plane."""
     _planes, sboxes, cboxes = prepare_visibility(*_pad_to_groups(vis_planes, alive.float(), bbox))
     n_th, n_tw = -(-height // TILE_H), -(-width // TILE_W)
-    gate = (tile_box_hits(sboxes, n_th, n_tw).repeat_interleave(GROUP, dim=2)
-            & tile_box_hits(cboxes, n_th, n_tw).repeat_interleave(CHUNK, dim=2))
+    gate = (tile_box_hits(sboxes, n_th, n_tw, y0).repeat_interleave(GROUP, dim=2)
+            & tile_box_hits(cboxes, n_th, n_tw, y0).repeat_interleave(CHUNK, dim=2))
     return int(gate.sum()) * TILE_H * TILE_W
 
 
@@ -125,10 +126,12 @@ def _pad_to_groups(vis_planes, alive, bbox):
     return vis_planes, alive, bbox
 
 
-def visibility_pass_pallas(vis_planes, alive, bbox, width: int, height: int):
+def visibility_pass_pallas(vis_planes, alive, bbox, width: int, height: int, y0: int = 0):
     """vis_planes (T2, 12), alive (T2,), bbox (T2, 4) f32 -> (z (H, W) f32,
     idx (H, W) i32, hit (H, W) bool): per pixel the closest covering
-    candidate, z = 1 / its 1/z (1.0 and idx -1 where none covers).
+    candidate, z = 1 / its 1/z (1.0 and idx -1 where none covers). `y0`:
+    the outputs are rows [y0, y0 + H) of the frame (a slab of a row-sharded
+    frame; the planes and boxes stay in the frame's coordinates).
 
     CUDA tensors launch the tile kernel (csrc/visibility.cu); CPU tensors
     run visibility_pass_pallas_reference."""
@@ -139,7 +142,7 @@ def visibility_pass_pallas(vis_planes, alive, bbox, width: int, height: int):
     if alive.device != vis_planes.device or bbox.device != vis_planes.device:
         raise ValueError("visibility_pass_pallas: inputs on different devices")
     if vis_planes.device.type != "cuda":
-        return visibility_pass_pallas_reference(vis_planes, alive, bbox, width, height)
+        return visibility_pass_pallas_reference(vis_planes, alive, bbox, width, height, y0)
     global launches
     from .. import _cuda
 
@@ -151,7 +154,7 @@ def visibility_pass_pallas(vis_planes, alive, bbox, width: int, height: int):
     err = _cuda.library().rx_visibility(
         ptr(planes.data_ptr()), ptr(sboxes.data_ptr()), ptr(cboxes.data_ptr()),
         ptr(z.data_ptr()), ptr(idx.data_ptr()),
-        sboxes.shape[0], height, width,
+        sboxes.shape[0], height, width, int(y0),
         ptr(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
@@ -162,7 +165,8 @@ def visibility_pass_pallas(vis_planes, alive, bbox, width: int, height: int):
     return z, idx, idx >= 0
 
 
-def visibility_pass_pallas_reference(vis_planes, alive, bbox, width: int, height: int):
+def visibility_pass_pallas_reference(vis_planes, alive, bbox, width: int, height: int,
+                                     y0: int = 0):
     """Plain torch version of visibility_pass_pallas: the same candidates
     (padded, dead slots on impossible planes) scanned in slot order with a
     strict `>` from 1/z = 1.0. The kernel's group-box gating skips only
@@ -170,4 +174,4 @@ def visibility_pass_pallas_reference(vis_planes, alive, bbox, width: int, height
     so the result is the kernel's."""
     planes, _s, _c = prepare_visibility(*_pad_to_groups(vis_planes, alive.float(), bbox))
     ones = torch.ones(planes.shape[0], device=planes.device)
-    return visibility_pass(planes, ones, width, height)
+    return visibility_pass(planes, ones, width, height, y0=y0)

@@ -1,0 +1,12 @@
+"""Row-sharded frames over a mesh of torch devices (parallel/mesh.py)."""
+
+from .mesh import (
+    check_mesh,
+    make_mesh,
+    render_frame_sharded,
+    render_sharded_jit,
+    sharded_inputs,
+)
+
+__all__ = ["check_mesh", "make_mesh", "render_frame_sharded", "render_sharded_jit",
+           "sharded_inputs"]

@@ -112,8 +112,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _box_frame_inputs(lights, sun, sample_mode, fog, source):
-    """The box scene's mega_render inputs, prepared by the port on the CPU."""
+def _box_frame_args(lights, sun, sample_mode, fog, source):
+    """The box scene's frame, rendered by the port on the CPU -> its
+    render_frame arguments."""
     batch = Batch3D.from_box(-0.6, -0.6, -0.6, 1.2, 1.2, 1.2).with_computed_normals()
     assets = Assets.default()
     if source == "pixel":
@@ -141,7 +142,12 @@ def _box_frame_inputs(lights, sun, sample_mode, fog, source):
         rast._fog_color = np.array([0.2, 0.3, 0.4, 1.0], np.float32)
         rast._fog_end, rast._fog_fade = 1.5, 2.0
     rast.rasterize(scene, W, H, 32, assets)
-    fi = frame_inputs(**rast.frame_args)
+    return rast.frame_args
+
+
+def _box_frame_inputs(lights, sun, sample_mode, fog, source):
+    """The box scene's mega_render inputs, prepared by the port on the CPU."""
+    fi = frame_inputs(**_box_frame_args(lights, sun, sample_mode, fog, source))
     return fi["mega_args"], fi["mega_kwargs"]
 
 
@@ -809,3 +815,117 @@ def test_cube_shaded_example_runs_on_the_card(cuda, tmp_path):
                          timeout=600)
     assert run.returncode == 0, run.stderr[-2000:]
     assert out.exists() and "has_material True" in run.stdout
+
+
+# ------------------------------------------- the row-sharded frame's kernels
+
+def _slab_mega_inputs(fa, y0, rows, device):
+    """B1's inputs for the slab of rows [y0, y0 + rows) of the frame whose
+    render_frame arguments are `fa` (prepared by the port on the CPU, the
+    near bound clipped to the slab's rows) -> (args, kwargs) on `device`."""
+    from rusterix_tpu_torch.ops.setup_pass import setup_pass as port_setup
+
+    fi = frame_inputs(**fa)
+    d3, unif, width, height = fa["d3"], fa["uniforms"], fa["width"], fa["height"]
+    vis, attr, bbox, alive, tri_id = port_setup(
+        d3["pos"], d3["uv"], d3["nrm"], d3["valid"], d3["cull"],
+        torch.from_numpy(unif["view"]), torch.from_numpy(unif["proj"]), width, height,
+        bw=d3["bw"] if fa["has_blend"] else None)
+    table = megakernel.pack_mega_table(attr, tri_id, d3, fa["atlas"], int(unif["anim_frame"]),
+                                       fa["has_blend"], fa["has_material"], fa["has_matmap"])
+    vis_s, bbox_s, alive_s, table_s, s_near = megakernel.morton_ftb_sort(
+        vis, bbox, alive.float(), table, width, height, y0g=y0, rows_local=rows)
+    args = [vis_s, alive_s, bbox_s, table_s, fa["atlas"]["flat_u32"],
+            megakernel.pack_background_u32(fa["background"][y0:y0 + rows]),
+            megakernel.pack_mega_params(unif, width, height, fa["atlas"]["w"], "cpu",
+                                        fa["has_fog"], y0=y0, shadow_params=fa["shadow_params"]),
+            fi["mega_args"][7], fi["mega_args"][8], width, rows, fa["sample_mode"]]
+    kwargs = dict(fi["mega_kwargs"], s_near=s_near)
+    return _to(args, kwargs, device)
+
+
+def _map_args(width, height):
+    rast, scene, assets = build_map_scene(width, height, device="cpu")
+    rast.rasterize(scene, width, height, 40, assets)
+    return rast.frame_args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage_cut", [0, 1, 2])
+@pytest.mark.parametrize("case", ["map_333x200", "box_mixed"])
+def test_row_offset_kernel_matches_plain_version(cuda, case, stage_cut):
+    """B1 at a row offset (params[58]) on a slab of 75 rows from row 70, not
+    a multiple of the 64-row tile: both outputs of the cuts equal, z_eff
+    equal and RGBA8 within 1 at stage_cut 0."""
+    if case == "box_mixed":
+        rast_args = _box_frame_args("mixed", True, 1, "exp2", "texture")
+        y0, rows = 13, 75
+    else:
+        rast_args = _map_args(333, 200)
+        y0, rows = 70, 75
+    args, kwargs = _slab_mega_inputs(rast_args, y0, rows, cuda)
+    out = megakernel.mega_render(*args, **kwargs, stage_cut=stage_cut)
+    ref = megakernel.mega_render_reference(*args, **kwargs, stage_cut=stage_cut)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], ref[1])
+    if stage_cut:
+        assert torch.equal(out[0], ref[0])
+    else:
+        diff = megakernel.unpack_frame_u32(out[0]).int() - megakernel.unpack_frame_u32(ref[0]).int()
+        assert int(diff.abs().max()) <= 1
+        assert bool((out[1] < 1.0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["box_mixed", "map_333x200_slab"])
+def test_generic_light_loop_kernel_matches_specialised_launch(cuda, case):
+    """light_spec None (the generic loop: every light row, the types read
+    from the one-hot columns on the card) against the specialised launch bit
+    for bit, and against its plain version (the JAX kernel's blend)."""
+    if case == "box_mixed":
+        args, kwargs = _to(*_box_frame_inputs("mixed", True, 0, "off", "pixel"), cuda)
+    else:
+        args, kwargs = _slab_mega_inputs(_map_args(333, 200), 70, 75, cuda)
+    rgba, z = megakernel.mega_render(*args, **dict(kwargs, light_spec=None))
+    spec_rgba, spec_z = megakernel.mega_render(*args, **kwargs)
+    ref_rgba, ref_z = megakernel.mega_render_reference(*args, **dict(kwargs, light_spec=None))
+    torch.cuda.synchronize()
+    assert torch.equal(rgba, spec_rgba) and torch.equal(z, spec_z)
+    assert torch.equal(z, ref_z)
+    diff = megakernel.unpack_frame_u32(rgba).int() - megakernel.unpack_frame_u32(ref_rgba).int()
+    assert int(diff.abs().max()) <= 1
+    assert args[7].shape[0] > len(kwargs["light_spec"])  # dead rows visited
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y0,rows", [(70, 75), (128, 64)])
+def test_visibility_kernel_at_a_row_offset_matches_plain_version(cuda, y0, rows):
+    """B2 at a row offset against visibility_pass(..., y0=) (its plain
+    version) on the map's sorted candidates: z and idx equal."""
+    fa = _map_args(333, 200)
+    fi = frame_inputs(**fa)
+    ins = [t.to(cuda) for t in (fi["vis_s"], fi["alive_s"], fi["bbox_s"])]
+    z, idx, hit = visibility_pallas.visibility_pass_pallas(*ins, 333, rows, y0)
+    zp, idxp, _hp = visibility_pallas.visibility_pass_pallas_reference(*ins, 333, rows, y0)
+    whole = visibility_pallas.visibility_pass_pallas(*ins, 333, 200)
+    torch.cuda.synchronize()
+    assert torch.equal(z, zp) and torch.equal(idx, idxp)
+    n = min(rows, 200 - y0)
+    assert torch.equal(idx[:n], whole[1][y0:y0 + n]) and bool(hit.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 7])
+def test_sharded_cube_matches_single_cube_on_the_card(cuda, n):
+    """The bench's cube (its 2D rectangle) at 800x600 through
+    rasterize(mesh=make_mesh(n, "cuda")) against rasterize() on the card,
+    byte for byte; every slab launches B1 once."""
+    from rusterix_tpu_torch.parallel import make_mesh
+
+    rast, scene, assets = build_cube_scene(800, 600, device=cuda)
+    single = rast.rasterize(scene, 800, 600, 40, assets)
+    before = megakernel.launches
+    sharded = rast.rasterize(scene, 800, 600, 40, assets, mesh=make_mesh(n, cuda))
+    torch.cuda.synchronize()
+    assert megakernel.launches == before + n
+    np.testing.assert_array_equal(sharded, single)

@@ -148,6 +148,7 @@ def test_port_sources_name_no_jax_package():
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     assert len(files) > 40
     assert os.path.join(ROOT, "rusterix_tpu_torch", "shader", "jaxc.py") in files
+    assert os.path.join(ROOT, "rusterix_tpu_torch", "parallel", "mesh.py") in files
     hits = {os.path.relpath(f, ROOT): _names_jax_package(f) for f in files}
     assert not {f: h for f, h in hits.items() if h}
 

@@ -372,7 +372,13 @@ def test_mega_render_refuses_tpu_only_stage_cuts(stage_cut):
 
 
 def test_nonzero_row_offset_is_refused():
+    """A row offset is no longer refused (the row-sharded frame's slabs):
+    pack_mega_params(y0=) writes it at params[58] as the JAX package's
+    does. B1 at a row offset is held against the JAX kernel in
+    tests/test_torch_sharded_kernels.py."""
     rast = JaxRasterizer.setup(None, np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32))
     uniforms = rast._uniforms(Scene.from_static([], []))
-    with pytest.raises(NotImplementedError, match="y0"):
-        tm.pack_mega_params(uniforms, W, H, 64, "cpu", y0=64)
+    out = tm.pack_mega_params(uniforms, W, H, 64, "cpu", y0=64).numpy()
+    ref = np.asarray(jm.pack_mega_params(uniforms, W, H, 64, y0=64))
+    assert out[58] == 64.0
+    np.testing.assert_array_equal(out, ref)

@@ -251,8 +251,10 @@ def test_formerly_refused_feature_renders(feature):
 
 
 def test_mesh_argument_raises():
+    """mesh= takes a tuple of torch devices (parallel.make_mesh); the
+    row-sharded frame it selects is held in tests/test_torch_sharded*.py."""
     rast, scene = _small_scene()
-    with pytest.raises(NotImplementedError, match="mesh="):
+    with pytest.raises(TypeError, match="mesh="):
         rast.rasterize(scene, 32, 32, 32, Assets.default(), mesh=object())
 
 
