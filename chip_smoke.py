@@ -37,8 +37,21 @@ B1 at its row offset once a slab), with a frame in 7 slabs (the padded
 overhang) and a `render_frame_sharded` call with the generic light loop
 (`light_spec=None`); S, H with AO and sky light in 8 slabs (B1 GGX with
 shadows and the AO factor at its row offset, B2 at its row offset, B3 for
-each slab's reflection and sky rays); and one sharded frame each of I and
-M. The sharded frames are held to the single frames: equal but for the
+each slab's reflection and sky rays); T, the map with floors under a
+runtime rusteria shader that reads the texel's colour and the hit point
+(the split path: the setup pass, `morton_sort`, B2 over the Morton-ordered
+candidates, `shade_pass` with `Program.shade` on the frame's registers,
+`compose_opaque`; no B1); U, T with a sun, GGX, one reflection ray a
+pixel, shadow maps, AO and sky light (B2 once, B3 for the reflection and
+sky rays, the G-buffer's shader branch); V, the shadowed map with dynamic
+batches (an opaque and a translucent billboard and a 2D rectangle, moved
+before every frame, packed per frame and concatenated after the static
+pack: B1 over the concatenated pack) with dynamic casters (their depth
+composited into the cached maps each frame); W, the bench's cube with a
+runtime 2D shader on its rectangle (800x600: B2, shade_pass, the 2D
+pass's shader branch); one sharded frame each of I, M and T (T8); and at
+256x128 only, I with a runtime shader on its glass (Ig: each peeled layer
+shaded). The sharded frames are held to the single frames: equal but for the
 pinned pixels of the tie class (tie_pixels: two candidates
 tie on 1/z bit for bit and a slab's scan order keeps another). For
 each path it checks that the frame went through exactly
@@ -55,7 +68,9 @@ without each of its variants; on K with and without has_blend), times the
 shadow bake apart from the steady frames, and breaks the frames down: host
 wall time per step (on I also the layer loop and the sky miss pass), and
 under torch.profiler the device time, device ops, busy share and each
-kernel's device time per frame. It prints each kernel's registers, shared
+kernel's device time per frame (on T also its split path step by step:
+the setup and sort, B2, shade_pass and the shader's evaluation alone). It
+prints each kernel's registers, shared
 memory and resident blocks an SM, and its bound. Every phase raises on
 failure; nothing falls back to the CPU or to a plain version. The last line
 is the JSON result; it is printed only when every phase passed. Imports no
@@ -108,6 +123,16 @@ EXPECTED_LAUNCHES = {
     "S": {"B1": 8, "B2": 8, "B3": 16, "B3prep": 16},
     "I8": {"B1": 8, "B2": 0, "B3": 0, "B3prep": 0},
     "M8": {"B1": 8, "B2": 0, "B3": 0, "B3prep": 0},
+    # runtime shaders take the split path: B2 over the Morton-ordered
+    # candidates, then plain torch (shade_pass, Program.shade), no B1; U's
+    # one B2 feeds the AO, the shading, the reflection and sky rays (B3 and
+    # its preparation twice)
+    "T": {"B1": 0, "B2": 1, "B3": 0, "B3prep": 0},
+    "U": {"B1": 0, "B2": 1, "B3": 2, "B3prep": 2},
+    "W": {"B1": 0, "B2": 1, "B3": 0, "B3prep": 0},
+    "T8": {"B1": 0, "B2": 8, "B3": 0, "B3prep": 0},
+    # dynamic batches: B1 over the concatenated pack
+    "V": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
 }
 # slabs of the sharded paths (one card), and the slab whose inputs the
 # kernels are held on
@@ -115,32 +140,47 @@ N_SLABS = 8
 MID_SLAB = N_SLABS // 2
 # pixels where a sharded frame differs from its single frame; every one of
 # them must be of the tie class (tie_pixels)
-SHARDED_PINNED = {"R": 0, "R7": 55, "S": 0, "I8": 3100, "M8": 0}
-# the frame size of a path where it is not 1920x1080 (M, O, P: the bench's cubes)
-SIZES = {"M": (800, 600), "O": (800, 600), "P": (800, 600)}
+SHARDED_PINNED = {"R": 0, "R7": 55, "S": 0, "I8": 3100, "M8": 0, "T8": 0}
+# the frame size of a path where it is not 1920x1080 (M, O, P, W: the bench's cubes)
+SIZES = {"M": (800, 600), "O": (800, 600), "P": (800, 600), "W": (800, 600)}
+# the split paths (runtime shaders): B2 on the Morton order bit for bit
+SPLIT = ("T", "U", "W")
+# the paths whose first frame bakes shadow maps but that are not B1's
+# shadow paths above: U (split), V (its maps take the dynamic casters every
+# frame)
+BAKED_FIRST = ("U", "V")
+# V's dynamic batches at frame time t (scenes.move_dynamic): the first frame,
+# the counted frame, and a third; its timed frames walk on from there
+V_TIMES = (0.0, 0.5, 1.0)
 # the slice's paths: B1 equals its plain version bit for bit at stage_cut 0,
 # 1 and 2 on their inputs
 BLEND_2D = ("K", "L", "M", "N")
 # the baked-shader paths: B1 bit for bit at stage_cut 0, 1 and 2 as well;
 # their first frame packs the scene and bakes the shaders on the card
 SHADED = ("O", "P", "Q")
-# frames timed a path where not 20: the glazed paths' take ~0.5 s, N's
-# ~2.6 s (the 2D pass is one torch step a triangle)
-N_FRAMES = {"I": 10, "J": 10, "N": 5, "S": 10}
-# frames profiled: 10 on A and B, 6 on the later paths, fewer on the slow ones
+# frames timed a later path where not 10: N's take ~2.7 s (the 2D pass is
+# one torch step a triangle)
+N_FRAMES = {"N": 3}
+# frames profiled: 10 on A and B, 6 on the later paths, fewer on the slow
+# ones (N's 158,773 device ops a frame take ~25 s a frame to read)
 N_PROF_LATER = 6
 N_PROF_2D = 3
+N_PROF_N = 1
 # the shadowed paths: B1 equals its plain version bit for bit, and their
 # steady frames are counted after a first frame that bakes the maps
 SHADOWED = ("G", "H", "I", "J")
 # the paths with glass: their maps carry transmittance layers
 GLASS = ("I", "J")
-# frames profiled on the glass paths (~9,000-13,000 device ops a frame
-# each: the profiler's records take longer to read than the frames)
-N_PROF_GLASS = 5
+# frames profiled on the glass paths and V (8,000-23,000 device ops a
+# frame: the profiler's records take longer to read than the frames)
+N_PROF_GLASS = 3
 # pixels where a later path's CUDA frame differs from its CPU frame at the
 # small size (each within RGBA_TOL); see PERF.md
-SMALL_PINNED = {k: 0 for k in "CDEFGHIJKLMNOPQ"}
+SMALL_PINNED = {k: 0 for k in "CDEFGHIJKLMNOPQTUVW"}
+SMALL_PINNED["Ig"] = 0
+# the small frames' shadow maps (cube faces, the sun's map): smaller than
+# set_shadows' defaults, which take the CPU frames half a minute to bake
+SMALL_SHADOW_RES = (32, 64)
 # the CUDA bake against the CPU bake: at most this far apart in a texel byte
 BAKE_TOL = 1
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, f32 ops/s
@@ -268,23 +308,22 @@ def wall_ms(fn, iters: int = 20) -> float:
     return sorted(out)[iters // 2]
 
 
-def profile_calls(fn, n: int, host_records: bool = True):
+def profile_calls(fn, n: int):
     """Device activity of `n` calls of `fn` under torch.profiler -> None
     when the profiler recorded no device activity, else "calls" (n), per
     call the device ms (the union of the device intervals: kernels, copies,
     memsets) and the device ops, and by name the total device ms and the
     number of records over all n calls. The profiler can lose records of a
     long run, so a reader that needs one kernel's time divides its total by
-    its own count of records, not by n. `host_records=False` records the
-    device activity alone (the host's operator records of a call with
-    hundreds of thousands of ops take long to read)."""
+    its own count of records, not by n. Only the device activity is
+    recorded: the host's operator records of a frame with thousands of ops
+    take longer to read than the frame."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_records else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -427,7 +466,8 @@ def reflection_kernel_inputs(rast_r, fi, scale: int = 1, sky: bool = False) -> d
                      fa["uniforms"], ws, hs, fa["sample_mode"],
                      has_blend=fa.get("has_blend", False),
                      has_material=fa.get("has_material", False),
-                     has_matmap=fa.get("has_matmap", False), stride=scale)
+                     has_matmap=fa.get("has_matmap", False), shaders=fa.get("shaders", ()),
+                     stride=scale)
     rays = reflect.sky_rays(g, hit) if sky else reflect.reflection_rays(g, hit, ws, hs, 0, scale)
     b3_in = (fa["d3"]["pos"], fa["d3"]["valid"], rays["o_x"], rays["o_y"], rays["o_z"],
              rays["d_x"], rays["d_y"], rays["d_z"], float(fa["uniforms"]["refl_dist"]), hs, ws)
@@ -523,8 +563,16 @@ def main() -> int:
     def phase(label):
         print(f"[{time.perf_counter() - t_start:.1f} s] phase {label}", flush=True)
     from rusterix_tpu_torch import _cuda
-    from rusterix_tpu_torch.ops import megakernel, reflect, rt_kernel, shadow, visibility_pallas
-    from rusterix_tpu_torch.ops.composite import sky_miss_pass
+    from rusterix_tpu_torch.ops import (
+        megakernel,
+        raster,
+        reflect,
+        rt_kernel,
+        scene_pack,
+        shadow,
+        visibility_pallas,
+    )
+    from rusterix_tpu_torch.ops.composite import d2_pass, sky_miss_pass
     from rusterix_tpu_torch.ops.raster import (
         ambient_occlusion,
         frame_inputs,
@@ -533,7 +581,7 @@ def main() -> int:
     )
     from rusterix_tpu_torch.ops.scene_pack import PackedScene
     from rusterix_tpu_torch.ops.setup_pass import setup_pass
-    from rusterix_tpu_torch.ops.shade import gbuffer_pass
+    from rusterix_tpu_torch.ops.shade import gbuffer_pass, shade_pass, shader_state
     from rusterix_tpu_torch.parallel import (
         make_mesh,
         render_frame_sharded,
@@ -557,6 +605,12 @@ def main() -> int:
         build_map_shadow_scene,
         build_map_ssaa2_scene,
         build_sky_light_scene,
+        build_cube_2d_shader_scene,
+        build_map_dynamic_scene,
+        build_map_glass_shader_scene,
+        build_map_runtime_shader_refl_scene,
+        build_map_runtime_shader_scene,
+        move_dynamic,
     )
 
     counters = {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
@@ -646,13 +700,23 @@ def main() -> int:
               build_cube_timeshader_scene),
         "Q": ("the map under per-pixel shader materials with GGX reflections",
               build_map_material_scene),
+        "T": ("the map with floors under a runtime shader (the split path)",
+              build_map_runtime_shader_scene),
+        "U": ("T with a sun, GGX, one reflection ray a pixel, shadow maps, AO and sky light",
+              build_map_runtime_shader_refl_scene),
+        "V": ("the shadowed map with dynamic billboards, a dynamic 2D rectangle and dynamic "
+              "casters", build_map_dynamic_scene),
+        "W": ("the bench's cube with a runtime 2D shader on its rectangle, 800x600",
+              build_cube_2d_shader_scene),
     }
     paths = {}
     for key, (label, build) in later.items():
         pw, ph = SIZES.get(key, (W, H))
         r_, s_, a_ = build(pw, ph, device="cuda")
+        if key == "V":
+            move_dynamic(s_, V_TIMES[0])
         first_ms = None
-        if key in SHADOWED + SHADED:
+        if key in SHADOWED + SHADED + BAKED_FIRST:
             # the first frame bakes the maps (G-J) or packs the scene with its
             # shader bakes (O-Q); the launches are counted on a steady frame
             # after it (the bakes launch none of the kernels)
@@ -661,6 +725,8 @@ def main() -> int:
             r_.rasterize(s_, pw, ph, 40, a_, readback=False)
             torch.cuda.synchronize()
             first_ms = (time.perf_counter() - t0) * 1e3
+        if key == "V":
+            move_dynamic(s_, V_TIMES[1])  # the billboards move before the counted frame
         zero_counts()
         f_ = r_.rasterize(s_, pw, ph, 40, a_)
         torch.cuda.synchronize()
@@ -740,6 +806,49 @@ def main() -> int:
     print(f"path P: px differing between animation frames 0 and 5: {moved}")
     if moved < 1000:
         raise SystemExit("path P's animation frames do not differ")
+    # the split paths: each frame took the runtime shaders, and they changed
+    # it (against the same scene with its shaders dropped, rendered by B1)
+    for key in SPLIT:
+        p_ = paths[key]
+        fa_ = p_["rast"].frame_args
+        if not fa_["shaders"]:
+            raise SystemExit(f"path {key} has no runtime shader")
+        r0, s0, a0 = later[key][1](*p_["size"], device="cuda")
+        s0.shaders.clear()
+        s0.shaders_with_opacity.clear()
+        s0.touch()
+        f0 = r0.rasterize(s0, *p_["size"], 40, a0)
+        by_shader = int((np.abs(p_["frame"].astype(int) - f0.astype(int)).max(-1) > 1).sum())
+        p_["by_shader"] = by_shader
+        print(f"path {key}: {len(fa_['shaders'])} runtime shader(s); px changed by more than 1 "
+              f"against the scene without its shaders {by_shader}")
+        if by_shader < 1000:
+            raise SystemExit(f"path {key}'s runtime shader changed only {by_shader} pixels")
+    # V: a third frame with the billboards moved again, the frames differ
+    # where they moved, and the dynamic casters darken the maps
+    p_ = paths["V"]
+    r_, s_, a_ = p_["rast"], p_["scene"], p_["assets"]
+    fa_ = r_.frame_args
+    # the dynamic d3 pack (16 slots) follows the static one: the billboard's
+    # two triangles live there
+    if not (fa_["has_opacity"] and fa_["has_d2"] and int(fa_["d3"]["valid"][-16:].sum()) == 2):
+        raise SystemExit("path V's frame lacks its dynamic batches")
+    move_dynamic(s_, V_TIMES[2])
+    zero_counts()
+    f_v3 = r_.rasterize(s_, W, H, 40, a_)
+    torch.cuda.synchronize()
+    if read_counts() != EXPECTED_LAUNCHES["V"]:
+        raise SystemExit(f"path V's third frame launched {read_counts()}")
+    moved = int((np.abs(f_v3.astype(int) - p_["frame"].astype(int)).max(-1) > 1).sum())
+    r_.set_shadows(True, dynamic_casters=False)
+    f_static = r_.rasterize(s_, W, H, 40, a_)
+    r_.set_shadows(True)
+    by_casters = int((np.abs(f_v3.astype(int) - f_static.astype(int)).max(-1) > 0).sum())
+    p_["moved"], p_["by_casters"] = moved, by_casters
+    print(f"path V: frames at t = {V_TIMES[1]} and {V_TIMES[2]} differ by more than 1 at {moved} "
+          f"px; the dynamic casters change {by_casters} px of the t = {V_TIMES[2]} frame")
+    if moved < 1000 or by_casters == 0:
+        raise SystemExit("path V's dynamic batches did not move or cast")
     phase("4c")
     # 4c. the row-sharded frame (parallel.render_frame_sharded) through
     # rasterize(mesh=): R, A's map in N_SLABS slabs of the card; R7, in 7
@@ -799,11 +908,13 @@ def main() -> int:
         raise SystemExit("path S is not H with AO and sky light")
     frame_ss, counts_s = drive_sharded("S", rast_s, scene_s, assets_s, mesh)
     held_to_single("S", frame_ss, frame_s1, mesh, rast_s.frame_args)
-    for key, path in (("I8", "I"), ("M8", "M")):
+    for key, path in (("I8", "I"), ("M8", "M"), ("T8", "T")):
         p_ = paths[path]
-        f_, _counts = drive_sharded(key, p_["rast"], p_["scene"], p_["assets"], mesh, p_["size"])
+        f_, counts_ = drive_sharded(key, p_["rast"], p_["scene"], p_["assets"], mesh, p_["size"])
         held_to_single(key, f_, p_["frame"], mesh, p_["rast"].frame_args)
-    launches = {k: counts_a[k] + counts_b[k] + counts_r[k] + counts_s[k]
+        if key == "T8":
+            counts_t8 = counts_
+    launches = {k: counts_a[k] + counts_b[k] + counts_r[k] + counts_s[k] + counts_t8[k]
                 + sum(p_["counts"][k] for p_ in paths.values()) for k in counts_a}
 
     phase("5")
@@ -904,6 +1015,46 @@ def main() -> int:
         r_ = p_["rast"]
         fa_ = r_.frame_args
         fi_ = frame_inputs(**fa_)
+        if key in SPLIT:
+            # the split path: B2 over the Morton-ordered candidates (its only
+            # visibility pass), bit for bit; U's reflection rays through B3
+            pw, ph = p_["size"]
+            if not fi_["split"]:
+                raise SystemExit(f"path {key} did not take the split path")
+            b2_in_ = (fi_["vis_s"], fi_["alive_s"], fi_["bbox_s"], pw, ph)
+            z2_, i2_, h2_ = visibility_pallas.visibility_pass_pallas(*b2_in_)
+            z2p_, i2p_, _h2p = visibility_pallas.visibility_pass_pallas_reference(*b2_in_)
+            torch.cuda.synchronize()
+            p_["b2_in"], p_["b2_out"] = b2_in_, (z2_, i2_)
+            p_["b2_err"] = float((z2_ - z2p_).abs().max())
+            p_["b2_tests"] = visibility_pallas.scan_work(*b2_in_)
+            print(f"B2 vs plain (path {key}, the Morton order, {pw}x{ph}): idx px differing "
+                  f"{int((i2_ != i2p_).sum())}, z px differing {int((z2_ != z2p_).sum())}, "
+                  f"covered px {int(h2_.sum())}, visibility tests {p_['b2_tests']}")
+            if not (torch.equal(i2_, i2p_) and torch.equal(z2_, z2p_)):
+                raise SystemExit(f"B2 path {key}: the visibility kernel disagrees with its "
+                                 "plain version on the Morton order")
+            if key != "U":
+                continue
+            kin_ = reflection_kernel_inputs(r_, fi_)
+            b3_in_ = kin_["b3_in"]
+            prep_k_ = rt_kernel.rt_prepare_cuda(*b3_in_)
+            prep_p_ = rt_kernel.rt_prepare(*b3_in_)
+            t3_, i3_ = rt_kernel.intersect_rays_pallas(*b3_in_)
+            t3p_, i3p_, work_ = rt_kernel.intersect_rays_pallas_reference(*b3_in_,
+                                                                          return_work=True)
+            torch.cuda.synchronize()
+            bad_ = [k for k in ("boxes", "tnear", "slist", "tab", "cbox", "tcap")
+                    if not torch.equal(prep_k_[k], prep_p_[k])]
+            p_["kin"], p_["prep"], p_["b3_work"], p_["b3_out"] = kin_, prep_k_, work_, (t3_, i3_)
+            print(f"B3 vs plain (path {key}, {int(kin_['rays']['ok'].sum())} reflection rays cast "
+                  f"from the shaded G-buffer): preparation "
+                  f"{'equal' if not bad_ else 'DIFFERS in ' + ', '.join(bad_)}; walk idx rays "
+                  f"differing {int((i3_ != i3p_).sum())}, hits {int((i3_ >= 0).sum())}, "
+                  f"work {work_}")
+            if bad_ or not (torch.equal(i3_, i3p_) and torch.equal(t3_, t3p_)):
+                raise SystemExit(f"B3 path {key}: a ray kernel disagrees with its plain version")
+            continue
         a_, k_ = fi_["mega_args"], dict(fi_["mega_kwargs"])
         if fa_["ao_taps"]:
             p_["pre"] = visibility_prepass(fi_, W, H)
@@ -934,7 +1085,7 @@ def main() -> int:
               f"{p_['b1_err']} (tolerance {RGBA_TOL}), px differing "
               f"{int((diff.amax(-1) > 0).sum())}, visibility tests {tests}, "
               f"px with a winner {p_['covered']}")
-        if p_["b1_err"] > (0 if key in SHADOWED + BLEND_2D + SHADED else RGBA_TOL):
+        if p_["b1_err"] > (0 if key in SHADOWED + BLEND_2D + SHADED + ("V",) else RGBA_TOL):
             raise SystemExit(f"B1 path {key}: the megakernel disagrees with its plain version")
         if key in BLEND_2D + SHADED:
             for cut in (1, 2):
@@ -963,7 +1114,7 @@ def main() -> int:
                   f"material {p_['by_material']}")
             if not (k_["has_material"] and p_["by_material"] > 100):
                 raise SystemExit(f"path {key}: B1's material branch did nothing")
-        if key in SHADOWED:
+        if key in SHADOWED + ("V",):
             cube_reads, sun_reads = p_["shadow_reads"]
             print(f"B1 shadow lookups (path {key}): {cube_reads} cube texels and {sun_reads} sun "
                   f"texels read, table {k_['shadow_rows'].numel()} f32, spec "
@@ -990,7 +1141,7 @@ def main() -> int:
             if not (p_["trans_steps"] and by_trans and by_tonemap > W * H // 20
                     and sky_px > W * H // 50 and min(glass_px) > 0):
                 raise SystemExit(f"path {key}: a new variant or pass did nothing")
-        if key in ("F", "G", "I", "K", "M", "N", "O", "P"):
+        if key in ("F", "G", "I", "K", "M", "N", "O", "P", "V"):
             continue
         kin_ = reflection_kernel_inputs(r_, fi_, scale=fa_["refl_scale"], sky=key == "D")
         z2_, i2_, _h2 = visibility_pallas.visibility_pass_pallas(*kin_["b2_in"])
@@ -1101,6 +1252,8 @@ def main() -> int:
         small, one_pack = [], None
         for dev in ("cuda", "cpu"):
             r, s, a = build(sw, sh, device=dev)
+            if r.shadow_settings is not None:
+                r.set_shadows(True, res=SMALL_SHADOW_RES[0], sun_res=SMALL_SHADOW_RES[1])
             if key in SHADED:
                 # both frames from one PackedScene (one bake)
                 one_pack = one_pack or PackedScene.from_scene(s, a, static_only=True,
@@ -1111,6 +1264,22 @@ def main() -> int:
               f"px differing {int((d > 0).sum())} (pinned {SMALL_PINNED[key]})")
         if d.max() > RGBA_TOL or int((d > 0).sum()) != SMALL_PINNED[key]:
             raise SystemExit(f"the CUDA path {key} frame disagrees with the CPU frame")
+    # I's glazed doorways with a runtime shader on the glass (each peeled
+    # layer shaded by it), correctness only
+    phase("6 Ig")
+    small = []
+    for dev in ("cuda", "cpu"):
+        r, s, a = build_map_glass_shader_scene(SMALL_W, SMALL_H, device=dev)
+        r.set_shadows(True, res=SMALL_SHADOW_RES[0], sun_res=SMALL_SHADOW_RES[1])
+        small.append(r.rasterize(s, SMALL_W, SMALL_H, 40, a).astype(np.int32))
+        if not (r.frame_args["shaders"] and r.frame_args["has_opacity"]):
+            raise SystemExit("path Ig has no runtime shader on its opacity batches")
+    d = np.abs(small[0] - small[1]).max(-1)
+    print(f"cuda vs cpu path Ig (I with a runtime shader on the glass) at {SMALL_W}x{SMALL_H}: "
+          f"max diff {int(d.max())}, px differing {int((d > 0).sum())} (pinned "
+          f"{SMALL_PINNED['Ig']})")
+    if d.max() > RGBA_TOL or int((d > 0).sum()) != SMALL_PINNED["Ig"]:
+        raise SystemExit("the CUDA path Ig frame disagrees with the CPU frame")
 
     phase("7")
     # 7. steady-state times (the rasterize figures include their host work)
@@ -1125,6 +1294,7 @@ def main() -> int:
     b2_t = cuda_times(lambda: visibility_pallas.visibility_pass_pallas(*b2_in), 40)
     b2_plain_t = cuda_times(lambda: visibility_pallas.visibility_pass_pallas_reference(*b2_in), 3,
                             warmup=1)
+    b2_alone = median(cuda_times(visibility_pallas.prepare_launch(*b2_in), 100))
     b3_t = cuda_times(lambda: rt_kernel.intersect_rays_pallas(*b3_in), 40)
     b3_plain_t = cuda_times(lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in), 2,
                             warmup=1)
@@ -1153,7 +1323,8 @@ def main() -> int:
     print(f"plain mega_render_reference brdf_ggx (reflection map): {summary(ggx_plain_t)} "
           f"on {gpu}")
     print(f"B2 visibility_pass_pallas: {summary(b2_t)} on {gpu}")
-    print(f"plain visibility_pass_pallas_reference: {summary(b2_plain_t)} on {gpu}")
+    print(f"plain visibility_pass_pallas_reference: {summary(b2_plain_t)}; B2 kernel alone "
+          f"{b2_alone:.4f} ms (median of 100) on {gpu}")
     print(f"B3 intersect_rays_pallas: {summary(b3_t)} on {gpu}")
     print(f"plain intersect_rays_pallas_reference: {summary(b3_plain_t)} on {gpu}")
     print(f"B3 walk kernel alone (prepared inputs): {summary(walk_t)} on {gpu}")
@@ -1173,31 +1344,55 @@ def main() -> int:
     # the later paths: frames, B1 (wrapper, plain, alone; C also without its
     # AO factor), the sky rays' and the 960x540 rays' walk and preparation
     # alone, the AO pass in plain torch
-    for key, p_ in paths.items():
+    def frame_call(key):
+        """A steady frame of path `key` (readback=False); V's dynamic
+        batches move a step before each one."""
+        p_ = paths[key]
         r_, s_, as_ = p_["rast"], p_["scene"], p_["assets"]
-        a_, k_ = p_["mega"]
         pw, ph = p_["size"]
-        p_["frame_t"] = cuda_times(lambda: r_.rasterize(s_, pw, ph, 40, as_, readback=False),
-                                   N_FRAMES.get(key, 20))
-        p_["b1_t"] = cuda_times(lambda: megakernel.mega_render(*a_, **k_), 40)
-        p_["b1_plain_t"] = cuda_times(lambda: megakernel.mega_render_reference(*a_, **k_), 3,
-                                      warmup=1)
-        p_["alone"] = median(cuda_times(megakernel.prepare_launch(*a_, **k_), 100))
+        if key != "V":
+            return lambda: r_.rasterize(s_, pw, ph, 40, as_, readback=False)
+        clock = iter(range(1 << 30))
+
+        def moving():
+            move_dynamic(s_, V_TIMES[2] + 0.02 * (next(clock) % 50))
+            return r_.rasterize(s_, pw, ph, 40, as_, readback=False)
+        return moving
+
+    for key, p_ in paths.items():
+        phase(f"7 {key}")
+        pw, ph = p_["size"]
+        p_["frame_t"] = cuda_times(frame_call(key), N_FRAMES.get(key, 10))
         print(f"rasterize(readback=False) path {key} ({p_['label']}) {pw}x{ph}: "
               f"{summary(p_['frame_t'])} on {gpu}")
-        print(f"B1 mega_render path {key}: {summary(p_['b1_t'])}; plain "
-              f"{summary(p_['b1_plain_t'])}; kernel alone {p_['alone']:.4f} ms (median of 100) "
-              f"on {gpu}")
+        if key in SPLIT:
+            b2_in_ = p_["b2_in"]
+            p_["b2_t"] = cuda_times(lambda: visibility_pallas.visibility_pass_pallas(*b2_in_), 40)
+            p_["b2_plain_t"] = cuda_times(
+                lambda: visibility_pallas.visibility_pass_pallas_reference(*b2_in_), 3, warmup=1)
+            p_["b2_alone"] = median(cuda_times(visibility_pallas.prepare_launch(*b2_in_), 100))
+            print(f"B2 visibility_pass_pallas path {key} (the Morton order): "
+                  f"{summary(p_['b2_t'])}; plain {summary(p_['b2_plain_t'])}; kernel alone "
+                  f"{p_['b2_alone']:.4f} ms (median of 100) on {gpu}")
+        else:
+            a_, k_ = p_["mega"]
+            p_["b1_t"] = cuda_times(lambda: megakernel.mega_render(*a_, **k_), 40)
+            p_["b1_plain_t"] = cuda_times(lambda: megakernel.mega_render_reference(*a_, **k_), 2,
+                                          warmup=1)
+            p_["alone"] = median(cuda_times(megakernel.prepare_launch(*a_, **k_), 100))
+            print(f"B1 mega_render path {key}: {summary(p_['b1_t'])}; plain "
+                  f"{summary(p_['b1_plain_t'])}; kernel alone {p_['alone']:.4f} ms (median of "
+                  f"100) on {gpu}")
         if "kin" in p_:
             b3_in_, prep_k_ = p_["kin"]["b3_in"], p_["prep"]
             fields_ = rt_kernel._ray_fields(*b3_in_[2:8])
             p_["walk_t"] = cuda_times(lambda: rt_kernel._launch(prep_k_, fields_), 40)
             p_["prep_t"] = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*b3_in_), 40)
             p_["b3_t"] = cuda_times(lambda: rt_kernel.intersect_rays_pallas(*b3_in_), 40)
-            # L's and Q's plain walks take seconds a call: one
+            # L's, Q's and U's plain walks take seconds a call: one
             p_["b3_plain_t"] = cuda_times(
                 lambda: rt_kernel.intersect_rays_pallas_reference(*b3_in_),
-                1 if key in ("L", "Q") else 2, warmup=1)
+                1 if key in ("L", "Q", "U") else 2, warmup=1)
             print(f"B3 path {key} ({b3_in_[-1]}x{b3_in_[-2]} rays): walk alone "
                   f"{summary(p_['walk_t'])}; rt_prepare_cuda {summary(p_['prep_t'])}; "
                   f"intersect_rays_pallas {summary(p_['b3_t'])}; plain "
@@ -1234,7 +1429,9 @@ def main() -> int:
             raise SystemExit(f"path {key}: the bake timed here is not the frame's bake")
         n_bake = 1 if key in GLASS else 2
         p_["bake_ms"] = wall_ms(bake, n_bake)
-        bake_prof = profile_calls(bake, 1, host_records=False)
+        # G's bake is profiled; I's 463,332 device ops (PR 9) take a
+        # minute to read
+        bake_prof = None if key in GLASS else profile_calls(bake, 1)
         bake_dev = ("device time not measured" if bake_prof is None else
                     f"device {bake_prof['device_ms']:.4f} ms in {bake_prof['ops']:.1f} device ops")
         layers_txt = (", with 4 transmittance layers a map (1 + 4 peels a camera)"
@@ -1287,9 +1484,9 @@ def main() -> int:
         lambda: render_frame_sharded(mesh, **dict(fa_r, light_spec=None)), 10)
     frame_ss_t = cuda_times(
         lambda: rast_s.rasterize(scene_s, W, H, 40, assets_s, readback=False, mesh=mesh),
-        N_FRAMES["S"])
+        10)
     frame_s1_t = cuda_times(
-        lambda: rast_s.rasterize(scene_s, W, H, 40, assets_s, readback=False), N_FRAMES["S"])
+        lambda: rast_s.rasterize(scene_s, W, H, 40, assets_s, readback=False), 10)
     print(f"rasterize(readback=False) path R ({N_SLABS} slabs) {W}x{H}: {summary(frame_rs_t)}; "
           f"A single {summary(frame_t)} on {gpu}")
     print(f"render_frame_sharded path Rg (light_spec None, {N_SLABS} slabs): "
@@ -1309,8 +1506,10 @@ def main() -> int:
     b2s_t = cuda_times(lambda: visibility_pallas.visibility_pass_pallas(*b2s_in), 40)
     b2s_plain_t = cuda_times(
         lambda: visibility_pallas.visibility_pass_pallas_reference(*b2s_in), 3, warmup=1)
+    b2s_alone = median(cuda_times(visibility_pallas.prepare_launch(*b2s_in), 100))
     print(f"B2 visibility_pass_pallas path S slab {MID_SLAB} (row offset {slab_s['y0']}): "
-          f"{summary(b2s_t)}; plain {summary(b2s_plain_t)} on {gpu}")
+          f"{summary(b2s_t)}; plain {summary(b2s_plain_t)}; kernel alone {b2s_alone:.4f} ms "
+          f"(median of 100) on {gpu}")
 
     phase("8")
     # 8. where the frames' time goes: host wall per step (synchronized)
@@ -1385,6 +1584,77 @@ def main() -> int:
                f"device {prof['device_ms']:.4f} ms in {prof['ops']:.1f} device ops")
         print(f"step path I {name} (plain torch, {W}x{H}): wall median {wall:.4f} ms (n=5), "
               f"events {summary(ev)}, {dev} per call on {gpu}")
+    # T's split path step by step: the setup pass and the Morton sort, B2
+    # with the remap, shade_pass (the G-buffer with the runtime shader, the
+    # lights), the shader's evaluation alone on the frame's registers
+    fa_t = paths["T"]["rast"].frame_args
+    fi_t = frame_inputs(**fa_t)
+    pre_t = visibility_prepass(fi_t, W, H)
+    g_t = gbuffer_pass(*pre_t, fi_t["attr"], fi_t["tri_id"], fa_t["d3"], fa_t["atlas"],
+                       fa_t["uniforms"], W, H, fa_t["sample_mode"])
+    zeros_t = torch.zeros_like(g_t["roughness"])
+    state_t = shader_state(zeros_t, zeros_t, g_t["base"], g_t["roughness"], g_t["metallic"],
+                           g_t["emissive"], g_t["opacity"], g_t["normal"], g_t["world"],
+                           fa_t["uniforms"])
+    prog_t = fa_t["shaders"][0]
+    split_steps = {
+        "frame_inputs (setup pass + morton_sort)": lambda: frame_inputs(**fa_t),
+        "visibility_prepass (B2 + remap)": lambda: visibility_prepass(fi_t, W, H),
+        "shade_pass (G-buffer with the shader, lights)": lambda: shade_pass(
+            *pre_t, fi_t["attr"], fi_t["tri_id"], fa_t["d3"], fa_t["atlas"], fa_t["lights"],
+            fa_t["uniforms"], W, H, fa_t["sample_mode"], shaders=fa_t["shaders"],
+            has_fog=fa_t["has_fog"]),
+        "Program.shade (FLOOR_CHECKER, every pixel)": lambda: prog_t.shade(dict(state_t)),
+    }
+    for name, fn in split_steps.items():
+        wall = wall_ms(fn, 10)
+        ev = cuda_times(fn, 10, warmup=1)
+        prof = profile_calls(fn, 3)
+        dev = ("device time not measured" if prof is None else
+               f"device {prof['device_ms']:.4f} ms in {prof['ops']:.1f} device ops")
+        print(f"step path T {name} ({W}x{H}): wall median {wall:.4f} ms (n=10), "
+              f"events {summary(ev)}, {dev} per call on {gpu}")
+    # V's per-frame work beside B1: the dynamic lists packed on the host
+    # and uploaded, the casters' depth composited into the maps, the
+    # dynamic pane's layer, the dynamic rectangle's 2D pass (its 2D lights
+    # and the map's walls over the whole frame)
+    p_v = paths["V"]
+    s_v = p_v["scene"]
+    # a frame of V again: the scene and shadow caches hold the last scene
+    # rendered, and the steps read V's
+    p_v["rast"].rasterize(s_v, W, H, 40, p_v["assets"], readback=False)
+    fa_v = p_v["rast"].frame_args
+    (cache_v,) = [c for k, c in raster._SCENE_CACHE.items() if k[0] == s_v._cache_uid]
+    (cams_v,) = [e[3] for k, e in raster._SHADOW_CACHE.items()
+                 if k[0][0] == s_v._cache_uid and e[2] == fa_v["shadow_spec"]]
+    dyn_v = {k: v[-16:] for k, v in fa_v["d3"].items()}
+    frame_v = torch.rand((H, W, 4), device="cuda")
+    dynamic_steps = {
+        "pack_dynamic (host) + upload": lambda: [
+            torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for part in scene_pack.pack_dynamic(s_v, cache_v["packed"].atlas_index,
+                                                *cache_v["dyn_caps"])[:3]
+            for v in vars(part).values()],
+        "composite_dynamic_depth (25 depth renders of the dynamic pack)":
+            lambda: shadow.composite_dynamic_depth(
+                fa_v["shadow_rows"], fa_v["shadow_spec"], cams_v, dyn_v["pos"], dyn_v["uv"],
+                dyn_v["nrm"], dyn_v["valid"]),
+        "opacity layer (the dynamic pane)": lambda: opacity_layers(
+            fa_v["d3_op"], fa_v["atlas"], fa_v["uniforms"], W, H, fa_v["sample_mode"],
+            fa_v["transparency_layers"]),
+        "d2_pass (the dynamic rectangle, 2D lights and walls)": lambda: d2_pass(
+            frame_v, fa_v["d2"], fa_v["atlas"], fa_v["lights"], fa_v["uniforms"], W, H,
+            fa_v["sample_mode"], fa_v["preserve_transparency"], has_lights=fa_v["has_lights"],
+            has_ambient=fa_v["has_ambient"]),
+    }
+    for name, fn in dynamic_steps.items():
+        wall = wall_ms(fn, 5)
+        ev = cuda_times(fn, 5, warmup=1)
+        prof = profile_calls(fn, 2)
+        dev = ("device time not measured" if prof is None else
+               f"device {prof['device_ms']:.4f} ms in {prof['ops']:.1f} device ops")
+        print(f"step path V {name} ({W}x{H}): wall median {wall:.4f} ms (n=5), "
+              f"events {summary(ev)}, {dev} per call on {gpu}")
 
     # device time per frame under torch.profiler; the busy share's
     # denominator is the unprofiled frame median above (same run)
@@ -1412,14 +1682,17 @@ def main() -> int:
     path_kernels["K"] = path_kernels["M"] = path_kernels["N"] = path_kernels["F"]
     path_kernels["O"] = path_kernels["P"] = path_kernels["F"]
     path_kernels["Q"] = path_kernels["D"]
+    path_kernels["T"] = path_kernels["W"] = {"B2": "visibility_kernel"}
+    path_kernels["U"] = {"B2": "visibility_kernel", "B3": ("rt_kernel", 2),
+                         "B3prep": ("rt_prepare_kernel", 2)}
+    path_kernels["V"] = path_kernels["F"]
     for key, p_ in paths.items():
-        r_, s_, as_ = p_["rast"], p_["scene"], p_["assets"]
-        pw, ph = p_["size"]
-        n_key = N_PROF_GLASS if key in GLASS else N_PROF_2D if key == "N" else N_PROF_LATER
+        phase(f"8 {key}")
+        n_key = (N_PROF_GLASS if key in GLASS + ("V",) else N_PROF_N if key == "N"
+                 else N_PROF_LATER)
         p_["dev"] = report_profile(
             f"path {key} rasterize(readback=False) x{n_key}",
-            profile_calls(lambda: r_.rasterize(s_, pw, ph, 40, as_, readback=False), n_key,
-                          host_records=key != "N"),
+            profile_calls(frame_call(key), n_key),
             median(p_["frame_t"]), gpu, path_kernels[key])
     per_slab = {"B1": ("mega_kernel", N_SLABS)}
     dev_r = report_profile(
@@ -1435,7 +1708,7 @@ def main() -> int:
     dev_s = report_profile(
         f"path S rasterize(readback=False, mesh) x{N_PROF_2D}",
         profile_calls(lambda: rast_s.rasterize(scene_s, W, H, 40, assets_s, readback=False,
-                                               mesh=mesh), N_PROF_2D, host_records=False),
+                                               mesh=mesh), N_PROF_2D),
         median(frame_ss_t), gpu,
         dict(per_slab, B2=("visibility_kernel", N_SLABS), B3=("rt_kernel", 2 * N_SLABS),
              B3prep=("rt_prepare_kernel", 2 * N_SLABS)))
@@ -1519,7 +1792,9 @@ def main() -> int:
                       ("N", "mega_render (2D map view, no 3D candidate)"),
                       ("O", "mega_render has_material (shaded cube, 800x600)"),
                       ("P", "mega_render has_material (animated shaded cube, 800x600)"),
-                      ("Q", "mega_render brdf_ggx has_material has_matmap (material map)")):
+                      ("Q", "mega_render brdf_ggx has_material has_matmap (material map)"),
+                      ("V", "mega_render shadows (V: the shadowed map with dynamic batches and "
+                            "dynamic casters)")):
         p_ = paths[key]
         a_, k_ = p_["mega"]
         n_occ_ = int(a_[8].shape[0])
@@ -1548,7 +1823,9 @@ def main() -> int:
                       ("J", "intersect_rays_pallas (glazed reflection map, the opaque "
                             "frame's rays; 3 launches a frame)"),
                       ("L", "intersect_rays_pallas (blended reflection map)"),
-                      ("Q", "intersect_rays_pallas (material map)")):
+                      ("Q", "intersect_rays_pallas (material map)"),
+                      ("U", "intersect_rays_pallas (U: reflection rays of the runtime-shaded "
+                            "G-buffer)")):
         p_ = paths[key]
         b3_in_, (t3_, i3_), work_ = p_["kin"]["b3_in"], p_["b3_out"], p_["b3_work"]
         nb = nbytes(*b3_in_[:8], t3_, i3_)
@@ -1562,6 +1839,30 @@ def main() -> int:
             "ms": median(p_["b3_t"]), "plain_ms": median(p_["b3_plain_t"]),
             "bound_ms": ms, "bound_by": by, "library_ms": None,
             "device_ms": p_["dev"]["B3"], "alone_ms": median(p_["walk_t"]), **res["B3"],
+        })
+    # the split paths: B2 over the Morton-ordered candidates, the only
+    # visibility pass of T, U and W
+    for key, name in (("T", "visibility_pass_pallas Morton order (T: the split path, runtime "
+                            "floor shader)"),
+                      ("U", "visibility_pass_pallas Morton order (U: T with GGX reflections, "
+                            "shadows, AO, sky light)"),
+                      ("W", "visibility_pass_pallas Morton order (W: the cube with a runtime 2D "
+                            "shader, 800x600)")):
+        p_ = paths[key]
+        b2_in_, (z_, i_) = p_["b2_in"], p_["b2_out"]
+        nb = nbytes(*b2_in_[:3], z_, i_)
+        ops = p_["b2_tests"] * OPS_PER_VIS_TEST
+        ms, by = bound(nb, ops)
+        print(f"bound B2 path {key} (Morton order): {nb} bytes, {ops} f32 ops -> {ms:.6f} ms, "
+              f"bound by {by}")
+        later_rows.append({
+            "name": name, "route": "cuda", "source": "rusterix_tpu_torch/csrc/visibility.cu",
+            "replaces": "rusterix_tpu/ops/visibility_pallas.py:42",
+            "launches": p_["counts"]["B2"], "max_abs_err": p_["b2_err"],
+            "ms": median(p_["b2_t"]), "plain_ms": median(p_["b2_plain_t"]),
+            "bound_ms": ms, "bound_by": by, "library_ms": None,
+            "device_ms": p_["dev"]["B2"], "alone_ms": p_["b2_alone"],
+            **_cuda.resources("visibility", -(-b2_in_[0].shape[0] // 128)),
         })
     # the row-sharded paths' forms, on the middle slab's inputs: B1 at its
     # row offset (R), with the generic light loop (Rg), at its row offset
@@ -1605,7 +1906,7 @@ def main() -> int:
         "launches": counts_s["B2"], "max_abs_err": float((z2s - z2sp).abs().max()),
         "ms": median(b2s_t), "plain_ms": median(b2s_plain_t),
         "bound_ms": b2s_bound[0], "bound_by": b2s_bound[1], "library_ms": None,
-        "device_ms": dev_s["B2"], **res["B2"],
+        "device_ms": dev_s["B2"], "alone_ms": b2s_alone, **res["B2"],
     })
     # B1 has one entry per main path: each launch with its own frame's
     # inputs, times, bound and profile
@@ -1634,7 +1935,7 @@ def main() -> int:
             "launches": launches["B2"], "max_abs_err": b2_err,
             "ms": median(b2_t), "plain_ms": median(b2_plain_t),
             "bound_ms": b2_bound[0], "bound_by": b2_bound[1], "library_ms": None,
-            "device_ms": dev_b["B2"], **res["B2"],
+            "device_ms": dev_b["B2"], "alone_ms": b2_alone, **res["B2"],
         },
         {
             "name": "intersect_rays_pallas", "route": "cuda",

@@ -25,6 +25,7 @@ from .shade import (
     light_radiance,
     lights_to_torch,
     resolve_texel,
+    shader_state,
     LT_AMBIENT,
     LT_AMBIENT_DAYLIGHT,
 )
@@ -212,12 +213,16 @@ def d2_pass(frame, tris, atlas, lights, uniforms, width: int, height: int,
     translationd2, scaled2, ambient, anim_frame and, where walls block the
     lights, seg_a / seg_b / seg_valid. Padding triangles are skipped (they
     cover nothing). `y0` offsets the pixel rows (a slab of a row-sharded
-    frame). Runtime 2D shaders are refused."""
-    if shaders:
-        raise NotImplementedError("d2_pass with runtime shaders is not ported to "
-                                  "rusterix_tpu_torch yet")
+    frame). `shaders`: the pack's runtime shaders (rasterizer.rs:763-805):
+    at the step of a triangle whose shader index names one, the program
+    runs on the step's registers (uv / 4, the sRGB texel as colour, its
+    alpha as opacity, the grid-space world position as hit point) and its
+    colour, opaque, replaces the texel. The JAX package's scan runs every
+    program at every step and keeps the one the triangle names; here only
+    that one runs, which gives the same bytes."""
     live = torch.nonzero(tris["valid"] > 0.5).flatten().tolist()
     lit = (tris["receives_light"] > 0.5).tolist()
+    shader_of = tris["shader"].tolist() if shaders else []
     if not live:
         return frame
     dev = frame.device
@@ -267,6 +272,16 @@ def d2_pass(frame, tris, atlas, lights, uniforms, width: int, height: int,
         texel = resolve_texel(tris["kind"][i], tris["tex_slot"][i], tris["rgba"][i],
                               tris["repeat"][i], u, v, atlas, anim, sample_mode,
                               default_alpha=0.0)
+        si = int(shader_of[i]) if shaders else -1
+        prog = shaders[si] if 0 <= si < len(shaders) else None
+        if prog is not None and prog.shade_index:
+            zeros = torch.zeros_like(u)
+            state = shader_state(u, v, texel[..., :3], zeros + 0.5, zeros, zeros,
+                                 texel[..., 3], zeros,
+                                 torch.stack([world_x, world_y, zeros], dim=-1), uniforms)
+            rgb_s = torch.broadcast_to(prog.shade(state, uniforms.get("palette"))["color"],
+                                       texel[..., :3].shape)
+            texel = torch.cat([rgb_s, torch.ones_like(texel[..., 3:4])], dim=-1)
         # u8-space light modulation with truncation (rasterizer.rs:871-876)
         if has_ambient or (has_lights and lit[i]):
             rgb = torch.floor(torch.floor(texel[..., :3] * 255.0 + 0.5) * acc) * (1.0 / 255.0)

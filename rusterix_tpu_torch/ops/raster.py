@@ -1,5 +1,6 @@
 """Rasterizer facade — the public render API of the port (counterpart of
-`rusterix_tpu/ops/raster.py`, its megakernel branch).
+`rusterix_tpu/ops/raster.py`: its megakernel branch, and its split branch
+for runtime shaders).
 
 `Rasterizer.setup(None, view, proj, device="cuda").rasterize(scene, W, H,
 tile, assets)` packs the scene on the host (the port's copy of the JAX
@@ -31,13 +32,23 @@ through the shader's pack-time bake (`ops/scene_pack.py`, evaluated by
 16 animation frames, with the constant roughness / metallic it wrote
 (B1's has_material) or its per-pixel material sidecar tiles (has_matmap:
 emissive, roughness, metallic and a written normal); the G-buffer reads
-the same. A shader that reads its inputs cannot bake and is refused.
+the same. A shader that reads its inputs (colour, normal, hit point,
+material) cannot bake: it is a runtime shader, and a frame with one takes
+the split path, as the JAX package's does: B2 over the candidates in
+Morton order (`visibility_pallas.morton_sort`), then `shade.shade_pass`
+(plain torch; the G-buffer runs each runtime shader over the frame on the
+pixel's registers and merges its outputs where the winner carries it) and
+`composite.compose_opaque`, with the passes after the opaque frame over
+that f32 frame; the opacity layers and the 2D pass run their batches'
+runtime shaders too. Dynamic batch lists (entity billboards, dynamic 2D)
+pack every frame and follow the cached static packs on the device; with
+shadows their depth is composited into the cached maps (dynamic casters).
 `set_tonemap("scenevm")` encodes the lit colour with the SceneVM transform
 in B1 and in the reflection composite. With SSAA the frame renders at n
 times the size and is box-filtered down. The 2D line overlay is drawn
 last, on the host. `screen_to_world` / `screen_ray` pick through the last
-frame's size. Every feature outside that slice raises
-`NotImplementedError` naming it; none degrades silently.
+frame's size. Nothing falls back: a kernel that cannot build or launch
+raises.
 """
 
 from __future__ import annotations
@@ -66,14 +77,21 @@ from .megakernel import (
     unpack_frame_u32,
 )
 from .ao import ssao_pass, tap_offsets
-from .composite import blend_opacity, brush_preview_pass, d2_pass, frame_to_u8, sky_miss_pass
+from .composite import (
+    blend_opacity,
+    brush_preview_pass,
+    compose_opaque,
+    d2_pass,
+    frame_to_u8,
+    sky_miss_pass,
+)
 from .matrices import invert
 from .reflect import apply_reflections, reflection_pass_scaled, sky_light_pass
 from .scene_pack import PackedScene, next_pow2
 from .setup_pass import setup_pass
-from .shade import _div, resolve_texel
+from .shade import _div, resolve_texel, run_shaders, shade_pass, shader_state, take_iso
 from .visibility import visibility_pass
-from .visibility_pallas import visibility_pass_pallas
+from .visibility_pallas import morton_sort, visibility_pass_pallas
 
 
 def packed_to_torch(packed: PackedScene, device) -> dict:
@@ -103,12 +121,15 @@ def packed_to_torch(packed: PackedScene, device) -> dict:
 
 
 def frame_setup(d3, lights, atlas, uniforms, width: int, height: int, has_blend: bool = False,
-                has_material: bool = False, has_matmap: bool = False, planes=None) -> dict:
+                has_material: bool = False, has_matmap: bool = False, planes=None,
+                split: bool = False) -> dict:
     """What every row of the frame shares before its kernels -> dict with
     the setup pass's `vis`, `attr`, `bbox`, `alive` (f32) and `tri_id`, the
     megakernel `table`, and the light and occluder packs `lights` and `occ`,
     on d3's device. `planes`: the setup pass's five outputs when the caller
-    has them (a row-sharded frame gathers them from its triangle shards)."""
+    has them (a row-sharded frame gathers them from its triangle shards).
+    `split`: the frame takes the split path (runtime shaders), which runs
+    no B1: `table` is None."""
     dev = d3["pos"].device
     if planes is None:
         planes = setup_pass(
@@ -120,8 +141,9 @@ def frame_setup(d3, lights, atlas, uniforms, width: int, height: int, has_blend:
     vis, attr, bbox, alive, tri_id = planes
     return {
         "vis": vis, "attr": attr, "bbox": bbox, "alive": alive.float(), "tri_id": tri_id,
-        "table": pack_mega_table(attr, tri_id, d3, atlas, int(uniforms["anim_frame"]),
-                                 has_blend, has_material, has_matmap),
+        "table": None if split else pack_mega_table(
+            attr, tri_id, d3, atlas, int(uniforms["anim_frame"]), has_blend, has_material,
+            has_matmap),
         "lights": pack_light_params(lights, dev),
         "occ": pack_occ_params(uniforms, dev),
     }
@@ -133,7 +155,8 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
                  brdf_ggx: bool = False, shadow_rows=None, shadow_params=None,
                  shadow_spec: tuple = None, tonemap: bool = False, has_blend: bool = False,
                  has_material: bool = False, has_matmap: bool = False, y0: int = 0,
-                 rows: int = None, shared: dict = None, **_later) -> dict:
+                 rows: int = None, shared: dict = None, shaders: tuple = (),
+                 **_later) -> dict:
     """The preparation of B1's rows: frame_setup (the setup pass, megakernel
     table and packs), the Morton + front-to-back sort and the parameter
     pack -> dict with the setup pass's `attr` and `tri_id`, the rows `y0`
@@ -157,11 +180,29 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
     `rows`: B1 renders the rows [y0, y0 + rows) of the height-row frame (a
     slab of a row-sharded frame; default all of them), and the sort's near
     bound clips to them. `shared`: frame_setup's result, when the caller
-    has it."""
+    has it.
+
+    `shaders` (the pack's runtime shaders, non-empty): the frame takes the
+    split path instead, as the JAX package's render_frame does (its
+    ops/raster.py:317-356): the candidates sorted along the Morton curve
+    (morton_sort of a slot permutation, `sort_perm` = the sorted slots)
+    for B2, `split` True, `background` the rows' f32 background, and no
+    B1 arguments (`mega_args` None)."""
     dev = d3["pos"].device
     rows = height if rows is None else rows
+    split = bool(shaders)
     s = shared or frame_setup(d3, lights, atlas, uniforms, width, height, has_blend,
-                              has_material, has_matmap)
+                              has_material, has_matmap, split=split)
+    if split:
+        slot_id = torch.arange(s["vis"].shape[0], dtype=torch.int32, device=dev)
+        vis_s, bbox_s, alive_s, slot_s = morton_sort(s["vis"], s["bbox"], s["alive"], slot_id,
+                                                     width, height)
+        return {
+            "attr": s["attr"], "tri_id": s["tri_id"], "y0": y0, "rows": rows,
+            "vis_s": vis_s, "alive_s": alive_s, "bbox_s": bbox_s, "sort_perm": slot_s,
+            "split": True, "background": background, "mega_args": None,
+            "mega_kwargs": {},
+        }
     vis_s, bbox_s, alive_s, table_s, s_near, sort_perm = morton_ftb_sort(
         s["vis"], s["bbox"], s["alive"], s["table"], width, height, y0g=y0, rows_local=rows,
         return_perm=True,
@@ -176,7 +217,7 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
     return {
         "attr": s["attr"], "tri_id": s["tri_id"], "y0": y0, "rows": rows,
         "vis_s": vis_s, "alive_s": alive_s, "bbox_s": bbox_s, "sort_perm": sort_perm,
-        "mega_args": args,
+        "split": False, "mega_args": args,
         "mega_kwargs": {"light_spec": light_spec, "sun_off": sun_off, "s_near": s_near,
                         "brdf_ggx": brdf_ggx, "shadow_rows": shadow_rows,
                         "shadow_spec": shadow_spec, "tonemap": tonemap,
@@ -186,20 +227,22 @@ def frame_inputs(d3, lights, atlas, uniforms, background, width: int,
 
 
 def needs_prepass(ao_taps: tuple = None, refl_samples: int = 0, sky_light: bool = False,
-                  **_frame) -> bool:
-    """Whether a frame with these settings runs the visibility pre-pass (B2):
-    AO, reflections and the sky light need the winners before shading."""
-    return bool(ao_taps) or refl_samples > 0 or bool(sky_light)
+                  shaders: tuple = (), **_frame) -> bool:
+    """Whether a frame with these settings runs the visibility pass B2
+    before shading: AO, reflections and the sky light need its winners,
+    and the split path (runtime shaders) shades from them."""
+    return bool(ao_taps) or refl_samples > 0 or bool(sky_light) or bool(shaders)
 
 
 def visibility_prepass(fi: dict, width: int, height: int, y0: int = 0):
     """The G-buffer's visibility before shading (B2 on the sorted
-    candidates) -> (z, idx, hit) with idx mapped back to the setup pass's
+    candidates: front-to-back for B1's frames, the Morton order on the
+    split path) -> (z, idx, hit) with idx mapped back to the setup pass's
     slots through the sort permutation. `y0`: the rows [y0, y0 + height)
     of the frame (a slab of a row-sharded frame)."""
     z, i_s, hit = visibility_pass_pallas(fi["vis_s"], fi["alive_s"], fi["bbox_s"], width, height,
                                          y0)
-    idx = torch.where(hit, fi["sort_perm"][torch.clamp(i_s, min=0).long()], -1)
+    idx = torch.where(hit, take_iso(fi["sort_perm"], torch.clamp(i_s, min=0)), -1)
     return z, idx, hit
 
 
@@ -214,18 +257,47 @@ def ambient_occlusion(pre, uniforms, height: int, ao_taps: tuple):
                      px_scale, ao_taps)
 
 
+def opaque_rows(fi: dict, pre, ao_img, d3, lights, atlas, uniforms, width: int, height: int,
+                sample_mode: int = 0, has_fog: bool = False, shadow_rows=None,
+                shadow_params=None, shadow_spec: tuple = None, brdf_ggx: bool = False,
+                tonemap: bool = False, has_blend: bool = False, has_material: bool = False,
+                has_matmap: bool = False, shaders: tuple = (), **_frame):
+    """The opaque frame of the rows frame_inputs `fi` prepared -> (opaque,
+    z_eff (rows, W)). B1's frames: opaque is its packed RGBA8 (rows, W)
+    i32, from mega_render with the AO factor `ao_img`. The split path
+    (fi["split"], runtime shaders): shade_pass over the winners `pre` (z,
+    idx, hit) of B2 on the Morton order, at the rows' offset, and
+    compose_opaque over the rows' background, so opaque is the (rows, W, 4)
+    f32 frame, not quantized (the JAX package's XLA branch). Takes
+    render_frame's arguments."""
+    if not fi["split"]:
+        return mega_render(*fi["mega_args"], **dict(fi["mega_kwargs"], ao_img=ao_img))
+    z, idx, hit = pre
+    shaded, wrote = shade_pass(
+        z, idx, hit, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms, width, fi["rows"],
+        sample_mode, y0=fi["y0"], full_height=height, shaders=shaders, has_fog=has_fog,
+        has_blend=has_blend, has_material=has_material, has_matmap=has_matmap,
+        shadow=None if shadow_spec is None else (shadow_rows, shadow_params, shadow_spec),
+        ao=ao_img, brdf_ggx=brdf_ggx, tonemap=tonemap)
+    return compose_opaque(shaded, wrote, z, fi["background"])
+
+
 #: candidates a step of the opacity layers' visibility pass takes; the
 #: result does not depend on it (see shadow.BAKE_CHUNK)
 LAYER_CHUNK = 64
 
 
 def _shade_opacity(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms, width: int,
-                   height: int, sample_mode: int = 0, y0: int = 0):
+                   height: int, sample_mode: int = 0, y0: int = 0, shaders: tuple = ()):
     """Opacity-pass shading: texel only, no lighting (reference
     d3_rasterize_opacity, src/rasterizer.rs:1425-1690; the JAX package's
-    `_shade_opacity` without runtime shaders) -> (color (H, W, 4) f32 with
-    the alpha times the batch opacity, z_eff (1.0 where no layer surface),
-    tri id (H, W)). `y0` offsets the pixel rows (row-sharded frames)."""
+    `_shade_opacity`) -> (color (H, W, 4) f32 with the alpha times the
+    batch opacity, z_eff (1.0 where no layer surface), tri id (H, W)). `y0`
+    offsets the pixel rows (row-sharded frames). `shaders`: the pack's
+    runtime shaders; where a pixel's surface carries one, its colour and
+    opacity registers replace the linear texel colour and the alpha (the
+    registers: uv / 4, that colour, roughness 0.5, the alpha as opacity,
+    zeros elsewhere)."""
     dev = z.device
     slot = torch.clamp(idx, min=0).long()
     t = tri_id[slot].long()
@@ -247,6 +319,16 @@ def _shade_opacity(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms, widt
     # whole-batch alpha multiplier (fading door billboards,
     # scene_handler.rs:703-728 DynamicObject::with_opacity)
     opac = texel[..., 3] * meta["opacity"][t]
+    if shaders:
+        zeros = torch.zeros_like(u)
+
+        def state():
+            return shader_state(u, v, lin, zeros + 0.5, zeros, zeros, opac, zeros, zeros,
+                                uniforms)
+
+        for m, out_s in run_shaders(shaders, meta["shader"][t], state, uniforms):
+            lin = torch.where(m[..., None], out_s["color"], lin)
+            opac = torch.where(m, out_s["opacity"][..., 0], opac)
     # the srgb -> linear -> srgb round trip through the fast polynomials, as
     # the reference's pipeline has it (rasterizer.rs:1634-1676)
     out = torch.cat([linear_to_srgb_fast(lin), opac[..., None]], dim=-1)
@@ -269,7 +351,7 @@ def opacity_setup(d3_op, uniforms, width: int, height: int):
 
 def opacity_layers(d3_op, atlas, uniforms, width: int, height: int, sample_mode: int = 0,
                    layers: int = 1, reflect_layer=None, y0: int = 0, rows: int = None,
-                   setup=None):
+                   setup=None, shaders: tuple = ()):
     """The opacity batches' depth-peeled layers -> [(color (H, W, 4),
     z_eff (H, W))], nearest first: layer k is the k-th nearest transparent
     surface of each pixel (strictly farther than layer k-1 through the raw
@@ -280,7 +362,8 @@ def opacity_layers(d3_op, atlas, uniforms, width: int, height: int, sample_mode:
     tri_id, color)` -> color composites a layer's reflections (None: off).
     `y0` and `rows`: peel only the rows [y0, y0 + rows) of the frame (a
     slab of a row-sharded frame; default all `height` rows); `setup`:
-    opacity_setup's result, when the caller has it."""
+    opacity_setup's result, when the caller has it; `shaders`: the pack's
+    runtime shaders (_shade_opacity)."""
     vis_o, attr_o, alive_of, tri_id_o = setup or opacity_setup(d3_op, uniforms, width, height)
     rows = height if rows is None else rows
     out, ceil = [], None
@@ -289,7 +372,7 @@ def opacity_layers(d3_op, atlas, uniforms, width: int, height: int, sample_mode:
             vis_o, alive_of, width, rows, chunk=LAYER_CHUNK, y0=y0, z_ceil=ceil,
             return_invz=True, plane_fma=True)
         color_o, zeff_o, _t = _shade_opacity(z_o, idx_o, hit_o, attr_o, tri_id_o, d3_op, atlas,
-                                             uniforms, width, rows, sample_mode, y0)
+                                             uniforms, width, rows, sample_mode, y0, shaders)
         if reflect_layer is not None:
             color_o = reflect_layer(z_o, idx_o, hit_o, attr_o, tri_id_o, color_o)
         out.append((color_o, zeff_o))
@@ -297,7 +380,7 @@ def opacity_layers(d3_op, atlas, uniforms, width: int, height: int, sample_mode:
     return out
 
 
-def compose_rows(fi, rgba_u32, z_eff, pre, ao_img, d3, lights, atlas, uniforms, width: int,
+def compose_rows(fi, opaque, z_eff, pre, ao_img, d3, lights, atlas, uniforms, width: int,
                  height: int, sample_mode: int = 0, refl_samples: int = 0, refl_scale: int = 1,
                  sky_light: bool = False, shadow_rows=None, shadow_params=None,
                  shadow_spec: tuple = None, tonemap: bool = False, d3_op=None,
@@ -306,23 +389,30 @@ def compose_rows(fi, rgba_u32, z_eff, pre, ao_img, d3, lights, atlas, uniforms, 
                  sky_pre: dict = None, has_brush: bool = False, has_blend: bool = False,
                  d2=None, has_d2: bool = False, has_lights: bool = False,
                  has_ambient: bool = False, has_material: bool = False,
-                 has_matmap: bool = False, op_setup=None, **_inputs):
-    """The passes after B1 on the rows frame_inputs `fi` prepared (fi["y0"],
-    fi["rows"] of the height-row frame) -> (rows, W, 4) uint8 tensor. B1's
-    outputs `rgba_u32` and `z_eff`, the pre-pass `pre` (z, idx, hit) where
-    AO, reflections or the sky light need it, and the AO factor `ao_img`
-    of these rows (or None). Takes render_frame's arguments (those of B1's
-    preparation, `_inputs`, are frame_inputs'); `op_setup`: opacity_setup's
-    result, when the caller has it."""
+                 has_matmap: bool = False, op_setup=None, shaders: tuple = (), **_inputs):
+    """The passes after the opaque frame on the rows frame_inputs `fi`
+    prepared (fi["y0"], fi["rows"] of the height-row frame) -> (rows, W, 4)
+    uint8 tensor. opaque_rows' outputs `opaque` (B1's packed RGBA8, or the
+    split path's f32 frame) and `z_eff`, the pre-pass `pre` (z, idx, hit)
+    where AO, reflections, the sky light or the split path need it, and
+    the AO factor `ao_img` of these rows (or None). Takes render_frame's
+    arguments (those of B1's preparation, `_inputs`, are frame_inputs');
+    `op_setup`: opacity_setup's result, when the caller has it. `shaders`
+    (the pack's runtime shaders) reach every G-buffer, the opacity layers
+    and the 2D pass."""
     y0, rows = fi["y0"], fi["rows"]
-    if not (has_sky or has_opacity or has_d2 or has_brush or refl_samples or sky_light):
-        return unpack_frame_u32(rgba_u32)
-    # the passes after the opaque frame blend in f32 over its quantized
-    # bytes, as the reference's u8 tile buffer does (rasterizer.rs:464-495)
-    frame = unpack_frame_u32(rgba_u32).float() * (1.0 / 255.0)
+    later = has_sky or has_opacity or has_d2 or has_brush or refl_samples or sky_light
+    if fi["split"]:
+        frame = opaque
+    elif not later:
+        return unpack_frame_u32(opaque)
+    else:
+        # the passes after B1 blend in f32 over its quantized bytes, as the
+        # reference's u8 tile buffer does (rasterizer.rs:464-495)
+        frame = unpack_frame_u32(opaque).float() * (1.0 / 255.0)
     shadow = None if shadow_spec is None else (shadow_rows, shadow_params, shadow_spec)
     g_args = {"has_blend": has_blend, "has_material": has_material, "has_matmap": has_matmap,
-              "y0": y0, "full_height": height}
+              "shaders": shaders, "y0": y0, "full_height": height}
     if refl_samples:
         refl, rmask = reflection_pass_scaled(
             *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms, width, rows,
@@ -353,20 +443,24 @@ def compose_rows(fi, rgba_u32, z_eff, pre, ao_img, d3, lights, atlas, uniforms, 
 
         layers = opacity_layers(d3_op, atlas, uniforms, width, height, sample_mode,
                                 transparency_layers, reflect_layer, y0=y0, rows=rows,
-                                setup=op_setup)
+                                setup=op_setup, shaders=shaders)
         for color_o, zeff_o in reversed(layers):
             frame = blend_opacity(frame, z_eff, color_o, zeff_o, preserve_transparency)
     if has_d2:
         frame = d2_pass(frame, d2, atlas, lights, uniforms, width, rows, sample_mode,
                         preserve_transparency, has_lights=has_lights, has_ambient=has_ambient,
-                        y0=y0)
+                        shaders=shaders, y0=y0)
     return frame_to_u8(frame)
 
 
 def render_frame(d3, lights, atlas, uniforms, background, width: int, height: int, **settings):
     """One frame on the device -> (H, W, 4) uint8 tensor: the JAX
-    render_frame's megakernel branch (ops/raster.py:233-500 there). The
-    opaque frame comes from the megakernel (B1). With AO (`ao_taps` from
+    render_frame's megakernel branch (ops/raster.py:233-500 there), or with
+    runtime shaders (`shaders`, the pack's) its split branch
+    (ops/raster.py:317-356 there): B2 over the Morton-ordered candidates,
+    then shade_pass with the shaders and compose_opaque, and the passes
+    below over that f32 frame. Otherwise the opaque frame comes from the
+    megakernel (B1). With AO (`ao_taps` from
     tap_offsets, radius uniforms["ao_radius"]), reflections or sky light,
     the visibility pre-pass (B2) gives the winners before shading; the AO
     factor scales B1's ambient terms; the reflection pass (at 1/refl_scale
@@ -391,8 +485,9 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int, height: in
     pre = visibility_prepass(fi, width, height) if needs_prepass(**settings) else None
     ao_taps = settings.get("ao_taps")
     ao_img = ambient_occlusion(pre, uniforms, height, ao_taps) if ao_taps else None
-    rgba_u32, z_eff = mega_render(*fi["mega_args"], **fi["mega_kwargs"], ao_img=ao_img)
-    return compose_rows(fi, rgba_u32, z_eff, pre, ao_img, d3, lights, atlas, uniforms, width,
+    opaque, z_eff = opaque_rows(fi, pre, ao_img, d3, lights, atlas, uniforms, width, height,
+                                **settings)
+    return compose_rows(fi, opaque, z_eff, pre, ao_img, d3, lights, atlas, uniforms, width,
                         height, **settings)
 
 
@@ -453,10 +548,6 @@ class BrushPreview:
     position: np.ndarray
     radius: float = 1.0
     falloff: float = 0.5
-
-
-def _unported(feature: str):
-    return NotImplementedError(f"{feature} is not ported to rusterix_tpu_torch yet")
 
 
 class Rasterizer:
@@ -598,9 +689,10 @@ class Rasterizer:
         one `sun_res`^2 map (ops/shadow.py). The maps bake from the static
         geometry and stay cached until the scene revision, a casting
         light's position or range, or the sun changes. max_shadow_distance
-        and max_shadow_steps come from apply_render_settings.
-        `dynamic_casters` is kept for the frames with dynamic batches,
-        which the port refuses."""
+        and max_shadow_steps come from apply_render_settings. With
+        `dynamic_casters`, the dynamic batches' depth is min-composited into
+        the cached maps every frame (shadow.composite_dynamic_depth), so
+        moving entities cast shadows too."""
         if enabled:
             self.shadow_settings = {
                 "res": int(res),
@@ -804,9 +896,11 @@ class Rasterizer:
 
     def _shadow_pack(self, cache, packed, lights, scene_key):
         """Bake (or fetch the cached) shadow maps of this frame's casting
-        lights -> (flat table, params (40,) np.float32, spec), or three
-        Nones when nothing casts. The casting lights are the `max_lights`
-        brightest valid point/spot rows (the first rows among equals). With
+        lights -> (flat table, params (40,) np.float32, spec, cams: the
+        cameras of the maps, shadow.bake_shadow_cams, which the dynamic
+        casters render through), or four Nones when nothing casts. The
+        casting lights are the `max_lights` brightest valid point/spot rows
+        (the first rows among equals). With
         opacity batches and max_shadow_steps > 0, each map also bakes up to
         4 depth-peeled transparent layers (the transmittance)."""
         cfg = self.shadow_settings
@@ -818,7 +912,7 @@ class Rasterizer:
         cast = sorted(rows_idx[: cfg["max_lights"]])
         sun_dir = self.sun_dir if (self.sun_dir is not None and self.day_factor > 0) else None
         if not cast and sun_dir is None:
-            return None, None, None
+            return None, None, None, None
         with_trans = self._rs_shadow_steps > 0 and bool(packed.d3_opacity.valid.any())
         # the reference walks up to max_shadow_steps transparent surfaces per
         # shadow ray (3d_shader.wgsl:484); the maps keep at most 4 layers
@@ -834,19 +928,21 @@ class Rasterizer:
         hit = _SHADOW_CACHE.get(key)
         if hit is not None:
             return hit
-        from .shadow import bake_shadow_pack, scene_bounds
+        from .shadow import bake_shadow_cams, bake_shadow_pack, scene_bounds
 
+        bounds = scene_bounds(packed.d3.pos, packed.d3.valid)
         rows, params, spec = bake_shadow_pack(
             cache["d3"], cache["d3_op"] if with_trans else None, lights, cast, sun_dir,
             res=cfg["res"], sun_res=cfg["sun_res"], with_trans=with_trans,
             trans_steps=trans_steps,
             max_shadow_distance=self._rs_shadow_distance,
-            bias=cfg["bias"], bounds=scene_bounds(packed.d3.pos, packed.d3.valid),
+            bias=cfg["bias"], bounds=bounds,
         )
+        entry = (rows, params, spec, bake_shadow_cams(lights, spec, sun_dir, bounds))
         if len(_SHADOW_CACHE) > 8:
             _SHADOW_CACHE.clear()
-        _SHADOW_CACHE[key] = (rows, params, spec)
-        return rows, params, spec
+        _SHADOW_CACHE[key] = entry
+        return entry
 
     def _render_graph_hooks(self):
         """The render graph's hit and miss hooks (reference
@@ -916,25 +1012,6 @@ class Rasterizer:
         d = d / max(np.linalg.norm(d), 1e-20)
         return Ray(near, d.astype(np.float32))
 
-    def _refuse_unported_scene(self, scene, packed):
-        dynamic = bool(scene.d3_dynamic or scene.d3_dynamic_opacity or scene.d2_dynamic)
-        shadows = self.shadow_settings is not None and self.render_mode.d3_active
-        checks = {
-            # the part of the shadow family that needs batches the port
-            # refuses, named before those batches
-            "dynamic shadow casters (shadows with dynamic batches)": shadows
-            and dynamic and self.shadow_settings["dynamic_casters"],
-            "dynamic batches": dynamic,
-            # baked shaders render through their atlas tiles; a shader that
-            # reads its inputs (color, normal, hitpoint, material) stays a
-            # per-pixel runtime shader, 3D or 2D, which the port refuses
-            "runtime shaders (rusteria shaders that read their inputs)":
-            bool(packed.runtime_shaders),
-        }
-        for name, on in checks.items():
-            if on:
-                raise _unported(name)
-
     def rasterize(
         self,
         scene,
@@ -961,7 +1038,15 @@ class Rasterizer:
         split over the slabs through the setup pass, the rows through every
         pass after it, byte-equal to the frame without a mesh. Reflections
         render at full resolution on this path whatever the reflection
-        scale, as in the JAX package."""
+        scale, as in the JAX package.
+
+        The scene's dynamic batch lists (entity billboards, dynamic 2D) pack
+        every frame into capacities that only grow (scene_pack.pack_dynamic,
+        stable_dynamic_caps) and are concatenated after the cached static
+        packs on the device; with shadows and dynamic casters their depth is
+        composited into the cached maps. Runtime shaders (the pack's
+        runtime_shaders: shaders that read their inputs and cannot bake)
+        take the split path (render_frame), with a mesh as without."""
         if assets is None:
             assets = Assets.default()
         self.hash_anim = hash_u32(scene.animation_frame & 0xFFFFFFFF)
@@ -992,10 +1077,33 @@ class Rasterizer:
             from ..parallel import check_mesh
 
             mesh = check_mesh(mesh)
-        self._refuse_unported_scene(scene, packed)
-        d3 = cache["d3"]
+        d3, d3_op, d2 = cache["d3"], cache["d3_op"], cache["d2"]
+
+        # dynamic batches: packed every frame into stable capacities and
+        # concatenated after the static packs on the device (entity motion
+        # uploads a few KB, never the static world)
+        has_dyn = bool(scene.d3_dynamic or scene.d3_dynamic_opacity or scene.d2_dynamic)
+        dyn = dyn_lines = None
+        if has_dyn:
+            from .scene_pack import pack_dynamic, stable_dynamic_caps
+
+            caps = stable_dynamic_caps(scene, cache.get("dyn_caps"))
+            cache["dyn_caps"] = caps
+            p3, p3op, p2, dyn_lines = pack_dynamic(scene, packed.atlas_index, *caps)
+
+            def put(part, keys):
+                return {k: torch.from_numpy(np.ascontiguousarray(getattr(part, k))).to(
+                    self.device) for k in keys}
+
+            dyn = {"d3": put(p3, d3), "d3_op": put(p3op, d3_op), "d2": put(p2, d2)}
         if not self.render_mode.d3_active:
             d3 = dict(d3, valid=torch.zeros_like(d3["valid"]))
+            if dyn is not None:
+                for part in ("d3", "d3_op"):
+                    dyn[part] = dict(dyn[part], valid=torch.zeros_like(dyn[part]["valid"]))
+        if dyn is not None:
+            d3, d3_op, d2 = ({k: torch.cat([static[k], dyn[part][k]]) for k in static}
+                             for part, static in (("d3", d3), ("d3_op", d3_op), ("d2", d2)))
 
         # lights repack every frame (they're tiny): the reference reads
         # light positions fresh per frame
@@ -1044,7 +1152,17 @@ class Rasterizer:
 
         shadow_rows = shadow_params = shadow_spec = None
         if self.shadow_settings is not None and self.render_mode.d3_active:
-            shadow_rows, shadow_params, shadow_spec = self._shadow_pack(cache, packed, lights, key)
+            shadow_rows, shadow_params, shadow_spec, cams = self._shadow_pack(
+                cache, packed, lights, key)
+            if cams is not None and dyn is not None and self.shadow_settings["dynamic_casters"]:
+                # dynamic casters (the reference's trace_shadow_unified ->
+                # trace_billboards, 3d_shader.wgsl:436-460): the dynamic
+                # pack's depth min-composited into the cached static maps
+                from .shadow import composite_dynamic_depth
+
+                dd = dyn["d3"]
+                shadow_rows = composite_dynamic_depth(shadow_rows, shadow_spec, cams, dd["pos"],
+                                                      dd["uv"], dd["nrm"], dd["valid"])
 
         frame_args = dict(
             d3=d3, lights=lights, atlas=cache["atlas"], uniforms=uniforms,
@@ -1060,8 +1178,13 @@ class Rasterizer:
             sky_light=self.sky_light_enabled and self.render_mode.d3_active,
             shadow_rows=shadow_rows, shadow_params=shadow_params, shadow_spec=shadow_spec,
             tonemap=self.tonemap == "scenevm",
-            d3_op=cache["d3_op"],
-            has_opacity=self.render_mode.d3_active and bool(packed.d3_opacity.valid.any()),
+            # the JAX package passes its reflection intersect the live slot
+            # ranges of the static and dynamic packs (_refl_live_ranges);
+            # B3 here gates every slot by the pack's valid mask, so the
+            # dynamic slots need no range
+            d3_op=d3_op,
+            has_opacity=self.render_mode.d3_active and bool(
+                packed.d3_opacity.valid.any() or (has_dyn and len(scene.d3_dynamic_opacity))),
             transparency_layers=self.transparency_layers,
             preserve_transparency=self.preserve_transparency,
             has_sky=has_sky, sky_pre=sky_pre,
@@ -1072,8 +1195,10 @@ class Rasterizer:
             has_material=bool((packed.d3.rough != 0.5).any() or packed.d3.metal.any()
                               or (packed.d3.m1_slot >= 0).any()),
             has_matmap=bool((packed.d3.m1_slot >= 0).any()),
-            d2=cache["d2"],
-            has_d2=self.render_mode.d2_active and bool(packed.d2.valid.any()),
+            d2=d2,
+            has_d2=self.render_mode.d2_active and bool(
+                packed.d2.valid.any() or (has_dyn and len(scene.d2_dynamic))),
+            shaders=packed.runtime_shaders,
             has_lights=len(live_lights) > 0,
             has_ambient=self.ambient_color is not None,
         )
@@ -1091,12 +1216,15 @@ class Rasterizer:
             return frame
         out = frame.cpu().numpy()
 
-        segs = packed.d2_lines.segments
-        if len(segs):
+        line_sets = [packed.d2_lines] + ([dyn_lines] if dyn_lines is not None else [])
+        line_sets = [ls for ls in line_sets if len(ls.segments)]
+        if line_sets:
+            segs = np.concatenate([ls.segments for ls in line_sets])
+            colors = np.concatenate([ls.colors for ls in line_sets])
             ones = np.ones((len(segs), 1), np.float32)
             p0 = np.concatenate([segs[:, 0:2], ones], axis=1) @ self.proj2d.T
             p1 = np.concatenate([segs[:, 2:4], ones], axis=1) @ self.proj2d.T
             projected = np.concatenate([p0[:, :2], p1[:, :2]], axis=1)
             out = out.copy()
-            draw_lines_bresenham(out, projected, packed.d2_lines.colors)
+            draw_lines_bresenham(out, projected, colors)
         return out

@@ -387,7 +387,7 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
                     width: int, height: int, sample_mode: int = 0, samples: int = 1,
                     stride: int = 1, shadow=None, scene_d3=None, has_blend: bool = False,
                     has_material: bool = False, has_matmap: bool = False, y0: int = 0,
-                    full_height: int = None):
+                    full_height: int = None, shaders: tuple = ()):
     """GGX reflection radiance for every covered pixel -> ((H, W, 3) linear,
     (H, W) applied mask; pixels whose samples all faced away keep 0).
 
@@ -405,13 +405,16 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
     second texel in; `has_material` / `has_matmap`: it reads baked shaders'
     roughness, metallic and written normals (gbuffer_pass). `y0` and
     `full_height`: the inputs are the slab of rows [y0, y0 + height) of a
-    row-sharded frame of that height (gbuffer_pass, reflection_rays)."""
+    row-sharded frame of that height (gbuffer_pass, reflection_rays).
+    `shaders`: the pack's runtime shaders, which write the G-buffer's
+    registers (gbuffer_pass); the hits shade from the pack alone, as in
+    the JAX package."""
     dev = z.device
     sd3 = d3 if scene_d3 is None else scene_d3
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
                      width, height, sample_mode, has_blend=has_blend,
-                     has_material=has_material, has_matmap=has_matmap, stride=stride,
-                     y0=y0, full_height=full_height)
+                     has_material=has_material, has_matmap=has_matmap, shaders=shaders,
+                     stride=stride, y0=y0, full_height=full_height)
     f0 = 0.04 + (g["base"] - 0.04) * g["metallic"][..., None]
     max_dist = float(np.float32(uniforms["refl_dist"]))
     sky_rgb = torch.from_numpy(np.asarray(uniforms["refl_sky"], np.float32))
@@ -488,7 +491,8 @@ def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                            uniforms, width: int, height: int, sample_mode: int = 0,
                            samples: int = 1, scale: int = 1, shadow=None, scene_d3=None,
                            has_blend: bool = False, has_material: bool = False,
-                           has_matmap: bool = False, y0: int = 0, full_height: int = None):
+                           has_matmap: bool = False, y0: int = 0, full_height: int = None,
+                           shaders: tuple = ()):
     """reflection_pass at 1/scale resolution, bilinearly upsampled.
 
     scale 1 is the full-resolution pass. With scale > 1 the pass traces
@@ -497,7 +501,7 @@ def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
     applied mask are upsampled as jax.image.resize does, and a pixel takes
     the upsampled radiance where the upsampled mask exceeds 0.5 and the
     full-resolution pre-pass covers it. `shadow`, `scene_d3`, `has_blend`,
-    `has_material`, `has_matmap`, `y0` and `full_height` as for
+    `has_material`, `has_matmap`, `shaders`, `y0` and `full_height` as for
     reflection_pass; a slab of rows (y0 > 0 or a taller frame) takes scale
     1 only, as the JAX package's row-sharded frame does."""
     if scale <= 1:
@@ -505,7 +509,7 @@ def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
                                uniforms, width, height, sample_mode, samples, shadow=shadow,
                                scene_d3=scene_d3, has_blend=has_blend,
                                has_material=has_material, has_matmap=has_matmap, y0=y0,
-                               full_height=full_height)
+                               full_height=full_height, shaders=shaders)
     if y0 or (full_height or height) != height:
         raise ValueError("reflection_pass_scaled: a slab of rows takes scale 1")
     hs, ws = height // scale, width // scale
@@ -514,6 +518,7 @@ def reflection_pass_scaled(z, idx, hit, attr_planes, tri_id, d3, atlas, lights,
         z[sl], idx[sl], hit[sl], attr_planes, tri_id, d3, atlas, lights, uniforms,
         ws, hs, sample_mode, samples, stride=scale, shadow=shadow, scene_d3=scene_d3,
         has_blend=has_blend, has_material=has_material, has_matmap=has_matmap,
+        shaders=shaders,
     )
     refl_lo = torch.where(mask_lo[..., None], refl_lo, 0.0)
     up = _resize_bilinear(refl_lo, height, width)
@@ -555,7 +560,7 @@ def sky_rays(g, hit) -> dict:
 def sky_light_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
                    width: int, height: int, sample_mode: int = 0, has_blend: bool = False,
                    has_material: bool = False, has_matmap: bool = False, y0: int = 0,
-                   full_height: int = None):
+                   full_height: int = None, shaders: tuple = ()):
     """Directional sky-bounce ambient (the WGSL `sky_contribution`,
     3d_shader.wgsl:744-758) -> (radiance (H, W, 3) linear, applied mask).
 
@@ -563,11 +568,11 @@ def sky_light_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
     uniforms["refl_dist"], through the ray-intersect kernel (B3); where it
     escapes, the pixel gains refl_sky * max(N.y, 0) * albedo. The caller
     scales the term by the AO factor where AO is on. `has_blend`,
-    `has_material`, `has_matmap`, `y0` and `full_height` as for
+    `has_material`, `has_matmap`, `shaders`, `y0` and `full_height` as for
     reflection_pass."""
     g = gbuffer_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
                      width, height, sample_mode, has_blend=has_blend,
-                     has_material=has_material, has_matmap=has_matmap, y0=y0,
+                     has_material=has_material, has_matmap=has_matmap, shaders=shaders, y0=y0,
                      full_height=full_height)
     r = sky_rays(g, hit)
     ray = (r["o_x"], r["o_y"], r["o_z"], r["d_x"], r["d_y"], r["d_z"])

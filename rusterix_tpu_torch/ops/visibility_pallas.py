@@ -72,6 +72,22 @@ def morton_perm(bbox, alive, width: int, height: int):
     return (torch.sort(key).values & ((1 << slot_bits) - 1)).to(torch.int32)
 
 
+def morton_sort(vis_planes, bbox, alive, slot_id, width: int, height: int):
+    """Candidates reordered along the Morton curve of their bbox centres
+    (morton_perm: dead slots last, ties by slot index) -> (vis_planes,
+    bbox, alive, slot_id) permuted, through one row gather of the combined
+    columns, as the JAX package's morton_sort (the split path's order for
+    B2; B2 keeps the first candidate of a bit-equal 1/z tie, so the order
+    decides such winners). slot_id (T2,) i32 rides the gather as f32, as
+    in the JAX package (exact below 2^24 slots)."""
+    perm = morton_perm(bbox, alive, width, height).long()
+    combined = torch.cat([vis_planes, bbox, alive[:, None], slot_id.float()[:, None]],
+                         dim=1)[perm]
+    nv = vis_planes.shape[1]
+    return (combined[:, :nv], combined[:, nv:nv + 4], combined[:, nv + 4],
+            combined[:, nv + 5].to(slot_id.dtype))
+
+
 def prepare_visibility(vis_planes, alive, bbox):
     """The tile kernels' candidate preparation: dead candidates take
     impossible planes and empty boxes (so they never cover a pixel and
@@ -135,34 +151,53 @@ def visibility_pass_pallas(vis_planes, alive, bbox, width: int, height: int, y0:
 
     CUDA tensors launch the tile kernel (csrc/visibility.cu); CPU tensors
     run visibility_pass_pallas_reference."""
+    _check(vis_planes, alive, bbox)
+    if vis_planes.device.type != "cuda":
+        return visibility_pass_pallas_reference(vis_planes, alive, bbox, width, height, y0)
+    z, idx = prepare_launch(vis_planes, alive, bbox, width, height, y0)()
+    return z, idx, idx >= 0
+
+
+def _check(vis_planes, alive, bbox):
     t2 = vis_planes.shape[0]
     if vis_planes.shape != (t2, 12) or alive.shape != (t2,) or bbox.shape != (t2, 4):
         raise ValueError(f"visibility_pass_pallas takes (T2, 12), (T2,), (T2, 4), got "
                          f"{tuple(vis_planes.shape)}, {tuple(alive.shape)}, {tuple(bbox.shape)}")
     if alive.device != vis_planes.device or bbox.device != vis_planes.device:
         raise ValueError("visibility_pass_pallas: inputs on different devices")
-    if vis_planes.device.type != "cuda":
-        return visibility_pass_pallas_reference(vis_planes, alive, bbox, width, height, y0)
-    global launches
+
+
+def prepare_launch(vis_planes, alive, bbox, width: int, height: int, y0: int = 0):
+    """Prepare visibility_pass_pallas's inputs for the CUDA kernel (the
+    padding, the dead candidates' planes, the group boxes) -> a function of
+    no arguments that launches the kernel on them and returns (z, idx), the
+    same two tensors at every call. visibility_pass_pallas is one such
+    call; timing the returned function alone times the kernel without the
+    preparation."""
     from .. import _cuda
 
+    _check(vis_planes, alive, bbox)
     planes, sboxes, cboxes = prepare_visibility(*_pad_to_groups(vis_planes, alive.float(), bbox))
     dev = planes.device
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
     idx = torch.empty((height, width), dtype=torch.int32, device=dev)
     ptr = ctypes.c_void_p
-    err = _cuda.library().rx_visibility(
-        ptr(planes.data_ptr()), ptr(sboxes.data_ptr()), ptr(cboxes.data_ptr()),
-        ptr(z.data_ptr()), ptr(idx.data_ptr()),
-        sboxes.shape[0], height, width, int(y0),
-        ptr(torch.cuda.current_stream(dev).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"visibility kernel launch failed: CUDA error {err} ({_cuda.error_string(err)})"
-        )
-    launches += 1
-    return z, idx, idx >= 0
+    lib = _cuda.library()
+    call_args = (ptr(planes.data_ptr()), ptr(sboxes.data_ptr()), ptr(cboxes.data_ptr()),
+                 ptr(z.data_ptr()), ptr(idx.data_ptr()), sboxes.shape[0], height, width, int(y0))
+    keep = (planes, sboxes, cboxes)  # alive while the closure is
+
+    def launch():
+        global launches
+        err = lib.rx_visibility(*call_args, ptr(torch.cuda.current_stream(dev).cuda_stream))
+        if err != 0:
+            raise RuntimeError(
+                f"visibility kernel launch failed: CUDA error {err} ({_cuda.error_string(err)})")
+        launches += 1
+        return z, idx
+
+    launch.keep = keep
+    return launch
 
 
 def visibility_pass_pallas_reference(vis_planes, alive, bbox, width: int, height: int,

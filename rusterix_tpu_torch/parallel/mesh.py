@@ -11,7 +11,9 @@ as the JAX package's `shard_map` splits it:
     concatenated in order (the JAX package's tiled `all_gather`); the
     candidate's triangle id follows the concatenated order;
   * the framebuffer over rows: each slab owns ceil(height / n) rows and
-    runs the megakernel (B1) at its row offset, the visibility pre-pass
+    runs the megakernel (B1) at its row offset (or, with runtime shaders,
+    the split path: B2 over the Morton-ordered candidates at its row
+    offset and shade_pass on its rows), the visibility pre-pass
     (B2), the reflections and the sky light (B3), the sky miss pass, the
     brush preview, the depth-peeled opacity layers (their setup replicated,
     their peel row-local, their reflections traced against the gathered
@@ -34,7 +36,6 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.megakernel import mega_render
 from ..ops.raster import (
     ambient_occlusion,
     compose_rows,
@@ -42,6 +43,7 @@ from ..ops.raster import (
     frame_setup,
     needs_prepass,
     opacity_setup,
+    opaque_rows,
     visibility_prepass,
 )
 from ..ops.setup_pass import setup_pass
@@ -81,9 +83,10 @@ def sharded_inputs(mesh, d3, lights, atlas, uniforms, background, width: int, he
     """The sharded frame's preparation before its kernels -> one dict a
     slab: ops.raster.frame_inputs of its rows (`y0`, `rows`, the sorted
     candidates, `mega_args` and `mega_kwargs`, with the slab's rows of the
-    AO factor as mega_kwargs["ao_img"]), its `device`, its pre-pass `pre`
-    (z, idx, hit) where AO, reflections or the sky light need it (else
-    None), and `local`, what the slabs on its device share: the padded pack
+    AO factor as mega_kwargs["ao_img"]; on the split path no B1
+    arguments), its `device`, its pre-pass `pre` (z, idx, hit) where AO,
+    reflections, the sky light or the split path need it (else None), and
+    `local`, what the slabs on its device share: the padded pack
     `d3`, `atlas`, `d2`, `shadow_rows`, and with opacity batches `d3_op`
     and its setup `op_setup`. Takes render_frame_sharded's arguments."""
     mesh = check_mesh(mesh)
@@ -97,6 +100,7 @@ def sharded_inputs(mesh, d3, lights, atlas, uniforms, background, width: int, he
     view = torch.from_numpy(np.asarray(uniforms["view"], np.float32))
     proj = torch.from_numpy(np.asarray(uniforms["proj"], np.float32))
     flags = {"has_blend": has_blend, "has_material": has_material, "has_matmap": has_matmap}
+    split = bool(settings.get("shaders"))
 
     # the setup pass on each triangle shard, then the planes gathered
     parts = []
@@ -121,7 +125,7 @@ def sharded_inputs(mesh, d3, lights, atlas, uniforms, background, width: int, he
         }
         r["setup"] = frame_setup(r["d3"], lights, r["atlas"], uniforms, width, height,
                                  planes=(vis, attr, bbox, alive, tri_id.repeat_interleave(2)),
-                                 **flags)
+                                 split=split, **flags)
         if has_opacity:
             r["d3_op"] = {k: v.to(dev) for k, v in d3_op.items()}
             r["op_setup"] = opacity_setup(r["d3_op"], uniforms, width, height)
@@ -165,7 +169,8 @@ def render_frame_sharded(mesh, d3, d2, lights, atlas, uniforms, background, widt
     render_frame with the same settings at full-resolution reflections but
     for pixels where two candidates tie on 1/z bit for bit (a slab's scan
     order, its supers sorted by the near bound over its own rows, can keep
-    another of them first than the whole frame's order does).
+    another of them first than the whole frame's order does; the split
+    path's Morton order is the whole frame's on every slab).
 
     d3, d2, d3_op, atlas: packed_to_torch tensors; lights, uniforms: the
     host (numpy) dicts of the Rasterizer; background (H, W, 4) f32; the
@@ -178,9 +183,11 @@ def render_frame_sharded(mesh, d3, d2, lights, atlas, uniforms, background, widt
     from the light table on the device. A height or a triangle capacity
     that the mesh size does not divide is padded: each slab owns
     ceil(height / n) rows, and dead triangle slots fill the last shard.
-    The JAX package's one backend switch (`use_pallas`) and its runtime
-    shaders have no counterpart here. Its sky miss pass takes the slab's
-    row count for the frame's height; this one takes the frame's."""
+    The JAX package's one backend switch (`use_pallas`) has no counterpart
+    here; where it forces its XLA backend for runtime shaders, this frame
+    takes the split path (`shaders`), as the single frame does. Its sky
+    miss pass takes the slab's row count for the frame's height; this one
+    takes the frame's."""
     frame = dict(settings, sample_mode=sample_mode, has_ambient=has_ambient,
                  has_lights=has_lights, has_d2=has_d2)
     slabs = sharded_inputs(mesh, d3, lights, atlas, uniforms, background, width, height,
@@ -188,12 +195,13 @@ def render_frame_sharded(mesh, d3, d2, lights, atlas, uniforms, background, widt
     out = []
     for fi in slabs:
         r = fi["local"]
-        rgba_u32, z_eff = mega_render(*fi["mega_args"], **fi["mega_kwargs"])
-        out.append(compose_rows(
-            fi, rgba_u32, z_eff, fi["pre"], fi["mega_kwargs"]["ao_img"], r["d3"], lights,
-            r["atlas"], uniforms, width, height, **dict(
-                frame, d2=r["d2"], shadow_rows=r["shadow_rows"], d3_op=r["d3_op"],
-                op_setup=r["op_setup"])))
+        ao_img = fi["mega_kwargs"]["ao_img"]
+        slab = dict(frame, d2=r["d2"], shadow_rows=r["shadow_rows"], d3_op=r["d3_op"],
+                    op_setup=r["op_setup"])
+        opaque, z_eff = opaque_rows(fi, fi["pre"], ao_img, r["d3"], lights, r["atlas"],
+                                    uniforms, width, height, **slab)
+        out.append(compose_rows(fi, opaque, z_eff, fi["pre"], ao_img, r["d3"], lights,
+                                r["atlas"], uniforms, width, height, **slab))
     return torch.cat([f.to(slabs[0]["device"]) for f in out])[:height]
 
 

@@ -520,3 +520,141 @@ def build_map_material_scene(width: int, height: int, device=None, rooms_x: int 
     rast.day_factor = 1.0
     rast.set_brdf("ggx").set_reflections(1)
     return rast, scene, assets
+
+
+#: a runtime floor shader: a checker of 2-unit world cells over the hit
+#: point, times the texel's colour. It reads `color` and `hitpoint`, so it
+#: cannot bake; only exact operations (fract, step, products), so the card
+#: and the CPU evaluate it alike
+FLOOR_CHECKER = """
+fn shade() {
+    let cx = step(0.5, fract(hitpoint.x * 0.25));
+    let cz = step(0.5, fract(hitpoint.z * 0.25));
+    let c = abs(cx - cz);
+    color = color * vec3(0.55 + 0.45 * c, 0.6 + 0.3 * c, 0.7);
+    roughness = 0.35 + 0.3 * c;
+}
+"""
+
+#: a runtime glass shader: the pane's colour tinted by a band of its
+#: height, its opacity scaled (reads `color`, `opacity` and `hitpoint`)
+GLASS_TINT = """
+fn shade() {
+    let band = step(0.5, fract(hitpoint.y * 1.5));
+    color = color * vec3(1.0, 0.7 + 0.3 * band, 0.9);
+    opacity = opacity * (0.6 + 0.3 * band);
+}
+"""
+
+#: a runtime 2D shader: 20-pixel bands of two colours over the grid-space
+#: position, plus half the texel's colour
+RECT_BANDS = """
+fn shade() {
+    let band = step(0.5, fract(hitpoint.x * 0.025));
+    color = mix(vec3(0.9, 0.5, 0.2), vec3(0.2, 0.4, 0.9), band) + color * 0.5;
+}
+"""
+
+
+def build_map_runtime_shader_scene(width: int, height: int, device=None, rooms_x: int = 5,
+                                   rooms_y: int = 5):
+    """-> (Rasterizer, scene, assets): the map (build_map_scene; rooms_x x
+    rooms_y rooms, 5 x 5 in the bench) with a floor in every room under a
+    runtime shader. The map has no floor batches (its open doorways leave
+    MapScript no closed sector), so each room gets a 10 x 10 floor quad at
+    height 0 with the "floor" checkerboard, its uv the world position in
+    units, under FLOOR_CHECKER, which reads its inputs (the texel's colour
+    and the hit point) and so runs at every frame: the split path (B2 on
+    the Morton order, then shade_pass)."""
+    assets = _map_assets()
+    script = MapScript(assets)
+    m = script.compile(_map_source(["move_forward(2)"], rooms_x, rooms_y))
+    scene = Scene.empty()
+    D3Builder().build(m, assets, scene)
+    floor_src = PixelSource.tile_id(script._get_texture("floor"))
+    for ry in range(rooms_y):
+        for rx in range(rooms_x):
+            x0, z0 = 10.0 * rx, 10.0 * ry
+            corners = [(x0, z0), (x0 + 10.0, z0), (x0 + 10.0, z0 + 10.0), (x0, z0 + 10.0)]
+            floor = Batch3D.new(
+                [(x, 0.0, z, 1.0) for x, z in corners], [(0, 1, 2), (0, 2, 3)],
+                [(x, z) for x, z in corners],
+            ).set_cull_mode(CullMode.Off).set_source(floor_src).with_computed_normals()
+            scene.d3_static.append(floor.set_shader(0))
+    scene.add_shader(FLOOR_CHECKER)
+    scene.touch()
+    return _map_lights_and_camera(scene, width, height, device), scene, assets
+
+
+def build_map_runtime_shader_refl_scene(width: int, height: int, device=None,
+                                        rooms_x: int = 5, rooms_y: int = 5):
+    """-> (Rasterizer, scene, assets): build_map_runtime_shader_scene with
+    the shadowed reflection map's settings (build_map_shadow_refl_scene: a
+    sun, the GGX BRDF, one reflection ray per pixel, shadow maps at
+    set_shadows' defaults) plus the bench's AO (8 samples within 0.6
+    world units) and the sky light."""
+    rast, scene, assets = build_map_runtime_shader_scene(width, height, device, rooms_x,
+                                                         rooms_y)
+    rast.sun_dir = np.array([0.4, -1.0, 0.25], np.float32)
+    rast.sun_color = np.array([1.0, 1.0, 0.95], np.float32)
+    rast.day_factor = 1.0
+    rast.set_brdf("ggx").set_reflections(1).set_shadows(True)
+    rast.set_ambient_occlusion(True, samples=8, radius=0.6).set_sky_light(True)
+    return rast, scene, assets
+
+
+def build_map_glass_shader_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the glazed map (build_map_glass_scene)
+    with every glass batch under the runtime shader GLASS_TINT, which
+    shades each depth-peeled layer's panes."""
+    rast, scene, assets = build_map_glass_scene(width, height, device=device)
+    for b in scene.all_d3_opacity_batches(include_dynamic=False):
+        b.set_shader(0)
+    scene.add_shader(GLASS_TINT)
+    scene.touch()
+    return rast, scene, assets
+
+
+def build_cube_2d_shader_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the bench's cube (build_cube_scene)
+    with its 2D rectangle under the runtime 2D shader RECT_BANDS (a 2D
+    batch's shader never bakes)."""
+    rast, scene, assets = build_cube_scene(width, height, device=device)
+    scene.d2_static[0].set_shader(0)
+    scene.add_shader(RECT_BANDS)
+    scene.touch()
+    return rast, scene, assets
+
+
+def _billboard(x: float, z: float, opacity: bool = False) -> Batch3D:
+    """A 1 x 2-unit upright quad facing +z at (x, z): an entity billboard
+    (a translucent one for the opacity list)."""
+    color = (90, 170, 230, 150) if opacity else (210, 90, 60, 255)
+    corners = [(x - 0.5, 0.0), (x + 0.5, 0.0), (x + 0.5, 2.0), (x - 0.5, 2.0)]
+    return Batch3D.new(
+        [(cx, cy, z, 1.0) for cx, cy in corners], [(0, 1, 2), (0, 2, 3)],
+        [(0.0, 1.0), (1.0, 1.0), (1.0, 0.0), (0.0, 0.0)],
+    ).set_cull_mode(CullMode.Off).set_source(PixelSource.pixel(color)).with_computed_normals()
+
+
+def move_dynamic(scene, t: float):
+    """Place build_map_dynamic_scene's dynamic batches for frame time `t`:
+    the two billboards walk along x in the camera's room and the 2D
+    rectangle slides right."""
+    scene.d3_dynamic[:] = [_billboard(8.0 + 1.5 * t, 9.0)]
+    scene.d3_dynamic_opacity[:] = [_billboard(9.5 - 1.2 * t, 7.5, opacity=True)]
+    scene.d2_dynamic[:] = [Batch2D.from_rectangle(20.0 + 40.0 * t, 20.0, 160.0, 90.0)
+                           .set_source(PixelSource.pixel((240, 200, 60, 160)))]
+    scene.touch_dynamic()
+
+
+def build_map_dynamic_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the bench's shadowed map
+    (build_map_shadow_scene) with dynamic batches, as a game frame has
+    them: an opaque billboard and a translucent one (Scene.d3_dynamic and
+    d3_dynamic_opacity) and a 2D rectangle (d2_dynamic), placed by
+    move_dynamic(scene, t); shadows keep `dynamic_casters` on, so the
+    billboards cast into the cached maps every frame."""
+    rast, scene, assets = build_map_shadow_scene(width, height, device=device)
+    move_dynamic(scene, 0.0)
+    return rast, scene, assets

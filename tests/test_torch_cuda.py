@@ -9,7 +9,9 @@ with shadowed reflections, the glazed map under the sky without and with
 reflections, the blended map without and with reflections, the cube and
 the 2D map views, the baked-shader paths O, P and Q) against the CPU
 frames, B1's has_material and has_matmap variants, the shader bakes on the
-card against the CPU's, and the port's map, cube and shaded-cube
+card against the CPU's, B2 on the split path's Morton order (runtime
+shaders), the split-path frames (T, U, W) and the dynamic-batch frame (V)
+against the CPU frames, and the port's map, cube and shaded-cube
 examples.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
@@ -929,3 +931,51 @@ def test_sharded_cube_matches_single_cube_on_the_card(cuda, n):
     torch.cuda.synchronize()
     assert megakernel.launches == before + n
     np.testing.assert_array_equal(sharded, single)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,height", [(333, 200), (1920, 1080)])
+def test_visibility_kernel_on_the_morton_order_matches_plain_version(cuda, width, height):
+    """B2 on the split path's candidates (runtime shaders: morton_sort of
+    the setup pass's slots, no front-to-back super order) of path T's map
+    cut to two rooms: z and idx equal to its plain version, one launch."""
+    from rusterix_tpu_torch.scenes import build_map_runtime_shader_scene
+
+    rast, scene, assets = build_map_runtime_shader_scene(width, height, device=cuda,
+                                                         rooms_x=2, rooms_y=1)
+    rast.rasterize(scene, width, height, 40, assets)
+    fi = frame_inputs(**rast.frame_args)
+    assert fi["split"] and fi["mega_args"] is None
+    before = visibility_pallas.launches
+    z, idx, hit = visibility_pallas.visibility_pass_pallas(
+        fi["vis_s"], fi["alive_s"], fi["bbox_s"], width, height)
+    zp, idxp, _hp = visibility_pallas.visibility_pass_pallas_reference(
+        fi["vis_s"], fi["alive_s"], fi["bbox_s"], width, height)
+    torch.cuda.synchronize()
+    assert visibility_pallas.launches == before + 1
+    assert torch.equal(z, zp) and torch.equal(idx, idxp)
+    assert int(hit.sum()) > width * height // 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["runtime_shader", "runtime_shader_refl", "dynamic",
+                                  "cube_2d_shader"])
+def test_cuda_split_and_dynamic_frames_match_cpu_frames(cuda, path):
+    """Paths T, U (shadow maps at 32 / 64 texels), V and W at 256x128 on the
+    card against the CPU: RGBA8 within 1. T, U and W take the split path
+    (B2 and no B1), V B1 over the concatenated dynamic pack."""
+    from rusterix_tpu_torch import scenes
+
+    build = getattr(scenes, f"build_map_{path}_scene" if path != "cube_2d_shader"
+                    else "build_cube_2d_shader_scene")
+    frames = []
+    for dev in (cuda, "cpu"):
+        rast, scene, assets = build(256, 128, device=dev)
+        if rast.shadow_settings is not None:
+            rast.set_shadows(True, res=32, sun_res=64)
+        b1 = megakernel.launches
+        frames.append(rast.rasterize(scene, 256, 128, 40, assets).astype(np.int32))
+        if dev is cuda:
+            assert (megakernel.launches > b1) == (path == "dynamic")
+    assert np.abs(frames[0] - frames[1]).max() <= 1
+    assert (frames[0][..., 3] > 0).sum() > 256 * 128 // 10

@@ -5,6 +5,7 @@ bench map exactly as the JAX package does.
 """
 
 import ast
+import functools
 import glob
 import os
 import subprocess
@@ -178,27 +179,51 @@ def test_mounted_packer_matches_jax_package():
         assert np.asarray(got.occlusion[name]).tobytes() == np.asarray(want).tobytes(), name
 
 
+NORMAL_SHADER = "fn shade() { color = normal * 0.5; }"
+
+
+def _normal_shaded_box(pkg, **device):
+    """A box under NORMAL_SHADER (it reads the normal: a runtime shader)
+    rendered by package `pkg` at 32x32 (the JAX package on its split path,
+    B2 in interpret mode) -> (frame, rasterizer)."""
+    scene = pkg.Scene.from_static([], [pkg.Batch3D.from_box(-0.5, -0.5, -0.5, 1, 1, 1)
+                                       .with_computed_normals().set_shader(0)])
+    assert scene.add_shader(NORMAL_SHADER) == 0
+    cam = pkg.D3OrbitCamera()
+    cam.set_parameter_f32("distance", 2.5)
+    rast = pkg.Rasterizer.setup(None, cam.view_matrix(), cam.projection_matrix(32, 32), **device)
+    if not device:
+        rast.use_pallas = True
+    return rast.rasterize(scene, 32, 32, 32), rast
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_normal_shaded_box():
+    import rusterix_tpu
+
+    return _normal_shaded_box(rusterix_tpu)[0]
+
+
 @pytest.mark.parametrize("module", ["shader", "shader.jaxc"])
-def test_shader_compiler_fails_loudly_under_the_mount(module):
+def test_shader_compiler_under_the_mount_is_the_ports(module):
     """Both lazy import sites of the copied host layer (`..shader` and the
-    packer's `..shader.jaxc`) land on the port's own torch compiler, and
-    what of the shader family the port has not ported, a runtime shader
-    (one that reads its inputs, so it cannot bake), fails loudly by name
-    when rendered."""
+    packer's `..shader.jaxc`) land on the port's own torch compiler, and a
+    runtime shader (one that reads its inputs, so it cannot bake), which
+    the port refused by name until it was ported, renders through it as
+    the JAX package renders it."""
     import importlib
 
-    from rusterix_tpu_torch import Batch3D, D3OrbitCamera, Rasterizer, Scene
+    import rusterix_tpu_torch
     from rusterix_tpu_torch.shader import jaxc
 
     site = importlib.import_module(f"rusterix_tpu_torch.{module}")
     assert site.Rusteria is jaxc.Rusteria
     assert "jax" not in site.Rusteria.__module__.split(".")[0]
-    scene = Scene.from_static([], [Batch3D.from_box(-0.5, -0.5, -0.5, 1, 1, 1).set_shader(0)])
-    assert scene.add_shader("fn shade() { color = normal * 0.5; }") == 0
-    cam = D3OrbitCamera()
-    rast = Rasterizer.setup(None, cam.view_matrix(), cam.projection_matrix(32, 32), device="cpu")
-    with pytest.raises(NotImplementedError, match="runtime shaders"):
-        rast.rasterize(scene, 32, 32, 32)
+    frame, rast = _normal_shaded_box(rusterix_tpu_torch, device="cpu")
+    (prog,) = rast.frame_args["shaders"]
+    assert isinstance(prog, jaxc.Program)
+    np.testing.assert_array_equal(frame, _jax_normal_shaded_box())
+    assert (frame[..., 3] > 0).sum() > 100
 
 
 # ------------------------------------------------ the rest of the host copy

@@ -1,7 +1,7 @@
 """The port's slice end to end: rusterix_tpu_torch.Rasterizer on the CPU
 against the JAX Rasterizer's megakernel (use_pallas=True, interpret mode on
-the CPU), on one shared PackedScene per scene; and every feature outside
-the slice raising NotImplementedError.
+the CPU), on one shared PackedScene per scene; and the features earlier
+slices refused, each rendering.
 
 Tolerance: frames within 1 per RGBA8 channel, except a pinned count of
 pixels each test names and explains. Each test pins the count of pixels
@@ -141,7 +141,7 @@ def test_box_frame_matches_jax_megakernel(which, fog):
     _assert_close(ref, out, 0)
 
 
-# -------------------------------------------------- features outside the slice
+# ------------------------------------------- features refused in earlier slices
 
 
 def _small_scene():
@@ -193,12 +193,6 @@ def _reflect(*mutations):
     return mutate
 
 
-UNPORTED = {
-    "dynamic batches": _dynamic,
-    "shaders": _shader,
-    "reflections with shadows": _reflect(_shadows, _dynamic),
-}
-
 # refused until 2D batches, vertex blend and baked shaders' materials were
 # ported: each mutation now renders, and is inert on the box (a zero-area
 # padding triangle drawn in 2D; a second source mixed in with weight 0; a
@@ -210,42 +204,39 @@ UNPORTED = {
 # Fresnel, and a specular power within the bytes). The passes themselves are
 # held against the JAX package in tests/test_torch_d2.py,
 # tests/test_torch_blend.py and tests/test_torch_material.py.
+#
+# refused until dynamic batches, dynamic shadow casters and runtime shaders
+# were ported (they raised NotImplementedError by name): each now renders
+# and is inert on the box as well. The dynamic box lies inside the box (its
+# frame and, with shadows and reflections set up before both frames, its
+# depth in the maps hide behind the box's own faces); the runtime shader
+# is one that no triangle carries, so the frame takes the split path (B2
+# over the Morton order, shade_pass, compose_opaque) and gives B1's bytes.
+# Those paths are held against the JAX package in
+# tests/test_torch_runtime_shader.py and tests/test_torch_dynamic.py.
 FORMERLY_REFUSED = {
     "2D batches": (_packed_field("d2", "valid", 1.0), "has_d2"),
     "vertex blend": (_packed_field("d3", "kind2", 1), "has_blend"),
     "material": (_padding_field("d3", "rough", 0.3), "has_material"),
     "matmap": (_padding_field("d3", "m1_slot", 0), "has_matmap"),
+    "dynamic batches": (_dynamic, lambda fa: int(fa["d3"]["valid"][-16:].sum()) == 12),
+    "shaders": (_shader, "shaders"),
+    "reflections with shadows": (_dynamic, lambda fa: fa["refl_samples"] == 1
+                                 and fa["shadow_spec"] is not None, _reflect(_shadows)),
 }
-
-
-# shadows with reflections are ported; what of them is not (dynamic
-# casters, which need dynamic batches) raises by its own name. Opacity
-# batches, transparency layers, shadow transmittance, the render graph's
-# sky and fog, the brush preview and the scenevm tonemap are ported (held
-# against the JAX package in tests/test_torch_glass.py)
-REFUSED_AS = {
-    "reflections with shadows": "dynamic shadow casters",
-}
-
-
-@pytest.mark.parametrize("feature", list(UNPORTED))
-def test_unported_feature_raises(feature):
-    rast, scene = _small_scene()
-    packed = PackedScene.from_scene(scene, Assets.default(), static_only=True)
-    UNPORTED[feature](rast, scene, packed)
-    with pytest.raises(NotImplementedError, match=REFUSED_AS.get(feature, feature)):
-        rast.rasterize(scene, 32, 32, 32, Assets.default(), packed=packed)
 
 
 @pytest.mark.parametrize("feature", list(FORMERLY_REFUSED))
 def test_formerly_refused_feature_renders(feature):
     rast, scene = _small_scene()
     packed = PackedScene.from_scene(scene, Assets.default(), static_only=True)
+    mutate, flag, *setup = FORMERLY_REFUSED[feature]
+    for m in setup:
+        m(rast, scene, packed)
     before = rast.rasterize(scene, 32, 32, 32, Assets.default(), packed=packed)
-    mutate, flag = FORMERLY_REFUSED[feature]
     mutate(rast, scene, packed)
     after = rast.rasterize(scene, 32, 32, 32, Assets.default(), packed=packed)
-    assert rast.frame_args[flag]
+    assert flag(rast.frame_args) if callable(flag) else rast.frame_args[flag]
     assert (before[..., 3] > 0).sum() > 100
     np.testing.assert_array_equal(after, before)
 

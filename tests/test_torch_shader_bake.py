@@ -11,7 +11,8 @@ compiler), and the animated cube's frames.
   (the bakes' colours differ in the last bits where XLA fuses the shaders'
   `a*b + c` and its CPU sin and pow are not torch's, and a byte flips where
   a value lies at a rounding boundary of the u8 quantization).
-- The port's rasterize refuses the input-reading shader by name.
+- The input-reading shader (it cannot bake) renders as a runtime shader,
+  equal to the JAX package's frame.
 - Frames (one JAX scene): path P's cube at 96x64 at two animation frames,
   rendered by the port from the JAX package's PackedScene (so the bake's
   rounding stays out), equal to the JAX megakernel frames; the two frames
@@ -127,13 +128,24 @@ def test_bake_matches_jax_pack(name):
                                           err_msg=f"{part}.{field}")
 
 
-def test_input_reading_shader_is_refused_by_name():
-    scene, assets = _box_scene(trt, HITPOINT_READER)
-    cam = trt.D3OrbitCamera()
-    rast = trt.Rasterizer.setup(None, cam.view_matrix(), cam.projection_matrix(32, 32),
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="runtime shaders"):
-        rast.rasterize(scene, 32, 32, 32, assets)
+def test_input_reading_shader_renders_as_jax():
+    """A shader that reads its inputs (the hit point) cannot bake, and was
+    refused by name until runtime shaders were ported: it now runs at
+    every frame (the split path) and the frame equals the JAX package's,
+    each package on its own scene and compiler."""
+    frames = []
+    for pkg in (jrt, trt):
+        scene, assets = _box_scene(pkg, HITPOINT_READER)
+        cam = pkg.D3OrbitCamera()
+        cam.set_parameter_f32("distance", 2.5)
+        kw = {"device": "cpu"} if pkg is trt else {}
+        rast = pkg.Rasterizer.setup(None, cam.view_matrix(), cam.projection_matrix(32, 32), **kw)
+        if pkg is jrt:
+            rast.use_pallas = True  # its split path, B2 in interpret mode
+        frames.append(rast.rasterize(scene, 32, 32, 32, assets))
+    assert len(rast.frame_args["shaders"]) == 1
+    np.testing.assert_array_equal(frames[1], frames[0])
+    assert (frames[1][..., 3] > 0).sum() > 100
 
 
 def test_animated_cube_frames_match_jax():

@@ -234,24 +234,41 @@ def test_rasterize_with_a_mesh_matches_rasterize():
     assert isinstance(dev, torch.Tensor) and dev.shape == (height, width, 4)
 
 
-@pytest.mark.parametrize("feature", ["dynamic batches", "runtime shaders", "not a mesh"])
-def test_what_a_mesh_still_refuses(feature):
-    """Dynamic batches and runtime shaders stay refused by name with a mesh
-    too; a mesh that is not a tuple of devices is a TypeError."""
-    width, height = 32, 32
+@pytest.mark.parametrize("feature", ["dynamic batches", "runtime shaders"])
+def test_mesh_renders_what_it_refused(feature):
+    """Dynamic batches and runtime shaders, refused by name with a mesh
+    until they were ported, render in 8 slabs as the single frame renders
+    them: the dynamic pack concatenated after the static one before the
+    slabs, and the split path (B2 over the whole frame's Morton order at
+    each slab's row offset, shade_pass on its rows) on every slab. Equal
+    byte for byte (the Morton order is the same on every slab, so no tie
+    resolves otherwise); the mutation changes the frame where the cube's
+    2D rectangle leaves it uncovered."""
+    width, height = 64, 48
     rast, scene, assets, packed = _cube(width, height)
-    mesh = MESH8
+    before = rast.rasterize(scene, width, height, 40, assets, packed=packed)
     if feature == "dynamic batches":
-        scene.d3_dynamic.append(Batch3D.from_box(0, 0, 0, 0.2, 0.2, 0.2))
-    elif feature == "runtime shaders":
+        scene.d3_dynamic.append(Batch3D.from_box(-0.3, -0.3, 0.4, 0.6, 0.6, 0.6)
+                                .set_source(PixelSource.pixel((40, 200, 90, 255))))
+        scene.touch_dynamic()
+    else:
         # what PackedScene.from_scene keeps of a shader that reads its
-        # inputs (it cannot bake)
+        # inputs (it cannot bake), on the cube's triangles
         from rusterix_tpu_torch.shader import Rusteria
 
         packed.runtime_shaders = (Rusteria.parse_and_compile(
-            "fn shade() { color = color * 0.5; }"),)
-    else:
-        mesh = object()
-    error = TypeError if feature == "not a mesh" else NotImplementedError
-    with pytest.raises(error, match="mesh=" if feature == "not a mesh" else feature):
-        rast.rasterize(scene, width, height, 40, assets, packed=packed, mesh=mesh)
+            "fn shade() { color = color * vec3(0.5, 1.0, fract(hitpoint.y * 4.0)); }"),)
+        packed.d3.shader[:] = 0
+    single = rast.rasterize(scene, width, height, 40, assets, packed=packed)
+    sharded = rast.rasterize(scene, width, height, 40, assets, packed=packed, mesh=MESH8)
+    np.testing.assert_array_equal(sharded, single)
+    assert int((single != before).any(-1).sum()) > 20
+
+
+@pytest.mark.parametrize("feature", ["not a mesh"])
+def test_what_a_mesh_still_refuses(feature):
+    """A mesh that is not a tuple of devices is a TypeError (the one
+    refusal left of this test's former cases)."""
+    rast, scene, assets, packed = _cube(32, 32)
+    with pytest.raises(TypeError, match="mesh="):
+        rast.rasterize(scene, 32, 32, 40, assets, packed=packed, mesh=object())
