@@ -51,7 +51,20 @@ composited into the cached maps each frame); W, the bench's cube with a
 runtime 2D shader on its rectangle (800x600: B2, shade_pass, the 2D
 pass's shader branch); one sharded frame each of I, M and T (T8); and at
 256x128 only, I with a runtime shader on its glass (Ig: each peeled layer
-shaded). The sharded frames are held to the single frames: equal but for the
+shaded); then the engine loop and the path tracer (engine_paths): X, the
+minigame world through the Rusterix facade at 640x400 (server tick, entity
+mirror, billboards, client.draw_d3: B1 over the static pack and the
+monster's billboard; device-only frames by CUDA events beside host-synced
+frames and the host tick alone; the 160x120 frame after seeded ticks
+byte-equal to the CPU's); Y, the path tracer on the bench's scene at
+320x240 and 800x600 (samples a second, device time, peak memory; the
+64x48 buffer after 2 samples held to the CPU's); Z, the facade's
+trace_scene on the minigame world, trace_sharded over a mesh of 4
+byte-equal to 4 trace() calls, and draw_scene's 2D view; Bl, path B with
+B3's preparation sent through its large route (rt_prepare_large_kernel,
+the route of scenes above rt_kernel.PREPARE_MAX_CELLS), byte-equal to
+path B's frame; and C12, that route alone on 1080p rays over 28,700 cells
+against rt_prepare, with its bound. The sharded frames are held to the single frames: equal but for the
 pinned pixels of the tie class (tie_pixels: two candidates
 tie on 1/z bit for bit and a slab's scan order keeps another). For
 each path it checks that the frame went through exactly
@@ -134,6 +147,8 @@ EXPECTED_LAUNCHES = {
     # dynamic batches: B1 over the concatenated pack
     "V": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
 }
+# no path but Bl (engine_paths) takes the large preparation route
+EXPECTED_LAUNCHES = {k: dict(v, B3prepL=0) for k, v in EXPECTED_LAUNCHES.items()}
 # slabs of the sharded paths (one card), and the slab whose inputs the
 # kernels are held on
 N_SLABS = 8
@@ -161,9 +176,9 @@ SHADED = ("O", "P", "Q")
 # frames timed a later path where not 10: N's take ~2.7 s (the 2D pass is
 # one torch step a triangle)
 N_FRAMES = {"N": 3}
-# frames profiled: 10 on A and B, 6 on the later paths, fewer on the slow
+# frames profiled: 10 on A and B, 4 on the later paths, fewer on the slow
 # ones (N's 158,773 device ops a frame take ~25 s a frame to read)
-N_PROF_LATER = 6
+N_PROF_LATER = 4
 N_PROF_2D = 3
 N_PROF_N = 1
 # the shadowed paths: B1 equals its plain version bit for bit, and their
@@ -173,7 +188,7 @@ SHADOWED = ("G", "H", "I", "J")
 GLASS = ("I", "J")
 # frames profiled on the glass paths and V (8,000-23,000 device ops a
 # frame: the profiler's records take longer to read than the frames)
-N_PROF_GLASS = 3
+N_PROF_GLASS = 2
 # pixels where a later path's CUDA frame differs from its CPU frame at the
 # small size (each within RGBA_TOL); see PERF.md
 SMALL_PINNED = {k: 0 for k in "CDEFGHIJKLMNOPQTUVW"}
@@ -554,6 +569,306 @@ def opaque_maps(spec):
     return sun, tuple(tuple(c[:3]) + (-1, c[4]) for c in cubes)
 
 
+# X: the minigame loop (bench.py's minigame cell): frames after a warm-up,
+# the size, and the small size whose CUDA frame is held to the CPU frame
+X_FRAMES = 30
+X_SIZE = (640, 400)
+X_SMALL = (160, 120)
+X_TICKS = 4
+# Y: the tracer's sizes, trace() calls timed at each, and the small size at
+# which the CUDA buffer is held to the CPU buffer after Y_SAMPLES samples
+Y_SIZES = ((320, 240), (800, 600))
+Y_TRACES = 20
+Y_SMALL = (64, 48)
+Y_SAMPLES = 2
+Y_ATOL = 1e-5
+# pixels of the small buffer whose path may take another branch on the card
+# (sin and cos, the functions whose last bit differs from the CPU's, steer
+# the diffuse bounces); the count is printed
+Y_BRANCH_PIXELS = 16
+# Z: the sharded tracer's mesh (one card), and the facade's traces
+Z_MESH = 4
+Z_TRACES = 4
+# C12: the large preparation route's scene (cells of 64 slots, just above
+# rt_kernel.PREPARE_MAX_CELLS) at 1080p rays, and the limit that sends path B
+# through that route (Bl)
+C12_CELLS = 28700
+C12_LIMIT = 4
+
+
+def engine_paths(gpu: str, phase) -> list:
+    """Paths X (the minigame loop through the Rusterix facade), Y (the path
+    tracer), Z (the facade's trace_scene, trace_sharded and 2D view), Bl
+    (path B through the large preparation route) and C12's phase (that
+    route alone on 1080p rays over C12_CELLS cells). Raises on a failed
+    check -> the kernels line's row for the large preparation route."""
+    import random
+
+    from rusterix_tpu_torch import _cuda
+    from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas
+    from rusterix_tpu_torch.parallel import make_mesh
+    from rusterix_tpu_torch.scenes import (
+        build_map_refl_scene,
+        build_minigame,
+        build_tracer_scene,
+        minigame_tick,
+    )
+    from rusterix_tpu_torch.tracer import AccumBuffer, Tracer
+
+    counters = {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
+                "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches"),
+                "B3prepL": (rt_kernel, "prepare_large_launches")}
+
+    def zero_counts():
+        for mod, name in counters.values():
+            setattr(mod, name, 0)
+
+    def read_counts() -> dict:
+        return {k: getattr(mod, name) for k, (mod, name) in counters.items()}
+
+    phase("X")
+    # X. the minigame loop at 640x400: server tick, entity mirror, billboard
+    # rebuild, then client.draw_d3(readback=False)
+    xw, xh = X_SIZE
+    random.seed(7)
+    rx = build_minigame("cuda")
+    rx.local_player_event("key_down", "w")
+    ambient = [0.4, 0.4, 0.4, 1.0]
+
+    packs = []  # the (scene, revision) each frame renders: the scene cache's key
+
+    def x_frame():
+        minigame_tick(rx)
+        out = rx.client.draw_d3(xw, xh, rx.assets, ambient, readback=False)
+        scene = rx.client.scene
+        packs.append((scene._cache_uid, scene.revision))
+        return out
+
+    x_frame()  # warm-up: packs the world on the card
+    zero_counts()
+    f = x_frame()
+    torch.cuda.synchronize()
+    counts_x = read_counts()
+    if counts_x != {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0, "B3prepL": 0}:
+        raise SystemExit(f"path X launched {counts_x}, expected one B1 a frame")
+    if f.shape != (xh, xw, 4) or f.dtype != torch.uint8 or f.device.type != "cuda":
+        raise SystemExit(f"path X frame is {tuple(f.shape)} {f.dtype} on {f.device}")
+    covered = int((f[..., 3] == 255).sum())
+    dyn = len(rx.client.scene.d3_dynamic)
+    dev_t = cuda_times(x_frame, X_FRAMES, warmup=1)
+    synced = []
+    for _ in range(X_FRAMES):
+        t0 = time.perf_counter()
+        float(x_frame()[0, 0, 0])
+        synced.append((time.perf_counter() - t0) * 1e3)
+    synced.sort()
+    host = []
+    for _ in range(X_FRAMES):
+        t0 = time.perf_counter()
+        minigame_tick(rx)
+        host.append((time.perf_counter() - t0) * 1e3)
+    host.sort()
+    repacks = len(set(packs)) - 1
+    print(f"path X (minigame loop, {xw}x{xh}): launches {counts_x} a frame, covered px "
+          f"{covered}, {dyn} dynamic billboard(s), scene revision {rx.client.scene.revision}, "
+          f"static repacks after the warm-up {repacks} in {len(packs)} frames")
+    x_dev = median(dev_t)
+    x_sync = median(synced)
+    print(f"path X device-only frames (CUDA events, readback=False): {summary(dev_t)} on {gpu}")
+    print(f"path X host-synced frames (one scalar pulled a frame, host wall): {summary(synced)} "
+          f"on {gpu}")
+    print(f"path X host tick alone (server tick + mirror + billboards, host wall): "
+          f"{summary(host)}")
+    print(f"path X host-synced / device-only: {x_sync / x_dev:.4f}; fps {1e3 / x_sync:.2f} "
+          f"host-synced, {1e3 / x_dev:.2f} device-only on {gpu}")
+    report_profile(f"path X minigame frame x6", profile_calls(x_frame, 6), x_dev, gpu,
+                   {"B1": "mega_kernel"})
+    rx.server.stop()
+    sw, sh = X_SMALL
+    small = {}
+    for dev in ("cuda", "cpu"):
+        random.seed(7)
+        rx_s = build_minigame(dev)
+        rx_s.local_player_event("key_down", "w")
+        for _ in range(X_TICKS):
+            minigame_tick(rx_s)
+        small[dev] = rx_s.draw_scene(rx_s.assets.maps["world"], sw, sh, ambient=ambient)
+        pos = {e.get_attr_string("class_name"): tuple(float(v) for v in e.position)
+               for e in rx_s.server.instances[0].ctx.entities}
+        rx_s.server.stop()
+        small[dev + " positions"] = pos
+    if small["cuda positions"] != small["cpu positions"]:
+        raise SystemExit(f"path X: the seeded ticks moved the entities differently: {small}")
+    x_diff = int((small["cuda"] != small["cpu"]).any(-1).sum())
+    print(f"path X {sw}x{sh} after {X_TICKS} seeded ticks: CUDA vs CPU frame, {x_diff} pixels "
+          f"differ (entities at {small['cuda positions']})")
+    if x_diff:
+        raise SystemExit("path X: the CUDA frame is not byte-equal to the CPU frame")
+
+    phase("Y")
+    # Y. the path tracer on the bench's scene: trace() calls timed by CUDA
+    # events, device time under the profiler, peak memory
+    scene_y, cam_y, assets_y = build_tracer_scene()
+    for yw, yh in Y_SIZES:
+        tracer = Tracer("cuda")
+        buf = AccumBuffer(yw, yh, device="cuda")
+        tracer.trace(cam_y, scene_y, buf, 64, assets_y)  # warm-up: packs the scene
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # what the earlier paths still hold
+        t_y = cuda_times(lambda: tracer.trace(cam_y, scene_y, buf, 64, assets_y), Y_TRACES,
+                         warmup=1)
+        peak = torch.cuda.max_memory_allocated() - base
+        img = buf._dev
+        if not bool(torch.isfinite(img).all()) or float(img[..., :3].max()) <= 0.0:
+            raise SystemExit(f"path Y {yw}x{yh}: the buffer is not finite or not lit")
+        ms = median(t_y)
+        print(f"path Y tracer {yw}x{yh} ({tracer.bounces} bounces, {buf.frame} samples in the "
+              f"buffer): trace() {summary(t_y)}, {1e3 / ms:.2f} samples/s, peak memory "
+              f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before on {gpu}")
+        report_profile(f"path Y tracer {yw}x{yh} trace() x3",
+                       profile_calls(lambda: tracer.trace(cam_y, scene_y, buf, 64, assets_y), 3),
+                       ms, gpu, {})
+    yw, yh = Y_SMALL
+    bufs = {}
+    for dev in ("cuda", "cpu"):
+        tracer, buf = Tracer(dev), AccumBuffer(yw, yh, device=dev)
+        for _ in range(Y_SAMPLES):
+            tracer.trace(cam_y, scene_y, buf, 64, assets_y)
+        bufs[dev] = buf.pixels
+    err = np.abs(bufs["cuda"] - bufs["cpu"])
+    far = int((err > Y_ATOL).any(-1).sum())
+    print(f"path Y {yw}x{yh} after {Y_SAMPLES} samples: CUDA vs CPU buffer, {far} pixels past "
+          f"{Y_ATOL} (at most {Y_BRANCH_PIXELS} allowed), max |diff| {float(err.max()):.3g}")
+    if far > Y_BRANCH_PIXELS:
+        raise SystemExit("path Y: the CUDA buffer is not the CPU buffer")
+
+    phase("Z")
+    # Z. the facade: trace_scene on the minigame world at its config size,
+    # trace_sharded over a mesh of Z_MESH devices (byte-equal to Z_MESH
+    # trace() calls), draw_scene in the 2D mode
+    random.seed(7)
+    rx = build_minigame("cuda")
+    minigame_tick(rx)
+    zw, zh = rx.client.config.width, rx.client.config.height
+    buf = AccumBuffer(zw, zh, device="cuda")
+    rx.trace_scene(rx.client.camera_d3, buf)
+    t_z = cuda_times(lambda: rx.trace_scene(rx.client.camera_d3, buf), Z_TRACES, warmup=0)
+    img = buf.pixels
+    if not np.isfinite(img).all() or img[..., :3].max() <= 0.0:
+        raise SystemExit("path Z: trace_scene's buffer is not finite or not lit")
+    print(f"path Z Rusterix.trace_scene (minigame world, {zw}x{zh}): {summary(t_z)}, "
+          f"{buf.frame} samples on {gpu}")
+    seq, shard = AccumBuffer(zw, zh, device="cuda"), AccumBuffer(zw, zh, device="cuda")
+    for _ in range(Z_MESH):
+        rx._tracer.trace(rx.client.camera_d3, rx.client.scene, seq, 64, rx.assets)
+    mesh = make_mesh(Z_MESH, "cuda")
+    t0 = time.perf_counter()
+    rx._tracer.trace_sharded(rx.client.camera_d3, rx.client.scene, shard, 64, rx.assets, mesh)
+    torch.cuda.synchronize()
+    t_sh = (time.perf_counter() - t0) * 1e3
+    if shard.frame != Z_MESH or not torch.equal(shard._dev, seq._dev):
+        raise SystemExit("path Z: trace_sharded is not byte-equal to sequential traces")
+    print(f"path Z trace_sharded over make_mesh({Z_MESH}, 'cuda'): byte-equal to {Z_MESH} "
+          f"trace() calls, {t_sh:.4f} ms of host wall on {gpu}")
+    world = rx.assets.maps["world"]
+    rx.set_d2()
+    rx.build_scene(world)
+    zero_counts()
+    d2 = rx.draw_scene(world, zw, zh)
+    counts_z = read_counts()
+    rx.server.stop()
+    random.seed(7)
+    rx_c = build_minigame("cpu")
+    minigame_tick(rx_c)
+    rx_c.set_d2()
+    rx_c.build_scene(rx_c.assets.maps["world"])
+    d2_cpu = rx_c.draw_scene(rx_c.assets.maps["world"], zw, zh)
+    rx_c.server.stop()
+    walls = int((d2[..., 3] == 255).sum())
+    print(f"path Z Rusterix.draw_scene D2 ({zw}x{zh}): launches {counts_z}, {walls} wall-strip "
+          f"pixels, CUDA vs CPU {int((d2 != d2_cpu).any(-1).sum())} pixels differ")
+    if counts_z["B1"] != 1 or walls == 0 or not np.array_equal(d2, d2_cpu):
+        raise SystemExit("path Z: the 2D view did not render as on the CPU")
+
+    phase("Bl")
+    # Bl. path B (the GGX reflection map) at 1920x1080 with the preparation
+    # sent through the large route: byte-equal to path B's frame
+    limit = rt_kernel.PREPARE_MAX_CELLS
+    rast_b, scene_b, assets_b = build_map_refl_scene(W, H, device="cuda")
+    frame_b = rast_b.rasterize(scene_b, W, H, 40, assets_b)
+    rt_kernel.PREPARE_MAX_CELLS = C12_LIMIT
+    try:
+        zero_counts()
+        frame_l = rast_b.rasterize(scene_b, W, H, 40, assets_b)
+        torch.cuda.synchronize()
+        counts_l = read_counts()
+    finally:
+        rt_kernel.PREPARE_MAX_CELLS = limit
+    if counts_l != {"B1": 1, "B2": 1, "B3": 1, "B3prep": 0, "B3prepL": 1}:
+        raise SystemExit(f"path Bl launched {counts_l}")
+    if not np.array_equal(frame_l, frame_b):
+        raise SystemExit("path Bl: the frame through the large route differs from path B's")
+    print(f"path Bl (B with PREPARE_MAX_CELLS = {C12_LIMIT}): launches {counts_l}, frame "
+          f"byte-equal to path B's")
+
+    phase("C12")
+    # C12. the large route alone on 1080p rays over C12_CELLS cells of seeded
+    # random triangles: bit for bit against rt_prepare, timed against it and
+    # against torch.sort of its keys
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tcount = 64 * C12_CELLS
+    a = torch.rand((tcount, 3), generator=gen, device="cuda") * 20.0 - 10.0
+    pos = torch.stack([a, a + torch.rand((tcount, 3), generator=gen, device="cuda") * 3 - 1.5,
+                       a + torch.rand((tcount, 3), generator=gen, device="cuda") * 3 - 1.5], 1)
+    pos = torch.cat([pos, torch.ones((tcount, 3, 1), device="cuda")], 2)
+    valid = (torch.rand(tcount, generator=gen, device="cuda") > 0.2).float()
+    o = torch.rand((3, H, W), generator=gen, device="cuda") * 16.0 - 8.0
+    d = torch.randn((3, H, W), generator=gen, device="cuda")
+    d = d / d.norm(dim=0, keepdim=True)
+    c12_in = (pos, valid, *o, *d, 25.0, H, W)
+    zero_counts()
+    prep = rt_kernel.rt_prepare_cuda(*c12_in)
+    torch.cuda.synchronize()
+    if read_counts()["B3prepL"] != 1 or prep["ncells"] != C12_CELLS:
+        raise SystemExit(f"C12: the large route did not run: {read_counts()}")
+    ref = rt_kernel.rt_prepare(*c12_in)
+    for key in ("boxes", "tnear", "slist"):
+        if not torch.equal(prep[key], ref[key]):
+            raise SystemExit(f"C12: the large route's {key} differs from rt_prepare's")
+    live = int((prep["tnear"] < 3e37).sum())
+    print(f"C12 rt_prepare_large_kernel ({prep['tnear'].shape[0]} ray blocks x {C12_CELLS} "
+          f"cells, {live} live keys): boxes, tnear, slist equal to rt_prepare")
+    t_l = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*c12_in), 10)
+    t_p = cuda_times(lambda: rt_kernel.rt_prepare(*c12_in), 3, warmup=1)
+    keys = ref["tnear"].gather(1, ref["slist"].long().argsort(1))  # the keys in cell order
+    t_sort = cuda_times(lambda: torch.sort(keys, dim=1, stable=True), 10)
+    prof = profile_calls(lambda: rt_kernel.rt_prepare_cuda(*c12_in), 3)
+    dev_l = report_profile(f"C12 rt_prepare_cuda (large route) x3", prof, median(t_l), gpu,
+                           {"B3prepL": "rt_prepare_large_kernel"})
+    del ref, keys
+    nb = nbytes(*c12_in[2:8], prep["cbox"], prep["boxes"], prep["tnear"], prep["slist"])
+    ops = H * W * OPS_PREP_PER_RAY + prep["tnear"].numel() * OPS_PREP_PER_KEY
+    ms_b, by = bound(nb, ops)
+    res = _cuda.resources("rt_prepare_large")
+    print(f"C12 rt_prepare_cuda large route: {summary(t_l)}; plain rt_prepare {summary(t_p)}; "
+          f"torch.sort of the keys {summary(t_sort)} on {gpu}")
+    print(f"bound C12 large preparation route: {nb} bytes, {ops} f32 ops -> {ms_b:.6f} ms, "
+          f"bound by {by}")
+    print(f"resources B3prepL: {res['registers']} registers, "
+          f"{res['smem_static'] + res['smem_dynamic']} B shared memory a block, "
+          f"{res['blocks_per_sm']} blocks of 256 threads an SM on {gpu}")
+    return [{
+        "name": f"rt_prepare_cuda large route (rt_prepare_large_kernel; timed on 1080p rays over "
+                f"{C12_CELLS} cells, launched on path Bl)",
+        "route": "cuda", "source": "rusterix_tpu_torch/csrc/rt_kernel.cu",
+        "replaces": "rusterix_tpu/ops/rt_kernel.py:286-354",
+        "launches": counts_l["B3prepL"], "max_abs_err": 0.0,
+        "ms": median(t_l), "plain_ms": median(t_p), "bound_ms": ms_b, "bound_by": by,
+        "library_ms": median(t_sort), "device_ms": dev_l["B3prepL"], **res,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -614,7 +929,8 @@ def main() -> int:
     )
 
     counters = {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
-                "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches")}
+                "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches"),
+                "B3prepL": (rt_kernel, "prepare_large_launches")}
 
     def zero_counts():
         for mod, name in counters.values():
@@ -669,7 +985,7 @@ def main() -> int:
     frame_r = rast_r.rasterize(scene_r, W, H, 40, assets_r)
     torch.cuda.synchronize()
     counts_b = read_counts()
-    if min(counts_b.values()) < 1:
+    if min(v for k, v in counts_b.items() if k != "B3prepL") < 1 or counts_b["B3prepL"]:
         raise SystemExit(f"reflection path did not launch every kernel: {counts_b}")
     if frame_r.shape != (H, W, 4) or frame_r.dtype != np.uint8:
         raise SystemExit(f"reflection frame is {frame_r.shape} {frame_r.dtype}")
@@ -1956,7 +2272,7 @@ def main() -> int:
             "library_ms": median(sort_t),
             "device_ms": dev_b["B3prep"], **res["B3prep"],
         },
-    ] + later_rows
+    ] + later_rows + engine_paths(gpu, phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the last check")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -7,13 +7,15 @@ the CPU. It imports torch and never jax, and loads no file of the JAX
 package: the host-side scene model, builders, map, server, scripting VM
 and shape layers (`models`, `builders`, `map`, `utils`, `native`,
 `server`, `lang`, `vm`, `shapestack`, `shapefx`, `codegridfx`,
-`client.command`, `ops.scene_pack`, `ops.matrices`) are the port's own
-copies of the JAX package's numpy modules.
+`client`, `rusterix`, `ops.scene_pack`, `ops.matrices`) are the port's own
+copies of the JAX package's numpy and plain-Python modules; the path
+tracer (`tracer`) is plain torch.
 
-The exports follow the JAX package's (`rusterix_tpu/__init__.py`) for
-every module the port has (the rusteria shader compiler among them, as
-`Rusteria` and `ShaderProgram`); the game client and the `Rusterix` facade
-are not ported yet.
+The exports follow the JAX package's (`rusterix_tpu/__init__.py`): the
+scene model, the rusteria shader compiler (`Rusteria`, `ShaderProgram`),
+the game client (`Client`, `Daylight`, `Draw2D`, `MsgParser`) and the
+engine facade (`Rusterix`, `DrawMode`); `Tracer` and `AccumBuffer` are
+exported from `rusterix_tpu_torch.tracer`, as the JAX package exports them.
 """
 
 __version__ = "0.1.0"
@@ -62,6 +64,7 @@ from .builders import (  # noqa: F401
     SceneManager,
     compile_source_map,
 )
+from .client import Client, Daylight, Draw2D, MsgParser  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .map import (  # noqa: F401
     CompiledLinedef,
@@ -78,6 +81,7 @@ from .map import (  # noqa: F401
 from .ops.matrices import invert, look_at_rh  # noqa: F401
 from .ops.raster import Rasterizer, packed_to_torch, render_frame  # noqa: F401
 from .ops.scene_pack import PackedScene  # noqa: F401
+from .rusterix import DrawMode, Rusterix  # noqa: F401
 from .server import (  # noqa: F401
     CollisionWorld,
     Entity,

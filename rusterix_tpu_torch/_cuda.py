@@ -119,6 +119,8 @@ def library() -> ctypes.CDLL:
     lib.rx_rt_intersect.argtypes = [vp] * 13 + [i32] * 5 + [vp]
     lib.rx_rt_prepare.restype = i32
     lib.rx_rt_prepare.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 3 + [i32] * 5 + [vp]
+    lib.rx_rt_prepare_large.restype = i32
+    lib.rx_rt_prepare_large.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 4 + [i32] * 6 + [vp]
     lib.rx_xla_fma.restype = i32
     lib.rx_xla_fma.argtypes = [vp] * 4 + [i64, vp]
     lib.rx_error_string.restype = ctypes.c_char_p
@@ -132,7 +134,8 @@ def resources(kernel: str, *sizes: int) -> dict:
     and dynamic shared memory a block, and the blocks an SM holds at once.
     kernel and sizes: "mega" (supers, lights, occlusion boxes, and the
     material form: 0 none, 1 has_material, 2 has_matmap; 0 when left out),
-    "visibility" (supers), "rt_walk" (), "rt_prepare" (cells)."""
+    "visibility" (supers), "rt_walk" (), "rt_prepare" (cells),
+    "rt_prepare_large" ()."""
     lib = library()
     out = (ctypes.c_int * 4)()
     if kernel == "mega":
@@ -143,6 +146,8 @@ def resources(kernel: str, *sizes: int) -> dict:
         err = lib.rx_rt_resources(0, 0, out)
     elif kernel == "rt_prepare":
         err = lib.rx_rt_resources(1, *sizes, out)
+    elif kernel == "rt_prepare_large":
+        err = lib.rx_rt_resources(2, 0, out)
     else:
         raise ValueError(f"no kernel named {kernel!r}")
     if err != 0:

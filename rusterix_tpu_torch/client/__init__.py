@@ -1,8 +1,52 @@
-"""The client layer of the port: only `command.py` so far (plain Python,
-imported by the server's region loop). The rest of the JAX package's
-`client/` (the game client, its widgets and 2D drawing) builds on the
-renderer's engine loop and has not been ported yet."""
-
+from .action import ClientAction
+from .billboard import (
+    BillboardAnimState,
+    animate_billboards,
+    find_item_by_profile_attrs,
+)
+from .client import Client, ClientConfig
 from .command import Command, CommandKind
+from .screens import (
+    ButtonWidget,
+    align_screen_to_grid,
+    draw_screen,
+    init_screen,
+    touch_screen,
+)
+from .daylight import Daylight
+from .draw2d import Draw2D
+from .parser import MsgParser, Tok
+from .widgets import (
+    DecoWidget,
+    GameWidget,
+    MessagesWidget,
+    ScreenWidget,
+    TextWidget,
+    Widget,
+)
 
-__all__ = ["Command", "CommandKind"]
+__all__ = [
+    "ClientAction",
+    "BillboardAnimState",
+    "animate_billboards",
+    "find_item_by_profile_attrs",
+    "Client",
+    "ClientConfig",
+    "ButtonWidget",
+    "align_screen_to_grid",
+    "draw_screen",
+    "init_screen",
+    "touch_screen",
+    "Command",
+    "CommandKind",
+    "Daylight",
+    "Draw2D",
+    "MsgParser",
+    "Tok",
+    "DecoWidget",
+    "GameWidget",
+    "MessagesWidget",
+    "ScreenWidget",
+    "TextWidget",
+    "Widget",
+]

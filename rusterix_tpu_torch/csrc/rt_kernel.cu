@@ -61,6 +61,18 @@
 //   already decides the pair). 1/det is __frcp_rn, the correctly rounded
 //   reciprocal, the same value as the IEEE quotient 1/det.
 //
+// - Above RT_MAX_CELLS a block's keys do not fit its shared memory, and
+//   `rt_prepare_large_kernel` takes the scene: the same boxes and keys,
+//   written to a global scratch of one power-of-two row a ray block, sorted
+//   by a bitonic sort (a network of compare-exchanges of the unique u64
+//   keys, O(n log^2 n) a row: every stage whose partners lie within a
+//   chunk of SORT_CHUNK keys runs in shared memory, the wider ones over the
+//   row in global memory), then written out as tnear and slist. The keys are
+//   unique, so any correct sort gives the shared-memory route's bits. It
+//   reads the rays and writes the outputs as the first kernel does, and
+//   moves each row through the scratch about 2 + 2 log2(n / SORT_CHUNK)
+//   times (log2 n rounds of the chunks in shared memory).
+//
 // Bit parity with the plain torch versions (rt_kernel.rt_prepare and
 // rt_kernel.intersect_rays_pallas_reference): compiled with -fmad=false,
 // every product and sum rounds on its own in the JAX code's expression
@@ -110,22 +122,17 @@ static __device__ __forceinline__ long long ray_offset(int by, int bx, int r, in
 
 // ------------------------------------------------------------ preparation
 
-__global__ void __launch_bounds__(RT_THREADS) rt_prepare_kernel(
-    const RayFields rays, const float* __restrict__ cbox, float t_cap,
-    float* __restrict__ boxes, float* __restrict__ tnear, int* __restrict__ slist, int ncells,
-    int nbx, int height, int width) {
-    __shared__ float s_part[RT_WARPS][12];
-    __shared__ float s_box[12];
-    extern __shared__ unsigned long long s_key[];  // ncells (key, cell) pairs
+#define SORT_CHUNK 4096  // keys a block sorts in shared memory at once (32 KB)
 
-    const int b = blockIdx.x;
+// The block's origin and direction boxes over its live rays into s_box[12]
+// (and boxes[b]): [o min xyz | o max xyz | d min xyz | d max xyz]; a dead
+// ray, a lane past the frame or a NaN value contributes the neutral +-BIG.
+// Ends with a barrier.
+static __device__ __forceinline__ void block_boxes(const RayFields& rays, float (*s_part)[12],
+                                                   float* s_box, float* __restrict__ boxes,
+                                                   int b, int nbx, int height, int width) {
     const int by = b / nbx, bx = b % nbx;
     const int tid = threadIdx.x;
-
-    // ---- the block's origin and direction boxes over live rays ----
-    // v[0..2] origin min, v[3..5] origin max, v[6..8] direction min,
-    // v[9..11] direction max; a dead ray, a lane past the frame or a NaN
-    // value contributes the neutral +-BIG
     float v[12];
 #pragma unroll
     for (int i = 0; i < 12; ++i) v[i] = (i % 6 < 3) ? INFINITY : -INFINITY;
@@ -164,30 +171,49 @@ __global__ void __launch_bounds__(RT_THREADS) rt_prepare_kernel(
         boxes[(size_t)b * 12 + tid] = x;
     }
     __syncthreads();
+}
 
-    // ---- per-cell keys ----
-    for (int c = tid; c < ncells; c += RT_THREADS) {
-        const float* cb = cbox + 8 * c;
-        float g2 = 0.0f;
-        bool reach = true;
+// Cell c's key for the block whose boxes are s_box: (f32 bits of the t lower
+// bound << 32 | c); the bound is the gap between the origin box and the cell
+// box, BIG for a cell out of range, dead or behind every ray.
+static __device__ __forceinline__ unsigned long long cell_key(const float* __restrict__ cbox,
+                                                              const float* s_box, int c,
+                                                              float t_cap) {
+    const float* cb = cbox + 8 * c;
+    float g2 = 0.0f;
+    bool reach = true;
 #pragma unroll
-        for (int kf = 0; kf < 3; ++kf) {
-            const float c0 = cb[kf], c1 = cb[3 + kf];
-            const float ob0 = s_box[kf], ob1 = s_box[3 + kf];
-            const float db0 = s_box[6 + kf], db1 = s_box[9 + kf];
-            // the gap between origin box and cell box along this axis
-            const float g = nmax(nmax(c0 - ob1, ob0 - c1), 0.0f);
-            g2 = kf == 0 ? g * g : g2 + g * g;
-            // a cell strictly on the + side of every origin is out of reach
-            // when no live ray points +, and mirrored
-            const bool pos_side = c0 > ob1, neg_side = c1 < ob0;
-            reach = reach && !((pos_side && db1 <= 0.0f) || (neg_side && db0 >= 0.0f));
-        }
-        const float dist = __fsqrt_rn(g2);
-        const bool cell_alive = cb[0] <= cb[3];
-        const float key = (cell_alive && reach && dist < t_cap) ? dist : BIG;
-        s_key[c] = ((unsigned long long)__float_as_uint(key) << 32) | (unsigned)c;
+    for (int kf = 0; kf < 3; ++kf) {
+        const float c0 = cb[kf], c1 = cb[3 + kf];
+        const float ob0 = s_box[kf], ob1 = s_box[3 + kf];
+        const float db0 = s_box[6 + kf], db1 = s_box[9 + kf];
+        // the gap between origin box and cell box along this axis
+        const float g = nmax(nmax(c0 - ob1, ob0 - c1), 0.0f);
+        g2 = kf == 0 ? g * g : g2 + g * g;
+        // a cell strictly on the + side of every origin is out of reach
+        // when no live ray points +, and mirrored
+        const bool pos_side = c0 > ob1, neg_side = c1 < ob0;
+        reach = reach && !((pos_side && db1 <= 0.0f) || (neg_side && db0 >= 0.0f));
     }
+    const float dist = __fsqrt_rn(g2);
+    const bool cell_alive = cb[0] <= cb[3];
+    const float key = (cell_alive && reach && dist < t_cap) ? dist : BIG;
+    return ((unsigned long long)__float_as_uint(key) << 32) | (unsigned)c;
+}
+
+__global__ void __launch_bounds__(RT_THREADS) rt_prepare_kernel(
+    const RayFields rays, const float* __restrict__ cbox, float t_cap,
+    float* __restrict__ boxes, float* __restrict__ tnear, int* __restrict__ slist, int ncells,
+    int nbx, int height, int width) {
+    __shared__ float s_part[RT_WARPS][12];
+    __shared__ float s_box[12];
+    extern __shared__ unsigned long long s_key[];  // ncells (key, cell) pairs
+
+    const int b = blockIdx.x;
+    const int tid = threadIdx.x;
+    block_boxes(rays, s_part, s_box, boxes, b, nbx, height, width);
+
+    for (int c = tid; c < ncells; c += RT_THREADS) s_key[c] = cell_key(cbox, s_box, c, t_cap);
     __syncthreads();
 
     // ---- stable rank sort: position = number of smaller (key, cell) pairs ----
@@ -197,6 +223,83 @@ __global__ void __launch_bounds__(RT_THREADS) rt_prepare_kernel(
         for (int j = 0; j < ncells; ++j) rank += s_key[j] < mine;
         tnear[(size_t)b * ncells + rank] = __uint_as_float((unsigned)(mine >> 32));
         slist[(size_t)b * ncells + rank] = c;
+    }
+}
+
+// One round of a bitonic sorting network over a[0..n) (n a power of two,
+// a[i] the key at global position base + i): every pair (i, i + j) with
+// bit j of i clear is put in ascending order where bit k of base + i is
+// clear, descending where it is set. No barrier.
+static __device__ __forceinline__ void bitonic_round(unsigned long long* a, int n, int base,
+                                                     int k, int j) {
+    for (int q = threadIdx.x; q < n / 2; q += RT_THREADS) {
+        const int i = 2 * j * (q / j) + (q % j);
+        const unsigned long long x = a[i], y = a[i + j];
+        const bool up = ((base + i) & k) == 0;
+        if ((x > y) == up) {
+            a[i] = y;
+            a[i + j] = x;
+        }
+    }
+}
+
+// Rounds j = j0, j0 / 2, ..., 1 of stage k on each SORT_CHUNK-key chunk of
+// row[0..n) in shared memory (j0 < chunk). Ends with a barrier.
+static __device__ __forceinline__ void bitonic_chunks(unsigned long long* row, int n,
+                                                      unsigned long long* s_sort, int chunk,
+                                                      int k_first, int k_last) {
+    for (int base = 0; base < n; base += chunk) {
+        for (int i = threadIdx.x; i < chunk; i += RT_THREADS) s_sort[i] = row[base + i];
+        __syncthreads();
+        for (int k = k_first; k <= k_last; k <<= 1) {
+            for (int j = min(k >> 1, chunk >> 1); j > 0; j >>= 1) {
+                bitonic_round(s_sort, chunk, base, k, j);
+                __syncthreads();
+            }
+        }
+        for (int i = threadIdx.x; i < chunk; i += RT_THREADS) row[base + i] = s_sort[i];
+        __syncthreads();
+    }
+}
+
+// The preparation for scenes whose keys outgrow a block's shared memory: one
+// block a ray block, its keys in its row of `keys` (n2 >= ncells, a power of
+// two; the padding keys ~0 sort last), sorted ascending by a bitonic network.
+__global__ void __launch_bounds__(RT_THREADS) rt_prepare_large_kernel(
+    const RayFields rays, const float* __restrict__ cbox, float t_cap,
+    float* __restrict__ boxes, float* __restrict__ tnear, int* __restrict__ slist,
+    unsigned long long* keys, int ncells, int n2, int nbx, int height, int width) {
+    __shared__ float s_part[RT_WARPS][12];
+    __shared__ float s_box[12];
+    __shared__ unsigned long long s_sort[SORT_CHUNK];
+
+    const int b = blockIdx.x;
+    const int tid = threadIdx.x;
+    block_boxes(rays, s_part, s_box, boxes, b, nbx, height, width);
+
+    unsigned long long* row = keys + (size_t)b * n2;
+    for (int c = tid; c < n2; c += RT_THREADS)
+        row[c] = c < ncells ? cell_key(cbox, s_box, c, t_cap) : ~0ull;
+    __syncthreads();
+
+    const int chunk = n2 < SORT_CHUNK ? n2 : SORT_CHUNK;
+    // stages 2..chunk: each chunk sorted whole in shared memory (alternate
+    // chunks descending, so that pairs of chunks form bitonic sequences)
+    bitonic_chunks(row, n2, s_sort, chunk, 2, chunk);
+    // the wider stages: the rounds whose partners are a chunk or more apart
+    // over the row in global memory, the rest chunk by chunk
+    for (int k = 2 * chunk; k <= n2; k <<= 1) {
+        for (int j = k >> 1; j >= chunk; j >>= 1) {
+            bitonic_round(row, n2, 0, k, j);
+            __syncthreads();
+        }
+        bitonic_chunks(row, n2, s_sort, chunk, k, k);
+    }
+
+    for (int r = tid; r < ncells; r += RT_THREADS) {
+        const unsigned long long key = row[r];
+        tnear[(size_t)b * ncells + r] = __uint_as_float((unsigned)(key >> 32));
+        slist[(size_t)b * ncells + r] = (int)(unsigned)(key & 0xffffffffull);
     }
 }
 
@@ -218,6 +321,24 @@ extern "C" int rx_rt_prepare(const float* ox, const float* oy, const float* oz, 
     if (err != cudaSuccess) return (int)err;
     rt_prepare_kernel<<<nby * nbx, RT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         rays, cbox, t_cap, boxes, tnear, slist, ncells, nbx, height, width);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int rx_rt_prepare_large(const float* ox, const float* oy, const float* oz,
+                                   const float* dx, const float* dy, const float* dz,
+                                   const float* cbox, float t_cap, float* boxes, float* tnear,
+                                   int* slist, unsigned long long* keys, int ncells, int n2,
+                                   int nby, int nbx, int height, int width, void* stream) {
+    if (n2 < ncells || (n2 & (n2 - 1)) != 0) return (int)cudaErrorInvalidValue;
+    RayFields rays;
+    rays.f[0] = ox;
+    rays.f[1] = oy;
+    rays.f[2] = oz;
+    rays.f[3] = dx;
+    rays.f[4] = dy;
+    rays.f[5] = dz;
+    rt_prepare_large_kernel<<<nby * nbx, RT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        rays, cbox, t_cap, boxes, tnear, slist, keys, ncells, n2, nbx, height, width);
     return (int)cudaGetLastError();
 }
 
@@ -376,10 +497,11 @@ __global__ void __launch_bounds__(WALK_THREADS) rt_kernel(
     }
 }
 
-// which = 0: the walk, 1: the preparation of a scene of `ncells` cells;
-// out[0..3]: registers, static and dynamic shared memory, blocks an SM holds
-// at once
+// which = 0: the walk, 1: the preparation of a scene of `ncells` cells, 2:
+// the preparation of a larger scene; out[0..3]: registers, static and
+// dynamic shared memory, blocks an SM holds at once
 extern "C" int rx_rt_resources(int which, int ncells, int* out) {
+    if (which == 2) return kernel_resources(rt_prepare_large_kernel, RT_THREADS, 0, out);
     return which ? kernel_resources(rt_prepare_kernel, RT_THREADS,
                                     sizeof(unsigned long long) * (size_t)ncells, out)
                  : kernel_resources(rt_kernel, WALK_THREADS, 0, out);

@@ -11,7 +11,9 @@ the range cap or behind every ray's direction culled to the tail. Its
 scene side (the triangle table, the cell boxes, the scene box) is plain
 torch; its ray side (the blocks' origin and direction boxes, the keys and
 their stable sort) is `rt_prepare_kernel` on CUDA tensors and plain torch
-(`rt_prepare`, the plain version) on the CPU. The kernel walks a block's
+(`rt_prepare`, the plain version) on the CPU; a scene of more than
+PREPARE_MAX_CELLS cells takes `rt_prepare_large_kernel`, whose keys sort
+in global memory. The kernel walks a block's
 shortlist while the next entry's bound is below the block's bound (the max
 over its live rays of min(best t, per-ray scene-exit cap)), slab-tests the
 cell box and, when any ray enters, runs Möller-Trumbore on the cell's
@@ -39,15 +41,18 @@ _BIG = 3e37
 
 #: cells whose keys rt_prepare_kernel holds in a block's shared memory
 #: (RT_MAX_CELLS in csrc/rt_kernel.cu: 8 bytes a cell, 224 KB); a scene with
-#: more cells is refused on CUDA tensors
+#: more cells takes rt_prepare_large_kernel on CUDA tensors
 PREPARE_MAX_CELLS = 28672
 
 #: launches of the walk kernel (one per intersect_rays_pallas call on CUDA
 #: tensors)
 launches = 0
 #: launches of the preparation kernel (one per intersect_rays_pallas call on
-#: CUDA tensors)
+#: CUDA tensors of a scene of at most PREPARE_MAX_CELLS cells)
 prepare_launches = 0
+#: launches of the large preparation kernel (one per intersect_rays_pallas
+#: call on CUDA tensors of a larger scene)
+prepare_large_launches = 0
 
 
 def _cell_boxes(pos, valid, ncells: int, cell: int):
@@ -190,23 +195,18 @@ def rt_prepare(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, width: in
 
 def rt_prepare_cuda(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, width: int) -> dict:
     """rt_prepare for CUDA tensors: the scene tables in torch, the blocks'
-    boxes, keys and stable sort in one launch of rt_prepare_kernel
-    (csrc/rt_kernel.cu), which reads the six ray fields as they are. The
-    kernel holds a block's keys in shared memory, so it takes scenes of at
-    most PREPARE_MAX_CELLS cells and refuses larger ones. -> tab, cbox, tcap, boxes, tnear, slist
-    as rt_prepare gives them (equal, bit for bit), and the sizes; no padded
-    copy of the rays."""
-    global prepare_launches
+    boxes, keys and stable sort in one kernel launch (csrc/rt_kernel.cu),
+    which reads the six ray fields as they are. A scene of at most
+    PREPARE_MAX_CELLS cells takes rt_prepare_kernel, which holds a block's
+    keys in shared memory; a larger one takes rt_prepare_large_kernel, which
+    sorts them in a global scratch of one power-of-two row a ray block. ->
+    tab, cbox, tcap, boxes, tnear, slist as rt_prepare gives them (equal,
+    bit for bit), and the sizes; no padded copy of the rays."""
+    global prepare_launches, prepare_large_launches
     from .. import _cuda
 
     sizes = _sizes(pos.shape[0], height, width)
     ncells, nby, nbx = sizes["ncells"], sizes["nby"], sizes["nbx"]
-    if ncells > PREPARE_MAX_CELLS:
-        raise NotImplementedError(
-            f"ray-intersect preparation on CUDA tensors: a scene of {ncells} cells "
-            f"({pos.shape[0]} slots) is not ported; rt_prepare_kernel holds at most "
-            f"{PREPARE_MAX_CELLS} cells ({PREPARE_MAX_CELLS * sizes['cell']} slots) in a "
-            "block's shared memory")
     dev = ox.device
     scene = scene_tables(pos, valid, t_cap, ncells, sizes["cell"])
     fields = _ray_fields(ox, oy, oz, dx, dy, dz)
@@ -214,16 +214,25 @@ def rt_prepare_cuda(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, widt
     tnear = torch.empty((nby * nbx, ncells), dtype=torch.float32, device=dev)
     slist = torch.empty((nby * nbx, ncells), dtype=torch.int32, device=dev)
     ptr = ctypes.c_void_p
-    err = _cuda.library().rx_rt_prepare(
-        *(ptr(f.data_ptr()) for f in fields), ptr(scene["cbox"].data_ptr()),
-        ctypes.c_float(float(t_cap)), ptr(boxes.data_ptr()), ptr(tnear.data_ptr()),
-        ptr(slist.data_ptr()), ncells, nby, nbx, height, width,
-        ptr(torch.cuda.current_stream(dev).cuda_stream),
-    )
+    large = ncells > PREPARE_MAX_CELLS
+    head = (*(ptr(f.data_ptr()) for f in fields), ptr(scene["cbox"].data_ptr()),
+            ctypes.c_float(float(t_cap)), ptr(boxes.data_ptr()), ptr(tnear.data_ptr()),
+            ptr(slist.data_ptr()))
+    stream = ptr(torch.cuda.current_stream(dev).cuda_stream)
+    if large:
+        n2 = 1 << (ncells - 1).bit_length()
+        keys = torch.empty((nby * nbx, n2), dtype=torch.int64, device=dev)
+        err = _cuda.library().rx_rt_prepare_large(
+            *head, ptr(keys.data_ptr()), ncells, n2, nby, nbx, height, width, stream)
+    else:
+        err = _cuda.library().rx_rt_prepare(*head, ncells, nby, nbx, height, width, stream)
     if err != 0:
         raise RuntimeError(f"ray-intersect preparation kernel launch failed: CUDA error {err} "
                            f"({_cuda.error_string(err)})")
-    prepare_launches += 1
+    if large:
+        prepare_large_launches += 1
+    else:
+        prepare_launches += 1
     return {
         "tab": scene["tab"], "cbox": scene["cbox"], "tcap": scene["tcap"],
         "boxes": boxes, "tnear": tnear, "slist": slist, **sizes,
@@ -258,8 +267,9 @@ def intersect_rays_pallas(pos, valid, ox, oy, oz, dx, dy, dz, t_cap,
     idx (H, W) i32 slot, -1 on a miss).
 
     CUDA tensors launch the kernels of csrc/rt_kernel.cu, the preparation
-    and then the walk (scenes of more than PREPARE_MAX_CELLS cells are
-    refused). CPU tensors run intersect_rays_pallas_reference."""
+    (rt_prepare_large_kernel for scenes of more than PREPARE_MAX_CELLS
+    cells) and then the walk. CPU tensors run
+    intersect_rays_pallas_reference."""
     _check_inputs(pos, valid, (ox, oy, oz, dx, dy, dz), height, width)
     if ox.device.type != "cuda":
         return intersect_rays_pallas_reference(

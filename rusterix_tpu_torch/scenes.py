@@ -60,6 +60,15 @@ three edge functions are >= 0, one winding; earcut's floor triangles
 (reversed by D2Builder) have the other under this y-down projection, so
 the floors take their steps but draw no pixel, in the JAX package as in
 the port: the frame shows the lit wall strips.
+
+`build_minigame` is the engine loop's world (the JAX package's
+tests/test_minigame.py `build_engine`, the reference's
+examples/minigame.rs): a 15-unit walled room with a point light, a player
+and a wandering monster (a billboard), scripted in rusteria, through the
+`Rusterix` facade on the device the caller names. `build_tracer_scene` is
+the bench's path-tracer scene (bench.py `measure_tracer`): a floor slab,
+a red box and an emissive pillar under a point light, with its orbit
+camera.
 """
 
 from __future__ import annotations
@@ -658,3 +667,135 @@ def build_map_dynamic_scene(width: int, height: int, device=None):
     rast, scene, assets = build_map_shadow_scene(width, height, device=device)
     move_dynamic(scene, 0.0)
     return rast, scene, assets
+
+
+# the minigame world: the JAX package's tests/test_minigame.py sources
+MINIGAME_WORLD_RXM = """
+set("sky_tex", "sky")
+set_default("wall_tex", "brickwall")
+set_default("floor_tex", "brickfloor")
+set_default("wall_height", 2.0)
+
+box_size = 15
+
+wall(box_size)
+turn_right()
+wall(box_size)
+turn_right()
+wall(box_size)
+add_point_light("#ffffbb", 2.0, 2.0, 13.0)
+turn_right()
+wall(box_size)
+
+move_to(10, 10.5)
+add_entity("Orc", "Monster", "brickwall")
+
+move_to(6, 4.5)
+add_entity("Shabby", "Player", "brickwall")
+"""
+
+MINIGAME_PLAYER_RXE = """
+fn event(name, value) {
+    if name == "startup" {
+        set_attr("health", 10);
+    }
+}
+
+fn user_event(name, value) {
+    match name {
+        "key_down" {
+            if value == "w" { action("forward"); }
+            if value == "a" { action("left"); }
+            if value == "d" { action("right"); }
+            if value == "s" { action("backward"); }
+        }
+        "key_up" { action("none"); }
+        _ { }
+    }
+}
+"""
+
+MINIGAME_PLAYER_TOML = "[attributes]\nplayer = true\n"
+
+MINIGAME_MONSTER_RXE = """
+fn event(name, value) {
+    if name == "startup" {
+        random_walk(2.0, 1.0, 1.0);
+    }
+}
+"""
+
+MINIGAME_CONFIG_TOML = """
+[viewport]
+width = 160
+height = 120
+
+[game]
+target_fps = 30
+game_tick_ms = 250
+start_region = "world"
+auto_create_player = true
+player_class = "Player"
+"""
+
+
+def build_minigame(device=None):
+    """-> Rusterix: the minigame world booted (regions created, the server
+    started, the player registered), its frames and traces on `device`.
+    The caller stops it with `rx.server.stop()`. The monster walks by
+    Python's global `random`: seed it first for a repeatable run."""
+    from .rusterix import Rusterix
+
+    rx = Rusterix(device=device)
+    rx.assets.textures["brickwall"] = Texture.checkerboard(16, 4)
+    rx.assets.textures["brickfloor"] = Texture.checkerboard(16, 8)
+    rx.assets.textures["sky"] = Texture.from_color((60, 60, 120, 255))
+    rx.assets.map_sources["world"] = MINIGAME_WORLD_RXM
+    rx.assets.entities = {
+        "Player": (MINIGAME_PLAYER_RXE, MINIGAME_PLAYER_TOML),
+        "Monster": (MINIGAME_MONSTER_RXE, ""),
+    }
+    rx.assets.config = MINIGAME_CONFIG_TOML
+    rx.create_regions()
+    rx.setup_client()
+    return rx
+
+
+def minigame_tick(rx) -> None:
+    """One engine tick of the minigame loop (bench.py's minigame cell):
+    the server tick, the entity mirror and the billboard rebuild."""
+    world = rx.assets.maps["world"]
+    rx.update_server()
+    rx.apply_entities_items(world)
+    rx.build_entities_items_d3(world)
+
+
+def build_tracer_scene():
+    """-> (scene, camera, assets): the bench's path-tracer scene (bench.py
+    measure_tracer): a 4x4 floor slab, a red box and an emissive pillar
+    (Emissive, value 0.4) under a point light of intensity 0.4; an orbit
+    camera at azimuth 0.8, elevation 0.5, distance 4."""
+    from .models import Material, MaterialModifier, MaterialRole
+
+    scene = Scene.from_static(
+        [],
+        [
+            Batch3D.from_box(-2.0, -0.6, -2.0, 4.0, 0.1, 4.0)
+            .set_source(PixelSource.pixel((200, 200, 200, 255)))
+            .with_computed_normals(),
+            Batch3D.from_box(-0.4, -0.5, -0.4, 0.8, 0.8, 0.8)
+            .set_source(PixelSource.pixel((220, 90, 60, 255)))
+            .with_computed_normals(),
+            Batch3D.from_box(0.8, -0.5, -0.8, 0.4, 1.4, 0.4)
+            .set_source(PixelSource.pixel((255, 240, 200, 255)))
+            .set_material(Material(MaterialRole.Emissive, MaterialModifier.Nothing, 0.4, 0.0))
+            .with_computed_normals(),
+        ],
+    ).set_lights(
+        [Light(LightType.Point).with_position([1.5, 2.0, 1.5]).with_intensity(0.4).compile()]
+    )
+    camera = D3OrbitCamera()
+    camera.azimuth = 0.8
+    camera.elevation = 0.5
+    camera.set_parameter_f32("distance", 4.0)
+    return scene, camera, Assets.default()

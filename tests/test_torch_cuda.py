@@ -11,8 +11,10 @@ the 2D map views, the baked-shader paths O, P and Q) against the CPU
 frames, B1's has_material and has_matmap variants, the shader bakes on the
 card against the CPU's, B2 on the split path's Morton order (runtime
 shaders), the split-path frames (T, U, W) and the dynamic-batch frame (V)
-against the CPU frames, and the port's map, cube and shaded-cube
-examples.
+against the CPU frames, the port's map, cube and shaded-cube
+examples, B3's large preparation route (scenes above PREPARE_MAX_CELLS
+cells) against rt_prepare and in path B's frame, the minigame frame and
+the path tracer's buffer against the CPU's.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
 jax, so they also run on a machine without it:
@@ -979,3 +981,105 @@ def test_cuda_split_and_dynamic_frames_match_cpu_frames(cuda, path):
             assert (megakernel.launches > b1) == (path == "dynamic")
     assert np.abs(frames[0] - frames[1]).max() <= 1
     assert (frames[0][..., 3] > 0).sum() > 256 * 128 // 10
+
+
+@pytest.mark.cuda
+def test_large_preparation_route_matches_rt_prepare(cuda):
+    """A scene just above PREPARE_MAX_CELLS (28,700 cells, 1,836,800 slots)
+    with 16x128 rays (2 ray blocks): rt_prepare_large_kernel's boxes,
+    tnear and slist bit for bit against rt_prepare on the card, and B3's
+    walk over its shortlist equal to the walk over rt_prepare's."""
+    ncells = 28700
+    assert ncells > rt_kernel.PREPARE_MAX_CELLS
+    tcount, height, width = 64 * ncells, 16, 128
+    pos, valid, o, d = _random_rays(19, tcount, height, width, 0.1)
+    valid[-64 * 100:] = 0.0  # 100 dead cells: keys at _BIG among the live ones
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (pos, valid, *o, *d)]
+    before = (rt_kernel.prepare_launches, rt_kernel.prepare_large_launches)
+    prep = rt_kernel.rt_prepare_cuda(*args, 25.0, height, width)
+    ref = rt_kernel.rt_prepare(*args, 25.0, height, width)
+    torch.cuda.synchronize()
+    assert (rt_kernel.prepare_launches, rt_kernel.prepare_large_launches) == (
+        before[0], before[1] + 1)
+    assert prep["ncells"] == ncells and prep["tnear"].shape == (2, ncells)
+    for key in ("boxes", "tnear", "slist", "tab", "cbox", "tcap"):
+        assert torch.equal(prep[key], ref[key]), key
+    assert bool((prep["tnear"] < 3e37).any()) and bool((prep["tnear"] >= 3e37).any())
+    fields = rt_kernel._ray_fields(*args[2:])
+    t, idx = rt_kernel._launch(prep, fields)
+    t_r, idx_r = rt_kernel._launch(ref, fields)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_r) and torch.equal(t, t_r)
+    assert int((idx >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_reflection_frame_through_the_large_preparation_route(cuda, monkeypatch):
+    """Path B's map at 256x128 with PREPARE_MAX_CELLS lowered below its
+    cell count: every preparation takes rt_prepare_large_kernel, and the
+    frame is byte-equal to the frame through the shared-memory route."""
+    frames = []
+    for limit in (rt_kernel.PREPARE_MAX_CELLS, 4):
+        monkeypatch.setattr(rt_kernel, "PREPARE_MAX_CELLS", limit)
+        rast, scene, assets = build_map_refl_scene(256, 128, device=cuda)
+        before = (rt_kernel.prepare_launches, rt_kernel.prepare_large_launches)
+        frames.append(rast.rasterize(scene, 256, 128, 40, assets))
+        after = (rt_kernel.prepare_launches, rt_kernel.prepare_large_launches)
+        large = limit == 4
+        assert (after[1] > before[1]) == large and (after[0] > before[0]) == (not large)
+    assert np.array_equal(frames[0], frames[1])
+    assert (frames[0][..., 3] > 0).sum() > 256 * 128 // 10
+
+
+@pytest.mark.cuda
+def test_minigame_frame_on_cuda_matches_cpu(cuda):
+    """The minigame world after the same seeded ticks (the monster walks by
+    Python's random), drawn by the client at 160x120 on the card (B1 over
+    the static pack and the monster's billboard) and on the CPU: byte-equal."""
+    import random
+
+    from rusterix_tpu_torch.scenes import build_minigame, minigame_tick
+
+    frames = []
+    for dev in (cuda, "cpu"):
+        random.seed(7)
+        rx = build_minigame(dev)
+        rx.local_player_event("key_down", "w")
+        for _ in range(4):
+            minigame_tick(rx)
+        b1 = megakernel.launches
+        frames.append(rx.draw_scene(rx.assets.maps["world"], 160, 120,
+                                    ambient=[0.4, 0.4, 0.4, 1.0]))
+        rx.server.stop()
+        if dev is cuda:
+            assert megakernel.launches == b1 + 1
+    assert np.array_equal(frames[0], frames[1])
+    assert (frames[0][..., 3] == 255).sum() > 5000
+
+
+#: pixels of the 64x48 tracer buffer whose path may take another branch on
+#: the card than on the CPU (sin and cos, the only functions whose last bit
+#: differs between the two, steer the diffuse bounces)
+TRACER_BRANCH_PIXELS = 16
+
+
+@pytest.mark.cuda
+def test_tracer_on_cuda_matches_cpu(cuda):
+    """The bench's tracer scene at 64x48 after 2 samples on the card and on
+    the CPU: the buffers within 1e-5 but for at most TRACER_BRANCH_PIXELS
+    pixels."""
+    from rusterix_tpu_torch.scenes import build_tracer_scene
+    from rusterix_tpu_torch.tracer import AccumBuffer, Tracer
+
+    bufs = []
+    for dev in (cuda, "cpu"):
+        scene, cam, assets = build_tracer_scene()
+        buf, tracer = AccumBuffer(64, 48, device=dev), Tracer(device=dev)
+        for _ in range(2):
+            tracer.trace(cam, scene, buf, 64, assets)
+        bufs.append(buf.pixels)
+    far = (np.abs(bufs[0] - bufs[1]) > 1e-5).any(-1)
+    print(f"tracer CUDA vs CPU: {int(far.sum())} pixels past 1e-5")
+    assert int(far.sum()) <= TRACER_BRANCH_PIXELS
+    assert np.isfinite(bufs[0]).all() and bufs[0][..., :3].max() > 1.0

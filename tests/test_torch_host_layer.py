@@ -94,8 +94,23 @@ NO_JAX_PACKAGE_SCRIPT = textwrap.dedent(
     rast, scene, assets = build_cube_shaded_scene(64, 48, device="cpu")
     frame = rast.rasterize(scene, 64, 48, 40, assets)
     assert frame.shape == (48, 64, 4) and rast.frame_args["has_material"]
+    import random
+
+    from rusterix_tpu_torch.scenes import build_minigame, minigame_tick
+    from rusterix_tpu_torch.tracer import AccumBuffer
+
+    random.seed(7)
+    rx = build_minigame("cpu")
+    minigame_tick(rx)
+    frame = rx.draw_scene(rx.assets.maps["world"], 64, 48, ambient=[0.4, 0.4, 0.4, 1.0])
+    assert frame.shape == (48, 64, 4) and (frame[..., 3] == 255).sum() > 1000
+    buf = AccumBuffer(16, 12, device="cpu")
+    rx.trace_scene(rx.client.camera_d3, buf)
+    rx.server.stop()
+    assert buf.frame == 1 and buf.pixels[..., :3].max() > 0
     for mod in ("shapefx.render", "ops.composite", "shader.patterns", "server.entity",
-                "shader.jaxc", "lang.parser"):
+                "shader.jaxc", "lang.parser", "client.client", "rusterix", "tracer.tracer",
+                "tracer.rng"):
         assert "rusterix_tpu_torch." + mod in sys.modules, mod
     jax_pkg = os.path.join(os.getcwd(), "rusterix_tpu") + os.sep
     files = [getattr(m, "__file__", None) or "" for m in list(sys.modules.values())]
@@ -112,9 +127,10 @@ def test_port_loads_no_file_of_the_jax_package():
     """The reflection frame, the shadowed reflection frame, the glazed map
     under the sky with reflections and the shaded cube (every module of the
     port's paths: the shadow maps, the sky, the opacity layers, the host
-    copy of the map script's entities, the rusteria compiler and its bake)
-    render without loading any file of rusterix_tpu/ and without importing
-    jax."""
+    copy of the map script's entities, the rusteria compiler and its bake),
+    and the minigame world through the Rusterix facade (a tick, a frame and
+    one trace of the path tracer) render without loading any file of
+    rusterix_tpu/ and without importing jax."""
     proc = subprocess.run(
         [sys.executable, "-c", NO_JAX_PACKAGE_SCRIPT],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
@@ -147,9 +163,14 @@ def test_port_sources_name_no_jax_package():
     files = sorted(glob.glob(os.path.join(ROOT, "rusterix_tpu_torch", "**", "*.py"),
                              recursive=True))
     files.append(os.path.join(ROOT, "chip_smoke.py"))
+    files += sorted(glob.glob(os.path.join(ROOT, "examples", "*_torch.py")))
     assert len(files) > 40
-    assert os.path.join(ROOT, "rusterix_tpu_torch", "shader", "jaxc.py") in files
-    assert os.path.join(ROOT, "rusterix_tpu_torch", "parallel", "mesh.py") in files
+    for part in (("shader", "jaxc.py"), ("parallel", "mesh.py"), ("client", "client.py"),
+                 ("client", "widgets.py"), ("rusterix.py",), ("tracer", "tracer.py"),
+                 ("tracer", "rng.py")):
+        assert os.path.join(ROOT, "rusterix_tpu_torch", *part) in files, part
+    for name in ("minigame_torch.py", "tracer_torch.py"):
+        assert os.path.join(ROOT, "examples", name) in files, name
     hits = {os.path.relpath(f, ROOT): _names_jax_package(f) for f in files}
     assert not {f: h for f, h in hits.items() if h}
 

@@ -383,17 +383,20 @@ def test_rt_prepare_block_boxes_skip_dead_rays_and_nans():
 
 
 def test_preparation_kernel_refuses_scenes_past_its_shared_memory():
-    """On CUDA tensors the preparation kernel is the only route: a scene
-    with more cells than a block's shared memory holds is refused by name
-    before the card is touched. On the CPU rt_prepare is the route, whatever
-    the size, and no kernel is counted."""
+    """A scene with more cells than a block's shared memory holds (8 bytes
+    a key) is no longer refused: on CUDA tensors it takes the large route,
+    rt_prepare_large_kernel (held to rt_prepare bit for bit on the card,
+    tests/test_torch_cuda.py). On the CPU rt_prepare is the route, whatever
+    the size, and no kernel of either route is counted."""
     assert trt.PREPARE_MAX_CELLS * 8 == 224 * 1024
     tcount = 64 * (trt.PREPARE_MAX_CELLS + 1)
     pos = torch.zeros((1, 3, 4)).expand(tcount, 3, 4)
     rays = [torch.zeros((8, 128)) for _ in range(6)]
-    with pytest.raises(NotImplementedError, match=str(trt.PREPARE_MAX_CELLS)):
-        trt.rt_prepare_cuda(pos, torch.ones(tcount), *rays, 10.0, 8, 128)
-    before = (trt.launches, trt.prepare_launches)
-    t, idx = trt.intersect_rays_pallas(pos[:128], torch.ones(128), *rays, 10.0, 8, 128)
-    assert (trt.launches, trt.prepare_launches) == before  # CPU tensors: the plain version
+    before = (trt.launches, trt.prepare_launches, trt.prepare_large_launches)
+    prep = trt.rt_prepare(pos, torch.zeros(tcount), *rays, 10.0, 8, 128)
+    assert prep["ncells"] == trt.PREPARE_MAX_CELLS + 1
+    assert prep["tnear"].shape == (1, trt.PREPARE_MAX_CELLS + 1)
+    t, idx = trt.intersect_rays_pallas(pos, torch.zeros(tcount), *rays, 10.0, 8, 128)
+    # CPU tensors: the plain version
+    assert (trt.launches, trt.prepare_launches, trt.prepare_large_launches) == before
     assert t.shape == (8, 128) and int((idx >= 0).sum()) == 0
