@@ -60,11 +60,15 @@ byte-equal to the CPU's); Y, the path tracer on the bench's scene at
 320x240 and 800x600 (samples a second, device time, peak memory; the
 64x48 buffer after 2 samples held to the CPU's); Z, the facade's
 trace_scene on the minigame world, trace_sharded over a mesh of 4
-byte-equal to 4 trace() calls, and draw_scene's 2D view; Bl, path B with
-B3's preparation sent through its large route (rt_prepare_large_kernel,
-the route of scenes above rt_kernel.PREPARE_MAX_CELLS), byte-equal to
-path B's frame; and C12, that route alone on 1080p rays over 28,700 cells
-against rt_prepare, with its bound. The sharded frames are held to the single frames: equal but for the
+byte-equal to 4 trace() calls, and draw_scene's 2D view; Bl and Blg,
+path B with B3's preparation sent through its cluster route
+(rt_prepare_cluster_kernel, the route of scenes above
+rt_kernel.PREPARE_MAX_CELLS) and its global route (rt_prepare_large_kernel,
+above rt_kernel.CLUSTER_MAX_CELLS), byte-equal to path B's frame; C12,
+both routes alone on 1080p rays over 28,700 cells (keys that all tie, and
+keys that spread) against rt_prepare and torch.sort, with their bound; and
+the sweep, every preparation route at 32 to 28,672 cells beside torch.sort.
+The sharded frames are held to the single frames: equal but for the
 pinned pixels of the tie class (tie_pixels: two candidates
 tie on 1/z bit for bit and a slab's scan order keeps another). For
 each path it checks that the frame went through exactly
@@ -147,8 +151,9 @@ EXPECTED_LAUNCHES = {
     # dynamic batches: B1 over the concatenated pack
     "V": {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0},
 }
-# no path but Bl (engine_paths) takes the large preparation route
-EXPECTED_LAUNCHES = {k: dict(v, B3prepL=0) for k, v in EXPECTED_LAUNCHES.items()}
+# no path but Bl and Blg (engine_paths) takes the cluster (B3prepC) or the
+# global (B3prepL) preparation route
+EXPECTED_LAUNCHES = {k: dict(v, B3prepC=0, B3prepL=0) for k, v in EXPECTED_LAUNCHES.items()}
 # slabs of the sharded paths (one card), and the slab whose inputs the
 # kernels are held on
 N_SLABS = 8
@@ -589,19 +594,167 @@ Y_BRANCH_PIXELS = 16
 # Z: the sharded tracer's mesh (one card), and the facade's traces
 Z_MESH = 4
 Z_TRACES = 4
-# C12: the large preparation route's scene (cells of 64 slots, just above
-# rt_kernel.PREPARE_MAX_CELLS) at 1080p rays, and the limit that sends path B
-# through that route (Bl)
+# C12: the preparation's scene above the rank sort's old limit of 28,672
+# cells (cells of 64 slots) at 1080p rays, and the limit that sends path B
+# through the cluster route (Bl) and, lowered as well, the global route (Blg)
 C12_CELLS = 28700
 C12_LIMIT = 4
+# the preparation routes timed at these cell counts on 1080p rays (the
+# sweep), with the keys of both kinds of c12_inputs
+SWEEP_CELLS = (32, 256, 384, 512, 2048, 6200, 28672)
+SWEEP_KEYS = ("ties", "spread")
+# the most cells rt_prepare_kernel holds (RT_MAX_CELLS in csrc/rt_kernel.cu)
+RANK_MAX_CELLS = 28672
+# preparation calls profiled for each route of a sweep point
+SWEEP_CALLS = 3
+
+
+def c12_inputs(ncells: int, keys: str = "ties", seed: int = 12) -> tuple:
+    """intersect_rays_pallas's arguments on 1920x1080 rays over `ncells`
+    cells of 64 seeded random triangles. "ties": triangles anywhere in
+    [-10, 10]^3 and origins anywhere in [-8, 8]^3, so that every ray block's
+    origin box meets every cell and every live key is 0 (the sort keeps
+    cell order); "spread": each cell's triangles within 0.6 of a random
+    centre and the origins following the pixel across a plane, so that a
+    block's keys spread over distinct gaps (the sort does all its passes)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tcount = 64 * ncells
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    if keys == "ties":
+        a = rand(tcount, 3) * 20.0 - 10.0
+        pos = torch.stack([a, a + rand(tcount, 3) * 3 - 1.5, a + rand(tcount, 3) * 3 - 1.5], 1)
+    else:
+        a = (rand(ncells, 3) * 20.0 - 10.0).repeat_interleave(64, 0) + rand(tcount, 3) * 0.6 - 0.3
+        pos = torch.stack([a, a + rand(tcount, 3) * 0.6 - 0.3, a + rand(tcount, 3) * 0.6 - 0.3], 1)
+    pos = torch.cat([pos, torch.ones((tcount, 3, 1), device="cuda")], 2)
+    valid = (rand(tcount) > 0.2).float()
+    if keys == "ties":
+        o = rand(3, H, W) * 16.0 - 8.0
+    else:
+        ys, xs = torch.meshgrid(torch.arange(H, device="cuda"), torch.arange(W, device="cuda"),
+                                indexing="ij")
+        o = torch.stack([xs / W * 16.0 - 8.0, ys / H * 16.0 - 8.0, rand(H, W) * 0.1 - 0.05])
+    d = torch.randn((3, H, W), generator=gen, device="cuda")
+    d = d / d.norm(dim=0, keepdim=True)
+    return (pos, valid, *o, *d, 25.0, H, W)
+
+
+class route_limits:
+    """Set rt_kernel's routing limits for a `with` block and restore them."""
+
+    def __init__(self, **limits):
+        from rusterix_tpu_torch.ops import rt_kernel
+
+        self.mod, self.limits = rt_kernel, limits
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.mod, k) for k in self.limits}
+        for k, v in self.limits.items():
+            setattr(self.mod, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.mod, k, v)
+
+
+def prep_device_ms(fn, symbol: str, calls: int = SWEEP_CALLS) -> float:
+    """Device ms of one call of `fn` under the profiler, over `calls` calls:
+    with `symbol` (a preparation kernel's launch, the only device activity
+    of a call) the kernel's ms a record kept; with None (any call) the
+    union of the device intervals a call, provided every kernel's records
+    are a whole number a call. Where the profiler records nothing twice, or
+    lost records of a library call (it does so late in a long process), the
+    median of CUDA events around single calls, and a line says so."""
+    for _ in range(2):
+        prof = profile_calls(fn, calls)
+        if prof is not None:
+            break
+    if prof is None or (symbol is None and any(
+            c % calls for _ms, c in prof["by_name"].values())):
+        ms = median(cuda_times(fn, 2 * calls))
+        print(f"profiler recorded {'nothing' if prof is None else 'part'} of "
+              f"{symbol or 'a library call'}: CUDA events instead, {ms:.4f} ms")
+        return ms
+    if symbol is None:
+        return prof["device_ms"]
+    seen = [(ms, c) for name, (ms, c) in prof["by_name"].items() if is_kernel(name, symbol)]
+    if len(prof["by_name"]) != 1 or len(seen) != 1 or not 1 <= seen[0][1] <= calls:
+        raise SystemExit(f"profiled {symbol}: records {prof['by_name']}")
+    return seen[0][0] / seen[0][1]
+
+
+def prep_sweep(gpu: str) -> list:
+    """The preparation routes at SWEEP_CELLS cells on 1080p rays
+    (c12_inputs of each kind): every route that takes a size (the rank sort
+    up to RANK_MAX_CELLS; the cluster route with CLUSTER_SPAN as it is and
+    at CLUSTER_SPAN_MAX, which give the cluster size the limits pick and the
+    smallest one that holds the row; the global route), each held to rt_prepare
+    bit for bit and timed by the profiler (device ms of the kernel alone on
+    prepared inputs), beside torch.sort of the same keys in cell order.
+    Prints a line a point and returns the points."""
+    from rusterix_tpu_torch.ops import rt_kernel
+
+    points = []
+    for n in SWEEP_CELLS:
+        for kind in SWEEP_KEYS:
+            args = c12_inputs(n, kind)
+            pos, valid, rays, t_cap = args[0], args[1], args[2:8], args[8]
+            sizes_ = rt_kernel._sizes(pos.shape[0], H, W)
+            nb = sizes_["nby"] * sizes_["nbx"]
+            scene = rt_kernel.scene_tables(pos, valid, t_cap, n, sizes_["cell"])
+            fields = rt_kernel._ray_fields(*rays)
+            ref = rt_kernel.rt_prepare(*args)
+            routes = []
+            if n <= RANK_MAX_CELLS:
+                routes.append(("rank", {"PREPARE_MAX_CELLS": RANK_MAX_CELLS}))
+            for span in (rt_kernel.CLUSTER_SPAN, rt_kernel.CLUSTER_SPAN_MAX):
+                routes.append(("cluster", {"PREPARE_MAX_CELLS": 0, "CLUSTER_SPAN": span}))
+            routes.append(("global", {"PREPARE_MAX_CELLS": 0, "CLUSTER_MAX_CELLS": 0}))
+            point = {"cells": n, "keys": kind, "ray_blocks": nb,
+                     "distinct_keys_row0": int(torch.unique(ref["tnear"][0]).numel()),
+                     "route": rt_kernel.prepare_route(n, nb)["route"], "ms": {}}
+            symbols = {"rank": "rt_prepare_kernel", "cluster": "rt_prepare_cluster_kernel",
+                       "global": "rt_prepare_large_kernel"}
+            for label, limits in routes:
+                with route_limits(**limits):
+                    route = rt_kernel.prepare_route(n, nb)
+                    fn = rt_kernel.prepare_launch(scene, fields, t_cap, sizes_)
+                if route["route"] != label:
+                    raise SystemExit(f"sweep: {limits} gave the {route['route']} route")
+                if label == "cluster":
+                    label = f"cluster C={route['cluster']}"
+                    if label in point["ms"]:
+                        continue
+                outs = fn()
+                torch.cuda.synchronize()
+                for key, got in zip(("boxes", "tnear", "slist"), outs):
+                    if not torch.equal(got, ref[key]):
+                        raise SystemExit(f"sweep {n} cells ({kind}): the {label} route's {key} "
+                                         f"differs from rt_prepare's")
+                point["ms"][label] = prep_device_ms(fn, symbols[route["route"]])
+            keys = ref["tnear"].gather(1, ref["slist"].long().argsort(1))  # cell order
+            point["ms"]["torch.sort"] = prep_device_ms(
+                lambda: torch.sort(keys, dim=1, stable=True), None)
+            del ref, keys, scene, fields, args
+            shown = ", ".join(f"{k} {v:.4f}" for k, v in point["ms"].items())
+            print(f"sweep {n} cells ({kind} keys, {point['distinct_keys_row0']} distinct in "
+                  f"block 0's row; {nb} ray blocks), routes held to rt_prepare bit for bit, "
+                  f"device ms: {shown}; the limits send it to the {point['route']} route; "
+                  f"on {gpu}")
+            points.append(point)
+    return points
 
 
 def engine_paths(gpu: str, phase) -> list:
     """Paths X (the minigame loop through the Rusterix facade), Y (the path
     tracer), Z (the facade's trace_scene, trace_sharded and 2D view), Bl
-    (path B through the large preparation route) and C12's phase (that
-    route alone on 1080p rays over C12_CELLS cells). Raises on a failed
-    check -> the kernels line's row for the large preparation route."""
+    and Blg (path B through the cluster and the global preparation route),
+    C12's phase (both routes alone on 1080p rays over C12_CELLS cells) and
+    the sweep (prep_sweep). Raises on a failed check -> the kernels line's
+    rows for the cluster and the global preparation route."""
     import random
 
     from rusterix_tpu_torch import _cuda
@@ -617,6 +770,7 @@ def engine_paths(gpu: str, phase) -> list:
 
     counters = {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
                 "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches"),
+                "B3prepC": (rt_kernel, "prepare_cluster_launches"),
                 "B3prepL": (rt_kernel, "prepare_large_launches")}
 
     def zero_counts():
@@ -649,7 +803,7 @@ def engine_paths(gpu: str, phase) -> list:
     f = x_frame()
     torch.cuda.synchronize()
     counts_x = read_counts()
-    if counts_x != {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0, "B3prepL": 0}:
+    if counts_x != {"B1": 1, "B2": 0, "B3": 0, "B3prep": 0, "B3prepC": 0, "B3prepL": 0}:
         raise SystemExit(f"path X launched {counts_x}, expected one B1 a frame")
     if f.shape != (xh, xw, 4) or f.dtype != torch.uint8 or f.device.type != "cuda":
         raise SystemExit(f"path X frame is {tuple(f.shape)} {f.dtype} on {f.device}")
@@ -793,80 +947,118 @@ def engine_paths(gpu: str, phase) -> list:
 
     phase("Bl")
     # Bl. path B (the GGX reflection map) at 1920x1080 with the preparation
-    # sent through the large route: byte-equal to path B's frame
-    limit = rt_kernel.PREPARE_MAX_CELLS
+    # sent through the cluster route, and Blg through the global route:
+    # byte-equal to path B's frame
     rast_b, scene_b, assets_b = build_map_refl_scene(W, H, device="cuda")
     frame_b = rast_b.rasterize(scene_b, W, H, 40, assets_b)
-    rt_kernel.PREPARE_MAX_CELLS = C12_LIMIT
-    try:
-        zero_counts()
-        frame_l = rast_b.rasterize(scene_b, W, H, 40, assets_b)
-        torch.cuda.synchronize()
-        counts_l = read_counts()
-    finally:
-        rt_kernel.PREPARE_MAX_CELLS = limit
-    if counts_l != {"B1": 1, "B2": 1, "B3": 1, "B3prep": 0, "B3prepL": 1}:
-        raise SystemExit(f"path Bl launched {counts_l}")
-    if not np.array_equal(frame_l, frame_b):
-        raise SystemExit("path Bl: the frame through the large route differs from path B's")
-    print(f"path Bl (B with PREPARE_MAX_CELLS = {C12_LIMIT}): launches {counts_l}, frame "
-          f"byte-equal to path B's")
+    counts_bl = {}
+    for label, limits, key in (
+            ("Bl", {"PREPARE_MAX_CELLS": C12_LIMIT}, "B3prepC"),
+            ("Blg", {"PREPARE_MAX_CELLS": C12_LIMIT, "CLUSTER_MAX_CELLS": C12_LIMIT}, "B3prepL")):
+        with route_limits(**limits):
+            zero_counts()
+            frame_l = rast_b.rasterize(scene_b, W, H, 40, assets_b)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        want = {"B1": 1, "B2": 1, "B3": 1, "B3prep": 0, "B3prepC": 0, "B3prepL": 0, key: 1}
+        if counts != want:
+            raise SystemExit(f"path {label} launched {counts}, expected {want}")
+        if not np.array_equal(frame_l, frame_b):
+            raise SystemExit(f"path {label}: the frame through its route differs from path B's")
+        print(f"path {label} (B with {limits}): launches {counts}, frame byte-equal to path B's")
+        counts_bl[key] = counts[key]
 
     phase("C12")
-    # C12. the large route alone on 1080p rays over C12_CELLS cells of seeded
-    # random triangles: bit for bit against rt_prepare, timed against it and
-    # against torch.sort of its keys
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    tcount = 64 * C12_CELLS
-    a = torch.rand((tcount, 3), generator=gen, device="cuda") * 20.0 - 10.0
-    pos = torch.stack([a, a + torch.rand((tcount, 3), generator=gen, device="cuda") * 3 - 1.5,
-                       a + torch.rand((tcount, 3), generator=gen, device="cuda") * 3 - 1.5], 1)
-    pos = torch.cat([pos, torch.ones((tcount, 3, 1), device="cuda")], 2)
-    valid = (torch.rand(tcount, generator=gen, device="cuda") > 0.2).float()
-    o = torch.rand((3, H, W), generator=gen, device="cuda") * 16.0 - 8.0
-    d = torch.randn((3, H, W), generator=gen, device="cuda")
-    d = d / d.norm(dim=0, keepdim=True)
-    c12_in = (pos, valid, *o, *d, 25.0, H, W)
-    zero_counts()
-    prep = rt_kernel.rt_prepare_cuda(*c12_in)
-    torch.cuda.synchronize()
-    if read_counts()["B3prepL"] != 1 or prep["ncells"] != C12_CELLS:
-        raise SystemExit(f"C12: the large route did not run: {read_counts()}")
-    ref = rt_kernel.rt_prepare(*c12_in)
-    for key in ("boxes", "tnear", "slist"):
-        if not torch.equal(prep[key], ref[key]):
-            raise SystemExit(f"C12: the large route's {key} differs from rt_prepare's")
-    live = int((prep["tnear"] < 3e37).sum())
-    print(f"C12 rt_prepare_large_kernel ({prep['tnear'].shape[0]} ray blocks x {C12_CELLS} "
-          f"cells, {live} live keys): boxes, tnear, slist equal to rt_prepare")
-    t_l = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*c12_in), 10)
-    t_p = cuda_times(lambda: rt_kernel.rt_prepare(*c12_in), 3, warmup=1)
-    keys = ref["tnear"].gather(1, ref["slist"].long().argsort(1))  # the keys in cell order
-    t_sort = cuda_times(lambda: torch.sort(keys, dim=1, stable=True), 10)
-    prof = profile_calls(lambda: rt_kernel.rt_prepare_cuda(*c12_in), 3)
-    dev_l = report_profile(f"C12 rt_prepare_cuda (large route) x3", prof, median(t_l), gpu,
-                           {"B3prepL": "rt_prepare_large_kernel"})
-    del ref, keys
-    nb = nbytes(*c12_in[2:8], prep["cbox"], prep["boxes"], prep["tnear"], prep["slist"])
-    ops = H * W * OPS_PREP_PER_RAY + prep["tnear"].numel() * OPS_PREP_PER_KEY
-    ms_b, by = bound(nb, ops)
-    res = _cuda.resources("rt_prepare_large")
-    print(f"C12 rt_prepare_cuda large route: {summary(t_l)}; plain rt_prepare {summary(t_p)}; "
-          f"torch.sort of the keys {summary(t_sort)} on {gpu}")
-    print(f"bound C12 large preparation route: {nb} bytes, {ops} f32 ops -> {ms_b:.6f} ms, "
-          f"bound by {by}")
-    print(f"resources B3prepL: {res['registers']} registers, "
-          f"{res['smem_static'] + res['smem_dynamic']} B shared memory a block, "
-          f"{res['blocks_per_sm']} blocks of 256 threads an SM on {gpu}")
-    return [{
-        "name": f"rt_prepare_cuda large route (rt_prepare_large_kernel; timed on 1080p rays over "
-                f"{C12_CELLS} cells, launched on path Bl)",
-        "route": "cuda", "source": "rusterix_tpu_torch/csrc/rt_kernel.cu",
-        "replaces": "rusterix_tpu/ops/rt_kernel.py:286-354",
-        "launches": counts_l["B3prepL"], "max_abs_err": 0.0,
-        "ms": median(t_l), "plain_ms": median(t_p), "bound_ms": ms_b, "bound_by": by,
-        "library_ms": median(t_sort), "device_ms": dev_l["B3prepL"], **res,
-    }]
+    # C12. the cluster route alone on 1080p rays over C12_CELLS cells of
+    # seeded random triangles, with both kinds of keys, and the global route
+    # on the same inputs: bit for bit against rt_prepare, timed against it
+    # and against torch.sort of its keys
+    rows, c12_rows = [], []
+    for key, symbol, limits in (("B3prepC", "rt_prepare_cluster_kernel", {}),
+                                ("B3prepL", "rt_prepare_large_kernel",
+                                 {"CLUSTER_MAX_CELLS": C12_LIMIT})):
+        row = {}
+        for kind in SWEEP_KEYS:
+            c12_in = c12_inputs(C12_CELLS, kind)
+            with route_limits(**limits):
+                route = rt_kernel.prepare_route(C12_CELLS, (H // 8) * -(-W // 128))
+                zero_counts()
+                prep = rt_kernel.rt_prepare_cuda(*c12_in)
+                torch.cuda.synchronize()
+                if read_counts()[key] != 1 or prep["ncells"] != C12_CELLS:
+                    raise SystemExit(f"C12: the {route['route']} route did not run: "
+                                     f"{read_counts()}")
+                ref = rt_kernel.rt_prepare(*c12_in)
+                for out in ("boxes", "tnear", "slist"):
+                    if not torch.equal(prep[out], ref[out]):
+                        raise SystemExit(f"C12 ({kind}): the {route['route']} route's {out} "
+                                         f"differs from rt_prepare's")
+                live = int((prep["tnear"] < 3e37).sum())
+                distinct = int(torch.unique(prep["tnear"][0]).numel())
+                print(f"C12 {symbol} ({kind} keys; {prep['tnear'].shape[0]} ray blocks x "
+                      f"{C12_CELLS} cells, {live} live keys, {distinct} distinct in block 0's "
+                      f"row): boxes, tnear, slist equal to rt_prepare")
+                t_w = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*c12_in), 10)
+                sizes_ = rt_kernel._sizes(c12_in[0].shape[0], H, W)
+                scene = rt_kernel.scene_tables(c12_in[0], c12_in[1], 25.0, C12_CELLS,
+                                               sizes_["cell"])
+                alone = rt_kernel.prepare_launch(scene, rt_kernel._ray_fields(*c12_in[2:8]),
+                                                 25.0, sizes_)
+                t_a = cuda_times(alone, 10)
+                dev = prep_device_ms(alone, symbol)
+                if key == "B3prepC":  # the plain version and the library call, once a kind
+                    t_p = cuda_times(lambda: rt_kernel.rt_prepare(*c12_in), 3, warmup=1)
+                    keys = ref["tnear"].gather(1, ref["slist"].long().argsort(1))  # cell order
+                    t_sort = cuda_times(lambda: torch.sort(keys, dim=1, stable=True), 10)
+                    dev_sort = prep_device_ms(lambda: torch.sort(keys, dim=1, stable=True), None)
+                    row[kind] = {"plain": median(t_p), "sort": median(t_sort),
+                                 "sort_device": dev_sort}
+                    del keys
+                else:
+                    row[kind] = dict(c12_rows[0][kind])
+                row[kind].update({"wrapper": median(t_w), "alone": median(t_a), "device": dev})
+                nb = nbytes(*c12_in[2:8], prep["cbox"], prep["boxes"], prep["tnear"],
+                            prep["slist"])
+                ops = H * W * OPS_PREP_PER_RAY + prep["tnear"].numel() * OPS_PREP_PER_KEY
+                row["bound"] = bound(nb, ops)
+                print(f"C12 {route['route']} route ({kind} keys): wrapper {summary(t_w)}; "
+                      f"kernel alone {summary(t_a)}, device {dev:.4f} ms; plain rt_prepare "
+                      f"{row[kind]['plain']:.4f} ms; torch.sort of the keys "
+                      f"{row[kind]['sort']:.4f} ms (device {row[kind]['sort_device']:.4f}) "
+                      f"on {gpu}")
+                del ref, prep, scene, alone
+        ms_b, by = row["bound"]
+        res = (_cuda.resources("rt_prepare_cluster", C12_CELLS, route["cluster"])
+               if key == "B3prepC" else _cuda.resources("rt_prepare_large"))
+        if key == "B3prepC" and res["smem_static"] != rt_kernel.CLUSTER_SMEM_STATIC:
+            raise SystemExit(f"rt_kernel.CLUSTER_SMEM_STATIC is "
+                             f"{rt_kernel.CLUSTER_SMEM_STATIC}, the kernel's {res}")
+        print(f"bound C12 {route['route']} route: {nb} bytes, {ops} f32 ops -> {ms_b:.6f} ms, "
+              f"bound by {by}")
+        print(f"resources {key}: {res['registers']} registers, "
+              f"{res['smem_static'] + res['smem_dynamic']} B shared memory a block, "
+              f"{res['blocks_per_sm']} blocks of {512 if key == 'B3prepC' else 256} threads an "
+              f"SM" + (f", clusters of {route['cluster']} blocks, {res['clusters']} clusters "
+                       f"at once" if key == "B3prepC" else "") + f" on {gpu}")
+        c12_rows.append(row)
+        spread = row["spread"]
+        rows.append({
+            "name": f"rt_prepare_cuda {route['route']} route ({symbol}; timed on 1080p rays "
+                    f"over {C12_CELLS} cells with spread keys, launched on path "
+                    f"{'Bl' if key == 'B3prepC' else 'Blg'})",
+            "route": "cuda", "source": "rusterix_tpu_torch/csrc/rt_kernel.cu",
+            "replaces": "rusterix_tpu/ops/rt_kernel.py:286-354",
+            "launches": counts_bl[key], "max_abs_err": 0.0,
+            "ms": spread["wrapper"], "plain_ms": spread["plain"], "bound_ms": ms_b,
+            "bound_by": by, "library_ms": spread["sort"], "device_ms": spread["device"],
+            "alone_ms": spread["alone"], "ties": row["ties"],
+            **({"cluster": route["cluster"]} if key == "B3prepC" else {}), **res,
+        })
+
+    phase("C12 sweep")
+    # 6. the routes across cell counts, with torch.sort beside them
+    prep_sweep(gpu)
+    return rows
 
 
 def main() -> int:
@@ -930,6 +1122,7 @@ def main() -> int:
 
     counters = {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
                 "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches"),
+                "B3prepC": (rt_kernel, "prepare_cluster_launches"),
                 "B3prepL": (rt_kernel, "prepare_large_launches")}
 
     def zero_counts():
@@ -985,7 +1178,8 @@ def main() -> int:
     frame_r = rast_r.rasterize(scene_r, W, H, 40, assets_r)
     torch.cuda.synchronize()
     counts_b = read_counts()
-    if min(v for k, v in counts_b.items() if k != "B3prepL") < 1 or counts_b["B3prepL"]:
+    if (min(v for k, v in counts_b.items() if k not in ("B3prepC", "B3prepL")) < 1
+            or counts_b["B3prepC"] or counts_b["B3prepL"]):
         raise SystemExit(f"reflection path did not launch every kernel: {counts_b}")
     if frame_r.shape != (H, W, 4) or frame_r.dtype != np.uint8:
         raise SystemExit(f"reflection frame is {frame_r.shape} {frame_r.dtype}")

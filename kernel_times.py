@@ -12,7 +12,9 @@ of each hand-written kernel by name. The megakernel is timed at stage_cut
 0, 1 and 2 on both frames' inputs, so the differences split its time into
 the scan, the interpolation + texel fetch, and the lighting + fog + pack;
 the opaque frame itself (`rasterize`, path A) is timed the same way, which
-gives its device ops per frame.
+gives its device ops per frame. B3's preparation is timed on path B's rays
+and on chip_smoke.py's C12 scene (1080p rays over 28,700 cells, both kinds
+of keys), through whichever route each tree's `rt_prepare_cuda` takes.
 Where the tree has the shadowed map (`scenes.build_map_shadow_scene`), the
 megakernel is also timed on its inputs with and without the shadow table;
 where it has the glazed map (`scenes.build_map_glass_scene`), on its inputs
@@ -44,7 +46,8 @@ import os
 import subprocess
 import sys
 
-KERNEL_SYMBOLS = ("mega_kernel", "visibility_kernel", "rt_kernel", "rt_prepare_kernel")
+KERNEL_SYMBOLS = ("mega_kernel", "visibility_kernel", "rt_kernel", "rt_prepare_kernel",
+                  "rt_prepare_cluster_kernel", "rt_prepare_large_kernel")
 
 
 def measure(tree: str) -> dict:
@@ -101,6 +104,12 @@ def measure(tree: str) -> dict:
     b2_in, b3_in = kin["b2_in"], kin["b3_in"]
     times["B2"] = timed(lambda: visibility_pallas.visibility_pass_pallas(*b2_in))
     times["B3 (preparation + walk)"] = timed(lambda: rt_kernel.intersect_rays_pallas(*b3_in))
+    times["B3 preparation"] = timed(lambda: rt_kernel.rt_prepare_cuda(*b3_in))
+    for kind in cs.SWEEP_KEYS:  # whichever route the tree gives C12's scene
+        c12_in = cs.c12_inputs(cs.C12_CELLS, kind)
+        times[f"B3 preparation C12 ({kind} keys)"] = timed(
+            lambda: rt_kernel.rt_prepare_cuda(*c12_in))
+        del c12_in
     if hasattr(scenes, "build_map_shadow_scene"):
         rast, scene, assets = scenes.build_map_shadow_scene(cs.W, cs.H, device="cuda")
         rast.rasterize(scene, cs.W, cs.H, 40, assets)

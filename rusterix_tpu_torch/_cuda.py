@@ -121,6 +121,10 @@ def library() -> ctypes.CDLL:
     lib.rx_rt_prepare.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 3 + [i32] * 5 + [vp]
     lib.rx_rt_prepare_large.restype = i32
     lib.rx_rt_prepare_large.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 4 + [i32] * 6 + [vp]
+    lib.rx_rt_prepare_cluster.restype = i32
+    lib.rx_rt_prepare_cluster.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 3 + [i32] * 6 + [vp]
+    lib.rx_rt_cluster_resources.restype = i32
+    lib.rx_rt_cluster_resources.argtypes = [i32, i32, vp]
     lib.rx_xla_fma.restype = i32
     lib.rx_xla_fma.argtypes = [vp] * 4 + [i64, vp]
     lib.rx_error_string.restype = ctypes.c_char_p
@@ -135,9 +139,10 @@ def resources(kernel: str, *sizes: int) -> dict:
     kernel and sizes: "mega" (supers, lights, occlusion boxes, and the
     material form: 0 none, 1 has_material, 2 has_matmap; 0 when left out),
     "visibility" (supers), "rt_walk" (), "rt_prepare" (cells),
-    "rt_prepare_large" ()."""
+    "rt_prepare_cluster" (cells, blocks a cluster; also the clusters the card
+    holds at once), "rt_prepare_large" ()."""
     lib = library()
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     if kernel == "mega":
         err = lib.rx_mega_resources(*(tuple(sizes) + (0,) * (4 - len(sizes))), out)
     elif kernel == "visibility":
@@ -146,14 +151,19 @@ def resources(kernel: str, *sizes: int) -> dict:
         err = lib.rx_rt_resources(0, 0, out)
     elif kernel == "rt_prepare":
         err = lib.rx_rt_resources(1, *sizes, out)
+    elif kernel == "rt_prepare_cluster":
+        err = lib.rx_rt_cluster_resources(*sizes, out)
     elif kernel == "rt_prepare_large":
         err = lib.rx_rt_resources(2, 0, out)
     else:
         raise ValueError(f"no kernel named {kernel!r}")
     if err != 0:
         raise RuntimeError(f"resources({kernel}): CUDA error {err} ({error_string(err)})")
-    return {"registers": out[0], "smem_static": out[1], "smem_dynamic": out[2],
-            "blocks_per_sm": out[3]}
+    res = {"registers": out[0], "smem_static": out[1], "smem_dynamic": out[2],
+           "blocks_per_sm": out[3]}
+    if kernel == "rt_prepare_cluster":
+        res["clusters"] = out[4]
+    return res
 
 
 def ptxas_report(text: str, symbol: str) -> dict:

@@ -33,6 +33,12 @@ static __device__ __forceinline__ uint32_t cluster_load(const uint32_t* p, int r
     asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(cluster_map(p, rank)) : "memory");
     return v;
 }
+// write a uint2 at the same shared-memory offset in block `rank`
+static __device__ __forceinline__ void cluster_store(uint2* p, int rank, uint2 v) {
+    asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};\n" ::"r"(cluster_map(p, rank)),
+                 "r"(v.x), "r"(v.y)
+                 : "memory");
+}
 // registers, static and dynamic shared memory of a kernel and the blocks of
 // it an SM holds at once -> out[0..3]
 template <typename Kernel>

@@ -61,17 +61,34 @@
 //   already decides the pair). 1/det is __frcp_rn, the correctly rounded
 //   reciprocal, the same value as the IEEE quotient 1/det.
 //
-// - Above RT_MAX_CELLS a block's keys do not fit its shared memory, and
-//   `rt_prepare_large_kernel` takes the scene: the same boxes and keys,
-//   written to a global scratch of one power-of-two row a ray block, sorted
-//   by a bitonic sort (a network of compare-exchanges of the unique u64
-//   keys, O(n log^2 n) a row: every stage whose partners lie within a
-//   chunk of SORT_CHUNK keys runs in shared memory, the wider ones over the
-//   row in global memory), then written out as tnear and slist. The keys are
-//   unique, so any correct sort gives the shared-memory route's bits. It
-//   reads the rays and writes the outputs as the first kernel does, and
-//   moves each row through the scratch about 2 + 2 log2(n / SORT_CHUNK)
-//   times (log2 n rounds of the chunks in shared memory).
+// - The rank sort is O(cells^2) a block, so above rt_kernel.PREPARE_MAX_CELLS
+//   cells `rt_prepare_cluster_kernel` takes the scene: a thread block cluster
+//   of 1 to 8 blocks a ray block (1 while a block holds the row), the row's
+//   keys and cells in the cluster's shared memory (16 bytes a cell: two
+//   buffers of a u32 key and a u32 cell), sorted by a stable LSD radix sort
+//   on the keys' upper 32 bits, 8 bits a pass. Its first design wrote the
+//   keys to a global scratch row and sorted them by a bitonic network: some
+//   eight passes of the row through device memory and O(n log^2 n) work, at
+//   2.3 % of its bound on 1080p rays over 28,700 cells and slower than
+//   torch.sort of the same keys. A pass of the radix sort costs O(n) in
+//   shared memory; its scatter lands in whichever block of the cluster holds
+//   the key's position (distributed shared memory), so after the last pass
+//   every block holds its span of the sorted row and writes it once: no
+//   global scratch and no merge of sorted runs. A byte in which no key of
+//   the row differs is not sorted at all (a row of parked rays, whose keys
+//   are all BIG, or a row whose cells all lie at gap 0). It reads the rays
+//   once a block (the cluster's blocks read them from L2) and writes each
+//   output once; what is left of its time is the passes' instructions and
+//   the cluster barriers between them.
+// - Above a cluster of 8 blocks (8 * RT_SPAN_MAX cells), rt_kernel's
+//   CLUSTER_MAX_CELLS, `rt_prepare_large_kernel` takes the scene: the same
+//   boxes and keys, written to a global scratch of one power-of-two row a
+//   ray block, sorted by a bitonic network (every stage whose partners lie
+//   within a chunk of SORT_CHUNK keys in shared memory, the wider ones over
+//   the row in global memory; 2 + 2 log2(n / SORT_CHUNK) passes of the row
+//   through the scratch), then written out as tnear and slist.
+// The keys are unique (the cell is their low half), so every route gives
+// the same bits.
 //
 // Bit parity with the plain torch versions (rt_kernel.rt_prepare and
 // rt_kernel.intersect_rays_pallas_reference): compiled with -fmad=false,
@@ -88,7 +105,6 @@
 #define RT_BH 8
 #define RT_BW 128
 #define RT_THREADS 256                      // the preparation: 4 rays per thread
-#define RAYS (RT_BH * RT_BW / RT_THREADS)
 #define RT_WARPS (RT_THREADS / 32)
 #define WALK_THREADS (RT_BH * RT_BW)        // the walk: one ray per thread
 #define WALK_WARPS (WALK_THREADS / 32)
@@ -125,9 +141,11 @@ static __device__ __forceinline__ long long ray_offset(int by, int bx, int r, in
 #define SORT_CHUNK 4096  // keys a block sorts in shared memory at once (32 KB)
 
 // The block's origin and direction boxes over its live rays into s_box[12]
-// (and boxes[b]): [o min xyz | o max xyz | d min xyz | d max xyz]; a dead
-// ray, a lane past the frame or a NaN value contributes the neutral +-BIG.
-// Ends with a barrier.
+// (and boxes[b] unless boxes is null): [o min xyz | o max xyz | d min xyz |
+// d max xyz]; a dead ray, a lane past the frame or a NaN value contributes
+// the neutral +-BIG. THREADS threads, s_part[THREADS / 32]. Ends with a
+// barrier.
+template <int THREADS>
 static __device__ __forceinline__ void block_boxes(const RayFields& rays, float (*s_part)[12],
                                                    float* s_box, float* __restrict__ boxes,
                                                    int b, int nbx, int height, int width) {
@@ -137,8 +155,8 @@ static __device__ __forceinline__ void block_boxes(const RayFields& rays, float 
 #pragma unroll
     for (int i = 0; i < 12; ++i) v[i] = (i % 6 < 3) ? INFINITY : -INFINITY;
 #pragma unroll
-    for (int j = 0; j < RAYS; ++j) {
-        const long long o = ray_offset(by, bx, tid + j * RT_THREADS, height, width);
+    for (int j = 0; j < RT_BH * RT_BW / THREADS; ++j) {
+        const long long o = ray_offset(by, bx, tid + j * THREADS, height, width);
         const float ox = o >= 0 ? rays.f[0][o] : 1e8f;
         const bool live = ox < PARKED;
 #pragma unroll
@@ -165,10 +183,10 @@ static __device__ __forceinline__ void block_boxes(const RayFields& rays, float 
     __syncthreads();
     if (tid < 12) {
         float x = s_part[0][tid];
-        for (int w = 1; w < RT_WARPS; ++w)
+        for (int w = 1; w < THREADS / 32; ++w)
             x = (tid % 6 < 3) ? fminf(x, s_part[w][tid]) : fmaxf(x, s_part[w][tid]);
         s_box[tid] = x;
-        boxes[(size_t)b * 12 + tid] = x;
+        if (boxes) boxes[(size_t)b * 12 + tid] = x;
     }
     __syncthreads();
 }
@@ -179,7 +197,10 @@ static __device__ __forceinline__ void block_boxes(const RayFields& rays, float 
 static __device__ __forceinline__ unsigned long long cell_key(const float* __restrict__ cbox,
                                                               const float* s_box, int c,
                                                               float t_cap) {
-    const float* cb = cbox + 8 * c;
+    // the cell's box [x0 y0 z0 x1 | y1 z1 0 0] in two 16-byte loads
+    const float4* q = reinterpret_cast<const float4*>(cbox + 8 * c);
+    const float4 lo = q[0], hi = q[1];
+    const float cb[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
     float g2 = 0.0f;
     bool reach = true;
 #pragma unroll
@@ -211,7 +232,7 @@ __global__ void __launch_bounds__(RT_THREADS) rt_prepare_kernel(
 
     const int b = blockIdx.x;
     const int tid = threadIdx.x;
-    block_boxes(rays, s_part, s_box, boxes, b, nbx, height, width);
+    block_boxes<RT_THREADS>(rays, s_part, s_box, boxes, b, nbx, height, width);
 
     for (int c = tid; c < ncells; c += RT_THREADS) s_key[c] = cell_key(cbox, s_box, c, t_cap);
     __syncthreads();
@@ -275,7 +296,7 @@ __global__ void __launch_bounds__(RT_THREADS) rt_prepare_large_kernel(
 
     const int b = blockIdx.x;
     const int tid = threadIdx.x;
-    block_boxes(rays, s_part, s_box, boxes, b, nbx, height, width);
+    block_boxes<RT_THREADS>(rays, s_part, s_box, boxes, b, nbx, height, width);
 
     unsigned long long* row = keys + (size_t)b * n2;
     for (int c = tid; c < n2; c += RT_THREADS)
@@ -340,6 +361,262 @@ extern "C" int rx_rt_prepare_large(const float* ox, const float* oy, const float
     rt_prepare_large_kernel<<<nby * nbx, RT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         rays, cbox, t_cap, boxes, tnear, slist, keys, ncells, n2, nbx, height, width);
     return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ the cluster preparation
+
+#define CL_THREADS 512
+#define CL_WARPS (CL_THREADS / 32)
+#define RADIX_BITS 8
+#define RADIX (1 << RADIX_BITS)
+#define RT_SPAN_MAX 13312  // cells a block of the cluster route holds, 16 bytes each
+
+// What a block of the cluster route keeps besides its keys (static shared
+// memory; rt_kernel.CLUSTER_SMEM_STATIC is its size).
+struct ClusterShared {
+    unsigned hist[CL_WARPS][RADIX];  // each warp's digit counts, then their prefix over warps
+    unsigned tot[RADIX];             // the block's digit counts, read by the cluster
+    unsigned base[RADIX];            // where the block's first key of each digit goes
+    unsigned wsum[RADIX / 32];
+    unsigned mask[2];                // AND and OR of the block's keys, read by the cluster
+    float part[CL_WARPS][12];
+    float box[12];
+};
+
+// the lanes of this warp among `active` whose digit equals this lane's
+static __device__ __forceinline__ unsigned digit_peers(unsigned d, bool active) {
+    unsigned peers = __ballot_sync(0xffffffffu, active);
+#pragma unroll
+    for (int bit = 0; bit < RADIX_BITS; ++bit) {
+        const bool set = (d >> bit) & 1u;
+        const unsigned m = __ballot_sync(0xffffffffu, set);
+        peers &= set ? m : ~m;
+    }
+    return peers;
+}
+
+// floor(v / x) by m = ceil(2^32 / x): exact for v < 2^17, x <= RT_SPAN_MAX
+static __device__ __forceinline__ unsigned div_by(unsigned v, unsigned long long m) {
+    return (unsigned)(((unsigned long long)v * m) >> 32);
+}
+
+// a barrier of the cluster, which is the block itself when cl is 1
+static __device__ __forceinline__ void cluster_sync(int cl) {
+    if (cl == 1) {
+        __syncthreads();
+    } else {
+        cluster_arrive();
+        cluster_wait();
+    }
+}
+
+// The preparation of scenes whose keys outgrow one block's shared memory
+// but fit a cluster's: a thread block cluster of `cl` blocks a ray block,
+// block `rank` holding `span` consecutive positions of the row as (key,
+// cell) pairs. Each block computes the boxes itself and the keys of cells
+// [rank * span, + span), then the cluster sorts the row by an LSD radix
+// sort on the keys' upper 32 bits (the f32 distance, never negative, so its
+// bits order as its values), 8 bits a pass. A pass counts each warp's
+// digits (shared atomics: order does not matter to a count), places the
+// block's keys after the smaller digits of the whole row and after the
+// same digit in earlier blocks, warps, rounds of 32 and lanes (ballots:
+// stable, so ties stay in cell order, the u64 order of the other routes),
+// and stores each pair where its position falls, in this block's shared
+// memory or another's. A byte in which no key of the row differs is the
+// identity and is skipped. After the last pass each block holds its span
+// of the sorted row and writes it once, coalesced.
+__global__ void __launch_bounds__(CL_THREADS, 4) rt_prepare_cluster_kernel(
+    const RayFields rays, const float* __restrict__ cbox, float t_cap,
+    float* __restrict__ boxes, float* __restrict__ tnear, int* __restrict__ slist, int ncells,
+    int cl, int span, int nbx, int height, int width) {
+    __shared__ ClusterShared s;
+    extern __shared__ uint2 s_pair[];  // two buffers of span (key, cell) pairs
+
+    const int b = blockIdx.x / cl, rank = blockIdx.x % cl;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int first = rank * span;
+    const int cnt = max(0, min(span, ncells - first));
+    const unsigned lanes_below = (1u << lane) - 1u;
+    // warp w takes positions [w * per, (w + 1) * per) of its block
+    const int per = (cnt + CL_WARPS - 1) / CL_WARPS;
+    const int lo = min(cnt, warp * per), hi = min(cnt, lo + per);
+    const unsigned long long span_m = (0x100000000ull + span - 1) / span;
+    if (tid == 0) {
+        s.mask[0] = ~0u;
+        s.mask[1] = 0u;
+    }
+    block_boxes<CL_THREADS>(rays, s.part, s.box, rank == 0 ? boxes : nullptr, b, nbx, height,
+                            width);
+
+    unsigned all = ~0u, any = 0u;
+    for (int i = tid; i < cnt; i += CL_THREADS) {
+        const unsigned k = (unsigned)(cell_key(cbox, s.box, first + i, t_cap) >> 32);
+        s_pair[i] = make_uint2(k, first + i);
+        all &= k;
+        any |= k;
+    }
+    all = __reduce_and_sync(0xffffffffu, all);
+    any = __reduce_or_sync(0xffffffffu, any);
+    if (lane == 0) {
+        atomicAnd(&s.mask[0], all);
+        atomicOr(&s.mask[1], any);
+    }
+    for (int i = tid; i < CL_WARPS * RADIX; i += CL_THREADS) (&s.hist[0][0])[i] = 0;
+    cluster_sync(cl);
+    all = ~0u;
+    any = 0u;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {  // the loads of every block in flight at once
+        if (r < cl) {
+            all &= r == rank ? s.mask[0] : cluster_load(&s.mask[0], r);
+            any |= r == rank ? s.mask[1] : cluster_load(&s.mask[1], r);
+        }
+    }
+    const unsigned varies = all ^ any;  // the key bits that differ within the row
+
+    int cur = 0;
+    for (int shift = 0; shift < 32; shift += RADIX_BITS) {
+        if (((varies >> shift) & (RADIX - 1)) == 0) continue;  // the same in every block
+        const uint2* in = s_pair + span * cur;
+        uint2* out = s_pair + span * (cur ^ 1);
+        for (int i = lo + lane; i < hi; i += 32)
+            atomicAdd(&s.hist[warp][(in[i].x >> shift) & (RADIX - 1)], 1u);
+        __syncthreads();
+        if (tid < RADIX) {
+            unsigned run = 0;
+#pragma unroll
+            for (int w = 0; w < CL_WARPS; ++w) {
+                const unsigned c = s.hist[w][tid];
+                s.hist[w][tid] = run;
+                run += c;
+            }
+            s.tot[tid] = run;
+        }
+        cluster_sync(cl);  // every block's digit counts
+        unsigned excl = 0;
+        if (tid < RADIX) {
+            // digit tid's first position: the row's keys of smaller digits,
+            // then this digit's keys in the blocks before this one
+            unsigned n_digit = 0, before = 0;
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+                if (r < cl) {
+                    const unsigned v = r == rank ? s.tot[tid] : cluster_load(&s.tot[tid], r);
+                    n_digit += v;
+                    before += r < rank ? v : 0u;
+                }
+            }
+            unsigned x = n_digit;
+            for (int off = 1; off < 32; off <<= 1) {
+                const unsigned y = __shfl_up_sync(0xffffffffu, x, off);
+                if (lane >= off) x += y;
+            }
+            if (lane == 31) s.wsum[warp] = x;
+            excl = x - n_digit + before;
+        }
+        __syncthreads();
+        if (tid < RADIX) {
+#pragma unroll
+            for (int w = 0; w < RADIX / 32; ++w) excl += w < warp ? s.wsum[w] : 0u;
+            s.base[tid] = excl;
+        }
+        __syncthreads();
+        for (int i0 = lo; i0 < hi; i0 += 32) {
+            const int i = i0 + lane;
+            const bool act = i < hi;
+            const uint2 kv = act ? in[i] : make_uint2(0u, 0u);
+            const unsigned d = (kv.x >> shift) & (RADIX - 1);
+            const unsigned peers = digit_peers(d, act);
+            const unsigned ahead = __popc(peers & lanes_below);
+            const unsigned pos = act ? s.base[d] + s.hist[warp][d] + ahead : 0u;
+            __syncwarp();
+            if (act && ahead == 0) s.hist[warp][d] += __popc(peers);
+            if (act) {
+                const unsigned dst = div_by(pos, span_m), off = pos - dst * (unsigned)span;
+                if ((int)dst == rank) out[off] = kv;
+                else cluster_store(out + off, dst, kv);
+            }
+            __syncwarp();  // the next round reads this round's counts
+        }
+        // this warp's counts start at 0 for the next pass (no other warp
+        // reads them after the barrier before the scatter)
+        for (int d = lane; d < RADIX; d += 32) s.hist[warp][d] = 0;
+        cluster_sync(cl);  // every pair of the pass has landed
+        cur ^= 1;
+    }
+    // no block leaves while another may still read its shared memory
+    if (cl > 1) cluster_arrive();
+    const uint2* fin = s_pair + span * cur;
+    const size_t row = (size_t)b * ncells + first;
+    for (int i = tid; i < cnt; i += CL_THREADS) {
+        const uint2 kv = fin[i];
+        tnear[row + i] = __uint_as_float(kv.x);
+        slist[row + i] = (int)kv.y;
+    }
+    if (cl > 1) cluster_wait();
+}
+
+// the cluster route's block span and dynamic shared memory for `ncells`
+// cells in clusters of `cl` blocks; false where the route cannot take them
+static bool cluster_shape(int ncells, int cl, int* span, size_t* smem) {
+    if (ncells < 1 || !(cl == 1 || cl == 2 || cl == 4 || cl == 8)) return false;
+    *span = (ncells + cl - 1) / cl;
+    *smem = 2 * sizeof(uint2) * (size_t)*span;
+    if (*span > RT_SPAN_MAX) return false;
+    return cudaFuncSetAttribute(rt_prepare_cluster_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)*smem) == cudaSuccess;
+}
+
+// clusters of `cl` blocks the card holds at once
+static int cluster_capacity(int nblocks, int cl, size_t smem, int* clusters) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nblocks * cl);
+    cfg.blockDim = dim3(CL_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cl;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return (int)cudaOccupancyMaxActiveClusters(clusters, rt_prepare_cluster_kernel, &cfg);
+}
+
+extern "C" int rx_rt_prepare_cluster(const float* ox, const float* oy, const float* oz,
+                                     const float* dx, const float* dy, const float* dz,
+                                     const float* cbox, float t_cap, float* boxes, float* tnear,
+                                     int* slist, int ncells, int cl, int nby, int nbx, int height,
+                                     int width, void* stream) {
+    int span;
+    size_t smem;
+    if (!cluster_shape(ncells, cl, &span, &smem)) return (int)cudaErrorInvalidValue;
+    int clusters = 0;
+    const int err = cluster_capacity(nby * nbx, cl, smem, &clusters);
+    if (err != 0) return err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    RayFields rays;
+    rays.f[0] = ox;
+    rays.f[1] = oy;
+    rays.f[2] = oz;
+    rays.f[3] = dx;
+    rays.f[4] = dy;
+    rays.f[5] = dz;
+    return launch_clustered(rt_prepare_cluster_kernel, dim3(nby * nbx * cl), CL_THREADS, smem,
+                            static_cast<cudaStream_t>(stream), dim3(cl, 1, 1), rays, cbox,
+                            t_cap, boxes, tnear, slist, ncells, cl, span, nbx, height, width);
+}
+
+// registers, static and dynamic shared memory, blocks an SM holds at once
+// and clusters the card holds at once, for `ncells` cells in clusters of cl
+extern "C" int rx_rt_cluster_resources(int ncells, int cl, int* out) {
+    int span;
+    size_t smem;
+    if (!cluster_shape(ncells, cl, &span, &smem)) return (int)cudaErrorInvalidValue;
+    const int err = kernel_resources(rt_prepare_cluster_kernel, CL_THREADS, smem, out);
+    if (err != 0) return err;
+    return cluster_capacity(1, cl, smem, out + 4);
 }
 
 // ------------------------------------------------------------------ walk

@@ -10,14 +10,17 @@ box, a lower bound on any of its rays' t into the cell, with cells beyond
 the range cap or behind every ray's direction culled to the tail. Its
 scene side (the triangle table, the cell boxes, the scene box) is plain
 torch; its ray side (the blocks' origin and direction boxes, the keys and
-their stable sort) is `rt_prepare_kernel` on CUDA tensors and plain torch
-(`rt_prepare`, the plain version) on the CPU; a scene of more than
-PREPARE_MAX_CELLS cells takes `rt_prepare_large_kernel`, whose keys sort
-in global memory. The kernel walks a block's
-shortlist while the next entry's bound is below the block's bound (the max
-over its live rays of min(best t, per-ray scene-exit cap)), slab-tests the
-cell box and, when any ray enters, runs Möller-Trumbore on the cell's
-triangles.
+their stable sort) is one kernel launch on CUDA tensors and plain torch
+(`rt_prepare`, the plain version) on the CPU. On CUDA tensors the size of
+the scene picks one of three routes (`prepare_route`): up to
+PREPARE_MAX_CELLS cells `rt_prepare_kernel` (a rank sort in a block's
+shared memory), up to CLUSTER_MAX_CELLS `rt_prepare_cluster_kernel` (a
+radix sort in a thread block cluster's shared memory), above it
+`rt_prepare_large_kernel` (a bitonic sort in a global scratch). The kernel
+walks a block's shortlist while the next entry's bound is below the
+block's bound (the max over its live rays of min(best t, per-ray
+scene-exit cap)), slab-tests the cell box and, when any ray enters, runs
+Möller-Trumbore on the cell's triangles.
 
 `intersect_rays_pallas` launches the CUDA kernels (csrc/rt_kernel.cu) for
 CUDA tensors and the plain version for CPU tensors;
@@ -39,20 +42,56 @@ RT_BW = 128
 _PARKED = 1e7
 _BIG = 3e37
 
-#: cells whose keys rt_prepare_kernel holds in a block's shared memory
-#: (RT_MAX_CELLS in csrc/rt_kernel.cu: 8 bytes a cell, 224 KB); a scene with
-#: more cells takes rt_prepare_large_kernel on CUDA tensors
-PREPARE_MAX_CELLS = 28672
+#: cells up to which rt_prepare_kernel takes a scene on CUDA tensors: its
+#: rank sort is O(cells^2) a block, and above ~400 cells the cluster route
+#: is faster (the sweep of chip_smoke.py, PERF.md); the kernel itself holds
+#: up to RT_MAX_CELLS (28,672) keys of 8 bytes in a block's shared memory
+PREPARE_MAX_CELLS = 384
+#: cells a block of rt_prepare_cluster_kernel should hold: the route takes
+#: the smallest cluster (1, 2, 4 or 8 blocks) whose blocks hold at most this
+#: many cells, and 8 blocks of up to CLUSTER_SPAN_MAX above 8 of these
+CLUSTER_SPAN = 4096
+#: cells a block of rt_prepare_cluster_kernel holds at most (RT_SPAN_MAX in
+#: csrc/rt_kernel.cu: 16 bytes a cell)
+CLUSTER_SPAN_MAX = 13312
+#: the static shared memory of a block of rt_prepare_cluster_kernel (its
+#: ClusterShared)
+CLUSTER_SMEM_STATIC = 19296
+#: cells up to which rt_prepare_cluster_kernel takes a scene; a larger one
+#: takes rt_prepare_large_kernel, whose keys sort in a global scratch
+CLUSTER_MAX_CELLS = 8 * CLUSTER_SPAN_MAX
 
 #: launches of the walk kernel (one per intersect_rays_pallas call on CUDA
 #: tensors)
 launches = 0
-#: launches of the preparation kernel (one per intersect_rays_pallas call on
-#: CUDA tensors of a scene of at most PREPARE_MAX_CELLS cells)
+#: launches of each preparation route's kernel (one per intersect_rays_pallas
+#: call on CUDA tensors): rt_prepare_kernel, rt_prepare_cluster_kernel and
+#: rt_prepare_large_kernel
 prepare_launches = 0
-#: launches of the large preparation kernel (one per intersect_rays_pallas
-#: call on CUDA tensors of a larger scene)
+prepare_cluster_launches = 0
 prepare_large_launches = 0
+
+
+def prepare_route(ncells: int, nblocks: int = 1) -> dict:
+    """The preparation route that a scene of `ncells` cells takes on CUDA
+    tensors, for `nblocks` ray blocks, by the module's limits as they stand:
+    "route" ("rank", "cluster" or "global"), "cluster" (blocks a ray block),
+    "span" (cells a block holds), "smem" (shared memory a block asks for,
+    static and dynamic, in bytes) and "scratch" (bytes of global scratch the
+    wrapper allocates)."""
+    if ncells <= PREPARE_MAX_CELLS:
+        return {"route": "rank", "cluster": 1, "span": ncells, "smem": 8 * ncells + 432,
+                "scratch": 0}
+    if ncells <= min(CLUSTER_MAX_CELLS, 8 * CLUSTER_SPAN_MAX):
+        cl = 1
+        while cl < 8 and -(-ncells // cl) > CLUSTER_SPAN:
+            cl *= 2
+        span = -(-ncells // cl)
+        return {"route": "cluster", "cluster": cl, "span": span,
+                "smem": 16 * span + CLUSTER_SMEM_STATIC, "scratch": 0}
+    n2 = 1 << (ncells - 1).bit_length()
+    return {"route": "global", "cluster": 1, "span": n2, "smem": 8 * 4096 + 432,
+            "scratch": 8 * n2 * nblocks}
 
 
 def _cell_boxes(pos, valid, ncells: int, cell: int):
@@ -196,47 +235,66 @@ def rt_prepare(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, width: in
 def rt_prepare_cuda(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height: int, width: int) -> dict:
     """rt_prepare for CUDA tensors: the scene tables in torch, the blocks'
     boxes, keys and stable sort in one kernel launch (csrc/rt_kernel.cu),
-    which reads the six ray fields as they are. A scene of at most
-    PREPARE_MAX_CELLS cells takes rt_prepare_kernel, which holds a block's
-    keys in shared memory; a larger one takes rt_prepare_large_kernel, which
-    sorts them in a global scratch of one power-of-two row a ray block. ->
-    tab, cbox, tcap, boxes, tnear, slist as rt_prepare gives them (equal,
-    bit for bit), and the sizes; no padded copy of the rays."""
-    global prepare_launches, prepare_large_launches
-    from .. import _cuda
-
+    which reads the six ray fields as they are. -> tab, cbox, tcap, boxes,
+    tnear, slist as rt_prepare gives them (equal, bit for bit), and the
+    sizes; no padded copy of the rays."""
     sizes = _sizes(pos.shape[0], height, width)
-    ncells, nby, nbx = sizes["ncells"], sizes["nby"], sizes["nbx"]
-    dev = ox.device
-    scene = scene_tables(pos, valid, t_cap, ncells, sizes["cell"])
-    fields = _ray_fields(ox, oy, oz, dx, dy, dz)
-    boxes = torch.empty((nby * nbx, 12), dtype=torch.float32, device=dev)
-    tnear = torch.empty((nby * nbx, ncells), dtype=torch.float32, device=dev)
-    slist = torch.empty((nby * nbx, ncells), dtype=torch.int32, device=dev)
-    ptr = ctypes.c_void_p
-    large = ncells > PREPARE_MAX_CELLS
-    head = (*(ptr(f.data_ptr()) for f in fields), ptr(scene["cbox"].data_ptr()),
-            ctypes.c_float(float(t_cap)), ptr(boxes.data_ptr()), ptr(tnear.data_ptr()),
-            ptr(slist.data_ptr()))
-    stream = ptr(torch.cuda.current_stream(dev).cuda_stream)
-    if large:
-        n2 = 1 << (ncells - 1).bit_length()
-        keys = torch.empty((nby * nbx, n2), dtype=torch.int64, device=dev)
-        err = _cuda.library().rx_rt_prepare_large(
-            *head, ptr(keys.data_ptr()), ncells, n2, nby, nbx, height, width, stream)
-    else:
-        err = _cuda.library().rx_rt_prepare(*head, ncells, nby, nbx, height, width, stream)
-    if err != 0:
-        raise RuntimeError(f"ray-intersect preparation kernel launch failed: CUDA error {err} "
-                           f"({_cuda.error_string(err)})")
-    if large:
-        prepare_large_launches += 1
-    else:
-        prepare_launches += 1
+    scene = scene_tables(pos, valid, t_cap, sizes["ncells"], sizes["cell"])
+    boxes, tnear, slist = prepare_launch(scene, _ray_fields(ox, oy, oz, dx, dy, dz), t_cap,
+                                         sizes)()
     return {
         "tab": scene["tab"], "cbox": scene["cbox"], "tcap": scene["tcap"],
         "boxes": boxes, "tnear": tnear, "slist": slist, **sizes,
     }
+
+
+def prepare_launch(scene: dict, fields: tuple, t_cap, sizes: dict):
+    """The ray side of rt_prepare_cuda on prepared inputs (scene_tables'
+    output, the six contiguous ray fields, the sizes) -> a function of no
+    arguments that launches the preparation kernel of `prepare_route`'s
+    route and returns (boxes, tnear, slist), the same three tensors at every
+    call: rt_prepare_kernel, rt_prepare_cluster_kernel (no scratch: the row
+    stays in a cluster's shared memory) or rt_prepare_large_kernel (a global
+    scratch of one power-of-two row a ray block, allocated here). Timing the
+    returned function times the kernel alone."""
+    from .. import _cuda
+
+    ncells, nby, nbx = sizes["ncells"], sizes["nby"], sizes["nbx"]
+    height, width = sizes["height"], sizes["width"]
+    dev = fields[0].device
+    boxes = torch.empty((nby * nbx, 12), dtype=torch.float32, device=dev)
+    tnear = torch.empty((nby * nbx, ncells), dtype=torch.float32, device=dev)
+    slist = torch.empty((nby * nbx, ncells), dtype=torch.int32, device=dev)
+    route = prepare_route(ncells, nby * nbx)
+    ptr = ctypes.c_void_p
+    lib = _cuda.library()
+    head = (*(ptr(f.data_ptr()) for f in fields), ptr(scene["cbox"].data_ptr()),
+            ctypes.c_float(float(t_cap)), ptr(boxes.data_ptr()), ptr(tnear.data_ptr()),
+            ptr(slist.data_ptr()))
+    keys = None
+    if route["route"] == "rank":
+        fn, args = lib.rx_rt_prepare, (*head, ncells)
+    elif route["route"] == "cluster":
+        fn, args = lib.rx_rt_prepare_cluster, (*head, ncells, route["cluster"])
+    else:
+        keys = torch.empty((nby * nbx, route["span"]), dtype=torch.int64, device=dev)
+        fn, args = lib.rx_rt_prepare_large, (*head, ptr(keys.data_ptr()), ncells, route["span"])
+    def launch():
+        global prepare_launches, prepare_cluster_launches, prepare_large_launches
+        err = fn(*args, nby, nbx, height, width, ptr(torch.cuda.current_stream(dev).cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"ray-intersect preparation kernel ({route['route']} route) "
+                               f"launch failed: CUDA error {err} ({_cuda.error_string(err)})")
+        if route["route"] == "rank":
+            prepare_launches += 1
+        elif route["route"] == "cluster":
+            prepare_cluster_launches += 1
+        else:
+            prepare_large_launches += 1
+        return boxes, tnear, slist
+
+    launch.keep = (scene["cbox"], fields, keys)  # alive while the closure is
+    return launch
 
 
 def _ray_fields(ox, oy, oz, dx, dy, dz) -> tuple:
@@ -267,8 +325,7 @@ def intersect_rays_pallas(pos, valid, ox, oy, oz, dx, dy, dz, t_cap,
     idx (H, W) i32 slot, -1 on a miss).
 
     CUDA tensors launch the kernels of csrc/rt_kernel.cu, the preparation
-    (rt_prepare_large_kernel for scenes of more than PREPARE_MAX_CELLS
-    cells) and then the walk. CPU tensors run
+    (by `prepare_route`) and then the walk. CPU tensors run
     intersect_rays_pallas_reference."""
     _check_inputs(pos, valid, (ox, oy, oz, dx, dy, dz), height, width)
     if ox.device.type != "cuda":

@@ -12,8 +12,8 @@ frames, B1's has_material and has_matmap variants, the shader bakes on the
 card against the CPU's, B2 on the split path's Morton order (runtime
 shaders), the split-path frames (T, U, W) and the dynamic-batch frame (V)
 against the CPU frames, the port's map, cube and shaded-cube
-examples, B3's large preparation route (scenes above PREPARE_MAX_CELLS
-cells) against rt_prepare and in path B's frame, the minigame frame and
+examples, B3's preparation routes above the rank sort (the cluster route
+and the global route) against rt_prepare and in path B's frame, the minigame frame and
 the path tracer's buffer against the CPU's.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
@@ -283,6 +283,10 @@ def test_visibility_kernel_matches_plain_version(cuda, width, height):
     assert int(hit.sum()) > width * height // 20
 
 
+#: the most cells rt_prepare_kernel takes (RT_MAX_CELLS in csrc/rt_kernel.cu)
+RANK_MAX_CELLS = 28672
+
+
 def _random_rays(seed, tcount, height, width, parked=0.0):
     """Random triangles (T, 3, 4) and unit rays (o, d each (3, H, W)), a
     `parked` share of them parked at 1e8 with direction (0, -1, 0)."""
@@ -327,9 +331,11 @@ def test_ray_intersect_kernel_matches_plain_version(cuda, tcount, height, width,
     (2048, 67, 300, 0.5),   # 32 cells, ragged blocks, half the rays parked
     (40000, 19, 150, 0.2),  # 625 cells: the rank sort past one warp of keys
 ])
-def test_preparation_kernel_matches_rt_prepare(cuda, tcount, height, width, parked):
+def test_preparation_kernel_matches_rt_prepare(cuda, monkeypatch, tcount, height, width, parked):
     """The blocks' boxes, the keys and their stable sort, bit for bit, with
-    NaN values among the rays (skipped by the boxes)."""
+    NaN values among the rays (skipped by the boxes); rt_prepare_kernel at
+    every size here, whatever the routing limit."""
+    monkeypatch.setattr(rt_kernel, "PREPARE_MAX_CELLS", RANK_MAX_CELLS)
     pos, valid, o, d = _random_rays(13, tcount, height, width, parked)
     o[1, 3, 7] = np.nan
     d[2, height - 1, width - 1] = np.nan
@@ -347,10 +353,11 @@ def test_preparation_kernel_matches_rt_prepare(cuda, tcount, height, width, park
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ncells", [2048, 6200])
-def test_large_scene_prepares_through_the_kernel(cuda, ncells):
+def test_large_scene_prepares_through_the_kernel(cuda, monkeypatch, ncells):
     """Scenes of thousands of cells (16 KB of keys, and 48 KB and more, which
-    a block has to opt in to): still the preparation kernel, the same
-    shortlist and the same hits."""
+    a block has to opt in to) through rt_prepare_kernel, with the routing
+    limit at the kernel's own: the same shortlist and the same hits."""
+    monkeypatch.setattr(rt_kernel, "PREPARE_MAX_CELLS", RANK_MAX_CELLS)
     tcount, height, width = 64 * ncells, 8, 128
     pos, valid, o, d = _random_rays(17, tcount, height, width)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
@@ -983,52 +990,119 @@ def test_cuda_split_and_dynamic_frames_match_cpu_frames(cuda, path):
     assert (frames[0][..., 3] > 0).sum() > 256 * 128 // 10
 
 
+def _spread_rays(seed, ncells, height, width, parked=0.0):
+    """Compact cells (64 triangles within 0.6 of a random centre in
+    [-10, 10]^3) and rays whose origins follow the pixel (a plane across
+    [-8, 8]^2, z within 0.05), so that a ray block's keys spread over many
+    distinct gaps; a `parked` share of the rays parked at 1e8."""
+    rng = np.random.default_rng(seed)
+    tcount = 64 * ncells
+    centre = np.repeat(rng.uniform(-10, 10, (ncells, 3)), 64, axis=0)
+    a = centre + rng.uniform(-0.3, 0.3, (tcount, 3))
+    pos = np.stack([a, a + rng.uniform(-0.3, 0.3, (tcount, 3)),
+                    a + rng.uniform(-0.3, 0.3, (tcount, 3))], axis=1)
+    pos = np.concatenate([pos, np.ones((tcount, 3, 1))], axis=2).astype(np.float32)
+    valid = (rng.uniform(size=tcount) > 0.2).astype(np.float32)
+    ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    o = np.stack([xs / width * 16.0 - 8.0, ys / height * 16.0 - 8.0,
+                  rng.uniform(-0.05, 0.05, (height, width))]).astype(np.float32)
+    d = rng.normal(size=(3, height, width)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    dead = rng.uniform(size=(height, width)) < parked
+    o[:, dead] = 1e8
+    d[:, dead] = np.array([0.0, -1.0, 0.0], np.float32)[:, None]
+    return pos, valid, o, d
+
+
+# (keys, cells, ray rows, ray columns, limits lowered) -> the route the
+# limits give; "ties": random rays over random cells (every live key at gap
+# 0, 100 dead cells at _BIG), "spread": _spread_rays, "dead": no live slot,
+# "parked": every ray parked
+PREPARATION_ROUTE_CASES = [
+    ("ties", 28700, 16, 128, {}),              # just above the rank route's old limit
+    ("spread", 28700, 16, 128, {}),
+    ("spread", 100003, 8, 128, {}),            # an odd size in the largest cluster
+    ("spread", 700, 19, 150, {"PREPARE_MAX_CELLS": 4}),                       # 1 block
+    ("spread", 5000, 24, 300, {"PREPARE_MAX_CELLS": 4}),                      # 2 blocks
+    ("spread", 700, 8, 128, {"PREPARE_MAX_CELLS": 4, "CLUSTER_SPAN": 100}),   # 8 small
+    ("dead", 6200, 8, 128, {"PREPARE_MAX_CELLS": 4}),
+    ("parked", 6200, 8, 128, {"PREPARE_MAX_CELLS": 4}),
+    ("spread", 9000, 16, 128, {"PREPARE_MAX_CELLS": 4, "CLUSTER_MAX_CELLS": 4}),  # global
+    ("ties", 3000, 8, 128, {"PREPARE_MAX_CELLS": 4, "CLUSTER_MAX_CELLS": 4}),
+]
+
+
 @pytest.mark.cuda
-def test_large_preparation_route_matches_rt_prepare(cuda):
-    """A scene just above PREPARE_MAX_CELLS (28,700 cells, 1,836,800 slots)
-    with 16x128 rays (2 ray blocks): rt_prepare_large_kernel's boxes,
-    tnear and slist bit for bit against rt_prepare on the card, and B3's
-    walk over its shortlist equal to the walk over rt_prepare's."""
-    ncells = 28700
-    assert ncells > rt_kernel.PREPARE_MAX_CELLS
-    tcount, height, width = 64 * ncells, 16, 128
-    pos, valid, o, d = _random_rays(19, tcount, height, width, 0.1)
+@pytest.mark.parametrize("keys,ncells,height,width,limits", PREPARATION_ROUTE_CASES)
+def test_large_preparation_route_matches_rt_prepare(cuda, monkeypatch, keys, ncells, height,
+                                                    width, limits):
+    """The preparation routes above the rank sort, each as `prepare_route`
+    picks it from the limits: rt_prepare_cluster_kernel (a thread block
+    cluster of 1 to 8 blocks) and rt_prepare_large_kernel (the global
+    route). Boxes, tnear and slist bit for bit against rt_prepare on the
+    card, the route's own counter up by one, and B3's walk over its
+    shortlist equal to the walk over rt_prepare's."""
+    for name, value in limits.items():
+        monkeypatch.setattr(rt_kernel, name, value)
+    route = rt_kernel.prepare_route(ncells)
+    assert route["route"] == ("global" if "CLUSTER_MAX_CELLS" in limits else "cluster")
+    if keys in ("ties", "dead"):
+        pos, valid, o, d = _random_rays(19, 64 * ncells, height, width, 0.1)
+    else:
+        pos, valid, o, d = _spread_rays(19, ncells, height, width,
+                                        1.0 if keys == "parked" else 0.1)
     valid[-64 * 100:] = 0.0  # 100 dead cells: keys at _BIG among the live ones
+    if keys == "dead":
+        valid[:] = 0.0
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
             for a in (pos, valid, *o, *d)]
-    before = (rt_kernel.prepare_launches, rt_kernel.prepare_large_launches)
+    counters = ("prepare_launches", "prepare_cluster_launches", "prepare_large_launches")
+    before = [getattr(rt_kernel, c) for c in counters]
     prep = rt_kernel.rt_prepare_cuda(*args, 25.0, height, width)
     ref = rt_kernel.rt_prepare(*args, 25.0, height, width)
     torch.cuda.synchronize()
-    assert (rt_kernel.prepare_launches, rt_kernel.prepare_large_launches) == (
-        before[0], before[1] + 1)
-    assert prep["ncells"] == ncells and prep["tnear"].shape == (2, ncells)
+    after = [getattr(rt_kernel, c) for c in counters]
+    k = 1 if route["route"] == "cluster" else 2
+    assert [a - b for a, b in zip(after, before)] == [int(i == k) for i in range(3)]
+    nb = -(-height // 8) * -(-width // 128)
+    assert prep["ncells"] == ncells and prep["tnear"].shape == (nb, ncells)
     for key in ("boxes", "tnear", "slist", "tab", "cbox", "tcap"):
         assert torch.equal(prep[key], ref[key]), key
-    assert bool((prep["tnear"] < 3e37).any()) and bool((prep["tnear"] >= 3e37).any())
+    tn = prep["tnear"]
+    if keys in ("dead", "parked"):
+        assert bool((tn >= 3e37).all())
+    else:
+        assert bool((tn < 3e37).any()) and bool((tn >= 3e37).any())
+    if keys == "spread":  # the radix passes have distinct keys to order
+        assert int(torch.unique(tn[0]).numel()) > ncells // 10
     fields = rt_kernel._ray_fields(*args[2:])
     t, idx = rt_kernel._launch(prep, fields)
     t_r, idx_r = rt_kernel._launch(ref, fields)
     torch.cuda.synchronize()
     assert torch.equal(idx, idx_r) and torch.equal(t, t_r)
-    assert int((idx >= 0).sum()) > 0
+    if keys not in ("dead", "parked"):
+        assert int((idx >= 0).sum()) > 0
 
 
 @pytest.mark.cuda
 def test_reflection_frame_through_the_large_preparation_route(cuda, monkeypatch):
-    """Path B's map at 256x128 with PREPARE_MAX_CELLS lowered below its
-    cell count: every preparation takes rt_prepare_large_kernel, and the
-    frame is byte-equal to the frame through the shared-memory route."""
+    """Path B's map at 256x128 through each preparation route in turn: the
+    routing limits as they stand (the rank sort), PREPARE_MAX_CELLS lowered
+    below its cell count (rt_prepare_cluster_kernel) and CLUSTER_MAX_CELLS
+    lowered too (rt_prepare_large_kernel). Every frame byte-equal to the
+    first."""
     frames = []
-    for limit in (rt_kernel.PREPARE_MAX_CELLS, 4):
-        monkeypatch.setattr(rt_kernel, "PREPARE_MAX_CELLS", limit)
+    counters = ("prepare_launches", "prepare_cluster_launches", "prepare_large_launches")
+    for k, limits in enumerate(({}, {"PREPARE_MAX_CELLS": 4},
+                                {"PREPARE_MAX_CELLS": 4, "CLUSTER_MAX_CELLS": 4})):
+        for name, value in limits.items():
+            monkeypatch.setattr(rt_kernel, name, value)
         rast, scene, assets = build_map_refl_scene(256, 128, device=cuda)
-        before = (rt_kernel.prepare_launches, rt_kernel.prepare_large_launches)
+        before = [getattr(rt_kernel, c) for c in counters]
         frames.append(rast.rasterize(scene, 256, 128, 40, assets))
-        after = (rt_kernel.prepare_launches, rt_kernel.prepare_large_launches)
-        large = limit == 4
-        assert (after[1] > before[1]) == large and (after[0] > before[0]) == (not large)
-    assert np.array_equal(frames[0], frames[1])
+        ran = [getattr(rt_kernel, c) > b for c, b in zip(counters, before)]
+        assert ran == [i == k for i in range(3)]
+    assert np.array_equal(frames[0], frames[1]) and np.array_equal(frames[0], frames[2])
     assert (frames[0][..., 3] > 0).sum() > 256 * 128 // 10
 
 

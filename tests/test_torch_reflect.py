@@ -383,20 +383,25 @@ def test_rt_prepare_block_boxes_skip_dead_rays_and_nans():
 
 
 def test_preparation_kernel_refuses_scenes_past_its_shared_memory():
-    """A scene with more cells than a block's shared memory holds (8 bytes
-    a key) is no longer refused: on CUDA tensors it takes the large route,
-    rt_prepare_large_kernel (held to rt_prepare bit for bit on the card,
-    tests/test_torch_cuda.py). On the CPU rt_prepare is the route, whatever
-    the size, and no kernel of either route is counted."""
-    assert trt.PREPARE_MAX_CELLS * 8 == 224 * 1024
+    """The rank sort (rt_prepare_kernel) takes scenes up to
+    PREPARE_MAX_CELLS cells, well inside what a block's shared memory holds
+    (8 bytes a key, 224 KB); a scene with more cells is not refused: on
+    CUDA tensors it takes the cluster route, rt_prepare_cluster_kernel (held
+    to rt_prepare bit for bit on the card, tests/test_torch_cuda.py). On the
+    CPU rt_prepare is the route, whatever the size, and no kernel of any
+    route is counted."""
+    assert trt.PREPARE_MAX_CELLS == 384 and trt.PREPARE_MAX_CELLS * 8 <= 224 * 1024
+    assert trt.prepare_route(trt.PREPARE_MAX_CELLS + 1)["route"] == "cluster"
     tcount = 64 * (trt.PREPARE_MAX_CELLS + 1)
     pos = torch.zeros((1, 3, 4)).expand(tcount, 3, 4)
     rays = [torch.zeros((8, 128)) for _ in range(6)]
-    before = (trt.launches, trt.prepare_launches, trt.prepare_large_launches)
+    counters = ("launches", "prepare_launches", "prepare_cluster_launches",
+                "prepare_large_launches")
+    before = [getattr(trt, c) for c in counters]
     prep = trt.rt_prepare(pos, torch.zeros(tcount), *rays, 10.0, 8, 128)
     assert prep["ncells"] == trt.PREPARE_MAX_CELLS + 1
     assert prep["tnear"].shape == (1, trt.PREPARE_MAX_CELLS + 1)
     t, idx = trt.intersect_rays_pallas(pos, torch.zeros(tcount), *rays, 10.0, 8, 128)
     # CPU tensors: the plain version
-    assert (trt.launches, trt.prepare_launches, trt.prepare_large_launches) == before
+    assert [getattr(trt, c) for c in counters] == before
     assert t.shape == (8, 128) and int((idx >= 0).sum()) == 0
