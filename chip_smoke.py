@@ -64,10 +64,23 @@ byte-equal to 4 trace() calls, and draw_scene's 2D view; Bl and Blg,
 path B with B3's preparation sent through its cluster route
 (rt_prepare_cluster_kernel, the route of scenes above
 rt_kernel.PREPARE_MAX_CELLS) and its global route (rt_prepare_large_kernel,
-above rt_kernel.CLUSTER_MAX_CELLS), byte-equal to path B's frame; C12,
+above rt_kernel.CLUSTER_MAX_CELLS), byte-equal to path B's frame; HG,
+the huge scene of tools/bench_huge.py (scenes.build_huge_scene: 10,600
+boxes, 131,072 slots) opaque at 1920x1080 (B1), and HGR, HG with GGX
+reflections (B1's GGX variant, B2, B3's walk and its cluster preparation
+over 2,048 cells), their B1, B2 and walk held to the plain versions on a
+band of rows and their small frames taken on the scene cut to 300 boxes;
+C12,
 both routes alone on 1080p rays over 28,700 cells (keys that all tie, and
 keys that spread) against rt_prepare and torch.sort, with their bound; and
 the sweep, every preparation route at 32 to 28,672 cells beside torch.sort.
+Every unsharded frame sends its per-frame leaves to the card in one copy
+(ops/arena.py): phase 4h counts the host-to-device copies of a steady
+frame of every path where PyTorch dispatches them (HostCopies; A's also by
+the profiler's Memcpy HtoD records), one on A, B, G, K, X's draw_d3, HG
+and HGR or the run fails, the others printed; checks
+that each went through the arena, and prints profiling.frame_breakdown of
+A (and of HG in its phase).
 The sharded frames are held to the single frames: equal but for the
 pinned pixels of the tie class (tie_pixels: two candidates
 tie on 1/z bit for bit and a slab's scan order keeps another). For
@@ -96,6 +109,7 @@ jax.
 
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -103,6 +117,8 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 W, H = 1920, 1080
 SMALL_W, SMALL_H = 256, 128
@@ -162,6 +178,37 @@ MID_SLAB = N_SLABS // 2
 # them must be of the tie class (tie_pixels)
 SHARDED_PINNED = {"R": 0, "R7": 55, "S": 0, "I8": 3100, "M8": 0, "T8": 0}
 # the frame size of a path where it is not 1920x1080 (M, O, P, W: the bench's cubes)
+# the later paths at 1920x1080 (but SIZES): label, scenes.py builder
+LATER = {
+    "C": ("AO map", "build_map_ao_scene"),
+    "D": ("sky-light floor scene with AO", "build_sky_light_scene"),
+    "E": ("GGX reflection map, reflections at half scale", "build_map_refl_half_scene"),
+    "F": ("SSAA2 map, 3840x2160 inside", "build_map_ssaa2_scene"),
+    "G": ("shadowed map", "build_map_shadow_scene"),
+    "H": ("shadowed GGX reflection map", "build_map_shadow_refl_scene"),
+    "I": ("glazed map under the sky, two layers, scenevm tonemap", "build_map_glass_scene"),
+    "J": ("glazed map under the sky with GGX reflections", "build_map_glass_refl_scene"),
+    "K": ("map with vertex-blended floors", "build_map_blend_scene"),
+    "L": ("blended map with GGX reflections", "build_map_blend_refl_scene"),
+    "M": ("the bench's cube with its 2D rectangle, 800x600", "build_cube_scene"),
+    "N": ("2D map view, 3D off", "build_map_2d_scene"),
+    "O": ("the bench's shaded cube (a baked wood shader), 800x600", "build_cube_shaded_scene"),
+    "P": ("the bench's cube under a time-dependent shader, 800x600",
+          "build_cube_timeshader_scene"),
+    "Q": ("the map under per-pixel shader materials with GGX reflections",
+          "build_map_material_scene"),
+    "T": ("the map with floors under a runtime shader (the split path)",
+          "build_map_runtime_shader_scene"),
+    "U": ("T with a sun, GGX, one reflection ray a pixel, shadow maps, AO and sky light",
+          "build_map_runtime_shader_refl_scene"),
+    "V": ("the shadowed map with dynamic billboards, a dynamic 2D rectangle and dynamic "
+          "casters", "build_map_dynamic_scene"),
+    "W": ("the bench's cube with a runtime 2D shader on its rectangle, 800x600",
+          "build_cube_2d_shader_scene"),
+}
+# the paths whose steady frame must make exactly one host-to-device copy
+# (the arena's; X: Client.draw_d3's)
+ONE_COPY = ("A", "B", "G", "K", "X", "HG", "HGR")
 SIZES = {"M": (800, 600), "O": (800, 600), "P": (800, 600), "W": (800, 600)}
 # the split paths (runtime shaders): B2 on the Morton order bit for bit
 SPLIT = ("T", "U", "W")
@@ -302,6 +349,17 @@ def cuda_times(fn, iters: int, warmup: int = 2) -> list:
         events.append((start, end))
     torch.cuda.synchronize()
     return sorted(s.elapsed_time(e) for s, e in events)
+
+
+def timed_once(fn) -> tuple:
+    """fn() once between two CUDA events -> (its result, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def summary(times: list) -> str:
@@ -576,6 +634,205 @@ def opaque_maps(spec):
 
 # X: the minigame loop (bench.py's minigame cell): frames after a warm-up,
 # the size, and the small size whose CUDA frame is held to the CPU frame
+def _counters() -> dict:
+    from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas
+
+    return {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
+            "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches"),
+            "B3prepC": (rt_kernel, "prepare_cluster_launches"),
+            "B3prepL": (rt_kernel, "prepare_large_launches")}
+
+
+def zero_counts():
+    """Every kernel's launch count to 0."""
+    for mod, name in _counters().values():
+        setattr(mod, name, 0)
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count since zero_counts."""
+    return {k: getattr(mod, name) for k, (mod, name) in _counters().items()}
+
+
+def host_copies(fn) -> tuple:
+    """The host-to-device copies one call of `fn` makes, counted where
+    PyTorch dispatches them (HostCopies) -> (count, {op: count})."""
+    counter = HostCopies()
+    with counter:
+        fn()
+    torch.cuda.synchronize()
+    return sum(counter.ops.values()), dict(counter.ops)
+
+
+class HostCopies(TorchDispatchMode):
+    """A `with` block whose `ops` counts, by op, what PyTorch dispatches
+    inside it that moves host data to the card: a copy from a host tensor
+    into a card tensor (the arena's pinned copy among them), a tensor made
+    on the card from host data (torch.tensor(..., device=), dispatched as
+    lift_fresh of its result), and any other op on the card that takes a
+    host tensor of one or more dimensions (a list or array index, copied
+    on the way); a 0-d host tensor elsewhere is a scalar argument."""
+
+    COPIES = ("aten.copy_.default", "aten._to_copy.default", "aten._copy_from.default",
+              "aten._copy_from_and_resize.default")
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        if any(t.is_cuda for t in ins + outs):
+            name = str(func)
+            host = [t for t in ins if not t.is_cuda]
+            if ((name == "aten.lift_fresh.default" and outs[0].is_cuda)
+                    or any(t.dim() > 0 or name in self.COPIES for t in host)):
+                self.ops[name] += 1
+        return out
+
+
+def h2d_copies(fn) -> int:
+    """The host-to-device copies one call of `fn` makes: the profiler's
+    Memcpy HtoD records (pageable and pinned). Raises when the profiler
+    recorded no device activity (the count would not be measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise SystemExit("h2d_copies: the profiler recorded no device activity")
+    return sum("HtoD" in e.name for e in events)
+
+
+def arena_host_ms(rast) -> dict:
+    """The arena's host work a frame on `rast`'s last frame, in host ms
+    (wall_ms: synchronised), and the alternative it was chosen over:
+    "derive", the packs B1 derives from the lights and uniforms built on
+    the host (they join the arena); "pack_upload", pack_arena of the
+    per-frame tree and its pinned copy enqueued; "derive_on_device", the
+    same packs computed by torch ops from the arena's device views of the
+    lights and uniforms instead (derived_on_device), "ops" the device ops
+    that takes."""
+    from rusterix_tpu_torch.ops import arena
+    from rusterix_tpu_torch.ops.megakernel import light_param_rows, mega_param_row, occ_param_rows
+
+    fa = rast.frame_args
+    lights, uni = dict(fa["lights"]), dict(fa["uniforms"])
+
+    def derive():
+        return {"light_params": light_param_rows(lights), "occ_params": occ_param_rows(uni),
+                "mega_params": mega_param_row(uni, fa["width"], fa["height"],
+                                              fa["atlas"]["w"], fa["has_fog"], 0,
+                                              fa["shadow_params"])}
+
+    derived = derive()
+
+    def pack_upload():
+        words, _layout = arena.pack_arena((None, None, None, lights, uni, derived))
+        arena.upload(words, rast.device)
+
+    def on_device():
+        return derived_on_device(fa["lights"].dev, fa["uniforms"].dev, fa, rast.device)
+
+    got = on_device()
+    same = [k for k, v in derived.items() if torch.equal(got[k].cpu(), torch.from_numpy(v))]
+    prof = profile_calls(on_device, 3)
+    return {"derive": wall_ms(derive), "pack_upload": wall_ms(pack_upload),
+            "derive_on_device": wall_ms(on_device),
+            "ops": None if prof is None else prof["ops"], "bit_equal": same}
+
+
+def derived_on_device(lv: dict, uv: dict, fa: dict, dev) -> dict:
+    """megakernel.light_param_rows, occ_param_rows and mega_param_row (at
+    row 0) computed on the device from the lights' and uniforms' device
+    views `lv`, `uv`: the alternative to deriving them on the host that
+    arena_host_ms times."""
+    f32 = torch.float32
+    n = lv["position"].shape[0]
+    t = lv["type"].to(torch.int32)
+    rows = torch.zeros((n, 24), dtype=f32, device=dev)
+    rows[:, 0:3] = lv["position"]
+    rows[:, 3] = (t == 0).to(f32)
+    rows[:, 21] = ((t == 1) | (t == 2)).to(f32)
+    rows[:, 22] = (t == 3).to(f32)
+    rows[:, 23] = (t == 4).to(f32)
+    rows[:, 4] = lv["start"]
+    rows[:, 5] = lv["end"]
+    rows[:, 6] = lv["intensity"] * lv["flicker_factor"]
+    rows[:, 7:10] = lv["color"]
+    rows[:, 10:13] = lv["direction"]
+    rows[:, 13] = torch.cos(lv["cone_angle"].double()).to(f32)
+    rows[:, 14] = lv["width"]
+    rows[:, 15] = lv["height"]
+    rows[:, 16:19] = lv["normal"]
+    rows[:, 19] = lv["from_linedef"]
+    rows[:, 20] = lv["valid"]
+    if "occ_box" in uv:
+        occ = torch.cat([uv["occ_box"], uv["occ_val"][:, None]], dim=1)
+    else:
+        occ = torch.tensor([[1e9, 1e9, -1e9, -1e9, 1.0]], device=dev)
+    p = torch.zeros(80, dtype=f32, device=dev)
+    p[75] = uv["bump_strength"]
+    if fa["shadow_params"] is not None:
+        p[59:75] = torch.from_numpy(np.asarray(fa["shadow_params"], np.float32)[:16]).to(dev)
+    p[0:16] = uv["inv_proj"].reshape(-1)
+    p[16:32] = uv["inv_view"].reshape(-1)
+    p[32:35] = uv["camera_pos"]
+    p[35] = uv["has_ambient"]
+    p[36:39] = uv["ambient"][:3]
+    p[41], p[42] = fa["width"], fa["height"]
+    p[43] = uv["has_sun"]
+    p[44:47] = uv["sun_dir"]
+    p[47] = uv["day_factor"]
+    p[48] = 1.0 if fa["has_fog"] else 0.0
+    p[49:52] = uv["fog_color"][:3]
+    p[52] = uv["fog_end"]
+    p[53] = uv["fog_fade"]
+    p[54] = fa["atlas"]["w"]
+    p[55:58] = uv["sun_color"]
+    p[76] = uv["fog_mode"]
+    p[77] = uv["fog_density"]
+    return {"light_params": rows, "occ_params": occ, "mega_params": p}
+
+
+def check_route(key: str, r: dict):
+    """Print path `key`'s arena_route and hold it to the arena (one upload,
+    no frame leaf by leaf, no refusal) and, on ONE_COPY's paths, to one
+    host-to-device copy."""
+    print(f"path {key} steady frame: {r['copies']} host-to-device copies {r['ops']}, "
+          f"{r['arena_uploads']} arena upload(s), {r['leaf_frames']} frame(s) leaf by leaf, "
+          f"{r['refusals']} arena refusal(s)")
+    if (r["arena_uploads"], r["leaf_frames"], r["refusals"]) != (1, 0, 0):
+        raise SystemExit(f"path {key}'s frame did not go through the arena: {r}")
+    if key in ONE_COPY and r["copies"] != 1:
+        raise SystemExit(f"path {key}'s steady frame made {r['copies']} host-to-device copies, "
+                         f"not 1")
+
+
+def arena_route(fn) -> dict:
+    """A steady call of `fn` -> its host-to-device copies (host_copies: the
+    count and the ops that made them) and how its frame reached the device: arena uploads, frames uploaded leaf by
+    leaf and trees the arena refused (ops/arena.py's counters). `fn` runs
+    once before the counted call: the scene cache holds one scene a
+    process, so a path's frame after another path's packs its scene
+    again."""
+    from rusterix_tpu_torch.ops import arena
+
+    fn()
+    before = (arena.uploads, arena.leaf_frames, arena.refusals)
+    copies, ops = host_copies(fn)
+    after = (arena.uploads, arena.leaf_frames, arena.refusals)
+    up, leaf, refused = (a - b for a, b in zip(after, before))
+    return {"copies": copies, "ops": ops, "arena_uploads": up, "leaf_frames": leaf,
+            "refusals": refused}
+
+
 X_FRAMES = 30
 X_SIZE = (640, 400)
 X_SMALL = (160, 120)
@@ -748,6 +1005,253 @@ def prep_sweep(gpu: str) -> list:
     return points
 
 
+HG_BOXES = 10600
+# B1, B2 and B3's walk are held to their plain versions on a band of rows
+# (at their row offset; the walk on the band's rays), each plain version
+# run once: over 131,072 slots the plain B1 took 6.4 s and the plain B2
+# 17.5 s on 135 rows of an H100, so the whole 1080p frame would take minutes
+HG_BAND = (540, 64)
+# the CUDA frame against the CPU frame at 256x128 takes the scene cut to 300
+# boxes (4,096 slots, 64 cells: HGR's small frame sent through the cluster
+# route by a lowered rank limit): the plain versions over 131,072 slots take
+# minutes on the host's CPU
+HG_SMALL_BOXES = 300
+HG_SMALL_PREPARE_MAX = 32
+HG_FRAMES = 20
+N_PROF_HG = 5
+HG_KEYS = ("HG", "HGR")
+
+
+def huge_paths(gpu: str, phase) -> list:
+    """Paths HG (scenes.build_huge_scene, 10,600 boxes: 131,072 slots,
+    opaque at 1920x1080 with tools/bench_huge.py's sun and ambient: B1) and
+    HGR (HG with the GGX BRDF and one reflection ray a pixel: B1's GGX
+    variant, B2, B3's walk and its cluster preparation route over 2,048
+    cells). For each: the first frame's wall time, the launches and the
+    host-to-device copies of a steady frame, the frame times and profile,
+    the kernels against their plain versions (B1, B2 and the walk on the
+    rows HG_BAND, the preparation on the whole frame), the CUDA frame
+    against the CPU frame at 256x128 on the cut scene, and HG's
+    frame_breakdown. Raises on a failed check -> the kernels line's rows."""
+    from rusterix_tpu_torch import _cuda
+    from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas
+    from rusterix_tpu_torch.ops.raster import frame_inputs
+    from rusterix_tpu_torch.profiling import frame_breakdown
+    from rusterix_tpu_torch.scenes import build_huge_scene, huge_rasterizer
+
+    rows = []
+    y0, band = HG_BAND
+    scene, cam, assets = build_huge_scene(HG_BOXES)
+    small_scene, small_cam, small_assets = build_huge_scene(HG_SMALL_BOXES)
+    for key in HG_KEYS:
+        phase(key)
+        rast = huge_rasterizer(cam, W, H, "cuda")
+        if key == "HGR":
+            rast.set_brdf("ggx").set_reflections(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rast.rasterize(scene, W, H, 40, assets, readback=False)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        zero_counts()
+        frame = rast.rasterize(scene, W, H, 40, assets)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        refl = key == "HGR"
+        want = {"B1": 1, "B2": int(refl), "B3": int(refl), "B3prep": 0,
+                "B3prepC": int(refl), "B3prepL": 0}
+        if counts != want:
+            raise SystemExit(f"path {key} launched {counts}, expected {want}")
+        fa = rast.frame_args
+        slots = int(fa["d3"]["pos"].shape[0])
+        live = int((fa["d3"]["valid"] > 0.5).sum())
+        cells = slots // rt_kernel.RT_CELL
+        covered = int((frame[..., :3] != frame[0, 0, :3]).any(-1).sum())
+        print(f"path {key} (the huge scene, {slots} slots, {live} live triangles, {cells} B3 "
+              f"cells{', GGX reflections' if refl else ''}): frame {frame.shape} {frame.dtype}, "
+              f"launches {counts}, first frame {first_ms:.1f} ms of host wall, px unlike the "
+              f"corner {covered}")
+        if frame.shape != (H, W, 4) or covered < W * H // 20:
+            raise SystemExit(f"path {key}: the huge scene did not render")
+
+        check_route(key, arena_route(lambda: rast.rasterize(scene, W, H, 40, assets)))
+
+        def frame_fn():
+            return rast.rasterize(scene, W, H, 40, assets, readback=False)
+
+        frame_t = cuda_times(frame_fn, HG_FRAMES)
+        print(f"path {key} frame (CUDA events, readback=False): {summary(frame_t)} on {gpu}")
+        names = {"B1": "mega_kernel"}
+        if refl:
+            names.update(B2="visibility_kernel", B3="rt_kernel",
+                         B3prepC="rt_prepare_cluster_kernel")
+        dev = report_profile(f"path {key} frame x{N_PROF_HG}", profile_calls(frame_fn, N_PROF_HG),
+                             median(frame_t), gpu, names)
+
+        # B1 on the band against its plain version
+        fi_b = frame_inputs(**dict(fa, background=fa["background"][y0:y0 + band]), y0=y0,
+                            rows=band)
+        a_, k_ = fi_b["mega_args"], fi_b["mega_kwargs"]
+        rgba_k, z_k = megakernel.mega_render(*a_, **k_)
+        (rgba_p, z_p, work), b1_plain = timed_once(
+            lambda: megakernel.mega_render_reference(*a_, **k_, return_work=True))
+        win = megakernel.mega_render(*a_, **k_, stage_cut=1)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(z_k, z_p):
+            raise SystemExit(f"path {key}: B1 z_eff differs from the plain version on rows "
+                             f"{y0}-{y0 + band} at {int((z_k != z_p).sum())} px")
+        b1_err = int((megakernel.unpack_frame_u32(rgba_k).int()
+                      - megakernel.unpack_frame_u32(rgba_p).int()).abs().max())
+        if b1_err > RGBA_TOL:
+            raise SystemExit(f"path {key}: B1 disagrees with its plain version ({b1_err})")
+        b1_t = cuda_times(lambda: megakernel.mega_render(*a_, **k_), 10)
+        b1_alone = median(cuda_times(megakernel.prepare_launch(*a_, **k_), 10))
+        n_occ = int(a_[8].shape[0])
+        ops = (work["vis_tests"] * OPS_PER_VIS_TEST
+               + shade_ops(int((win >= 0).sum()), 0, k_, n_occ, int(a_[11])))
+        nb = b1_bytes(a_, (rgba_k, z_k), work)
+        ms_b, by = bound(nb, ops)
+        print(f"path {key} B1 vs plain on rows {y0}-{y0 + band}: z_eff equal, rgba max diff "
+              f"{b1_err}; wrapper {summary(b1_t)}, kernel alone {b1_alone:.4f} ms, plain "
+              f"{b1_plain:.4f} ms; bound {nb} bytes, {ops} f32 ops -> {ms_b:.6f} ms, "
+              f"bound by {by} on {gpu}")
+        rows.append({
+            "name": f"mega_render{' brdf_ggx' if refl else ''} ({key}: the huge scene, 131,072 "
+                    f"slots; held and timed on rows {y0}-{y0 + band})",
+            "route": "cuda", "source": "rusterix_tpu_torch/csrc/megakernel.cu",
+            "replaces": "rusterix_tpu/ops/megakernel.py:250", "launches": counts["B1"],
+            "max_abs_err": b1_err, "ms": median(b1_t), "plain_ms": b1_plain,
+            "bound_ms": ms_b, "bound_by": by, "library_ms": None, "device_ms": dev["B1"],
+            "alone_ms": b1_alone, "frame_ms": median(frame_t),
+            **_cuda.resources("mega", a_[0].shape[0] // 128, len(k_["light_spec"]), n_occ),
+        })
+        if refl:
+            rows += _huge_refl_rows(rast, fa, fi_b, counts, dev, gpu)
+
+        # the CUDA frame against the CPU frame at 256x128, on the cut scene
+        small = {}
+        for d in ("cuda", "cpu"):
+            r_s = huge_rasterizer(small_cam, SMALL_W, SMALL_H, d)
+            if refl:
+                r_s.set_brdf("ggx").set_reflections(1)
+            with route_limits(PREPARE_MAX_CELLS=HG_SMALL_PREPARE_MAX):
+                zero_counts()
+                small[d] = r_s.rasterize(small_scene, SMALL_W, SMALL_H, 40, small_assets)
+                small[d + " counts"] = read_counts()
+        if refl and small["cuda counts"]["B3prepC"] != 1:
+            raise SystemExit(f"path {key} small: not the cluster route: {small['cuda counts']}")
+        d_ = int((small["cuda"] != small["cpu"]).any(-1).sum())
+        print(f"path {key} {SMALL_W}x{SMALL_H} ({HG_SMALL_BOXES} boxes): CUDA vs CPU frame, "
+              f"{d_} pixels differ; CUDA launches {small['cuda counts']}")
+        if d_:
+            raise SystemExit(f"path {key}: the CUDA frame is not byte-equal to the CPU frame")
+        if not refl:
+            print(f"frame_breakdown path HG ({W}x{H}, CUDA events, medians of 20): "
+                  f"{json.dumps(frame_breakdown(rast, scene, assets, W, H))} on {gpu}")
+    return rows
+
+
+def _huge_refl_rows(rast, fa, fi_b, counts, dev, gpu) -> list:
+    """HGR's B2 (on the band), B3's walk (the band's reflection rays) and
+    its cluster preparation (the whole frame's rays over 2,048 cells)
+    against their plain versions -> their kernels-line rows."""
+    from rusterix_tpu_torch import _cuda
+    from rusterix_tpu_torch.ops import rt_kernel, visibility_pallas
+    from rusterix_tpu_torch.ops.raster import frame_inputs
+
+    y0, band = HG_BAND
+    out = []
+    b2_in = (fi_b["vis_s"], fi_b["alive_s"], fi_b["bbox_s"], W, band, y0)
+    z2, i2, _h2 = visibility_pallas.visibility_pass_pallas(*b2_in)
+    (z2p, i2p, _h2p), b2_plain = timed_once(
+        lambda: visibility_pallas.visibility_pass_pallas_reference(*b2_in))
+    if not (torch.equal(z2, z2p) and torch.equal(i2, i2p)):
+        raise SystemExit("path HGR: B2 disagrees with its plain version on the band")
+    b2_t = cuda_times(lambda: visibility_pallas.visibility_pass_pallas(*b2_in), 10)
+    b2_alone = median(cuda_times(visibility_pallas.prepare_launch(*b2_in), 10))
+    tests = visibility_pallas.scan_work(*b2_in)
+    nb = nbytes(*b2_in[:3], z2, i2)
+    ms_b, by = bound(nb, tests * OPS_PER_VIS_TEST)
+    print(f"path HGR B2 vs plain on rows {y0}-{y0 + band}: z and idx equal; wrapper "
+          f"{summary(b2_t)}, kernel alone {b2_alone:.4f} ms, plain {b2_plain:.4f} ms; "
+          f"bound {nb} bytes, {tests * OPS_PER_VIS_TEST} f32 ops -> {ms_b:.6f} ms, bound by {by}")
+    out.append({
+        "name": f"visibility_pass_pallas (HGR: the huge scene; held and timed on rows "
+                f"{y0}-{y0 + band})", "route": "cuda",
+        "source": "rusterix_tpu_torch/csrc/visibility.cu",
+        "replaces": "rusterix_tpu/ops/visibility_pallas.py:42", "launches": counts["B2"],
+        "max_abs_err": float((z2 - z2p).abs().max()), "ms": median(b2_t),
+        "plain_ms": b2_plain, "bound_ms": ms_b, "bound_by": by, "library_ms": None,
+        "device_ms": dev["B2"], "alone_ms": b2_alone,
+        **_cuda.resources("visibility", -(-b2_in[0].shape[0] // 128)),
+    })
+
+    kin = reflection_kernel_inputs(rast, frame_inputs(**fa))
+    b3_in = kin["b3_in"]
+    ncells = b3_in[0].shape[0] // rt_kernel.RT_CELL
+    route = rt_kernel.prepare_route(ncells, (H // 8) * -(-W // 128))
+    if route["route"] != "cluster":
+        raise SystemExit(f"path HGR: {ncells} cells take the {route['route']} route")
+    zero_counts()
+    prep_k = rt_kernel.rt_prepare_cuda(*b3_in)
+    prep_p, prep_plain = timed_once(lambda: rt_kernel.rt_prepare(*b3_in))
+    if read_counts()["B3prepC"] != 1:
+        raise SystemExit(f"path HGR: the preparation took another route: {read_counts()}")
+    bad = [k for k in ("boxes", "tnear", "slist") if not torch.equal(prep_k[k], prep_p[k])]
+    if bad:
+        raise SystemExit(f"path HGR: the cluster preparation's {bad} differ from rt_prepare's")
+    prep_t = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*b3_in), 10)
+    keys = prep_p["tnear"].gather(1, prep_p["slist"].long().argsort(1))  # cell order
+    sort_t = cuda_times(lambda: torch.sort(keys, dim=1, stable=True), 10)
+    nb = nbytes(*b3_in[2:8], prep_k["cbox"], prep_k["boxes"], prep_k["tnear"], prep_k["slist"])
+    ops = H * W * OPS_PREP_PER_RAY + prep_k["tnear"].numel() * OPS_PREP_PER_KEY
+    ms_b, by = bound(nb, ops)
+    live = int((prep_k["tnear"] < 3e37).sum())
+    print(f"path HGR B3 cluster preparation vs plain rt_prepare ({prep_k['tnear'].shape[0]} "
+          f"ray blocks x {ncells} cells, clusters of {route['cluster']} blocks, {live} live "
+          f"keys): boxes, tnear, slist equal; wrapper {summary(prep_t)}, plain "
+          f"{prep_plain:.4f} ms, torch.sort of the keys {summary(sort_t)}; bound {nb} "
+          f"bytes, {ops} f32 ops -> {ms_b:.6f} ms, bound by {by} on {gpu}")
+    out.append({
+        "name": f"rt_prepare_cuda cluster route (HGR: 1080p reflection rays over {ncells} "
+                f"cells)", "route": "cuda", "source": "rusterix_tpu_torch/csrc/rt_kernel.cu",
+        "replaces": "rusterix_tpu/ops/rt_kernel.py:286-354", "launches": counts["B3prepC"],
+        "max_abs_err": 0.0, "ms": median(prep_t), "plain_ms": prep_plain,
+        "bound_ms": ms_b, "bound_by": by, "library_ms": median(sort_t),
+        "device_ms": dev["B3prepC"], "cluster": route["cluster"],
+        **_cuda.resources("rt_prepare_cluster", ncells, route["cluster"]),
+    })
+    del keys, prep_p
+
+    ox, oy, oz, dx, dy, dz = (r[y0:y0 + band] for r in b3_in[2:8])
+    walk_in = (b3_in[0], b3_in[1], ox, oy, oz, dx, dy, dz, b3_in[8], band, W)
+    t3, i3 = rt_kernel.intersect_rays_pallas(*walk_in)
+    (t3p, i3p, work), walk_plain = timed_once(
+        lambda: rt_kernel.intersect_rays_pallas_reference(*walk_in, return_work=True))
+    if not (torch.equal(t3, t3p) and torch.equal(i3, i3p)):
+        raise SystemExit("path HGR: the walk disagrees with its plain version on the band")
+    walk_t = cuda_times(lambda: rt_kernel.intersect_rays_pallas(*walk_in), 10)
+    nb = nbytes(*walk_in[:8], t3, i3)
+    ops = work["ray_triangle"] * OPS_PER_MT_TEST + work["ray_box"] * OPS_PER_SLAB_TEST
+    ms_b, by = bound(nb, ops)
+    both = (i3 >= 0) & (i3p >= 0)
+    print(f"path HGR B3 walk vs plain on the rows {y0}-{y0 + band}'s rays: t and idx equal, "
+          f"hits {int((i3 >= 0).sum())}; wrapper {summary(walk_t)}, plain "
+          f"{walk_plain:.4f} ms; work {work}; bound {nb} bytes, {ops} f32 ops -> "
+          f"{ms_b:.6f} ms, bound by {by} on {gpu}")
+    out.append({
+        "name": f"intersect_rays_pallas (HGR: the huge scene's reflection rays over {ncells} "
+                f"cells; held and timed on rows {y0}-{y0 + band})", "route": "cuda",
+        "source": "rusterix_tpu_torch/csrc/rt_kernel.cu",
+        "replaces": "rusterix_tpu/ops/rt_kernel.py:79", "launches": counts["B3"],
+        "max_abs_err": float((t3[both] - t3p[both]).abs().max()) if bool(both.any()) else 0.0,
+        "ms": median(walk_t), "plain_ms": walk_plain, "bound_ms": ms_b,
+        "bound_by": by, "library_ms": None, "device_ms": dev["B3"],
+        **_cuda.resources("rt_walk"),
+    })
+    return out
+
+
 def engine_paths(gpu: str, phase) -> list:
     """Paths X (the minigame loop through the Rusterix facade), Y (the path
     tracer), Z (the facade's trace_scene, trace_sharded and 2D view), Bl
@@ -768,17 +1272,6 @@ def engine_paths(gpu: str, phase) -> list:
     )
     from rusterix_tpu_torch.tracer import AccumBuffer, Tracer
 
-    counters = {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
-                "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches"),
-                "B3prepC": (rt_kernel, "prepare_cluster_launches"),
-                "B3prepL": (rt_kernel, "prepare_large_launches")}
-
-    def zero_counts():
-        for mod, name in counters.values():
-            setattr(mod, name, 0)
-
-    def read_counts() -> dict:
-        return {k: getattr(mod, name) for k, (mod, name) in counters.items()}
 
     phase("X")
     # X. the minigame loop at 640x400: server tick, entity mirror, billboard
@@ -809,6 +1302,12 @@ def engine_paths(gpu: str, phase) -> list:
         raise SystemExit(f"path X frame is {tuple(f.shape)} {f.dtype} on {f.device}")
     covered = int((f[..., 3] == 255).sum())
     dyn = len(rx.client.scene.d3_dynamic)
+    # the copies of a frame: Client.draw_d3's, and the server tick's apart
+    tick_copies, tick_ops = host_copies(lambda: minigame_tick(rx))
+    check_route("X", arena_route(lambda: rx.client.draw_d3(xw, xh, rx.assets, ambient,
+                                                             readback=False)))
+    print(f"path X: the server tick before a frame made {tick_copies} host-to-device copies "
+          f"{tick_ops}")
     dev_t = cuda_times(x_frame, X_FRAMES, warmup=1)
     synced = []
     for _ in range(X_FRAMES):
@@ -1095,42 +1594,13 @@ def main() -> int:
         sharded_inputs,
     )
     from rusterix_tpu_torch.scenes import (
-        build_cube_scene,
-        build_map_2d_scene,
-        build_map_ao_scene,
-        build_cube_shaded_scene,
-        build_cube_timeshader_scene,
-        build_map_blend_refl_scene,
-        build_map_blend_scene,
-        build_map_glass_refl_scene,
-        build_map_glass_scene,
-        build_map_material_scene,
-        build_map_refl_half_scene,
         build_map_refl_scene,
         build_map_scene,
         build_map_shadow_refl_scene,
-        build_map_shadow_scene,
-        build_map_ssaa2_scene,
-        build_sky_light_scene,
-        build_cube_2d_shader_scene,
-        build_map_dynamic_scene,
         build_map_glass_shader_scene,
-        build_map_runtime_shader_refl_scene,
-        build_map_runtime_shader_scene,
         move_dynamic,
     )
 
-    counters = {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
-                "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches"),
-                "B3prepC": (rt_kernel, "prepare_cluster_launches"),
-                "B3prepL": (rt_kernel, "prepare_large_launches")}
-
-    def zero_counts():
-        for mod, name in counters.values():
-            setattr(mod, name, 0)
-
-    def read_counts() -> dict:
-        return {k: getattr(mod, name) for k, (mod, name) in counters.items()}
 
     def rgba_diff(a, b):
         """per-channel |a - b| of two packed RGBA8 frames"""
@@ -1192,33 +1662,9 @@ def main() -> int:
         raise SystemExit(f"the reflections changed only {reflected} pixels")
     phase("4b")
     # 4b. the later paths C-F at 1920x1080, each with its exact launch counts
-    later = {
-        "C": ("AO map", build_map_ao_scene),
-        "D": ("sky-light floor scene with AO", build_sky_light_scene),
-        "E": ("GGX reflection map, reflections at half scale", build_map_refl_half_scene),
-        "F": ("SSAA2 map, 3840x2160 inside", build_map_ssaa2_scene),
-        "G": ("shadowed map", build_map_shadow_scene),
-        "H": ("shadowed GGX reflection map", build_map_shadow_refl_scene),
-        "I": ("glazed map under the sky, two layers, scenevm tonemap", build_map_glass_scene),
-        "J": ("glazed map under the sky with GGX reflections", build_map_glass_refl_scene),
-        "K": ("map with vertex-blended floors", build_map_blend_scene),
-        "L": ("blended map with GGX reflections", build_map_blend_refl_scene),
-        "M": ("the bench's cube with its 2D rectangle, 800x600", build_cube_scene),
-        "N": ("2D map view, 3D off", build_map_2d_scene),
-        "O": ("the bench's shaded cube (a baked wood shader), 800x600", build_cube_shaded_scene),
-        "P": ("the bench's cube under a time-dependent shader, 800x600",
-              build_cube_timeshader_scene),
-        "Q": ("the map under per-pixel shader materials with GGX reflections",
-              build_map_material_scene),
-        "T": ("the map with floors under a runtime shader (the split path)",
-              build_map_runtime_shader_scene),
-        "U": ("T with a sun, GGX, one reflection ray a pixel, shadow maps, AO and sky light",
-              build_map_runtime_shader_refl_scene),
-        "V": ("the shadowed map with dynamic billboards, a dynamic 2D rectangle and dynamic "
-              "casters", build_map_dynamic_scene),
-        "W": ("the bench's cube with a runtime 2D shader on its rectangle, 800x600",
-              build_cube_2d_shader_scene),
-    }
+    from rusterix_tpu_torch import scenes as scenes_mod
+
+    later = {k: (label, getattr(scenes_mod, name)) for k, (label, name) in LATER.items()}
     paths = {}
     for key, (label, build) in later.items():
         pw, ph = SIZES.get(key, (W, H))
@@ -1359,6 +1805,37 @@ def main() -> int:
           f"px; the dynamic casters change {by_casters} px of the t = {V_TIMES[2]} frame")
     if moved < 1000 or by_casters == 0:
         raise SystemExit("path V's dynamic batches did not move or cast")
+    phase("4h")
+    # 4h. the host-to-device copies of a steady frame of every unsharded
+    # path (the profiler's Memcpy HtoD records), and how the frame reached
+    # the device: one arena upload a frame (ops/arena.py), no frame leaf by
+    # leaf, no refusal; A, B, G and K make exactly one copy
+    routes = {"A": arena_route(lambda: rast.rasterize(scene, W, H, 40, assets))}
+    # the profiler's Memcpy HtoD records of A's steady frame beside the count
+    profiled_a = h2d_copies(lambda: rast.rasterize(scene, W, H, 40, assets))
+    routes["B"] = arena_route(lambda: rast_r.rasterize(scene_r, W, H, 40, assets_r))
+    for key, p_ in paths.items():
+        pw, ph = p_["size"]
+        clock = iter(range(1 << 30))
+
+        def steady():
+            if key == "V":  # the billboards move before every frame
+                move_dynamic(p_["scene"], V_TIMES[2] + 0.1 * next(clock))
+            return p_["rast"].rasterize(p_["scene"], pw, ph, 40, p_["assets"])
+        routes[key] = arena_route(steady)
+    for key, r in routes.items():
+        check_route(key, r)
+    print(f"path A steady frame by the profiler: {profiled_a} Memcpy HtoD record(s)")
+    ah = arena_host_ms(rast)
+    print(f"path A arena on the host (host wall, synchronised, medians of 20): the packs B1 "
+          f"derives built on the host {ah['derive']:.4f} ms (they join the arena), pack_arena "
+          f"+ the pinned copy enqueued {ah['pack_upload']:.4f} ms; the same packs computed on "
+          f"the device from the arena's views instead {ah['derive_on_device']:.4f} ms in "
+          f"{ah['ops']} device ops (bit-equal to the host's: {ah['bit_equal']}), on {gpu}")
+    from rusterix_tpu_torch.profiling import frame_breakdown
+
+    print(f"frame_breakdown path A ({W}x{H}, CUDA events, medians of 20): "
+          f"{json.dumps(frame_breakdown(rast, scene, assets, W, H))} on {gpu}")
     phase("4c")
     # 4c. the row-sharded frame (parallel.render_frame_sharded) through
     # rasterize(mesh=): R, A's map in N_SLABS slabs of the card; R7, in 7
@@ -2466,7 +2943,7 @@ def main() -> int:
             "library_ms": median(sort_t),
             "device_ms": dev_b["B3prep"], **res["B3prep"],
         },
-    ] + later_rows + engine_paths(gpu, phase)
+    ] + later_rows + huge_paths(gpu, phase) + engine_paths(gpu, phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the last check")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

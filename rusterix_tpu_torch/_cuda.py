@@ -17,9 +17,17 @@ import shutil
 import subprocess
 import time
 
+from .ops.rt_kernel import DEFAULT_KNOBS, RT_BH, RT_BW, RT_CELL
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
-BUILD_DIR = os.path.join(_PKG, "_build")
+#: B3's tuning knobs other than the defaults (RUSTERIX_TPU_RT_CELL, _RT_BH,
+#: _RT_BW) go to nvcc as -D flags, and the build into a directory named
+#: after them; the default build takes neither
+KNOB_DEFINES = ([] if (RT_CELL, RT_BH, RT_BW) == DEFAULT_KNOBS
+                else [f"-DRT_CELL={RT_CELL}", f"-DRT_BH={RT_BH}", f"-DRT_BW={RT_BW}"])
+BUILD_DIR = os.path.join(_PKG, "_build", *(
+    [f"rt_cell{RT_CELL}_bh{RT_BH}_bw{RT_BW}"] if KNOB_DEFINES else []))
 LIBRARY = os.path.join(BUILD_DIR, "librusterix_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 
@@ -64,7 +72,7 @@ def build(force: bool = False) -> str:
     objects, procs = [], []
     for src in SOURCES:
         obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        cmd = [nvcc, *NVCC_FLAGS, *KNOB_DEFINES, "-c", "-o", obj, src]
         objects.append(obj)
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))

@@ -102,13 +102,22 @@
 
 #include "cluster.cuh"  // kernel_resources
 
+// the tuning knobs (ops/rt_kernel.py rt_knobs passes other values as -D
+// flags into a build directory of their own)
+#ifndef RT_BH
 #define RT_BH 8
+#endif
+#ifndef RT_BW
 #define RT_BW 128
+#endif
+#ifndef RT_CELL
+#define RT_CELL 64
+#endif
 #define RT_THREADS 256                      // the preparation: 4 rays per thread
 #define RT_WARPS (RT_THREADS / 32)
 #define WALK_THREADS (RT_BH * RT_BW)        // the walk: one ray per thread
 #define WALK_WARPS (WALK_THREADS / 32)
-#define CELL 64
+#define CELL RT_CELL
 #define CELL_FLOATS (CELL * 16)
 #define RT_MAX_CELLS 28672                  // 224 KB of keys in a block's 227 KB
 #define PARKED 1e7f

@@ -7,8 +7,7 @@ else.
 
 from __future__ import annotations
 
-import functools
-
+import numpy as np
 import torch
 
 # the port is f32 throughout; the edge tests need full-precision products
@@ -31,8 +30,37 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-@functools.lru_cache(maxsize=64)
-def device_table(rows: tuple, dtype, device) -> torch.Tensor:
-    """A small constant table, uploaded once per (rows, dtype, device), so
-    that a launch makes no host-to-device copy in steady state. Read only."""
-    return torch.tensor(rows, dtype=dtype, device=device)
+#: (bytes, dtype, shape, device) -> tensor; cleared wholesale when it grows
+_CONSTS: dict = {}
+
+
+def device_const(a, device) -> torch.Tensor:
+    """A small numpy constant on `device`, uploaded once per value (keyed on
+    its bytes, so -0.0 and 0.0 stay apart): the per-call numbers and camera
+    matrices the passes read. Read only."""
+    a = np.asarray(a)
+    key = (a.tobytes(), a.dtype.str, a.shape, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        if len(_CONSTS) > 4096:
+            _CONSTS.clear()
+        # a copy: on the CPU the tensor would otherwise share the caller's array
+        t = torch.from_numpy(a.copy()).to(device)
+        _CONSTS[key] = t
+    return t
+
+
+#: torch dtype -> numpy dtype of the constants and leaves the port uploads
+NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32, torch.int64: np.int64}
+
+
+def device_scalar(value, dtype, device) -> torch.Tensor:
+    """A 0-d constant of `dtype` on `device` (device_const)."""
+    return device_const(np.asarray(value, NP_DTYPES[dtype]), device)
+
+
+def device_table(rows, dtype, device) -> torch.Tensor:
+    """A small constant table (a tuple of numbers or of rows) of `dtype` on
+    `device` (device_const), so that a launch makes no host-to-device copy
+    in steady state."""
+    return device_const(np.asarray(rows, NP_DTYPES[dtype]), device)

@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import device_const, device_scalar
 from .shade import _fma
 
 #: height above the tangent plane (as a fraction of ao_radius) before a tap
@@ -62,7 +63,7 @@ def _scalar(x, device):
     """An f32 scalar as a 0-d tensor on `device`."""
     if torch.is_tensor(x):
         return x.to(device=device, dtype=torch.float32).reshape(())
-    return torch.tensor(float(np.float32(x)), dtype=torch.float32, device=device)
+    return device_scalar(x, torch.float32, device)
 
 
 def ssao_pass(z_ndc, hit, depth_a, depth_b, radius, px_scale, taps: tuple):
@@ -99,8 +100,7 @@ def ssao_pass(z_ndc, hit, depth_a, depth_b, radius, px_scale, taps: tuple):
     # every tap at once along a leading axis (K, H, W); the sums below keep
     # the taps' order
     def per_tap(values):
-        return torch.tensor([float(np.float32(v)) for v in values], dtype=torch.float32,
-                            device=dev)[:, None, None]
+        return device_const(np.asarray(values, np.float32), dev)[:, None, None]
 
     reach = per_tap([math.hypot(dx, dy) for dx, dy in taps]) * px_scale
     tdx, tdy = per_tap([dx for dx, _dy in taps]), per_tap([dy for _dx, dy in taps])

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .arena import leaf
 from .setup_pass import _fma
 from .shade import (
     _div,
@@ -148,6 +149,7 @@ def _blocked_lights(world_x, world_y, lp2, uniforms):
     seg_valid = np.asarray(uniforms["seg_valid"]) > 0.5
     seg_a = _uniform(uniforms, "seg_a", dev)
     seg_b = _uniform(uniforms, "seg_b", dev)
+    seg_valid_t = leaf(uniforms, "seg_valid", dev) > 0.5
     a_x, a_y = world_x[..., None, None], world_y[..., None, None]
     b_x, b_y = lp2[None, None, :, 0, None], lp2[None, None, :, 1, None]
     blocked = torch.zeros(world_x.shape + (lp2.shape[0],), dtype=torch.bool, device=dev)
@@ -159,7 +161,7 @@ def _blocked_lights(world_x, world_y, lp2, uniforms):
         d_x, d_y = seg_b[s0:s0 + SEG_CHUNK, 0], seg_b[s0:s0 + SEG_CHUNK, 1]
         cross = ((_ccw(a_x, a_y, c_x, c_y, d_x, d_y) != _ccw(b_x, b_y, c_x, c_y, d_x, d_y))
                  & (_ccw(a_x, a_y, b_x, b_y, c_x, c_y) != _ccw(a_x, a_y, b_x, b_y, d_x, d_y)))
-        sv_t = torch.from_numpy(sv).to(dev)
+        sv_t = seg_valid_t[s0:s0 + SEG_CHUNK]
         blocked = blocked | (cross & sv_t).any(dim=-1)
     return blocked
 

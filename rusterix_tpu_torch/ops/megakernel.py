@@ -36,7 +36,8 @@ import ctypes
 import numpy as np
 import torch
 
-from ..device import device_table
+from ..device import device_scalar, device_table
+from .arena import staged_pack
 from .scene_pack import SRC_PIXEL, SRC_TEXTURE
 from .setup_pass import _fma
 from .shadow import shadow_factor
@@ -74,7 +75,7 @@ def pack_mega_table(attr_planes, tri_id, meta, atlas, anim_frame,
         slot = torch.clamp(slot_col.long(), min=0)
         count = torch.clamp(atlas["tile_count"][slot], min=1)
         tex_id = atlas["tile_first"][slot] + torch.remainder(
-            torch.as_tensor(anim_frame, device=count.device), count
+            device_scalar(int(anim_frame), torch.int64, count.device), count
         )
         return atlas["rects"][tex_id.long()].float()
 
@@ -186,7 +187,7 @@ def light_spec_from(lights) -> tuple:
     return tuple((i, int(t)) for i, t in enumerate(types) if float(valid[i]) > 0.5)
 
 
-def pack_light_params(lights, device) -> torch.Tensor:
+def light_param_rows(lights) -> np.ndarray:
     """SoA host light dict -> (L, 24) f32 rows (the JAX package's layout;
     the one-hot type columns 3/21/22/23 stay for layout parity)."""
     L = lights["position"].shape[0]
@@ -210,22 +211,58 @@ def pack_light_params(lights, device) -> torch.Tensor:
     out[:, 16:19] = lights["normal"]
     out[:, 19] = lights["from_linedef"]
     out[:, 20] = lights["valid"]
-    return torch.from_numpy(out).to(device)
+    return out
 
 
-def pack_occ_params(uniforms, device) -> torch.Tensor:
-    """Occluded-sector boxes -> (B, 5) [x0 z0 x1 z1 value] (mini.rs:57)."""
+def pack_light_params(lights, device) -> torch.Tensor:
+    """light_param_rows on `device`: the rows that came in the frame's arena
+    (lights Staged, ops/arena.py), else an upload."""
+    staged = staged_pack(lights, "light_params")
+    if staged is not None:
+        return staged
+    return torch.from_numpy(light_param_rows(lights)).to(device)
+
+
+def occ_param_rows(uniforms) -> np.ndarray:
+    """Occluded-sector boxes -> (B, 5) [x0 z0 x1 z1 value] (mini.rs:57);
+    one inverted dummy box (matches no pixel) when there is none."""
     if "occ_box" in uniforms:
         box = np.asarray(uniforms["occ_box"], np.float32)
         val = np.asarray(uniforms["occ_val"], np.float32)[:, None]
-        return torch.from_numpy(np.concatenate([box, val], axis=1)).to(device)
-    # one inverted dummy box (matches no pixel)
-    return torch.tensor([[1e9, 1e9, -1e9, -1e9, 1.0]], device=device)
+        return np.concatenate([box, val], axis=1)
+    return np.array([[1e9, 1e9, -1e9, -1e9, 1.0]], np.float32)
+
+
+def pack_occ_params(uniforms, device) -> torch.Tensor:
+    """occ_param_rows on `device`: from the frame's arena when the uniforms
+    came through one, else an upload."""
+    staged = staged_pack(uniforms, "occ_params")
+    if staged is not None:
+        return staged
+    return torch.from_numpy(occ_param_rows(uniforms)).to(device)
+
+
+def mega_params_key(width: int, height: int, atlas_w, has_fog: bool = False, y0: int = 0,
+                    shadow_params=None) -> tuple:
+    """What mega_param_row derives its pack from besides the uniforms."""
+    return (width, height, atlas_w, has_fog, y0, id(shadow_params))
 
 
 def pack_mega_params(uniforms, width: int, height: int, atlas_w, device,
                      has_fog: bool = False, y0: int = 0,
                      shadow_params=None) -> torch.Tensor:
+    """mega_param_row on `device`: the pack that came in the frame's arena
+    for the same arguments (uniforms Staged), else an upload."""
+    staged = staged_pack(uniforms, "mega_params",
+                         mega_params_key(width, height, atlas_w, has_fog, y0, shadow_params))
+    if staged is not None:
+        return staged
+    return torch.from_numpy(mega_param_row(uniforms, width, height, atlas_w, has_fog, y0,
+                                           shadow_params)).to(device)
+
+
+def mega_param_row(uniforms, width: int, height: int, atlas_w, has_fog: bool = False,
+                   y0: int = 0, shadow_params=None) -> np.ndarray:
     """Camera/ambient/sun scalars, fog at 48-53, the atlas width at 54, the
     sun color at 55-57, the row offset at 58, shadow parameters at 59-74,
     bump strength at 75, fog mode/density at 76-77 -> (80,) f32.
@@ -256,7 +293,7 @@ def pack_mega_params(uniforms, width: int, height: int, atlas_w, device,
     p[58] = y0
     p[76] = uniforms.get("fog_mode", 0.0)
     p[77] = uniforms.get("fog_density", 0.0)
-    return torch.from_numpy(p).to(device)
+    return p
 
 
 def pack_background_u32(background) -> torch.Tensor:

@@ -66,7 +66,11 @@ from ..models import Assets, SampleMode, pack_lights
 from ..models.blend import RenderMode
 from ..utils.color import hash_u32, linear_to_srgb_fast, srgb_to_linear_fast
 from .megakernel import (
+    light_param_rows,
     light_spec_from,
+    mega_param_row,
+    mega_params_key,
+    occ_param_rows,
     mega_render,
     morton_ftb_sort,
     pack_background_u32,
@@ -76,7 +80,9 @@ from .megakernel import (
     pack_occ_params,
     unpack_frame_u32,
 )
+from . import arena
 from .ao import ssao_pass, tap_offsets
+from .arena import Staged, leaf, pack_arena, unpack_arena
 from .composite import (
     blend_opacity,
     brush_preview_pass,
@@ -134,8 +140,7 @@ def frame_setup(d3, lights, atlas, uniforms, width: int, height: int, has_blend:
     if planes is None:
         planes = setup_pass(
             d3["pos"], d3["uv"], d3["nrm"], d3["valid"], d3["cull"],
-            torch.from_numpy(uniforms["view"]).to(dev),
-            torch.from_numpy(uniforms["proj"]).to(dev),
+            leaf(uniforms, "view", dev), leaf(uniforms, "proj", dev),
             width, height, bw=d3["bw"] if has_blend else None,
         )
     vis, attr, bbox, alive, tri_id = planes
@@ -340,8 +345,8 @@ def _shade_opacity(z, idx, hit, attr_planes, tri_id, meta, atlas, uniforms, widt
 def opacity_setup(d3_op, uniforms, width: int, height: int):
     """The setup pass of the opacity pack for a width x height frame ->
     (planes, attribute planes, alive as f32, tri id)."""
-    view = torch.from_numpy(uniforms["view"]).to(d3_op["pos"].device)
-    proj = torch.from_numpy(uniforms["proj"]).to(d3_op["pos"].device)
+    view = leaf(uniforms, "view", d3_op["pos"].device)
+    proj = leaf(uniforms, "proj", d3_op["pos"].device)
     vis_o, attr_o, _bbox, alive_o, tri_id_o = setup_pass(
         d3_op["pos"], d3_op["uv"], d3_op["nrm"], d3_op["valid"], d3_op["cull"], view, proj,
         width, height,
@@ -491,6 +496,60 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int, height: in
                         height, **settings)
 
 
+def with_frame_leaves(leaves, d3, d3_op, d2, lights, uniforms, shadow_rows=None,
+                      shadow_spec=None, shadow_cams=None, hide_3d: bool = False,
+                      **settings) -> dict:
+    """render_frame's arguments over the frame's per-frame leaves on the
+    device. `leaves`: the per-frame tree (d3_dyn, d3_op_dyn, d2_dyn,
+    lights, uniforms, derived) as device tensors (views of the arena, or
+    the per-leaf uploads); `d3`, `d3_op`, `d2`: the static packs; `lights`
+    and `uniforms`: the host dicts. -> the arguments with the dynamic packs
+    appended to the static ones (their valid masks zeroed with `hide_3d`,
+    the render mode's 3D off), the dynamic casters' depth composited into
+    the shadow maps through `shadow_cams` (None: no dynamic casters), and
+    the lights and uniforms as arena.Staged dicts over their device leaves,
+    with the packs B1 derives from them (`derived`)."""
+    d3_dyn, d3_op_dyn, d2_dyn, lights_d, uniforms_d, derived = leaves
+    if d3_dyn is not None:
+        dyn = {"d3": d3_dyn, "d3_op": d3_op_dyn, "d2": d2_dyn}
+        if hide_3d:
+            for part in ("d3", "d3_op"):
+                dyn[part] = dict(dyn[part], valid=torch.zeros_like(dyn[part]["valid"]))
+        d3, d3_op, d2 = ({k: torch.cat([static[k], dyn[part][k]]) for k in static}
+                         for part, static in (("d3", d3), ("d3_op", d3_op), ("d2", d2)))
+        if shadow_cams is not None:
+            # dynamic casters (the reference's trace_shadow_unified ->
+            # trace_billboards, 3d_shader.wgsl:436-460): the dynamic pack's
+            # depth min-composited into the cached static maps
+            from .shadow import composite_dynamic_depth
+
+            dd = dyn["d3"]
+            shadow_rows = composite_dynamic_depth(shadow_rows, shadow_spec, shadow_cams,
+                                                  dd["pos"], dd["uv"], dd["nrm"], dd["valid"])
+    u_packs = {"occ_params": (None, derived["occ_params"])}
+    if "mega_params" in derived:
+        key = mega_params_key(settings["width"], settings["height"], settings["atlas"]["w"],
+                              settings.get("has_fog", False), 0, settings.get("shadow_params"))
+        u_packs["mega_params"] = (key, derived["mega_params"])
+    return dict(settings, d3=d3, d3_op=d3_op, d2=d2,
+                lights=Staged(lights, lights_d, {"light_params": (None, derived["light_params"])}),
+                uniforms=Staged(uniforms, uniforms_d, u_packs), shadow_rows=shadow_rows,
+                shadow_spec=shadow_spec)
+
+
+def render_frame_arena(arena_dev, arena_layout, **frame):
+    """render_frame behind the frame's one upload (the JAX package's
+    render_frame_arena): the per-frame tree (the dynamic packs, the lights,
+    the uniforms and the packs derived from them) arrives as one int32
+    buffer on the device, `arena_dev`, laid out by `arena_layout`
+    (arena.pack_arena), and its leaves are viewed back out here (no copy).
+    `frame`: with_frame_leaves' arguments (render_frame's, with the static
+    packs and the host lights and uniforms). -> (the (H, W, 4) uint8
+    frame, the render_frame arguments it was rendered with)."""
+    args = with_frame_leaves(unpack_arena(arena_dev, arena_layout), **frame)
+    return render_frame(**args), args
+
+
 def ssaa_downsample(frame_u8, ss: int):
     """Box-filter an (H*ss, W*ss, 4) uint8 frame down to (H, W, 4): the mean
     of each ss x ss block (a sum of integers, exact, divided once), rounded
@@ -635,6 +694,9 @@ class Rasterizer:
         #: held by the scene cache anyway); checks re-run the kernel and
         #: its plain version on them
         self.frame_args: Optional[dict] = None
+        #: the last unsharded frame's (arena on the device, layout, with_frame_leaves
+        #: arguments), or None when it went leaf by leaf (profiling reads it)
+        self.frame_arena = None
 
     @staticmethod
     def setup(projection_matrix_2d, view_matrix, projection_matrix,
@@ -1079,31 +1141,24 @@ class Rasterizer:
             mesh = check_mesh(mesh)
         d3, d3_op, d2 = cache["d3"], cache["d3_op"], cache["d2"]
 
-        # dynamic batches: packed every frame into stable capacities and
-        # concatenated after the static packs on the device (entity motion
-        # uploads a few KB, never the static world)
+        # dynamic batches: packed every frame on the host into stable
+        # capacities; they ride the frame's one upload and are appended to the
+        # static packs on the device (with_frame_leaves): entity motion
+        # uploads a few KB, never the static world
         has_dyn = bool(scene.d3_dynamic or scene.d3_dynamic_opacity or scene.d2_dynamic)
-        dyn = dyn_lines = None
+        dyn = (None, None, None)
+        dyn_lines = None
         if has_dyn:
             from .scene_pack import pack_dynamic, stable_dynamic_caps
 
             caps = stable_dynamic_caps(scene, cache.get("dyn_caps"))
             cache["dyn_caps"] = caps
             p3, p3op, p2, dyn_lines = pack_dynamic(scene, packed.atlas_index, *caps)
-
-            def put(part, keys):
-                return {k: torch.from_numpy(np.ascontiguousarray(getattr(part, k))).to(
-                    self.device) for k in keys}
-
-            dyn = {"d3": put(p3, d3), "d3_op": put(p3op, d3_op), "d2": put(p2, d2)}
-        if not self.render_mode.d3_active:
+            dyn = tuple({k: np.ascontiguousarray(getattr(part, k)) for k in static}
+                        for part, static in ((p3, d3), (p3op, d3_op), (p2, d2)))
+        hide_3d = not self.render_mode.d3_active
+        if hide_3d:
             d3 = dict(d3, valid=torch.zeros_like(d3["valid"]))
-            if dyn is not None:
-                for part in ("d3", "d3_op"):
-                    dyn[part] = dict(dyn[part], valid=torch.zeros_like(dyn[part]["valid"]))
-        if dyn is not None:
-            d3, d3_op, d2 = ({k: torch.cat([static[k], dyn[part][k]]) for k in static}
-                             for part, static in (("d3", d3), ("d3_op", d3_op), ("d2", d2)))
 
         # lights repack every frame (they're tiny): the reference reads
         # light positions fresh per frame
@@ -1150,19 +1205,12 @@ class Rasterizer:
             cache["background"] = hit
         background = hit[1]
 
-        shadow_rows = shadow_params = shadow_spec = None
+        shadow_rows = shadow_params = shadow_spec = shadow_cams = None
         if self.shadow_settings is not None and self.render_mode.d3_active:
             shadow_rows, shadow_params, shadow_spec, cams = self._shadow_pack(
                 cache, packed, lights, key)
-            if cams is not None and dyn is not None and self.shadow_settings["dynamic_casters"]:
-                # dynamic casters (the reference's trace_shadow_unified ->
-                # trace_billboards, 3d_shader.wgsl:436-460): the dynamic
-                # pack's depth min-composited into the cached static maps
-                from .shadow import composite_dynamic_depth
-
-                dd = dyn["d3"]
-                shadow_rows = composite_dynamic_depth(shadow_rows, shadow_spec, cams, dd["pos"],
-                                                      dd["uv"], dd["nrm"], dd["valid"])
+            if has_dyn and self.shadow_settings["dynamic_casters"]:
+                shadow_cams = cams
 
         frame_args = dict(
             d3=d3, lights=lights, atlas=cache["atlas"], uniforms=uniforms,
@@ -1202,14 +1250,33 @@ class Rasterizer:
             has_lights=len(live_lights) > 0,
             has_ambient=self.ambient_color is not None,
         )
-        self.frame_args = frame_args
-        if mesh is not None:
-            from ..parallel import render_frame_sharded
-
-            fa = {k: v for k, v in frame_args.items() if k != "refl_scale"}
-            frame = render_frame_sharded(mesh, **fa)
+        # the per-frame tree: the dynamic packs, the lights, the uniforms and
+        # the packs B1 derives from them, in one host-to-device copy (ops/
+        # arena.py) for the unsharded frame; the mesh path, and a tree the
+        # arena refuses, upload leaf by leaf, as the JAX package's do
+        derived = {"light_params": light_param_rows(lights),
+                   "occ_params": occ_param_rows(uniforms)}
+        if not packed.runtime_shaders:
+            derived["mega_params"] = mega_param_row(
+                uniforms, width, height, cache["atlas"]["w"], has_fog, 0, shadow_params)
+        per_frame = (*dyn, lights, uniforms, derived)
+        arena_np, arena_layout = (None, None) if mesh is not None else pack_arena(per_frame)
+        frame_args.update(shadow_cams=shadow_cams, hide_3d=hide_3d)
+        self.frame_arena = None
+        if arena_np is not None:
+            arena_dev = arena.upload(arena_np, self.device)
+            self.frame_arena = (arena_dev, arena_layout, frame_args)
+            frame, self.frame_args = render_frame_arena(arena_dev, arena_layout, **frame_args)
         else:
-            frame = render_frame(**frame_args)
+            self.frame_args = with_frame_leaves(arena.upload_leaves(per_frame, self.device),
+                                                **frame_args)
+            if mesh is not None:
+                from ..parallel import render_frame_sharded
+
+                fa = {k: v for k, v in self.frame_args.items() if k != "refl_scale"}
+                frame = render_frame_sharded(mesh, **fa)
+            else:
+                frame = render_frame(**self.frame_args)
         if ss > 1:
             frame = ssaa_downsample(frame, ss)
         if not readback:

@@ -42,6 +42,8 @@ from ..utils.color import (
     tonemap_scenevm,
     tonemap_scenevm_inverse,
 )
+from ..device import device_const
+from .arena import leaf
 from .rt_kernel import intersect_rays_pallas
 from .shade import _div, _dot, _fma, _normalize, gbuffer_pass, resolve_texel
 from .shadow import shadow_factor
@@ -215,7 +217,7 @@ def _shade_reflection_hits(t, tri, ox, oy, oz, dx, dy, dz, d3, atlas, lights,
     cube_by_li = {}
     if shadow is not None:
         sh_rows, sh_params, (sun_entry, cube_entries) = shadow
-        sh_params = torch.from_numpy(np.asarray(sh_params, np.float32)).to(dev)
+        sh_params = device_const(np.asarray(sh_params, np.float32), dev)
         if sun_entry is not None:
             sun_f = shadow_factor(sh_rows, sh_params, sun_entry, wxh, wyh, wzh, nx, ny, nz,
                                   live=hit)
@@ -342,9 +344,16 @@ def reflection_rays(g, hit, width: int, height: int, sample: int = 0,
     tz = _fma(upx, nyg, -(upy * nxg))
     inv_tl = 1.0 / torch.clamp(torch.sqrt(_fma(tz, tz, _fma(ty, ty, tx * tx))), min=1e-20)
     t = torch.stack([tx, ty, tz], dim=-1) * inv_tl[..., None]
-    yzx, zxy = [1, 2, 0], [2, 0, 1]
+    # the (y, z, x) and (z, x, y) orders as rolls: a list index would be a
+    # host tensor copied to the device at every call
+    def yzx(v):
+        return torch.roll(v, -1, dims=-1)
+
+    def zxy(v):
+        return torch.roll(v, 1, dims=-1)
+
     # b = N x T: (ny tz - nz ty, nz tx - nx tz, nx ty - ny tx)
-    b = _fma(normal[..., yzx], t[..., zxy], -(normal[..., zxy] * t[..., yzx]))
+    b = _fma(yzx(normal), zxy(t), -(zxy(normal) * yzx(t)))
     a_r = rough * rough
     a2 = a_r * a_r
 
@@ -417,7 +426,7 @@ def reflection_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, lights, uniform
                      stride=stride, y0=y0, full_height=full_height)
     f0 = 0.04 + (g["base"] - 0.04) * g["metallic"][..., None]
     max_dist = float(np.float32(uniforms["refl_dist"]))
-    sky_rgb = torch.from_numpy(np.asarray(uniforms["refl_sky"], np.float32))
+    sky_rgb = leaf(uniforms, "refl_sky", dev, torch.float32)
 
     accum = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
     wsum = torch.zeros((height, width), dtype=torch.float32, device=dev)
@@ -579,7 +588,7 @@ def sky_light_pass(z, idx, hit, attr_planes, tri_id, d3, atlas, uniforms,
     max_dist = float(np.float32(uniforms["refl_dist"]))
     _t, tri = intersect_rays_pallas(d3["pos"], d3["valid"], *ray, max_dist, height, width)
     vis = r["live"] & (tri < 0)
-    sky_rgb = torch.from_numpy(np.asarray(uniforms["refl_sky"], np.float32)).to(z.device)
+    sky_rgb = leaf(uniforms, "refl_sky", z.device, torch.float32)
     term = sky_rgb[None, None, :] * r["sky_factor"][..., None] * g["base"]
     return torch.where(vis[..., None], term, 0.0), vis
 

@@ -30,14 +30,45 @@ CUDA tensors and the plain version for CPU tensors;
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
-#: pack slots per spatial cell
-RT_CELL = 64
-#: ray-block tile (rows x columns)
-RT_BH = 8
-RT_BW = 128
+from ..device import device_scalar
+
+#: the tuning knobs' defaults: pack slots per spatial cell, and the ray-block
+#: tile (rows x columns)
+DEFAULT_KNOBS = (64, 8, 128)
+
+
+def rt_knobs(environ) -> tuple:
+    """(RT_CELL, RT_BH, RT_BW) from RUSTERIX_TPU_RT_CELL, _RT_BH and _RT_BW
+    in `environ` (the JAX package's knobs, read at import; unset: the
+    defaults), refused with a ValueError where the CUDA kernels cannot take
+    them: the walk runs one ray a thread (at most 1,024 threads a block),
+    the preparation's box loops take a block's rays in whole rounds of 256
+    and 512 threads, the walk stages a cell's rows of 16 floats with 4
+    floats a thread (RT_CELL * 4 threads) in two static shared buffers of
+    RT_CELL * 16 floats, and the plain version pads a cell to a multiple of
+    8 slots. The preparation routes' limits count cells whatever their
+    size."""
+    cell, bh, bw = (int(environ.get(f"RUSTERIX_TPU_RT_{k}", str(d)))
+                    for k, d in zip(("CELL", "BH", "BW"), DEFAULT_KNOBS))
+    rays = bh * bw
+    if rays > 1024:
+        raise ValueError(f"RT_BH x RT_BW = {bh} x {bw} = {rays} rays a block: the walk runs "
+                         "one ray a thread, at most 1024 threads a block")
+    if rays % 512:
+        raise ValueError(f"RT_BH x RT_BW = {rays} rays a block: the preparation takes a block's "
+                         "rays in whole rounds of 256 and 512 threads (512 or 1024 rays)")
+    if cell % 8 or not 8 <= cell <= 256 or 4 * cell > rays:
+        raise ValueError(f"RT_CELL = {cell}: a multiple of 8 from 8 to 256, with RT_CELL * 4 "
+                         f"<= {rays} (the threads that stage a cell's rows in the walk)")
+    return cell, bh, bw
+
+
+#: pack slots per spatial cell, and the ray-block tile (rows x columns)
+RT_CELL, RT_BH, RT_BW = rt_knobs(os.environ)
 #: origins >= this are parked dead rays (the reflection pass parks at 1e8)
 _PARKED = 1e7
 _BIG = 3e37
@@ -149,7 +180,8 @@ def scene_tables(pos, valid, t_cap, ncells: int, cell: int) -> dict:
     zeros = torch.zeros_like(cx0)
     cbox = torch.stack([cx0, cy0, cz0, cx1, cy1, cz1, zeros, zeros], dim=1)
     cell_alive = cx0 <= cx1
-    t_cap = torch.as_tensor(t_cap, dtype=torch.float32, device=dev)
+    t_cap = (torch.as_tensor(t_cap, dtype=torch.float32, device=dev) if torch.is_tensor(t_cap)
+             else device_scalar(t_cap, torch.float32, dev))
 
     def live_min(v):
         return torch.where(cell_alive, v, _BIG).amin()
@@ -342,8 +374,8 @@ def _launch(prep, fields):
     global launches
     from .. import _cuda
 
-    if prep["cell"] != 64:
-        raise ValueError(f"the kernel stages cells of 64 triangles, not {prep['cell']}")
+    if prep["cell"] != RT_CELL:
+        raise ValueError(f"the kernel stages cells of {RT_CELL} triangles, not {prep['cell']}")
     dev = fields[0].device
     height, width = prep["height"], prep["width"]
     t = torch.empty((height, width), dtype=torch.float32, device=dev)
@@ -445,14 +477,24 @@ def _walk(prep, return_work: bool = False):
     return out + (work,) if return_work else out
 
 
+#: triangles of a cell the plain walk tests at once (the result does not
+#: depend on it: within a group the first of the smallest t wins, as the
+#: kernel's strict `<` in slot order gives)
+MT_GROUP = 16
+
+
 def _mt_cell(tab, base, cell, ox, oy, oz, dx, dy, dz, cap, best, idx):
     """Möller-Trumbore of each selected block's rays (n, R) against the
     `cell` triangles from slot base (n,), in slot order with a strict `<`:
-    the kernel's expression order, every op rounded on its own."""
-    for k in range(cell):
-        r = base + k
-        t = tab[r.long()]  # (n, 16)
-        ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (t[:, j, None] for j in range(9))
+    the kernel's expression order, every op rounded on its own. MT_GROUP
+    triangles at a time: the first of a group's smallest t replaces the
+    running best only if it is strictly smaller, which is what testing them
+    one by one with a strict `<` gives."""
+    ox, oy, oz, dx, dy, dz = (v[:, None, :] for v in (ox, oy, oz, dx, dy, dz))
+    for k0 in range(0, cell, MT_GROUP):
+        r = base[:, None] + torch.arange(k0, min(k0 + MT_GROUP, cell), device=base.device)
+        t = tab[r.long()]  # (n, G, 16)
+        ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (t[..., j, None] for j in range(9))
         hx = dy * e2z - dz * e2y
         hy = dz * e2x - dx * e2z
         hz = dx * e2y - dy * e2x
@@ -469,7 +511,8 @@ def _mt_cell(tab, base, cell, ox, oy, oz, dx, dy, dz, cap, best, idx):
         ok &= (vv >= 0.0) & (uu + vv <= 1.0)
         tt = f * (e2x * qx + e2y * qy + e2z * qz)
         ok &= (tt > 1e-4) & (tt < cap)
-        better = ok & (tt < best)
-        best = torch.where(better, tt, best)
-        idx = torch.where(better, r[:, None].to(torch.int32), idx)
+        g_best, g_k = torch.where(ok, tt, float("inf")).min(dim=1)  # first of the smallest
+        better = g_best < best
+        best = torch.where(better, g_best, best)
+        idx = torch.where(better, torch.gather(r, 1, g_k).to(torch.int32), idx)
     return best, idx

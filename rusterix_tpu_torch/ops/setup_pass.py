@@ -31,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import device_table
+
 NEAR_PLANE = 0.1  # reference batch3d.rs:566
 
 CULL_OFF = 0
@@ -217,7 +219,7 @@ def _slot_planes(tri10, slot_valid, cull, proj, width, height):
     planes = _dot3(fvals[:, :, None, :], lam.transpose(1, 2)[:, None])
     attr = planes[:, :7].reshape(-1, 21)
     ok = slot_valid & visible & ~degenerate
-    dead_edge = torch.tensor([0.0, 0.0, -1.0], device=p.device)
+    dead_edge = device_table((0.0, 0.0, -1.0), torch.float32, p.device)
     edges = [torch.where(ok[:, None], e, dead_edge) for e in (edge0, edge1, edge2)]
     vis = torch.cat(edges + [planes[:, 7]], dim=1)
     bbox = torch.stack(
@@ -229,7 +231,7 @@ def _slot_planes(tri10, slot_valid, cull, proj, width, height):
         ],
         dim=1,
     )
-    empty = torch.tensor([1e9, 1e9, -1e9, -1e9], device=p.device)
+    empty = device_table((1e9, 1e9, -1e9, -1e9), torch.float32, p.device)
     bbox = torch.where(ok[:, None], bbox, empty)
     return vis, attr, bbox, ok
 
@@ -261,8 +263,10 @@ def setup_pass(pos, uv, nrm, valid, cull, view, proj, width: int, height: int,
     )
 
     poly, count = _clip_triangle(vv, uv, nrm, bw)
-    tri0 = poly[:, [0, 1, 2]]
-    tri1 = poly[:, [0, 2, 3]]
+    # slices, not list indices: a list index is a host tensor copied to the
+    # device at every call
+    tri0 = poly[:, 0:3]
+    tri1 = torch.cat([poly[:, 0:1], poly[:, 2:4]], dim=1)
     # the view-space early cull only skips the CLIPPING work: early-culled
     # triangles still reach the screen-space test unclipped (batch3d.rs:592-600)
     unclipped = torch.cat([vv, uv, nrm, bw[:, :, None]], dim=2)

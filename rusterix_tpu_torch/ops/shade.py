@@ -35,7 +35,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import device_const, device_scalar
 from ..utils.color import linear_to_srgb_fast, srgb_to_linear_fast, tonemap_scenevm
+from .arena import leaf
 from .scene_pack import SRC_PIXEL, SRC_TEXTURE
 from .setup_pass import _fma
 
@@ -130,7 +132,7 @@ def resolve_texel(kind, tex_slot, rgba, repeat, u, v, atlas, anim_frame,
     slot = torch.clamp(tex_slot, min=0)
     count = torch.clamp(_take(atlas["tile_count"], slot), min=1)
     tex_id = _take(atlas["tile_first"], slot) + torch.remainder(
-        torch.as_tensor(int(anim_frame), dtype=count.dtype, device=count.device), count
+        device_scalar(int(anim_frame), count.dtype, count.device), count
     )
     sample = sample_atlas_nearest if sample_mode == 0 else sample_atlas_linear
     tx = sample(atlas, tex_id, uu, vv) * (1.0 / 255.0)
@@ -140,7 +142,9 @@ def resolve_texel(kind, tex_slot, rgba, repeat, u, v, atlas, anim_frame,
     # SRC_OFF / unsupported -> opaque black (rasterizer.rs:1222)
     is_other = (kind != SRC_TEXTURE) & (kind != SRC_PIXEL)
     black = torch.zeros_like(rgba)
-    black[..., 3] = default_alpha
+    # fill_, not an item assignment: assigning a number to a 0-d view (the
+    # 2D pass's per-triangle rgba) copies it from the host
+    black.select(-1, 3).fill_(default_alpha)
     return torch.where(is_other[..., None], black, texel)
 
 
@@ -175,7 +179,7 @@ def _mat_vec_pairwise(m, v):
 def _div(x, d: float):
     """x / d with d as an f32 tensor on x's device: CUDA divides by a
     Python number as x * (1/d), which rounds differently from x / d."""
-    return x / torch.tensor(d, dtype=torch.float32, device=x.device)
+    return x / device_scalar(d, torch.float32, x.device)
 
 
 def screen_to_world(px, py, z_ndc, inv_proj, inv_view, width, height):
@@ -190,7 +194,9 @@ def screen_to_world(px, py, z_ndc, inv_proj, inv_view, width, height):
 
 
 def _uniform(uniforms, key, device):
-    return torch.from_numpy(np.ascontiguousarray(uniforms[key], np.float32)).to(device)
+    """uniforms[key] as f32 on `device` (the arena's view when the frame
+    came through one)."""
+    return leaf(uniforms, key, device, torch.float32)
 
 
 # light type codes (models/light.py LightType)
@@ -204,8 +210,9 @@ LT_DAYLIGHT = 5
 
 def lights_to_torch(lights, device) -> dict:
     """The host SoA light dict (models.pack_lights plus "flicker_factor")
-    -> the same fields as tensors on `device`."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in lights.items()}
+    -> the same fields as tensors on `device` (the arena's views when the
+    frame came through one)."""
+    return {k: leaf(lights, k, device) for k in lights}
 
 
 def _smoothstep(edge0, edge1, x):
@@ -693,7 +700,7 @@ def shade_pass(z, idx, hit, attr_planes, tri_id, meta, atlas, lights, uniforms,
 
     if float(np.float32(uniforms["has_sun"])) > 0.5:
         sun_c = np.asarray(uniforms.get("sun_color", np.ones(3, np.float32)), np.float32)
-        sun_radiance = torch.from_numpy(np.float32(uniforms["day_factor"]) * sun_c).to(dev)
+        sun_radiance = device_const(np.float32(uniforms["day_factor"]) * sun_c, dev)
         if sun_factor is not None:
             sun_radiance = sun_radiance * sun_factor[..., None]
         sun_dir = _normalize(-_uniform(uniforms, "sun_dir", dev))

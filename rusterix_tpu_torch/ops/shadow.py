@@ -44,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import device_const, device_scalar
 from .matrices import perspective_fov_rh_zo
 from .setup_pass import _fma, setup_pass
 from .visibility import visibility_pass
@@ -97,7 +98,12 @@ def depth_const(near: float, far: float):
 
 
 def _f32(x, device):
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return device_scalar(x, torch.float32, device)
+
+
+def _mat_on(m, device) -> torch.Tensor:
+    """A (4, 4) camera matrix (numpy) on `device`, uploaded once per value."""
+    return device_const(np.asarray(m, np.float32), device)
 
 
 def _depth_face(pos, uv, nrm, valid, view, proj, a, b, res: int):
@@ -111,8 +117,7 @@ def _depth_face(pos, uv, nrm, valid, view, proj, a, b, res: int):
     dev = pos.device
     cull = torch.zeros(pos.shape[0], dtype=torch.int32, device=dev)
     vis, _attr, _bbox, alive, _tid = setup_pass(
-        pos, uv, nrm, valid, cull, torch.from_numpy(np.asarray(view, np.float32)).to(dev),
-        torch.from_numpy(np.asarray(proj, np.float32)).to(dev), res, res,
+        pos, uv, nrm, valid, cull, _mat_on(view, dev), _mat_on(proj, dev), res, res,
     )
     z, _idx, hit = visibility_pass(vis, alive.float(), res, res, chunk=BAKE_CHUNK,
                                    plane_fma=True)
@@ -145,8 +150,7 @@ def _trans_face(pos, uv, nrm, valid, opac_cols, view, proj, a, b, res: int,
     dev = pos.device
     cull = torch.zeros(pos.shape[0], dtype=torch.int32, device=dev)
     vis, _attr, _bbox, alive, tri_id = setup_pass(
-        pos, uv, nrm, valid, cull, torch.from_numpy(np.asarray(view, np.float32)).to(dev),
-        torch.from_numpy(np.asarray(proj, np.float32)).to(dev), res, res,
+        pos, uv, nrm, valid, cull, _mat_on(view, dev), _mat_on(proj, dev), res, res,
     )
     alive_f = alive.float()
     alpha_tri = opac_cols.float()[tri_id.long()]
@@ -467,7 +471,7 @@ def _dot3_xla(x, y, z, p, i: int):
 def _params_on(params, device) -> torch.Tensor:
     if isinstance(params, torch.Tensor):
         return params.float().to(device)
-    return torch.from_numpy(np.asarray(params, np.float32)).to(device)
+    return device_const(np.asarray(params, np.float32), device)
 
 
 def sun_shadow_texel(wx, wy, wz, params, base: int, res: int):

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import device_table
 from .setup_pass import _fma
 
 DEAD_PLANE = (0.0, 0.0, -1.0) * 3 + (0.0, 0.0, 1.0)
@@ -78,7 +79,7 @@ def visibility_pass(vis_planes, alive, width: int, height: int, chunk: int = 8,
     `return_invz` the raw winning 1/z comes back as a fourth output;
     `plane_fma`: see the module docstring."""
     dev = vis_planes.device
-    dead = torch.tensor(DEAD_PLANE, dtype=torch.float32, device=dev)
+    dead = device_table(tuple(DEAD_PLANE), torch.float32, dev)
     planes = torch.where((alive > 0.5)[:, None], vis_planes, dead)
     xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[:, None]
     ys = (

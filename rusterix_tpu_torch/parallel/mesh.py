@@ -32,10 +32,10 @@ runs use one card.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.arena import leaf
 from ..ops.raster import (
     ambient_occlusion,
     compose_rows,
@@ -97,8 +97,8 @@ def sharded_inputs(mesh, d3, lights, atlas, uniforms, background, width: int, he
     d3 = {k: _pad_rows(v, (-cap) % n) for k, v in d3.items()}
     per = int(d3["valid"].shape[0]) // n
     background = _pad_rows(background, hp - height)
-    view = torch.from_numpy(np.asarray(uniforms["view"], np.float32))
-    proj = torch.from_numpy(np.asarray(uniforms["proj"], np.float32))
+    view = leaf(uniforms, "view", mesh[0], torch.float32)
+    proj = leaf(uniforms, "proj", mesh[0], torch.float32)
     flags = {"has_blend": has_blend, "has_material": has_material, "has_matmap": has_matmap}
     split = bool(settings.get("shaders"))
 

@@ -799,3 +799,56 @@ def build_tracer_scene():
     camera.elevation = 0.5
     camera.set_parameter_f32("distance", 4.0)
     return scene, camera, Assets.default()
+
+
+def build_huge_scene(n_boxes: int = 10600, seed: int = 3):
+    """-> (scene, camera, assets): `n_boxes` random boxes (12 triangles
+    each) over a 200x200 field in three pixel-source batches under a point
+    light, the JAX package's tools/bench_huge.py scene (10,600 boxes:
+    127,200 triangles, 131,072 slots after the pack's power-of-two padding,
+    so 2,048 B3 cells)."""
+    rng = np.random.default_rng(seed)
+    batches = []
+    # one batch of many boxes keeps the host pack fast; colors per box ride
+    # a handful of pixel sources
+    colors = [(200, 140, 90, 255), (90, 160, 200, 255), (140, 200, 120, 255)]
+    per = n_boxes // len(colors)
+    for col in colors:
+        verts, tris, uvs = [], [], []
+        for _b in range(per):
+            x, z = rng.uniform(-100, 100, 2)
+            y = 0.0
+            w, h, d = rng.uniform(0.5, 3.0, 3)
+            base = len(verts)
+            bx = Batch3D.from_box(x, y, z, w, h, d)
+            verts.extend(bx.vertices.tolist())
+            tris.extend((bx.indices + base).tolist())
+            uvs.extend(bx.uvs.tolist())
+        batch = Batch3D.new(
+            np.asarray(verts, np.float32),
+            np.asarray(tris, np.int32),
+            np.asarray(uvs, np.float32),
+        ).set_source(PixelSource.pixel(col))
+        batches.append(batch.with_computed_normals())
+
+    scene = Scene.from_static([], batches)
+    scene.set_lights(
+        [Light(LightType.Point).with_position([0.0, 8.0, 0.0])
+         .with_intensity(2.0).compile()]
+    )
+    cam = D3FirstPCamera()
+    cam.set_parameter_vec3("position", [0.0, 12.0, 60.0])
+    cam.set_parameter_vec3("center", [0.0, 0.0, 0.0])
+    return scene, cam, Assets.default()
+
+
+def huge_rasterizer(cam, width: int, height: int, device=None):
+    """The Rasterizer tools/bench_huge.py renders the huge scene with: its
+    camera, an ambient of (0.3, 0.3, 0.35) and a sun at full day."""
+    from .ops.raster import Rasterizer
+
+    rast = Rasterizer.setup(None, cam.view_matrix(), cam.projection_matrix(width, height),
+                            device=device).ambient([0.3, 0.3, 0.35, 1.0])
+    rast.sun_dir = np.array([0.4, -1.0, 0.25], np.float32)
+    rast.day_factor = 1.0
+    return rast

@@ -32,7 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import device_const, resolve_device
 from ..lang import ast as A
 from ..lang.parser import ParseError, parse
 from .patterns import PATTERN_NAMES, pattern_bank, sample_pattern_jnp
@@ -70,7 +70,7 @@ class Val:
 
 def _f32(x, device) -> torch.Tensor:
     """A number or a list of numbers as an f32 tensor (JAX's f32 constant)."""
-    return torch.tensor(np.asarray(x, np.float32), device=device)
+    return device_const(np.asarray(x, np.float32), device)
 
 
 def _broadcast(x, device) -> Val:

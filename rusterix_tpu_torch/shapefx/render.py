@@ -16,6 +16,7 @@ import numpy as np
 
 import torch
 
+from ..device import device_const
 from ..shader.patterns import pattern_bank
 from ..utils.color import linear_to_srgb_fast
 
@@ -100,7 +101,7 @@ def sky_ambient_color(node):
 
 
 def _f32(x, device):
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return device_const(np.asarray(x, np.float32), device)
 
 
 def cloud_uv(ray_dir, cam):
@@ -122,7 +123,7 @@ def cloud_uv(ray_dir, cam):
 def _cam_tensor(cam_pos, device):
     if torch.is_tensor(cam_pos):
         return cam_pos.to(device=device, dtype=torch.float32)
-    return torch.from_numpy(np.asarray(cam_pos, np.float32)).to(device)
+    return device_const(np.asarray(cam_pos, np.float32), device)
 
 
 def sky_miss(sky_pre, ray_dir, cam_pos):

@@ -35,6 +35,17 @@ from rusterix_tpu_torch import client as tc  # noqa: E402
 from rusterix_tpu_torch.scenes import build_minigame, minigame_tick  # noqa: E402
 from tests import test_billboard_anim, test_minigame, test_screens  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread keeps the parallel
+    test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 #: pixels of the 160x120 minigame frame of the texel-boundary class (see the
 #: module docstring)
 MINIGAME_TEXEL_PINNED = 11

@@ -14,7 +14,10 @@ shaders), the split-path frames (T, U, W) and the dynamic-batch frame (V)
 against the CPU frames, the port's map, cube and shaded-cube
 examples, B3's preparation routes above the rank sort (the cluster route
 and the global route) against rt_prepare and in path B's frame, the minigame frame and
-the path tracer's buffer against the CPU's.
+the path tracer's buffer against the CPU's, the frame through the per-frame
+arena against the per-leaf frame, the one host-to-device copy of path A's
+steady frame, frame_breakdown on the card, and the huge scene's reflection
+frame through B3's cluster preparation route.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
 jax, so they also run on a machine without it:
@@ -1157,3 +1160,85 @@ def test_tracer_on_cuda_matches_cpu(cuda):
     print(f"tracer CUDA vs CPU: {int(far.sum())} pixels past 1e-5")
     assert int(far.sum()) <= TRACER_BRANCH_PIXELS
     assert np.isfinite(bufs[0]).all() and bufs[0][..., :3].max() > 1.0
+
+
+def _h2d_copies(fn) -> int:
+    """Host-to-device copies one call of `fn` makes (the profiler's Memcpy
+    HtoD records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert events, "the profiler recorded no device activity"
+    return sum("HtoD" in e.name for e in events)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", [build_map_scene, build_map_ao_scene],
+                         ids=["map", "map_ao"])
+def test_arena_frame_equals_the_per_leaf_frame_on_the_card(cuda, build):
+    """rasterize's frame through the arena (one pinned, non-blocking copy of
+    the per-frame leaves, viewed back out on the card) against render_frame
+    over the stashed arguments with every leaf uploaded on its own: equal."""
+    from rusterix_tpu_torch.ops import arena
+    from rusterix_tpu_torch.ops.raster import render_frame
+
+    rast, scene, assets = build(640, 360, device=cuda)
+    before = arena.uploads
+    frames = [rast.rasterize(scene, 640, 360, 40, assets) for _ in range(3)]
+    assert arena.uploads == before + 3 and rast.frame_arena is not None
+    fa = rast.frame_args
+    per_leaf = render_frame(**dict(fa, lights=dict(fa["lights"]),
+                                   uniforms=dict(fa["uniforms"]))).cpu().numpy()
+    for f in frames:
+        assert np.array_equal(f, per_leaf)
+
+
+@pytest.mark.cuda
+def test_steady_frame_of_the_map_makes_one_host_to_device_copy(cuda):
+    """Path A at 1920x1080: after the first frame (the scene upload), a frame
+    makes one host-to-device copy, the arena's."""
+    rast, scene, assets = build_map_scene(1920, 1080, device=cuda)
+    rast.rasterize(scene, 1920, 1080, 40, assets, readback=False)
+    assert _h2d_copies(lambda: rast.rasterize(scene, 1920, 1080, 40, assets)) == 1
+
+
+@pytest.mark.cuda
+def test_frame_breakdown_on_the_card(cuda):
+    """frame_breakdown of path A on the card: the megakernel key set, every
+    value finite and >= 0, by CUDA events."""
+    import math
+
+    from rusterix_tpu_torch.profiling import frame_breakdown
+
+    rast, scene, assets = build_map_scene(1920, 1080, device=cuda)
+    out = frame_breakdown(rast, scene, assets, 1920, 1080, reps=5)
+    assert set(out) == {"setup_ms", "pack_morton_ms", "megakernel_ms", "frame_ms", "fps",
+                        "full_frame_ms"}
+    assert all(math.isfinite(v) and v >= 0 for v in out.values())
+
+
+@pytest.mark.cuda
+def test_huge_reflection_frame_takes_the_cluster_route(cuda):
+    """HGR at 640x360: the huge scene's 131,072 slots are 2,048 B3 cells,
+    which the cluster preparation route takes (one launch, no other route),
+    and the frame equals its render over the per-leaf route."""
+    from rusterix_tpu_torch.ops.raster import render_frame
+    from rusterix_tpu_torch.scenes import build_huge_scene, huge_rasterizer
+
+    scene, cam, assets = build_huge_scene()
+    rast = huge_rasterizer(cam, 640, 360, cuda).set_brdf("ggx").set_reflections(1)
+    rast.rasterize(scene, 640, 360, 40, assets, readback=False)
+    rt_kernel.launches = rt_kernel.prepare_launches = 0
+    rt_kernel.prepare_cluster_launches = rt_kernel.prepare_large_launches = 0
+    frame = rast.rasterize(scene, 640, 360, 40, assets)
+    assert rast.frame_args["d3"]["pos"].shape[0] // rt_kernel.RT_CELL == 2048
+    assert (rt_kernel.launches, rt_kernel.prepare_launches, rt_kernel.prepare_cluster_launches,
+            rt_kernel.prepare_large_launches) == (1, 0, 1, 0)
+    fa = rast.frame_args
+    per_leaf = render_frame(**dict(fa, lights=dict(fa["lights"]), uniforms=dict(fa["uniforms"])))
+    assert np.array_equal(frame, per_leaf.cpu().numpy())
