@@ -63,8 +63,9 @@ trace_scene on the minigame world, trace_sharded over a mesh of 4
 byte-equal to 4 trace() calls, and draw_scene's 2D view; Bl and Blg,
 path B with B3's preparation sent through its cluster route
 (rt_prepare_cluster_kernel, the route of scenes above
-rt_kernel.PREPARE_MAX_CELLS) and its global route (rt_prepare_large_kernel,
-above rt_kernel.CLUSTER_MAX_CELLS), byte-equal to path B's frame; HG,
+rt_kernel.PREPARE_MAX_CELLS) and its global route (rt_prepare_large_boxes,
+_count and four passes of rt_prepare_large_kernel, above
+rt_kernel.CLUSTER_MAX_CELLS), byte-equal to path B's frame; HG,
 the huge scene of tools/bench_huge.py (scenes.build_huge_scene: 10,600
 boxes, 131,072 slots) opaque at 1920x1080 (B1), and HGR, HG with GGX
 reflections (B1's GGX variant, B2, B3's walk and its cluster preparation
@@ -72,8 +73,10 @@ over 2,048 cells), their B1, B2 and walk held to the plain versions on a
 band of rows and their small frames taken on the scene cut to 300 boxes;
 C12,
 both routes alone on 1080p rays over 28,700 cells (keys that all tie, and
-keys that spread) against rt_prepare and torch.sort, with their bound; and
-the sweep, every preparation route at 32 to 28,672 cells beside torch.sort.
+keys that spread) against rt_prepare and torch.sort, with their bound; GL,
+the global route at its own size (1080p rays over 131,072 cells, the limits
+as they stand) the same way; and the sweep, every preparation route at 32
+to 106,496 cells beside torch.sort.
 Every unsharded frame sends its per-frame leaves to the card in one copy
 (ops/arena.py): phase 4h counts the host-to-device copies of a steady
 frame of every path where PyTorch dispatches them (HostCopies; A's also by
@@ -857,13 +860,24 @@ Z_TRACES = 4
 C12_CELLS = 28700
 C12_LIMIT = 4
 # the preparation routes timed at these cell counts on 1080p rays (the
-# sweep), with the keys of both kinds of c12_inputs
-SWEEP_CELLS = (32, 256, 384, 512, 2048, 6200, 28672)
+# sweep), with the keys of both kinds of c12_inputs, up to the most cells the
+# cluster kernel holds (8 * CLUSTER_SPAN_MAX)
+SWEEP_CELLS = (32, 256, 384, 512, 2048, 6200, 28672, 32768, 65536, 106496)
 SWEEP_KEYS = ("ties", "spread")
 # the most cells rt_prepare_kernel holds (RT_MAX_CELLS in csrc/rt_kernel.cu)
 RANK_MAX_CELLS = 28672
 # preparation calls profiled for each route of a sweep point
 SWEEP_CALLS = 3
+# the kernels of each preparation route and their launches a call (the global
+# route: the boxes, the count and four passes)
+ROUTE_KERNELS = {"rank": {"rt_prepare_kernel": 1},
+                 "cluster": {"rt_prepare_cluster_kernel": 1},
+                 "global": {"rt_prepare_large_boxes": 1, "rt_prepare_large_count": 1,
+                            "rt_prepare_large_kernel": 4}}
+# GL: the global route at its own size, 1080p rays over this many cells of
+# 64 slots (8,388,608 triangles), above rt_kernel.CLUSTER_MAX_CELLS with the
+# limits as they stand
+GL_CELLS = 131072
 
 
 def c12_inputs(ncells: int, keys: str = "ties", seed: int = 12) -> tuple:
@@ -917,30 +931,108 @@ class route_limits:
             setattr(self.mod, k, v)
 
 
-def prep_device_ms(fn, symbol: str, calls: int = SWEEP_CALLS) -> float:
+def prep_device_ms(fn, kernels, calls: int = SWEEP_CALLS, split: dict = None) -> float:
     """Device ms of one call of `fn` under the profiler, over `calls` calls:
-    with `symbol` (a preparation kernel's launch, the only device activity
-    of a call) the kernel's ms a record kept; with None (any call) the
-    union of the device intervals a call, provided every kernel's records
-    are a whole number a call. Where the profiler records nothing twice, or
-    lost records of a library call (it does so late in a long process), the
-    median of CUDA events around single calls, and a line says so."""
+    with `kernels` ({symbol: launches a call}, a preparation route's
+    kernels, the only device activity of a call) the sum of each kernel's
+    ms a record kept times its launches (and each kernel's share into
+    `split`); with None (any call) the union of the device intervals a call,
+    provided every kernel's records are a whole number a call. Where the
+    profiler records nothing twice, or lost records of a library call (it
+    does so late in a long process), the median of CUDA events around
+    single calls, and a line says so."""
     for _ in range(2):
         prof = profile_calls(fn, calls)
         if prof is not None:
             break
-    if prof is None or (symbol is None and any(
+    if prof is None or (kernels is None and any(
             c % calls for _ms, c in prof["by_name"].values())):
         ms = median(cuda_times(fn, 2 * calls))
         print(f"profiler recorded {'nothing' if prof is None else 'part'} of "
-              f"{symbol or 'a library call'}: CUDA events instead, {ms:.4f} ms")
+              f"{', '.join(kernels or ['a library call'])}: CUDA events instead, {ms:.4f} ms")
         return ms
-    if symbol is None:
+    if kernels is None:
         return prof["device_ms"]
-    seen = [(ms, c) for name, (ms, c) in prof["by_name"].items() if is_kernel(name, symbol)]
-    if len(prof["by_name"]) != 1 or len(seen) != 1 or not 1 <= seen[0][1] <= calls:
-        raise SystemExit(f"profiled {symbol}: records {prof['by_name']}")
-    return seen[0][0] / seen[0][1]
+    total = 0.0
+    for symbol, per in kernels.items():
+        seen = [(ms, c) for name, (ms, c) in prof["by_name"].items() if is_kernel(name, symbol)]
+        if len(seen) != 1 or not 1 <= seen[0][1] <= calls * per:
+            raise SystemExit(f"profiled {symbol}: records {prof['by_name']}")
+        total += seen[0][0] / seen[0][1] * per
+        if split is not None:
+            split[symbol] = seen[0][0] / seen[0][1] * per
+    if len(prof["by_name"]) != len(kernels):
+        raise SystemExit(f"profiled {list(kernels)}: records {prof['by_name']}")
+    return total
+
+
+def gl_phase(gpu: str) -> dict:
+    """GL: B3's global preparation route at its own size, on 1080p rays over
+    GL_CELLS cells with the keys of both kinds of c12_inputs and the limits
+    as they stand: the route `prepare_route` picks must be "global" and the
+    only one launched; boxes, tnear and slist bit for bit against
+    rt_prepare; the wrapper (CUDA events), the kernels alone on prepared
+    inputs (events, and the profiler's device ms, split by kernel), the
+    plain rt_prepare, torch.sort of the same keys in cell order and the
+    bound (C12's rule). -> the numbers by kind of keys, with the bound."""
+    from rusterix_tpu_torch.ops import rt_kernel
+
+    out = {}
+    for kind in SWEEP_KEYS:
+        torch.cuda.reset_peak_memory_stats()
+        args = c12_inputs(GL_CELLS, kind)
+        sizes_ = rt_kernel._sizes(args[0].shape[0], H, W)
+        nb = sizes_["nby"] * sizes_["nbx"]
+        route = rt_kernel.prepare_route(GL_CELLS, nb)
+        if route["route"] != "global" or sizes_["ncells"] != GL_CELLS:
+            raise SystemExit(f"GL: {GL_CELLS} cells take the {route['route']} route")
+        zero_counts()
+        prep = rt_kernel.rt_prepare_cuda(*args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts["B3prepL"] != 1 or counts["B3prep"] or counts["B3prepC"]:
+            raise SystemExit(f"GL: the global route did not run alone: {counts}")
+        ref = rt_kernel.rt_prepare(*args)
+        for key in ("boxes", "tnear", "slist"):
+            if not torch.equal(prep[key], ref[key]):
+                raise SystemExit(f"GL ({kind}): the global route's {key} differs from "
+                                 f"rt_prepare's")
+        live = int((prep["tnear"] < 3e37).sum())
+        distinct = int(torch.unique(prep["tnear"][0]).numel())
+        nbytes_ = nbytes(*args[2:8], prep["cbox"], prep["boxes"], prep["tnear"], prep["slist"])
+        ops = H * W * OPS_PREP_PER_RAY + prep["tnear"].numel() * OPS_PREP_PER_KEY
+        ms_b, by = bound(nbytes_, ops)
+        del prep
+        t_w = cuda_times(lambda: rt_kernel.rt_prepare_cuda(*args), 5)
+        scene = rt_kernel.scene_tables(args[0], args[1], args[8], GL_CELLS, sizes_["cell"])
+        alone = rt_kernel.prepare_launch(scene, rt_kernel._ray_fields(*args[2:8]), args[8],
+                                         sizes_)
+        t_a = cuda_times(alone, 5)
+        split = {}
+        dev = prep_device_ms(alone, ROUTE_KERNELS["global"], split=split)
+        del alone, scene
+        t_p = cuda_times(lambda: rt_kernel.rt_prepare(*args), 2, warmup=1)
+        keys = ref["tnear"].gather(1, ref["slist"].long().argsort(1))  # cell order
+        del ref
+        t_sort = cuda_times(lambda: torch.sort(keys, dim=1, stable=True), 5)
+        dev_sort = prep_device_ms(lambda: torch.sort(keys, dim=1, stable=True), None)
+        del keys, args
+        out[kind] = {"wrapper": median(t_w), "alone": median(t_a), "device": dev,
+                     "split": split, "plain": median(t_p), "sort": median(t_sort),
+                     "sort_device": dev_sort,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+        out["bound"] = [ms_b, by]
+        print(f"GL global route ({kind} keys; {nb} ray blocks x {GL_CELLS} cells, {live} live "
+              f"keys, {distinct} distinct in block 0's row; {route['tiles']} tiles a row, "
+              f"{route['scratch']} B scratch): boxes, tnear, slist equal to rt_prepare; "
+              f"wrapper {summary(t_w)}; kernels alone {summary(t_a)}, device {dev:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"); plain rt_prepare {median(t_p):.4f} ms; torch.sort of the keys "
+              f"{median(t_sort):.4f} ms (device {dev_sort:.4f}); bound {ms_b:.6f} ms "
+              f"({nbytes_} bytes, {ops} f32 ops, by {by}); peak device memory "
+              f"{out[kind]['peak_gb']:.2f} GiB on {gpu}")
+        torch.cuda.empty_cache()
+    return out
 
 
 def prep_sweep(gpu: str) -> list:
@@ -968,13 +1060,12 @@ def prep_sweep(gpu: str) -> list:
             if n <= RANK_MAX_CELLS:
                 routes.append(("rank", {"PREPARE_MAX_CELLS": RANK_MAX_CELLS}))
             for span in (rt_kernel.CLUSTER_SPAN, rt_kernel.CLUSTER_SPAN_MAX):
-                routes.append(("cluster", {"PREPARE_MAX_CELLS": 0, "CLUSTER_SPAN": span}))
+                routes.append(("cluster", {"PREPARE_MAX_CELLS": 0, "CLUSTER_SPAN": span,
+                                           "CLUSTER_MAX_CELLS": 8 * rt_kernel.CLUSTER_SPAN_MAX}))
             routes.append(("global", {"PREPARE_MAX_CELLS": 0, "CLUSTER_MAX_CELLS": 0}))
             point = {"cells": n, "keys": kind, "ray_blocks": nb,
                      "distinct_keys_row0": int(torch.unique(ref["tnear"][0]).numel()),
                      "route": rt_kernel.prepare_route(n, nb)["route"], "ms": {}}
-            symbols = {"rank": "rt_prepare_kernel", "cluster": "rt_prepare_cluster_kernel",
-                       "global": "rt_prepare_large_kernel"}
             for label, limits in routes:
                 with route_limits(**limits):
                     route = rt_kernel.prepare_route(n, nb)
@@ -991,7 +1082,7 @@ def prep_sweep(gpu: str) -> list:
                     if not torch.equal(got, ref[key]):
                         raise SystemExit(f"sweep {n} cells ({kind}): the {label} route's {key} "
                                          f"differs from rt_prepare's")
-                point["ms"][label] = prep_device_ms(fn, symbols[route["route"]])
+                point["ms"][label] = prep_device_ms(fn, ROUTE_KERNELS[route["route"]])
             keys = ref["tnear"].gather(1, ref["slist"].long().argsort(1))  # cell order
             point["ms"]["torch.sort"] = prep_device_ms(
                 lambda: torch.sort(keys, dim=1, stable=True), None)
@@ -1256,9 +1347,11 @@ def engine_paths(gpu: str, phase) -> list:
     """Paths X (the minigame loop through the Rusterix facade), Y (the path
     tracer), Z (the facade's trace_scene, trace_sharded and 2D view), Bl
     and Blg (path B through the cluster and the global preparation route),
-    C12's phase (both routes alone on 1080p rays over C12_CELLS cells) and
-    the sweep (prep_sweep). Raises on a failed check -> the kernels line's
-    rows for the cluster and the global preparation route."""
+    C12's phase (both routes alone on 1080p rays over C12_CELLS cells), GL
+    (gl_phase: the global route over GL_CELLS cells) and the sweep
+    (prep_sweep). Raises on a failed check -> the kernels line's rows for
+    the cluster and the global preparation route (GL's numbers under the
+    latter's "gl")."""
     import random
 
     from rusterix_tpu_torch import _cuda
@@ -1469,11 +1562,13 @@ def engine_paths(gpu: str, phase) -> list:
 
     phase("C12")
     # C12. the cluster route alone on 1080p rays over C12_CELLS cells of
-    # seeded random triangles, with both kinds of keys, and the global route
-    # on the same inputs: bit for bit against rt_prepare, timed against it
-    # and against torch.sort of its keys
+    # seeded random triangles (its limit raised to what the kernel holds:
+    # C12 lies just above CLUSTER_MAX_CELLS), with both kinds of keys, and
+    # the global route on the same inputs: bit for bit against rt_prepare,
+    # timed against it and against torch.sort of its keys
     rows, c12_rows = [], []
-    for key, symbol, limits in (("B3prepC", "rt_prepare_cluster_kernel", {}),
+    for key, symbol, limits in (("B3prepC", "rt_prepare_cluster_kernel",
+                                 {"CLUSTER_MAX_CELLS": 8 * rt_kernel.CLUSTER_SPAN_MAX}),
                                 ("B3prepL", "rt_prepare_large_kernel",
                                  {"CLUSTER_MAX_CELLS": C12_LIMIT})):
         row = {}
@@ -1504,7 +1599,7 @@ def engine_paths(gpu: str, phase) -> list:
                 alone = rt_kernel.prepare_launch(scene, rt_kernel._ray_fields(*c12_in[2:8]),
                                                  25.0, sizes_)
                 t_a = cuda_times(alone, 10)
-                dev = prep_device_ms(alone, symbol)
+                dev = prep_device_ms(alone, ROUTE_KERNELS[route["route"]])
                 if key == "B3prepC":  # the plain version and the library call, once a kind
                     t_p = cuda_times(lambda: rt_kernel.rt_prepare(*c12_in), 3, warmup=1)
                     keys = ref["tnear"].gather(1, ref["slist"].long().argsort(1))  # cell order
@@ -1529,15 +1624,16 @@ def engine_paths(gpu: str, phase) -> list:
         ms_b, by = row["bound"]
         res = (_cuda.resources("rt_prepare_cluster", C12_CELLS, route["cluster"])
                if key == "B3prepC" else _cuda.resources("rt_prepare_large"))
-        if key == "B3prepC" and res["smem_static"] != rt_kernel.CLUSTER_SMEM_STATIC:
-            raise SystemExit(f"rt_kernel.CLUSTER_SMEM_STATIC is "
-                             f"{rt_kernel.CLUSTER_SMEM_STATIC}, the kernel's {res}")
+        static = (rt_kernel.CLUSTER_SMEM_STATIC if key == "B3prepC"
+                  else rt_kernel.GLOBAL_SMEM_STATIC)
+        if res["smem_static"] != static:
+            raise SystemExit(f"{symbol}: rt_kernel's static shared memory is {static}, the "
+                             f"kernel's {res}")
         print(f"bound C12 {route['route']} route: {nb} bytes, {ops} f32 ops -> {ms_b:.6f} ms, "
               f"bound by {by}")
         print(f"resources {key}: {res['registers']} registers, "
               f"{res['smem_static'] + res['smem_dynamic']} B shared memory a block, "
-              f"{res['blocks_per_sm']} blocks of {512 if key == 'B3prepC' else 256} threads an "
-              f"SM" + (f", clusters of {route['cluster']} blocks, {res['clusters']} clusters "
+              f"{res['blocks_per_sm']} blocks of 512 threads an SM" + (f", clusters of {route['cluster']} blocks, {res['clusters']} clusters "
                        f"at once" if key == "B3prepC" else "") + f" on {gpu}")
         c12_rows.append(row)
         spread = row["spread"]
@@ -1553,6 +1649,9 @@ def engine_paths(gpu: str, phase) -> list:
             "alone_ms": spread["alone"], "ties": row["ties"],
             **({"cluster": route["cluster"]} if key == "B3prepC" else {}), **res,
         })
+
+    phase("GL")
+    rows[-1]["gl"] = gl_phase(gpu)
 
     phase("C12 sweep")
     # 6. the routes across cell counts, with torch.sort beside them

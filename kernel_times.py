@@ -2,6 +2,7 @@
 
     python3 kernel_times.py                   # this checkout
     python3 kernel_times.py --against DIR     # DIR, this, this, DIR on one card
+    python3 kernel_times.py --prep [--against DIR]   # B3's preparation only
 
 Builds the kernels of a tree's `rusterix_tpu_torch`, takes the kernels' own
 inputs from the two 1920x1080 map frames chip_smoke.py drives (opaque, and
@@ -14,7 +15,8 @@ the scan, the interpolation + texel fetch, and the lighting + fog + pack;
 the opaque frame itself (`rasterize`, path A) is timed the same way, which
 gives its device ops per frame. B3's preparation is timed on path B's rays
 and on chip_smoke.py's C12 scene (1080p rays over 28,700 cells, both kinds
-of keys), through whichever route each tree's `rt_prepare_cuda` takes.
+of keys) and its GL scene (131,072 cells), through whichever route each
+tree's `rt_prepare_cuda` takes; `--prep` times only those.
 Where the tree has the shadowed map (`scenes.build_map_shadow_scene`), the
 megakernel is also timed on its inputs with and without the shadow table;
 where it has the glazed map (`scenes.build_map_glass_scene`), on its inputs
@@ -47,12 +49,14 @@ import subprocess
 import sys
 
 KERNEL_SYMBOLS = ("mega_kernel", "visibility_kernel", "rt_kernel", "rt_prepare_kernel",
-                  "rt_prepare_cluster_kernel", "rt_prepare_large_kernel")
+                  "rt_prepare_cluster_kernel", "rt_prepare_large_kernel",
+                  "rt_prepare_large_boxes", "rt_prepare_large_count")
 
 
-def measure(tree: str) -> dict:
+def measure(tree: str, prep_only: bool = False) -> dict:
     """The times of the package under `tree` (a directory that holds
-    rusterix_tpu_torch/), in ms per call."""
+    rusterix_tpu_torch/), in ms per call; with `prep_only` B3's
+    preparation on C12's and GL's scenes alone."""
     import chip_smoke as cs  # this checkout's, whatever the tree holds
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -76,11 +80,23 @@ def measure(tree: str) -> dict:
             out["device_ms"], out["device_ops"] = prof["device_ms"], prof["ops"]
             for name, (ms, count) in prof["by_name"].items():
                 for symbol in KERNEL_SYMBOLS:
-                    if cs.is_kernel(name, symbol):  # one launch per call
-                        out[symbol + "_ms"] = out.get(symbol + "_ms", 0.0) + ms / count
+                    if cs.is_kernel(name, symbol):  # its ms a record, times its launches a call
+                        per = max(1, round(count / prof["calls"]))
+                        out[symbol + "_ms"] = out.get(symbol + "_ms", 0.0) + ms / count * per
         return out
 
     times = {}
+    for cells, label in ((cs.C12_CELLS, "C12"), (cs.GL_CELLS, "GL")):
+        for kind in cs.SWEEP_KEYS:  # whichever route the tree gives the scene
+            prep_in = cs.c12_inputs(cells, kind)
+            times[f"B3 preparation {label} ({kind} keys)"] = timed(
+                lambda: rt_kernel.rt_prepare_cuda(*prep_in))
+            del prep_in
+            torch.cuda.empty_cache()
+    gpu = cs._run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    if prep_only:
+        return {"tree": os.path.abspath(tree), "gpu": gpu.splitlines()[0], "b1": {},
+                "times": times}
     for label, build in (("opaque", build_map_scene), ("ggx", build_map_refl_scene)):
         rast, scene, assets = build(cs.W, cs.H, device="cuda")
         rast.rasterize(scene, cs.W, cs.H, 40, assets)
@@ -105,11 +121,6 @@ def measure(tree: str) -> dict:
     times["B2"] = timed(lambda: visibility_pallas.visibility_pass_pallas(*b2_in))
     times["B3 (preparation + walk)"] = timed(lambda: rt_kernel.intersect_rays_pallas(*b3_in))
     times["B3 preparation"] = timed(lambda: rt_kernel.rt_prepare_cuda(*b3_in))
-    for kind in cs.SWEEP_KEYS:  # whichever route the tree gives C12's scene
-        c12_in = cs.c12_inputs(cs.C12_CELLS, kind)
-        times[f"B3 preparation C12 ({kind} keys)"] = timed(
-            lambda: rt_kernel.rt_prepare_cuda(*c12_in))
-        del c12_in
     if hasattr(scenes, "build_map_shadow_scene"):
         rast, scene, assets = scenes.build_map_shadow_scene(cs.W, cs.H, device="cuda")
         rast.rasterize(scene, cs.W, cs.H, 40, assets)
@@ -153,7 +164,6 @@ def measure(tree: str) -> dict:
             for label, kw in forms:
                 times[f"B1 {name}" + label] = timed(
                     lambda kw=kw: megakernel.mega_render(*args, **kw))
-    gpu = cs._run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     return {"tree": os.path.abspath(tree), "gpu": gpu.splitlines()[0], "b1": b1,
             "times": times}
 
@@ -163,15 +173,16 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)),
                     help="directory that holds the rusterix_tpu_torch to measure")
     ap.add_argument("--against", help="another tree: measure it, this, this, it")
+    ap.add_argument("--prep", action="store_true", help="B3's preparation on C12 and GL only")
     ns = ap.parse_args()
     if not ns.against:
-        print(json.dumps(measure(ns.tree)))
+        print(json.dumps(measure(ns.tree, ns.prep)))
         return 0
     here = os.path.abspath(__file__)
     turns = []
     for tree in (ns.against, ns.tree, ns.tree, ns.against):
-        proc = subprocess.run([sys.executable, here, "--tree", tree], capture_output=True,
-                              text=True)
+        proc = subprocess.run([sys.executable, here, "--tree", tree]
+                              + (["--prep"] if ns.prep else []), capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode

@@ -128,7 +128,8 @@ def library() -> ctypes.CDLL:
     lib.rx_rt_prepare.restype = i32
     lib.rx_rt_prepare.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 3 + [i32] * 5 + [vp]
     lib.rx_rt_prepare_large.restype = i32
-    lib.rx_rt_prepare_large.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 4 + [i32] * 6 + [vp]
+    lib.rx_rt_prepare_large.argtypes = ([vp] * 7 + [ctypes.c_float] + [vp] * 4 + [i64]
+                                        + [i32] * 5 + [vp])
     lib.rx_rt_prepare_cluster.restype = i32
     lib.rx_rt_prepare_cluster.argtypes = [vp] * 7 + [ctypes.c_float] + [vp] * 3 + [i32] * 6 + [vp]
     lib.rx_rt_cluster_resources.restype = i32
@@ -148,7 +149,8 @@ def resources(kernel: str, *sizes: int) -> dict:
     material form: 0 none, 1 has_material, 2 has_matmap; 0 when left out),
     "visibility" (supers), "rt_walk" (), "rt_prepare" (cells),
     "rt_prepare_cluster" (cells, blocks a cluster; also the clusters the card
-    holds at once), "rt_prepare_large" ()."""
+    holds at once), "rt_prepare_large" () (the global route's sorting pass,
+    rt_prepare_large_kernel)."""
     lib = library()
     out = (ctypes.c_int * 5)()
     if kernel == "mega":

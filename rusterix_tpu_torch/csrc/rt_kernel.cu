@@ -80,15 +80,41 @@
 //   once a block (the cluster's blocks read them from L2) and writes each
 //   output once; what is left of its time is the passes' instructions and
 //   the cluster barriers between them.
-// - Above a cluster of 8 blocks (8 * RT_SPAN_MAX cells), rt_kernel's
-//   CLUSTER_MAX_CELLS, `rt_prepare_large_kernel` takes the scene: the same
-//   boxes and keys, written to a global scratch of one power-of-two row a
-//   ray block, sorted by a bitonic network (every stage whose partners lie
-//   within a chunk of SORT_CHUNK keys in shared memory, the wider ones over
-//   the row in global memory; 2 + 2 log2(n / SORT_CHUNK) passes of the row
-//   through the scratch), then written out as tnear and slist.
-// The keys are unique (the cell is their low half), so every route gives
-// the same bits.
+// - Above rt_kernel's CLUSTER_MAX_CELLS the global route takes the scene:
+//   it sorts a row through device memory, so no row is too long for it
+//   (the cluster route holds 8 * RT_SPAN_MAX cells), and above 28,672 cells
+//   it is the faster of the two on 1080p rays. Its first design gave one block
+//   of 256 threads a whole row of u64 (key << 32 | cell) keys padded to a
+//   power of two and sorted it by a bitonic network: O(n log^2 n), some 22
+//   traversals of the row at 32,768 keys and 44 at 131,072, each behind a
+//   block barrier, at 2.3 % of its bound and slower than torch.sort of the
+//   same keys. This design is an LSD radix sort on the keys' 32 bits with
+//   the cell as payload (stable, so ties stay in cell order), spread over
+//   many blocks a row: `rt_prepare_large_boxes` (a block a ray block: the
+//   boxes, and the row's counters zeroed), `rt_prepare_large_count` (blocks
+//   of LG_COUNT_TILE cells: the keys computed from the boxes and the cell
+//   boxes, which stay in L2; each byte's digit counts and the AND/OR of the
+//   keys added to the row's, nothing written per key) and four launches of
+//   `rt_prepare_large_kernel`, one a byte. A byte in which no key of the
+//   row differs is skipped; a row whose keys are all equal is written once
+//   in cell order. In a pass every block takes a tile of LG_TILE pairs in
+//   the row's current order (its first pass recomputes the keys instead of
+//   reading them), ranks them stably by the cluster route's ballots, finds
+//   how many of each digit the row's earlier tiles hold by decoupled
+//   look-back (Onesweep, Adinets & Merrill 2022: each tile publishes its
+//   digit counts, then its inclusive prefix, in one word a digit), and
+//   writes its pairs through shared memory in digit runs, 8 bytes a pair.
+//   The passes alternate between a scratch of 8 bytes a (ray block, cell)
+//   and the outputs themselves, so that the last one writes tnear and
+//   slist: at four passes some 56 bytes a pair move, against the first
+//   design's hundreds. The passes still run at about half the memory rate;
+//   what was measured against that (tools/prep_forms_torch.py, PERF.md):
+//   three blocks a SM rather than two took some 4 % off (kept), while a
+//   look-back reading eight tiles at once, `__match_any_sync` in place of
+//   the ballots, tiles of 2,048 or 8,192 pairs and a count of eight rows a
+//   block (each cell box read once for them) were as fast or slower.
+// Every route orders the keys as u64 (key bits << 32 | cell) would, so every
+// route gives the same bits.
 //
 // Bit parity with the plain torch versions (rt_kernel.rt_prepare and
 // rt_kernel.intersect_rays_pallas_reference): compiled with -fmad=false,
@@ -146,8 +172,6 @@ static __device__ __forceinline__ long long ray_offset(int by, int bx, int r, in
 }
 
 // ------------------------------------------------------------ preparation
-
-#define SORT_CHUNK 4096  // keys a block sorts in shared memory at once (32 KB)
 
 // The block's origin and direction boxes over its live rays into s_box[12]
 // (and boxes[b] unless boxes is null): [o min xyz | o max xyz | d min xyz |
@@ -256,83 +280,6 @@ __global__ void __launch_bounds__(RT_THREADS) rt_prepare_kernel(
     }
 }
 
-// One round of a bitonic sorting network over a[0..n) (n a power of two,
-// a[i] the key at global position base + i): every pair (i, i + j) with
-// bit j of i clear is put in ascending order where bit k of base + i is
-// clear, descending where it is set. No barrier.
-static __device__ __forceinline__ void bitonic_round(unsigned long long* a, int n, int base,
-                                                     int k, int j) {
-    for (int q = threadIdx.x; q < n / 2; q += RT_THREADS) {
-        const int i = 2 * j * (q / j) + (q % j);
-        const unsigned long long x = a[i], y = a[i + j];
-        const bool up = ((base + i) & k) == 0;
-        if ((x > y) == up) {
-            a[i] = y;
-            a[i + j] = x;
-        }
-    }
-}
-
-// Rounds j = j0, j0 / 2, ..., 1 of stage k on each SORT_CHUNK-key chunk of
-// row[0..n) in shared memory (j0 < chunk). Ends with a barrier.
-static __device__ __forceinline__ void bitonic_chunks(unsigned long long* row, int n,
-                                                      unsigned long long* s_sort, int chunk,
-                                                      int k_first, int k_last) {
-    for (int base = 0; base < n; base += chunk) {
-        for (int i = threadIdx.x; i < chunk; i += RT_THREADS) s_sort[i] = row[base + i];
-        __syncthreads();
-        for (int k = k_first; k <= k_last; k <<= 1) {
-            for (int j = min(k >> 1, chunk >> 1); j > 0; j >>= 1) {
-                bitonic_round(s_sort, chunk, base, k, j);
-                __syncthreads();
-            }
-        }
-        for (int i = threadIdx.x; i < chunk; i += RT_THREADS) row[base + i] = s_sort[i];
-        __syncthreads();
-    }
-}
-
-// The preparation for scenes whose keys outgrow a block's shared memory: one
-// block a ray block, its keys in its row of `keys` (n2 >= ncells, a power of
-// two; the padding keys ~0 sort last), sorted ascending by a bitonic network.
-__global__ void __launch_bounds__(RT_THREADS) rt_prepare_large_kernel(
-    const RayFields rays, const float* __restrict__ cbox, float t_cap,
-    float* __restrict__ boxes, float* __restrict__ tnear, int* __restrict__ slist,
-    unsigned long long* keys, int ncells, int n2, int nbx, int height, int width) {
-    __shared__ float s_part[RT_WARPS][12];
-    __shared__ float s_box[12];
-    __shared__ unsigned long long s_sort[SORT_CHUNK];
-
-    const int b = blockIdx.x;
-    const int tid = threadIdx.x;
-    block_boxes<RT_THREADS>(rays, s_part, s_box, boxes, b, nbx, height, width);
-
-    unsigned long long* row = keys + (size_t)b * n2;
-    for (int c = tid; c < n2; c += RT_THREADS)
-        row[c] = c < ncells ? cell_key(cbox, s_box, c, t_cap) : ~0ull;
-    __syncthreads();
-
-    const int chunk = n2 < SORT_CHUNK ? n2 : SORT_CHUNK;
-    // stages 2..chunk: each chunk sorted whole in shared memory (alternate
-    // chunks descending, so that pairs of chunks form bitonic sequences)
-    bitonic_chunks(row, n2, s_sort, chunk, 2, chunk);
-    // the wider stages: the rounds whose partners are a chunk or more apart
-    // over the row in global memory, the rest chunk by chunk
-    for (int k = 2 * chunk; k <= n2; k <<= 1) {
-        for (int j = k >> 1; j >= chunk; j >>= 1) {
-            bitonic_round(row, n2, 0, k, j);
-            __syncthreads();
-        }
-        bitonic_chunks(row, n2, s_sort, chunk, k, k);
-    }
-
-    for (int r = tid; r < ncells; r += RT_THREADS) {
-        const unsigned long long key = row[r];
-        tnear[(size_t)b * ncells + r] = __uint_as_float((unsigned)(key >> 32));
-        slist[(size_t)b * ncells + r] = (int)(unsigned)(key & 0xffffffffull);
-    }
-}
-
 extern "C" int rx_rt_prepare(const float* ox, const float* oy, const float* oz, const float* dx,
                              const float* dy, const float* dz, const float* cbox, float t_cap,
                              float* boxes, float* tnear, int* slist, int ncells, int nby,
@@ -351,24 +298,6 @@ extern "C" int rx_rt_prepare(const float* ox, const float* oy, const float* oz, 
     if (err != cudaSuccess) return (int)err;
     rt_prepare_kernel<<<nby * nbx, RT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         rays, cbox, t_cap, boxes, tnear, slist, ncells, nbx, height, width);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int rx_rt_prepare_large(const float* ox, const float* oy, const float* oz,
-                                   const float* dx, const float* dy, const float* dz,
-                                   const float* cbox, float t_cap, float* boxes, float* tnear,
-                                   int* slist, unsigned long long* keys, int ncells, int n2,
-                                   int nby, int nbx, int height, int width, void* stream) {
-    if (n2 < ncells || (n2 & (n2 - 1)) != 0) return (int)cudaErrorInvalidValue;
-    RayFields rays;
-    rays.f[0] = ox;
-    rays.f[1] = oy;
-    rays.f[2] = oz;
-    rays.f[3] = dx;
-    rays.f[4] = dy;
-    rays.f[5] = dz;
-    rt_prepare_large_kernel<<<nby * nbx, RT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        rays, cbox, t_cap, boxes, tnear, slist, keys, ncells, n2, nbx, height, width);
     return (int)cudaGetLastError();
 }
 
@@ -628,6 +557,326 @@ extern "C" int rx_rt_cluster_resources(int ncells, int cl, int* out) {
     return cluster_capacity(1, cl, smem, out + 4);
 }
 
+// ------------------------------------------------- the global preparation
+
+#define LG_THREADS 512
+#define LG_WARPS (LG_THREADS / 32)
+#define LG_ITEMS 8                          // pairs a thread holds in a pass
+#define LG_MINB 3                           // blocks of a pass an SM holds at least
+#define LG_TILE (LG_THREADS * LG_ITEMS)     // pairs a block of a pass sorts: 4,096
+#define LG_COUNT_TILE 16384                 // cells a block of the count takes
+#define LG_PASSES (32 / RADIX_BITS)
+// a row's counters in the scratch: the digit counts of each byte, the AND
+// and the OR of its keys, and the next tile of each pass
+#define LG_ROW_HIST 0
+#define LG_ROW_AND (LG_PASSES * RADIX)
+#define LG_ROW_OR (LG_ROW_AND + 1)
+#define LG_ROW_TICKET (LG_ROW_OR + 1)
+#define LG_ROW_WORDS (LG_ROW_TICKET + LG_PASSES)
+// a look-back word: its status in the upper bits (0 none; in pass p, 2p + 1
+// the tile's own count, 2p + 2 the count of the row's tiles up to it), the
+// count in the lower LB_SHIFT bits
+#define LB_SHIFT 28
+#define LB_COUNT ((1u << LB_SHIFT) - 1u)
+
+// The global route's scratch, u32 words: the pairs of a pass (nrows * ncells
+// keys, then as many cells), each row's LG_ROW_WORDS counters, and each
+// row's look-back words (RADIX a tile).
+struct LargeScratch {
+    unsigned *key, *cell, *rows, *look;
+    __host__ __device__ LargeScratch(unsigned* base, int ncells, int nrows) {
+        const size_t n = (size_t)nrows * ncells;
+        key = base;
+        cell = base + n;
+        rows = base + 2 * n;
+        look = rows + (size_t)nrows * LG_ROW_WORDS;
+    }
+    static size_t words(int ncells, int tiles, int nrows) {
+        return (size_t)nrows * (2 * (size_t)ncells + LG_ROW_WORDS + (size_t)tiles * RADIX);
+    }
+};
+
+static __device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+static __device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+// One block a ray block: its boxes, and its row's counters and look-back
+// words set for the count and the passes.
+__global__ void __launch_bounds__(RT_THREADS) rt_prepare_large_boxes(
+    const RayFields rays, float* __restrict__ boxes, unsigned* __restrict__ scratch, int ncells,
+    int tiles, int nrows, int nbx, int height, int width) {
+    __shared__ float s_part[RT_WARPS][12];
+    __shared__ float s_box[12];
+    const int b = blockIdx.x;
+    block_boxes<RT_THREADS>(rays, s_part, s_box, boxes, b, nbx, height, width);
+    const LargeScratch L(scratch, ncells, nrows);
+    unsigned* rs = L.rows + (size_t)b * LG_ROW_WORDS;
+    for (int i = threadIdx.x; i < LG_ROW_WORDS; i += RT_THREADS) rs[i] = i == LG_ROW_AND ? ~0u : 0u;
+    unsigned* lk = L.look + (size_t)b * tiles * RADIX;
+    for (int i = threadIdx.x; i < tiles * RADIX; i += RT_THREADS) lk[i] = 0u;
+}
+
+// Blocks of LG_COUNT_TILE cells of a row: each cell's key, counted into the
+// row's digit counts of every byte (they do not depend on the order) and
+// into its AND and OR. Nothing is written per key.
+__global__ void __launch_bounds__(LG_THREADS) rt_prepare_large_count(
+    const float* __restrict__ cbox, const float* __restrict__ boxes, float t_cap,
+    unsigned* __restrict__ scratch, int ncells, int ctiles, int nrows) {
+    __shared__ unsigned s_cnt[LG_PASSES * RADIX];
+    __shared__ float s_box[12];
+    const int b = blockIdx.x / ctiles, first = (blockIdx.x % ctiles) * LG_COUNT_TILE;
+    const int cnt = min(LG_COUNT_TILE, ncells - first);
+    const int tid = threadIdx.x, lane = tid & 31;
+    if (tid < 12) s_box[tid] = boxes[(size_t)b * 12 + tid];
+    for (int i = tid; i < LG_PASSES * RADIX; i += LG_THREADS) s_cnt[i] = 0u;
+    __syncthreads();
+    unsigned all = ~0u, any = 0u;
+    for (int i0 = 0; i0 < cnt; i0 += LG_THREADS) {
+        const int i = i0 + tid;
+        const bool act = i < cnt;
+        const unsigned k = act ? (unsigned)(cell_key(cbox, s_box, first + i, t_cap) >> 32) : 0u;
+        const unsigned wall = __reduce_and_sync(0xffffffffu, act ? k : ~0u);
+        const unsigned wany = __reduce_or_sync(0xffffffffu, act ? k : 0u);
+        const unsigned n = __popc(__ballot_sync(0xffffffffu, act));
+        all &= wall;
+        any |= wany;
+#pragma unroll
+        for (int q = 0; q < LG_PASSES; ++q) {
+            const int shift = q * RADIX_BITS;
+            if ((((wall ^ wany) >> shift) & (RADIX - 1)) == 0) {  // one digit in the warp
+                if (lane == 0 && n) atomicAdd(&s_cnt[q * RADIX + ((wall >> shift) & (RADIX - 1))], n);
+            } else if (act) {
+                atomicAdd(&s_cnt[q * RADIX + ((k >> shift) & (RADIX - 1))], 1u);
+            }
+        }
+    }
+    __syncthreads();
+    unsigned* rs = LargeScratch(scratch, ncells, nrows).rows + (size_t)b * LG_ROW_WORDS;
+    for (int i = tid; i < LG_PASSES * RADIX; i += LG_THREADS) {
+        const unsigned v = s_cnt[i];
+        if (v) atomicAdd(rs + LG_ROW_HIST + i, v);
+    }
+    if (lane == 0) {
+        atomicAnd(rs + LG_ROW_AND, all);
+        atomicOr(rs + LG_ROW_OR, any);
+    }
+}
+
+// What a block of a pass keeps besides its pairs (static shared memory;
+// rt_kernel.GLOBAL_SMEM_STATIC is its size).
+struct LargeShared {
+    unsigned hist[LG_WARPS][RADIX];  // each warp's digit counts, then their prefix over warps
+    unsigned start[RADIX];           // the tile's first position of each digit
+    unsigned base[RADIX];            // a digit's position in the row less its position in the tile
+    unsigned wsum[2][RADIX / 32];
+    float box[12];
+    int tile;
+};
+
+// Pass `pass` of the global route: the row's byte `pass` (bits 8 pass to
+// 8 pass + 7 of the key) sorted stably, one tile of LG_TILE pairs a block.
+// Blocks take their tiles in the order they start (a ticket a row), so that
+// every tile a block waits for in the look-back has a block running or done.
+__global__ void __launch_bounds__(LG_THREADS, LG_MINB) rt_prepare_large_kernel(
+    const float* __restrict__ cbox, const float* __restrict__ boxes, float t_cap,
+    unsigned* __restrict__ tnear, unsigned* __restrict__ slist, unsigned* __restrict__ scratch,
+    int ncells, int tiles, int nrows, int pass) {
+    __shared__ LargeShared s;
+    extern __shared__ uint2 s_pair[];  // LG_TILE (key, cell) pairs in digit order
+
+    const int b = blockIdx.x / tiles;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const LargeScratch L(scratch, ncells, nrows);
+    unsigned* rs = L.rows + (size_t)b * LG_ROW_WORDS;
+    const unsigned all = rs[LG_ROW_AND], varies = all ^ rs[LG_ROW_OR];
+    unsigned active = 0;  // the bytes in which the row's keys differ
+#pragma unroll
+    for (int q = 0; q < LG_PASSES; ++q)
+        if ((varies >> (q * RADIX_BITS)) & (RADIX - 1)) active |= 1u << q;
+    const size_t row = (size_t)b * ncells;
+    if (!((active >> pass) & 1u)) {
+        if (pass == 0 && active == 0) {  // one key for the whole row: the cells in order
+            const int first = (blockIdx.x % tiles) * LG_TILE;
+            for (int i = first + tid; i < min(ncells, first + LG_TILE); i += LG_THREADS) {
+                tnear[row + i] = all;
+                slist[row + i] = (unsigned)i;
+            }
+        }
+        return;
+    }
+    // the passes before this one, and after it; the last writes the outputs
+    // and the others alternate between them and the scratch
+    const int done = __popc(active & ((1u << pass) - 1u));
+    const int left = __popc(active >> pass) - 1;
+    unsigned *out_k = tnear, *out_c = slist;
+    const unsigned *in_k = L.key, *in_c = L.cell;
+    if (left & 1) {
+        out_k = L.key;
+        out_c = L.cell;
+        in_k = tnear;
+        in_c = slist;
+    }
+    const int shift = pass * RADIX_BITS;
+    const unsigned row_count = tid < RADIX ? rs[LG_ROW_HIST + pass * RADIX + tid] : 0u;
+    if (tid == 0) s.tile = (int)atomicAdd(rs + LG_ROW_TICKET + pass, 1u);
+    if (tid < 12 && done == 0) s.box[tid] = boxes[(size_t)b * 12 + tid];
+    for (int i = tid; i < LG_WARPS * RADIX; i += LG_THREADS) (&s.hist[0][0])[i] = 0u;
+    __syncthreads();
+
+    const int tile = s.tile, first = tile * LG_TILE;
+    const int cnt = min(LG_TILE, ncells - first);
+    const unsigned lanes_below = (1u << lane) - 1u;
+    // warp w takes positions [w * per, (w + 1) * per) of the tile
+    const int per = (cnt + LG_WARPS - 1) / LG_WARPS;
+    const int lo = min(cnt, warp * per), hi = min(cnt, lo + per);
+    unsigned key[LG_ITEMS], cell[LG_ITEMS], rank[LG_ITEMS];
+#pragma unroll
+    for (int r = 0; r < LG_ITEMS; ++r) {
+        const int i = lo + r * 32 + lane;
+        const bool act = i < hi;
+        if (done == 0) {  // the first pass of the row computes its keys again
+            key[r] = act ? (unsigned)(cell_key(cbox, s.box, first + i, t_cap) >> 32) : 0u;
+            cell[r] = (unsigned)(first + i);
+        } else {
+            key[r] = act ? in_k[row + first + i] : 0u;
+            cell[r] = act ? in_c[row + first + i] : 0u;
+        }
+    }
+    // each pair's rank among the warp's pairs of its digit, and the warp's
+    // digit counts
+#pragma unroll
+    for (int r = 0; r < LG_ITEMS; ++r) {
+        const bool act = lo + r * 32 + lane < hi;
+        const unsigned d = (key[r] >> shift) & (RADIX - 1);
+        const unsigned peers = digit_peers(d, act);
+        const unsigned ahead = __popc(peers & lanes_below);
+        const unsigned prior = act ? s.hist[warp][d] : 0u;
+        __syncwarp();
+        if (act && ahead == 0) s.hist[warp][d] = prior + __popc(peers);
+        __syncwarp();
+        rank[r] = prior + ahead;
+    }
+    __syncthreads();
+    // per digit: the counts of the earlier warps, the tile's count (published
+    // at once for the later tiles), and exclusive scans over the digits of
+    // the tile's counts and of the row's
+    unsigned tot = 0, x = 0, y = 0;
+    unsigned* lk = L.look + ((size_t)b * tiles + tile) * RADIX;
+    if (tid < RADIX) {
+#pragma unroll
+        for (int w = 0; w < LG_WARPS; ++w) {
+            const unsigned c = s.hist[w][tid];
+            s.hist[w][tid] = tot;
+            tot += c;
+        }
+        st_relaxed(lk + tid, ((unsigned)(tile == 0 ? 2 * pass + 2 : 2 * pass + 1) << LB_SHIFT) | tot);
+        x = tot;
+        y = row_count;
+        for (int off = 1; off < 32; off <<= 1) {
+            const unsigned xu = __shfl_up_sync(0xffffffffu, x, off);
+            const unsigned yu = __shfl_up_sync(0xffffffffu, y, off);
+            if (lane >= off) {
+                x += xu;
+                y += yu;
+            }
+        }
+        if (lane == 31) {
+            s.wsum[0][warp] = x;
+            s.wsum[1][warp] = y;
+        }
+        x -= tot;
+        y -= row_count;
+    }
+    __syncthreads();
+    if (tid < RADIX) {
+#pragma unroll
+        for (int w = 0; w < RADIX / 32; ++w) {
+            x += w < warp ? s.wsum[0][w] : 0u;
+            y += w < warp ? s.wsum[1][w] : 0u;
+        }
+        s.start[tid] = x;
+        s.base[tid] = y - x;
+    }
+    __syncthreads();
+    // the tile's pairs in digit order in shared memory
+#pragma unroll
+    for (int r = 0; r < LG_ITEMS; ++r) {
+        if (lo + r * 32 + lane < hi) {
+            const unsigned d = (key[r] >> shift) & (RADIX - 1);
+            s_pair[s.start[d] + s.hist[warp][d] + rank[r]] = make_uint2(key[r], cell[r]);
+        }
+    }
+    // the digit's count in the row's earlier tiles (decoupled look-back):
+    // add the tiles' own counts back to the first that has published its
+    // inclusive count
+    if (tid < RADIX && tile > 0) {
+        const unsigned own = 2 * pass + 1, incl = 2 * pass + 2;
+        unsigned excl = 0;
+        for (int t = tile - 1; t >= 0;) {
+            const unsigned v = ld_relaxed(L.look + ((size_t)b * tiles + t) * RADIX + tid);
+            const unsigned st = v >> LB_SHIFT;
+            if (st < own) continue;  // not yet published in this pass
+            excl += v & LB_COUNT;
+            if (st == incl) break;
+            --t;
+        }
+        st_relaxed(lk + tid, (incl << LB_SHIFT) | (excl + tot));
+        s.base[tid] += excl;
+    }
+    __syncthreads();
+    // out in digit runs: consecutive pairs of one digit to consecutive places
+    for (int i = tid; i < cnt; i += LG_THREADS) {
+        const uint2 kv = s_pair[i];
+        const size_t g = row + (s.base[(kv.x >> shift) & (RADIX - 1)] + (unsigned)i);
+        out_k[g] = kv.x;
+        out_c[g] = kv.y;
+    }
+}
+
+extern "C" int rx_rt_prepare_large(const float* ox, const float* oy, const float* oz,
+                                   const float* dx, const float* dy, const float* dz,
+                                   const float* cbox, float t_cap, float* boxes, float* tnear,
+                                   int* slist, unsigned* scratch, long long scratch_bytes,
+                                   int ncells, int nby, int nbx, int height, int width,
+                                   void* stream) {
+    const int nrows = nby * nbx;
+    const int tiles = (ncells + LG_TILE - 1) / LG_TILE;
+    const int ctiles = (ncells + LG_COUNT_TILE - 1) / LG_COUNT_TILE;
+    if (ncells < 1 || (unsigned)ncells > LB_COUNT ||
+        scratch_bytes < (long long)(4 * LargeScratch::words(ncells, tiles, nrows)))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = sizeof(uint2) * LG_TILE;
+    cudaError_t err = cudaFuncSetAttribute(rt_prepare_large_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    RayFields rays;
+    rays.f[0] = ox;
+    rays.f[1] = oy;
+    rays.f[2] = oz;
+    rays.f[3] = dx;
+    rays.f[4] = dy;
+    rays.f[5] = dz;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    rt_prepare_large_boxes<<<nrows, RT_THREADS, 0, st>>>(rays, boxes, scratch, ncells, tiles,
+                                                         nrows, nbx, height, width);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    rt_prepare_large_count<<<nrows * ctiles, LG_THREADS, 0, st>>>(cbox, boxes, t_cap, scratch,
+                                                                   ncells, ctiles, nrows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    for (int pass = 0; pass < LG_PASSES; ++pass) {
+        rt_prepare_large_kernel<<<nrows * tiles, LG_THREADS, smem, st>>>(
+            cbox, boxes, t_cap, reinterpret_cast<unsigned*>(tnear),
+            reinterpret_cast<unsigned*>(slist), scratch, ncells, tiles, nrows, pass);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    return 0;
+}
+
 // ------------------------------------------------------------------ walk
 
 // the first 256 threads: start the copy of cell c's 64 rows of 16 floats (4 KB)
@@ -787,7 +1036,13 @@ __global__ void __launch_bounds__(WALK_THREADS) rt_kernel(
 // the preparation of a larger scene; out[0..3]: registers, static and
 // dynamic shared memory, blocks an SM holds at once
 extern "C" int rx_rt_resources(int which, int ncells, int* out) {
-    if (which == 2) return kernel_resources(rt_prepare_large_kernel, RT_THREADS, 0, out);
+    if (which == 2) {
+        const size_t smem = sizeof(uint2) * LG_TILE;
+        const cudaError_t err = cudaFuncSetAttribute(
+            rt_prepare_large_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        return kernel_resources(rt_prepare_large_kernel, LG_THREADS, smem, out);
+    }
     return which ? kernel_resources(rt_prepare_kernel, RT_THREADS,
                                     sizeof(unsigned long long) * (size_t)ncells, out)
                  : kernel_resources(rt_kernel, WALK_THREADS, 0, out);

@@ -10,13 +10,16 @@ box, a lower bound on any of its rays' t into the cell, with cells beyond
 the range cap or behind every ray's direction culled to the tail. Its
 scene side (the triangle table, the cell boxes, the scene box) is plain
 torch; its ray side (the blocks' origin and direction boxes, the keys and
-their stable sort) is one kernel launch on CUDA tensors and plain torch
-(`rt_prepare`, the plain version) on the CPU. On CUDA tensors the size of
-the scene picks one of three routes (`prepare_route`): up to
+their stable sort) is one kernel launch on CUDA tensors (six on the global
+route) and plain torch (`rt_prepare`, the plain version) on the CPU. On
+CUDA tensors the size of the scene picks one of three routes
+(`prepare_route`): up to
 PREPARE_MAX_CELLS cells `rt_prepare_kernel` (a rank sort in a block's
 shared memory), up to CLUSTER_MAX_CELLS `rt_prepare_cluster_kernel` (a
-radix sort in a thread block cluster's shared memory), above it
-`rt_prepare_large_kernel` (a bitonic sort in a global scratch). The kernel
+radix sort in a thread block cluster's shared memory), above it the global
+route (a radix sort of each row by many blocks through a global scratch:
+`rt_prepare_large_boxes`, `rt_prepare_large_count` and four passes of
+`rt_prepare_large_kernel`). The kernel
 walks a block's shortlist while the next entry's bound is below the
 block's bound (the max over its live rays of min(best t, per-ray
 scene-exit cap)), slab-tests the cell box and, when any ray enters, runs
@@ -89,15 +92,27 @@ CLUSTER_SPAN_MAX = 13312
 #: ClusterShared)
 CLUSTER_SMEM_STATIC = 19296
 #: cells up to which rt_prepare_cluster_kernel takes a scene; a larger one
-#: takes rt_prepare_large_kernel, whose keys sort in a global scratch
-CLUSTER_MAX_CELLS = 8 * CLUSTER_SPAN_MAX
+#: takes the global route, whose rows sort through a global scratch. The
+#: cluster kernel holds up to 8 * CLUSTER_SPAN_MAX (106,496) cells, but above
+#: 28,672 the global route is faster on 1080p rays (chip_smoke.py's sweep,
+#: PERF.md)
+CLUSTER_MAX_CELLS = 28672
+#: the global route: pairs a block of a pass sorts (LG_TILE in
+#: csrc/rt_kernel.cu), a row's counters (LG_ROW_WORDS: the digit counts of
+#: each byte, the AND and OR of the keys, a ticket a pass) and look-back
+#: words a tile (one a digit), u32 each, and the static shared memory of a
+#: block of a pass (its LargeShared)
+GLOBAL_TILE = 4096
+GLOBAL_ROW_WORDS = 4 * 256 + 2 + 4
+GLOBAL_LOOK_WORDS = 256
+GLOBAL_SMEM_STATIC = 18560
 
 #: launches of the walk kernel (one per intersect_rays_pallas call on CUDA
 #: tensors)
 launches = 0
-#: launches of each preparation route's kernel (one per intersect_rays_pallas
-#: call on CUDA tensors): rt_prepare_kernel, rt_prepare_cluster_kernel and
-#: rt_prepare_large_kernel
+#: launches of each preparation route (one per intersect_rays_pallas call on
+#: CUDA tensors): rt_prepare_kernel, rt_prepare_cluster_kernel and the global
+#: route (its kernels counted once a call)
 prepare_launches = 0
 prepare_cluster_launches = 0
 prepare_large_launches = 0
@@ -109,7 +124,9 @@ def prepare_route(ncells: int, nblocks: int = 1) -> dict:
     "route" ("rank", "cluster" or "global"), "cluster" (blocks a ray block),
     "span" (cells a block holds), "smem" (shared memory a block asks for,
     static and dynamic, in bytes) and "scratch" (bytes of global scratch the
-    wrapper allocates)."""
+    wrapper allocates: on the global route 8 bytes a (ray block, cell) for
+    the pairs between passes, and a row's counters and look-back words;
+    "tiles" gives the tiles of a row)."""
     if ncells <= PREPARE_MAX_CELLS:
         return {"route": "rank", "cluster": 1, "span": ncells, "smem": 8 * ncells + 432,
                 "scratch": 0}
@@ -120,9 +137,11 @@ def prepare_route(ncells: int, nblocks: int = 1) -> dict:
         span = -(-ncells // cl)
         return {"route": "cluster", "cluster": cl, "span": span,
                 "smem": 16 * span + CLUSTER_SMEM_STATIC, "scratch": 0}
-    n2 = 1 << (ncells - 1).bit_length()
-    return {"route": "global", "cluster": 1, "span": n2, "smem": 8 * 4096 + 432,
-            "scratch": 8 * n2 * nblocks}
+    tiles = -(-ncells // GLOBAL_TILE)
+    return {"route": "global", "cluster": 1, "span": min(ncells, GLOBAL_TILE), "tiles": tiles,
+            "smem": 8 * GLOBAL_TILE + GLOBAL_SMEM_STATIC,
+            "scratch": 8 * ncells * nblocks
+            + 4 * nblocks * (GLOBAL_ROW_WORDS + GLOBAL_LOOK_WORDS * tiles)}
 
 
 def _cell_boxes(pos, valid, ncells: int, cell: int):
@@ -286,9 +305,9 @@ def prepare_launch(scene: dict, fields: tuple, t_cap, sizes: dict):
     arguments that launches the preparation kernel of `prepare_route`'s
     route and returns (boxes, tnear, slist), the same three tensors at every
     call: rt_prepare_kernel, rt_prepare_cluster_kernel (no scratch: the row
-    stays in a cluster's shared memory) or rt_prepare_large_kernel (a global
-    scratch of one power-of-two row a ray block, allocated here). Timing the
-    returned function times the kernel alone."""
+    stays in a cluster's shared memory) or the global route's six launches
+    (its scratch allocated here, `prepare_route`'s "scratch" bytes). Timing
+    the returned function times the kernels alone."""
     from .. import _cuda
 
     ncells, nby, nbx = sizes["ncells"], sizes["nby"], sizes["nbx"]
@@ -303,14 +322,15 @@ def prepare_launch(scene: dict, fields: tuple, t_cap, sizes: dict):
     head = (*(ptr(f.data_ptr()) for f in fields), ptr(scene["cbox"].data_ptr()),
             ctypes.c_float(float(t_cap)), ptr(boxes.data_ptr()), ptr(tnear.data_ptr()),
             ptr(slist.data_ptr()))
-    keys = None
+    scratch = None
     if route["route"] == "rank":
         fn, args = lib.rx_rt_prepare, (*head, ncells)
     elif route["route"] == "cluster":
         fn, args = lib.rx_rt_prepare_cluster, (*head, ncells, route["cluster"])
     else:
-        keys = torch.empty((nby * nbx, route["span"]), dtype=torch.int64, device=dev)
-        fn, args = lib.rx_rt_prepare_large, (*head, ptr(keys.data_ptr()), ncells, route["span"])
+        scratch = torch.empty(route["scratch"] // 4, dtype=torch.int32, device=dev)
+        fn, args = lib.rx_rt_prepare_large, (*head, ptr(scratch.data_ptr()),
+                                             ctypes.c_longlong(route["scratch"]), ncells)
     def launch():
         global prepare_launches, prepare_cluster_launches, prepare_large_launches
         err = fn(*args, nby, nbx, height, width, ptr(torch.cuda.current_stream(dev).cuda_stream))
@@ -325,7 +345,7 @@ def prepare_launch(scene: dict, fields: tuple, t_cap, sizes: dict):
             prepare_large_launches += 1
         return boxes, tnear, slist
 
-    launch.keep = (scene["cbox"], fields, keys)  # alive while the closure is
+    launch.keep = (scene["cbox"], fields, scratch)  # alive while the closure is
     return launch
 
 

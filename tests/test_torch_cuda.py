@@ -1017,14 +1017,45 @@ def _spread_rays(seed, ncells, height, width, parked=0.0):
     return pos, valid, o, d
 
 
+def _step_rays(seed, gaps, ncells, height, width):
+    """Cells that lie at exact gaps from every ray block: cell c spans x in
+    [g, g + 0.5] for g = gaps[c % len(gaps)] and y, z in [-2, 2], and every
+    origin lies at x = 0 with y, z in [-1, 1], so that each key is its gap's
+    f32 bits and the row's keys differ only in the bytes where the gaps'
+    bits do."""
+    rng = np.random.default_rng(seed)
+    g = np.repeat(np.resize(np.asarray(gaps, np.float32), ncells), 64)
+    tri = np.zeros((64 * ncells, 3, 4), np.float32)
+    tri[:, 0, :3] = np.stack([g, np.full_like(g, -2), np.full_like(g, -2)], 1)
+    tri[:, 1, :3] = np.stack([g + 0.5, np.full_like(g, 2), np.full_like(g, -2)], 1)
+    tri[:, 2, :3] = np.stack([g, np.full_like(g, 2), np.full_like(g, 2)], 1)
+    tri[:, :, 3] = 1.0
+    o = rng.uniform(-1, 1, (3, height, width)).astype(np.float32)
+    o[0] = 0.0
+    d = rng.normal(size=(3, height, width)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return tri, np.ones(64 * ncells, np.float32), o, d
+
+
+#: gaps whose f32 bits differ in byte 3 only, in bytes 2 and 3, in bytes 1
+#: to 3: rows the global route sorts in one, two and three passes
+STEP_GAPS = {"steps1": (0.0, 2.0, 8.0), "steps2": (2.0, 3.0, 8.0),
+             "steps3": (2.0, 2.0001220703125, 3.0, 8.0)}
+#: the limits that send any scene to the global route, and those that send
+#: any scene the cluster kernel holds to the cluster route
+GLOBAL = {"PREPARE_MAX_CELLS": 0, "CLUSTER_MAX_CELLS": 0}
+CLUSTER = {"CLUSTER_MAX_CELLS": 106496}
+
 # (keys, cells, ray rows, ray columns, limits lowered) -> the route the
 # limits give; "ties": random rays over random cells (every live key at gap
-# 0, 100 dead cells at _BIG), "spread": _spread_rays, "dead": no live slot,
-# "parked": every ray parked
+# 0, 100 dead cells at _BIG), "zero": the same without dead cells (every key
+# 0), "spread": _spread_rays, "dead": no live slot, "parked": every ray
+# parked, "halfparked": spread keys under the lower half of the frame, the
+# upper half's ray blocks parked, "steps1" to "steps3": _step_rays
 PREPARATION_ROUTE_CASES = [
-    ("ties", 28700, 16, 128, {}),              # just above the rank route's old limit
-    ("spread", 28700, 16, 128, {}),
-    ("spread", 100003, 8, 128, {}),            # an odd size in the largest cluster
+    ("ties", 28700, 16, 128, CLUSTER),         # just above the rank route's old limit
+    ("spread", 28700, 16, 128, CLUSTER),
+    ("spread", 100003, 8, 128, CLUSTER),       # an odd size in the largest cluster
     ("spread", 700, 19, 150, {"PREPARE_MAX_CELLS": 4}),                       # 1 block
     ("spread", 5000, 24, 300, {"PREPARE_MAX_CELLS": 4}),                      # 2 blocks
     ("spread", 700, 8, 128, {"PREPARE_MAX_CELLS": 4, "CLUSTER_SPAN": 100}),   # 8 small
@@ -1032,6 +1063,25 @@ PREPARATION_ROUTE_CASES = [
     ("parked", 6200, 8, 128, {"PREPARE_MAX_CELLS": 4}),
     ("spread", 9000, 16, 128, {"PREPARE_MAX_CELLS": 4, "CLUSTER_MAX_CELLS": 4}),  # global
     ("ties", 3000, 8, 128, {"PREPARE_MAX_CELLS": 4, "CLUSTER_MAX_CELLS": 4}),
+    # the global route at the sizes of its tiles (rt_kernel.GLOBAL_TILE
+    # pairs): a row of one cell, of 32, shorter than a tile, one tile, a tile
+    # and a cell; every key _BIG, every key 0, parked ray blocks beside
+    # sorted ones, rows of one to three passes, and with the limits as they
+    # stand the first size above the cluster route and the first size the
+    # cluster kernel cannot hold
+    ("zero", 1, 8, 128, GLOBAL),
+    ("spread", 32, 8, 128, GLOBAL),
+    ("spread", 1000, 19, 150, GLOBAL),
+    ("spread", 4096, 16, 128, GLOBAL),
+    ("spread", 4097, 16, 128, GLOBAL),
+    ("dead", 5000, 8, 128, GLOBAL),
+    ("zero", 9000, 16, 128, GLOBAL),
+    ("halfparked", 9000, 16, 256, GLOBAL),
+    ("steps1", 5000, 8, 128, GLOBAL),
+    ("steps2", 5000, 8, 128, GLOBAL),
+    ("steps3", 9000, 16, 128, GLOBAL),
+    ("spread", 28673, 8, 128, {}),
+    ("spread", 106497, 8, 128, {}),
 ]
 
 
@@ -1041,20 +1091,28 @@ def test_large_preparation_route_matches_rt_prepare(cuda, monkeypatch, keys, nce
                                                     width, limits):
     """The preparation routes above the rank sort, each as `prepare_route`
     picks it from the limits: rt_prepare_cluster_kernel (a thread block
-    cluster of 1 to 8 blocks) and rt_prepare_large_kernel (the global
-    route). Boxes, tnear and slist bit for bit against rt_prepare on the
-    card, the route's own counter up by one, and B3's walk over its
-    shortlist equal to the walk over rt_prepare's."""
+    cluster of 1 to 8 blocks) and the global route (rt_prepare_large_boxes,
+    _count and four passes of rt_prepare_large_kernel). Boxes, tnear and
+    slist bit for bit against rt_prepare on the card, the route's own
+    counter up by one, and B3's walk over its shortlist equal to the walk
+    over rt_prepare's."""
     for name, value in limits.items():
         monkeypatch.setattr(rt_kernel, name, value)
     route = rt_kernel.prepare_route(ncells)
-    assert route["route"] == ("global" if "CLUSTER_MAX_CELLS" in limits else "cluster")
-    if keys in ("ties", "dead"):
+    assert route["route"] == ("global" if ncells > rt_kernel.CLUSTER_MAX_CELLS else "cluster")
+    if keys in ("ties", "zero", "dead"):
         pos, valid, o, d = _random_rays(19, 64 * ncells, height, width, 0.1)
+    elif keys in STEP_GAPS:
+        pos, valid, o, d = _step_rays(19, STEP_GAPS[keys], ncells, height, width)
     else:
         pos, valid, o, d = _spread_rays(19, ncells, height, width,
                                         1.0 if keys == "parked" else 0.1)
-    valid[-64 * 100:] = 0.0  # 100 dead cells: keys at _BIG among the live ones
+    if keys == "halfparked":  # whole ray blocks parked above the middle row
+        o[:, : height // 2] = 1e8
+        d[:, : height // 2] = np.array([0.0, -1.0, 0.0], np.float32)[:, None, None]
+    n_dead = 0 if keys in ("zero", *STEP_GAPS) else min(100, ncells // 4)
+    if n_dead:  # 100 dead cells (a quarter of a small scene): keys at _BIG among the live ones
+        valid[-64 * n_dead:] = 0.0
     if keys == "dead":
         valid[:] = 0.0
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
@@ -1074,16 +1132,22 @@ def test_large_preparation_route_matches_rt_prepare(cuda, monkeypatch, keys, nce
     tn = prep["tnear"]
     if keys in ("dead", "parked"):
         assert bool((tn >= 3e37).all())
+    elif keys == "zero":
+        assert bool((tn == 0).all())
+    elif keys in STEP_GAPS:  # every row holds each gap, in the bytes that differ
+        assert torch.equal(torch.unique(tn), torch.tensor(STEP_GAPS[keys], device=cuda))
     else:
         assert bool((tn < 3e37).any()) and bool((tn >= 3e37).any())
-    if keys == "spread":  # the radix passes have distinct keys to order
-        assert int(torch.unique(tn[0]).numel()) > ncells // 10
+    if keys in ("spread", "halfparked"):  # the radix passes have distinct keys to order
+        assert int(torch.unique(tn[-1 if keys == "halfparked" else 0]).numel()) > ncells // 10
+    if keys == "halfparked":
+        assert bool((tn[: tn.shape[0] // 2] >= 3e37).all())
     fields = rt_kernel._ray_fields(*args[2:])
     t, idx = rt_kernel._launch(prep, fields)
     t_r, idx_r = rt_kernel._launch(ref, fields)
     torch.cuda.synchronize()
     assert torch.equal(idx, idx_r) and torch.equal(t, t_r)
-    if keys not in ("dead", "parked"):
+    if keys not in ("dead", "parked") and ncells >= 32:
         assert int((idx >= 0).sum()) > 0
 
 

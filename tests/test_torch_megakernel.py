@@ -9,6 +9,8 @@ floats allclose(rtol=1e-6, atol=1e-6) (op order of XLA on the CPU and torch
 may differ in the last bit); frames within 1 per RGBA8 channel.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -68,7 +70,14 @@ def _t(a):
 
 def _box_inputs(lights="mixed", sun=True, sample_mode=0, fog="off", source="pixel"):
     """The test_shade_pallas box, prepared by the JAX package -> numpy
-    mega_render inputs (args, kwargs)."""
+    mega_render inputs (args, kwargs): prepared once a case for the
+    module (the tests share them and change only their copy of kwargs)."""
+    args, kwargs = _box_inputs_once(lights, sun, sample_mode, fog, source)
+    return list(args), dict(kwargs)
+
+
+@functools.cache
+def _box_inputs_once(lights, sun, sample_mode, fog, source):
     batch = Batch3D.from_box(-0.6, -0.6, -0.6, 1.2, 1.2, 1.2).with_computed_normals()
     assets = Assets.default()
     if source == "pixel":
