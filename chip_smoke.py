@@ -76,7 +76,15 @@ both routes alone on 1080p rays over 28,700 cells (keys that all tie, and
 keys that spread) against rt_prepare and torch.sort, with their bound; GL,
 the global route at its own size (1080p rays over 131,072 cells, the limits
 as they stand) the same way; and the sweep, every preparation route at 32
-to 106,496 cells beside torch.sort.
+to 106,496 cells beside torch.sort; last, MC, the mesh over every card of
+the machine (card_mesh): with two cards or more, R and S through
+rasterize(mesh=card_mesh()) byte-equal to the same slabs on one card, Z's
+trace_sharded over the cards byte-equal to sequential traces, each kernel on
+the last card (cuda:0 current) against its plain version and beside cuda:0,
+and the steady frames' numbers (the frame median beside the same slabs on
+one card, each card's device ms and busy share, the wall against their sum,
+the copies from card to card); with one card it prints that it did not run
+and why. `python3 chip_smoke.py --phase MC` runs the build and MC alone.
 Every unsharded frame sends its per-frame leaves to the card in one copy
 (ops/arena.py): phase 4h counts the host-to-device copies of a steady
 frame of every path where PyTorch dispatches them (HostCopies; A's also by
@@ -114,9 +122,11 @@ from __future__ import annotations
 
 import collections
 import json
+import random
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1352,8 +1362,6 @@ def engine_paths(gpu: str, phase) -> list:
     (prep_sweep). Raises on a failed check -> the kernels line's rows for
     the cluster and the global preparation route (GL's numbers under the
     latter's "gl")."""
-    import random
-
     from rusterix_tpu_torch import _cuda
     from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas
     from rusterix_tpu_torch.parallel import make_mesh
@@ -1659,7 +1667,310 @@ def engine_paths(gpu: str, phase) -> list:
     return rows
 
 
+# MC: the frames and kernels over every card of the machine (card_mesh):
+# steady frames timed and profiled per path
+MC_FRAMES = 20
+MC_PROFILED = 5
+
+
+def sync_cards(mesh):
+    """Wait for every card of `mesh`."""
+    for dev in dict.fromkeys(mesh):
+        torch.cuda.synchronize(dev)
+
+
+class CardCopies(TorchDispatchMode):
+    """A `with` block whose `ops` counts the copies PyTorch dispatches
+    inside it from a tensor on one CUDA card to a tensor on another, by
+    (source card, destination card, dtype, shape)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if str(func) in HostCopies.COPIES:
+            ins = [t for t in tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor) and t.is_cuda]
+            outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor) and t.is_cuda]
+            src = [t for t in ins if outs and t.device != outs[0].device]
+            if src:
+                self.ops[(src[0].device.index, outs[0].device.index,
+                          str(outs[0].dtype).removeprefix("torch."), tuple(outs[0].shape))] += 1
+        return out
+
+
+def card_profile(fn, mesh, n: int) -> dict:
+    """Device activity of `n` calls of `fn` over the cards of `mesh` under
+    torch.profiler -> None when it recorded none, else per card index its
+    device ms a call (the union of its kernels', copies' and memsets'
+    intervals) and "peer": the device-to-device copy records a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync_cards(mesh)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        sync_cards(mesh)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    out = {"peer": sum(("PtoP" in e.name or "DtoD" in e.name) for e in events) / n}
+    for idx in sorted({d.index for d in mesh}):
+        busy, reach = 0.0, float("-inf")
+        for start, end in sorted((e.time_range.start, e.time_range.end) for e in events
+                                 if e.device_index == idx):
+            if end > reach:
+                busy += end - max(start, reach)
+                reach = end
+        out[idx] = busy / 1e3 / n
+    return out
+
+
+def card_frame_numbers(key, fn, mesh, one_fn, gpus: str):
+    """Print path `key`'s steady frame over the cards: the frame median
+    (host wall, every card synchronized after each frame) beside the same
+    slabs on one card (`one_fn`), each card's device ms and busy share,
+    the wall against the sum of the cards' device ms, and the copies from
+    card to card a frame (where PyTorch dispatches them, and the profiler's
+    peer copy records)."""
+    def walled(f):
+        f()
+        sync_cards(mesh)
+        out = []
+        for _ in range(MC_FRAMES):
+            t0 = time.perf_counter()
+            f()
+            sync_cards(mesh)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return sorted(out)
+
+    t_cards, t_one = walled(fn), walled(one_fn)
+    wall = median(t_cards)
+    print(f"MC path {key} over {len(mesh)} cards: frame {summary(t_cards)}; the same "
+          f"{len(mesh)} slabs on cuda:0: {summary(t_one)}; cards: {gpus}")
+    prof = card_profile(fn, mesh, MC_PROFILED)
+    if prof is None:
+        print(f"MC path {key}: the profiler recorded no device activity; device ms not measured")
+    else:
+        dev_ms = [prof[d.index] for d in mesh]
+        for d, ms in zip(mesh, dev_ms):
+            print(f"MC path {key} {d}: device {ms:.4f} ms a frame, busy share "
+                  f"{ms / wall:.4f} of the {wall:.4f} ms frame median")
+        print(f"MC path {key}: steady frame wall {wall:.4f} ms against the sum of the cards' "
+              f"device ms {sum(dev_ms):.4f} (sum / wall {sum(dev_ms) / wall:.4f}); the profiler's "
+              f"peer copy records {prof['peer']:.1f} a frame")
+    counter = CardCopies()
+    fn()
+    sync_cards(mesh)
+    with counter:
+        fn()
+    sync_cards(mesh)
+    total = sum(counter.ops.values())
+    print(f"MC path {key}: {total} copies from card to card a steady frame:")
+    for (src, dst, dtype, shape), c in sorted(counter.ops.items()):
+        print(f"  {c:3d} x cuda:{src} -> cuda:{dst} {dtype} {shape}")
+    return counter.ops
+
+
+def on_card_beside_first(label, fn_on, last, plain):
+    """Run `fn_on(dev)()` (a launch on inputs on `dev`) on the last card and
+    on cuda:0, hold the last card's outputs to `plain` (the plain version's
+    on the same inputs) and to cuda:0's bit for bit, and print each card's
+    median ms (CUDA events on that card's stream)."""
+    first = torch.device("cuda", 0)
+    outs, times = {}, {}
+    for dev in (last, first):
+        fn = fn_on(dev)
+        with torch.cuda.device(dev):
+            outs[dev] = [t.cpu() for t in fn()]
+            times[dev] = cuda_times(fn, 20)
+    as_plain = all(torch.equal(a, b.cpu()) for a, b in zip(outs[last], plain))
+    same = all(torch.equal(a, b) for a, b in zip(outs[last], outs[first]))
+    print(f"MC kernel {label}: on {last} {summary(times[last])}; on {first} "
+          f"{summary(times[first])}; against its plain version "
+          f"{'bit-equal' if as_plain else 'DIFFERS'}; the two cards' outputs "
+          f"{'bit-equal' if same else 'DIFFER'}")
+    if not (same and as_plain):
+        raise SystemExit(f"MC kernel {label}: the last card's output differs from its plain "
+                         "version or from cuda:0's")
+
+
+def cards_phase(gpu: str, phase):
+    """MC: the frame and the tracer over every card (card_mesh). With two
+    cards or more: R (A at W x H) and S (H with AO and sky light) through
+    rasterize(mesh=card_mesh()) byte-equal to the same slabs on one card
+    (and S to its single frame but in the tie class), Z's trace_sharded over
+    the cards byte-equal to sequential traces, each kernel on the last card
+    against its plain version and beside cuda:0, and the steady frames'
+    numbers. With one card it prints that it did not run and why."""
+    phase("MC")
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase MC did not run: {n} card: {_run(['nvidia-smi', '-L'])}")
+        return
+    from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas
+    from rusterix_tpu_torch.ops.raster import frame_inputs
+    from rusterix_tpu_torch.ops.setup_pass import _fma
+    from rusterix_tpu_torch.parallel import card_mesh, make_mesh, sharded_inputs
+    from rusterix_tpu_torch.scenes import (
+        build_map_scene,
+        build_map_shadow_refl_scene,
+        build_minigame,
+        minigame_tick,
+    )
+    from rusterix_tpu_torch.tracer import AccumBuffer
+
+    mesh = card_mesh()
+    first, last = mesh[0], mesh[-1]
+    gpus = "; ".join(_run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                           "--format=csv,noheader"]).splitlines())
+    print(f"phase MC: {n} cards: {gpus}")
+    one = make_mesh(n, first)
+    frames, fas = {}, {}
+    for key, build in (("R", build_map_scene), ("S", build_map_shadow_refl_scene)):
+        rast, scene, assets = build(W, H, device=first)
+        if key == "S":
+            rast.set_ambient_occlusion(True).set_sky_light(True)
+        single = rast.rasterize(scene, W, H, 40, assets)
+        on_one = rast.rasterize(scene, W, H, 40, assets, mesh=one)
+        for frame_no in (1, 2):
+            zero_counts()
+            over = rast.rasterize(scene, W, H, 40, assets, mesh=mesh)
+            sync_cards(mesh)
+            counts = read_counts()
+            want = {k: v * n // N_SLABS for k, v in EXPECTED_LAUNCHES[key].items()}
+            if counts != want:
+                raise SystemExit(f"MC path {key} launched {counts}, expected {want}")
+            if not np.array_equal(over, on_one):
+                raise SystemExit(f"MC path {key}: the frame over {n} cards differs from the "
+                                 f"same {n} slabs on one card")
+        differ = np.abs(over.astype(int) - single.astype(int)).max(-1) > 0
+        ties = tie_pixels(mesh, **rast.frame_args).cpu().numpy()
+        print(f"MC path {key} ({n} slabs, one a card, {W}x{H}): frames 1 and 2 byte-equal to "
+              f"the same slabs on cuda:0, launches {counts}; px differing from the single frame "
+              f"{int(differ.sum())}, outside the tie class {int((differ & ~ties).sum())}")
+        if (differ & ~ties).any():
+            raise SystemExit(f"MC path {key}: the frame over the cards differs from the single "
+                             "frame outside the tie class")
+        ops = card_frame_numbers(
+            key, lambda r=rast, s=scene, a=assets: r.rasterize(s, W, H, 40, a, mesh=mesh,
+                                                               readback=False),
+            mesh, lambda r=rast, s=scene, a=assets: r.rasterize(s, W, H, 40, a, mesh=one,
+                                                                readback=False), gpus)
+        if key == "R":
+            # the planes' gather (vis, attr, bbox, alive of every shard on
+            # every other card) and the frame's gather (every slab but the
+            # first to cuda:0), nothing else
+            planes = 4 * n * (n - 1)
+            frame_rows = sum(c for (s_, d_, dt, sh), c in ops.items()
+                             if dt == "uint8" and d_ == 0 and len(sh) == 3)
+            if sum(ops.values()) != planes + (n - 1) or frame_rows != n - 1:
+                raise SystemExit(f"MC path R: copies from card to card {dict(ops)}, expected "
+                                 f"{planes} of the planes and {n - 1} of the frame")
+        frames[key], fas[key] = over, {k: v for k, v in rast.frame_args.items()
+                                       if k != "refl_scale"}
+
+    # Z: trace_sharded over the cards against sequential traces
+    random.seed(7)
+    rx = build_minigame(first)
+    minigame_tick(rx)
+    zw, zh = rx.client.config.width, rx.client.config.height
+    seq, shard = AccumBuffer(zw, zh, device=first), AccumBuffer(zw, zh, device=first)
+    cam, scene_z = rx.client.camera_d3, rx.client.scene
+    rx.trace_scene(cam, AccumBuffer(zw, zh, device=first))  # makes rx._tracer
+    for _ in range(2):
+        for _ in mesh:
+            rx._tracer.trace(cam, scene_z, seq, 64, rx.assets)
+        rx._tracer.trace_sharded(cam, scene_z, shard, 64, rx.assets, mesh)
+        sync_cards(mesh)
+        if not torch.equal(shard._dev, seq._dev):
+            raise SystemExit("MC path Z: trace_sharded over the cards is not byte-equal to "
+                             "sequential traces")
+
+    def traced(m):
+        def f():
+            rx._tracer.trace_sharded(cam, scene_z, shard, 64, rx.assets, m)
+            sync_cards(m)
+        f()
+        return wall_ms(f, 10)
+
+    print(f"MC path Z trace_sharded ({zw}x{zh}): {2 * n} samples over {n} cards byte-equal to "
+          f"{2 * n} trace() calls; {n} samples: {traced(mesh):.4f} ms over the cards, "
+          f"{traced(make_mesh(n, first)):.4f} ms on cuda:0 (host wall medians); cards: {gpus}")
+    rx.server.stop()
+
+    # each kernel on the last card against its plain version, beside cuda:0
+    slab_r = sharded_inputs(mesh, **fas["R"])[-1]
+    slab_s = sharded_inputs(mesh, **fas["S"])[-1]
+
+    def moved(ts, dev):
+        return [t.to(dev) if isinstance(t, torch.Tensor) else t for t in ts]
+
+    for key, slab in (("R", slab_r), ("S", slab_s)):
+        a_, k_ = slab["mega_args"], slab["mega_kwargs"]
+
+        def b1_on(dev, a_=a_, k_=k_):
+            a2, k2 = moved(a_, dev), dict(zip(k_, moved(k_.values(), dev)))
+            return lambda: megakernel.mega_render(*a2, **k2)
+
+        on_card_beside_first(
+            f"B1 (path {key}, slab {n - 1} of {n}, rows {slab['y0']}-"
+            f"{slab['y0'] + slab['rows'] - 1})", b1_on, last,
+            megakernel.mega_render_reference(*a_, **k_))
+    b2_in = (slab_s["vis_s"], slab_s["alive_s"], slab_s["bbox_s"], W, slab_s["rows"],
+             slab_s["y0"])
+    on_card_beside_first(
+        f"B2 (path S, slab {n - 1} of {n})",
+        lambda dev: (lambda i=moved(b2_in, dev): visibility_pallas.visibility_pass_pallas(*i)),
+        last, visibility_pallas.visibility_pass_pallas_reference(*b2_in))
+    b3_in = list(reflection_kernel_inputs(types.SimpleNamespace(frame_args=fas["S"]),
+                                          frame_inputs(**fas["S"]))["b3_in"])
+    y0, rows = slab_s["y0"], min(slab_s["rows"], H - slab_s["y0"])
+    b3_in[2:8] = [f[y0:y0 + rows].contiguous() for f in b3_in[2:8]]
+    b3_in[9] = rows
+    on_card_beside_first(
+        f"B3 walk and its preparation (path S's reflection rays, rows {y0}-{y0 + rows - 1})",
+        lambda dev: (lambda i=moved(b3_in, dev): rt_kernel.intersect_rays_pallas(*i)),
+        last, rt_kernel.intersect_rays_pallas_reference(*moved(b3_in, last)))
+    for route, limits in (("cluster", {"PREPARE_MAX_CELLS": 4}),
+                          ("global", {"PREPARE_MAX_CELLS": 4, "CLUSTER_MAX_CELLS": 4})):
+        with route_limits(**limits):
+            ref = rt_kernel.rt_prepare(*moved(b3_in[:8], last), b3_in[8], rows, W)
+
+            def prep_on(dev):
+                i = moved(b3_in[:8], dev)
+                return lambda: [rt_kernel.rt_prepare_cuda(*i, b3_in[8], rows, W)[k]
+                                for k in ("boxes", "tnear", "slist")]
+
+            on_card_beside_first(f"B3 preparation, {route} route (the same rays)", prep_on,
+                                 last, [ref[k] for k in ("boxes", "tnear", "slist")])
+    gen = torch.Generator().manual_seed(6)
+    fma_in = [torch.randn(1 << 20, generator=gen) for _ in range(3)]
+    on_card_beside_first(
+        "xla_fma", lambda dev: (lambda i=moved(fma_in, dev): (megakernel.lookup_fma_cuda(*i),)),
+        last, [_fma(*fma_in)])
+    res = {k: (_cuda_resources(k, last), _cuda_resources(k, first))
+           for k in ("rt_walk", "rt_prepare_large")}
+    print(f"MC resources on {last} and {first}: {res}")
+    if any(a != b for a, b in res.values()):
+        raise SystemExit("MC: the cards report different resources for one kernel")
+
+
+def _cuda_resources(kernel, device) -> dict:
+    from rusterix_tpu_torch import _cuda
+
+    return _cuda.resources(kernel, device=device)
+
+
 def main() -> int:
+    only_mc = sys.argv[1:] == ["--phase", "MC"]
+    if sys.argv[1:] and not only_mc:
+        print("usage: python3 chip_smoke.py [--phase MC]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -1721,6 +2032,10 @@ def main() -> int:
         for line in f:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("ptxas:", line.strip())
+    if only_mc:
+        cards_phase(gpu, phase)
+        print(json.dumps({"phase": "MC", "ok": True}))
+        return 0
 
     phase("3")
     # 3. main path A: the opaque map at 1920x1080 through rasterize
@@ -3043,6 +3358,7 @@ def main() -> int:
             "device_ms": dev_b["B3prep"], **res["B3prep"],
         },
     ] + later_rows + huge_paths(gpu, phase) + engine_paths(gpu, phase)
+    cards_phase(gpu, phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the last check")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 from .ops.rt_kernel import DEFAULT_KNOBS, RT_BH, RT_BW, RT_CELL
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -37,6 +39,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
+
+#: the library's entries that touch no device: a size computed on the host and
+#: an error's text. Every other entry is called through `on_device`.
+HOST_ENTRIES = ("rx_mega_smem_bytes", "rx_error_string")
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process
@@ -142,8 +148,25 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def resources(kernel: str, *sizes: int) -> dict:
-    """What the built `kernel` takes on the card: registers a thread, static
+def on_device(device, entry: str, *args, stream: bool = True):
+    """The library's `entry` (an rx_* function) called with `device` made the
+    current device for the call and, with `stream`, that device's current
+    stream passed last -> what the entry returns. Every kernel launch and
+    resource query of the port goes through here: the entries set kernel
+    attributes and ask occupancy on the current device, and CUDA refuses a
+    launch into a stream of another device than the current one."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{entry}: {device} is not a CUDA device")
+    fn = getattr(library(), entry)
+    with torch.cuda.device(device):
+        if stream:
+            args += (ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),)
+        return fn(*args)
+
+
+def resources(kernel: str, *sizes: int, device="cuda") -> dict:
+    """What the built `kernel` takes on `device`: registers a thread, static
     and dynamic shared memory a block, and the blocks an SM holds at once.
     kernel and sizes: "mega" (supers, lights, occlusion boxes, and the
     material form: 0 none, 1 has_material, 2 has_matmap; 0 when left out),
@@ -151,22 +174,22 @@ def resources(kernel: str, *sizes: int) -> dict:
     "rt_prepare_cluster" (cells, blocks a cluster; also the clusters the card
     holds at once), "rt_prepare_large" () (the global route's sorting pass,
     rt_prepare_large_kernel)."""
-    lib = library()
     out = (ctypes.c_int * 5)()
     if kernel == "mega":
-        err = lib.rx_mega_resources(*(tuple(sizes) + (0,) * (4 - len(sizes))), out)
+        entry, args = "rx_mega_resources", tuple(sizes) + (0,) * (4 - len(sizes))
     elif kernel == "visibility":
-        err = lib.rx_visibility_resources(*sizes, out)
+        entry, args = "rx_visibility_resources", sizes
     elif kernel == "rt_walk":
-        err = lib.rx_rt_resources(0, 0, out)
+        entry, args = "rx_rt_resources", (0, 0)
     elif kernel == "rt_prepare":
-        err = lib.rx_rt_resources(1, *sizes, out)
+        entry, args = "rx_rt_resources", (1, *sizes)
     elif kernel == "rt_prepare_cluster":
-        err = lib.rx_rt_cluster_resources(*sizes, out)
+        entry, args = "rx_rt_cluster_resources", sizes
     elif kernel == "rt_prepare_large":
-        err = lib.rx_rt_resources(2, 0, out)
+        entry, args = "rx_rt_resources", (2, 0)
     else:
         raise ValueError(f"no kernel named {kernel!r}")
+    err = on_device(device, entry, *args, out, stream=False)
     if err != 0:
         raise RuntimeError(f"resources({kernel}): CUDA error {err} ({error_string(err)})")
     res = {"registers": out[0], "smem_static": out[1], "smem_dynamic": out[2],

@@ -18,13 +18,18 @@ torch.backends.cudnn.allow_tf32 = False
 def resolve_device(device) -> torch.device:
     """`device` (str, torch.device or None for "cuda") -> torch.device.
 
-    Raises RuntimeError when CUDA is asked for and not available."""
+    Raises RuntimeError when CUDA is asked for and not available, or a card
+    the machine does not have."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} was asked for, but torch.cuda.is_available() is "
             "False (pass device='cpu' explicitly to run the plain versions)"
         )
+    if dev.type == "cuda" and dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"device {dev} was asked for, but the machine has "
+            f"{torch.cuda.device_count()} CUDA device(s)")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -252,11 +252,16 @@ def pack_mega_params(uniforms, width: int, height: int, atlas_w, device,
                      has_fog: bool = False, y0: int = 0,
                      shadow_params=None) -> torch.Tensor:
     """mega_param_row on `device`: the pack that came in the frame's arena
-    for the same arguments (uniforms Staged), else an upload."""
+    for the same arguments (uniforms Staged; a slab's row offset y0 written
+    into the whole frame's pack on the device), else an upload."""
     staged = staged_pack(uniforms, "mega_params",
                          mega_params_key(width, height, atlas_w, has_fog, y0, shadow_params))
     if staged is not None:
         return staged
+    staged = staged_pack(uniforms, "mega_params",
+                         mega_params_key(width, height, atlas_w, has_fog, 0, shadow_params))
+    if staged is not None:
+        return staged.index_fill(0, device_table((58,), torch.int64, staged.device), float(y0))
     return torch.from_numpy(mega_param_row(uniforms, width, height, atlas_w, has_fog, y0,
                                            shadow_params)).to(device)
 
@@ -556,8 +561,7 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
     n_lights = len(light_rows)
     shadow, lshadow, sun_map = _shadow_launch_tables(shadow_rows, shadow_spec, light_rows, dev)
     ns = planes.shape[0] // GROUP
-    lib = _cuda.library()
-    smem = lib.rx_mega_smem_bytes(ns, n_lights, inputs["occ"].shape[0])
+    smem = _cuda.library().rx_mega_smem_bytes(ns, n_lights, inputs["occ"].shape[0])
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"mega_render: {ns} supers, {n_lights} lights and {inputs['occ'].shape[0]} "
@@ -588,7 +592,7 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
 
     def launch():
         global launches
-        err = lib.rx_mega_render(*call_args, ptr(torch.cuda.current_stream(dev).cuda_stream))
+        err = _cuda.on_device(dev, "rx_mega_render", *call_args)
         if err != 0:
             raise RuntimeError(
                 f"megakernel launch failed: CUDA error {err} ({_cuda.error_string(err)})")
@@ -611,9 +615,8 @@ def lookup_fma_cuda(a, b, c):
         raise ValueError("lookup_fma_cuda takes three f32 CUDA tensors of one shape")
     out = torch.empty_like(a)
     ptr = ctypes.c_void_p
-    err = _cuda.library().rx_xla_fma(ptr(a.data_ptr()), ptr(b.data_ptr()), ptr(c.data_ptr()),
-                                     ptr(out.data_ptr()), a.numel(),
-                                     ptr(torch.cuda.current_stream(a.device).cuda_stream))
+    err = _cuda.on_device(a.device, "rx_xla_fma", ptr(a.data_ptr()), ptr(b.data_ptr()),
+                          ptr(c.data_ptr()), ptr(out.data_ptr()), a.numel())
     if err != 0:
         raise RuntimeError(f"xla_fma launch failed: CUDA error {err} ({_cuda.error_string(err)})")
     return out

@@ -526,15 +526,23 @@ def with_frame_leaves(leaves, d3, d3_op, d2, lights, uniforms, shadow_rows=None,
             dd = dyn["d3"]
             shadow_rows = composite_dynamic_depth(shadow_rows, shadow_spec, shadow_cams,
                                                   dd["pos"], dd["uv"], dd["nrm"], dd["valid"])
+    lights, uniforms = staged_dicts(leaves, lights, uniforms, **settings)
+    return dict(settings, d3=d3, d3_op=d3_op, d2=d2, lights=lights, uniforms=uniforms,
+                shadow_rows=shadow_rows, shadow_spec=shadow_spec)
+
+
+def staged_dicts(leaves, lights, uniforms, width: int, height: int, atlas,
+                 has_fog: bool = False, shadow_params=None, **_settings) -> tuple:
+    """The frame's lights and uniforms as arena.Staged dicts over the
+    per-frame leaves on one device (with_frame_leaves' `leaves`), with the
+    packs B1 derives from them -> (lights, uniforms)."""
+    _d3, _d3_op, _d2, lights_d, uniforms_d, derived = leaves
     u_packs = {"occ_params": (None, derived["occ_params"])}
     if "mega_params" in derived:
-        key = mega_params_key(settings["width"], settings["height"], settings["atlas"]["w"],
-                              settings.get("has_fog", False), 0, settings.get("shadow_params"))
+        key = mega_params_key(width, height, atlas["w"], has_fog, 0, shadow_params)
         u_packs["mega_params"] = (key, derived["mega_params"])
-    return dict(settings, d3=d3, d3_op=d3_op, d2=d2,
-                lights=Staged(lights, lights_d, {"light_params": (None, derived["light_params"])}),
-                uniforms=Staged(uniforms, uniforms_d, u_packs), shadow_rows=shadow_rows,
-                shadow_spec=shadow_spec)
+    return (Staged(lights, lights_d, {"light_params": (None, derived["light_params"])}),
+            Staged(uniforms, uniforms_d, u_packs))
 
 
 def render_frame_arena(arena_dev, arena_layout, **frame):
@@ -1095,8 +1103,10 @@ class Rasterizer:
         set_supersample(n) the frame renders at (n*H, n*W) and is
         box-filtered down to (H, W) on the device before the readback.
 
-        `mesh` (parallel.make_mesh: a tuple of torch devices) renders the
-        frame row-sharded (parallel.render_frame_sharded): the triangles
+        `mesh` (a tuple of torch devices: parallel.card_mesh, a slab on
+        each card, or parallel.make_mesh, n slabs on one device) renders
+        the frame row-sharded (parallel.render_frame_sharded) on the
+        mesh's first device: the triangles
         split over the slabs through the setup pass, the rows through every
         pass after it, byte-equal to the frame without a mesh. Reflections
         render at full resolution on this path whatever the reflection
@@ -1252,31 +1262,43 @@ class Rasterizer:
         )
         # the per-frame tree: the dynamic packs, the lights, the uniforms and
         # the packs B1 derives from them, in one host-to-device copy (ops/
-        # arena.py) for the unsharded frame; the mesh path, and a tree the
-        # arena refuses, upload leaf by leaf, as the JAX package's do
+        # arena.py), a copy to each device of a mesh; a tree the arena
+        # refuses uploads leaf by leaf, as the JAX package's do
         derived = {"light_params": light_param_rows(lights),
                    "occ_params": occ_param_rows(uniforms)}
         if not packed.runtime_shaders:
             derived["mega_params"] = mega_param_row(
                 uniforms, width, height, cache["atlas"]["w"], has_fog, 0, shadow_params)
         per_frame = (*dyn, lights, uniforms, derived)
-        arena_np, arena_layout = (None, None) if mesh is not None else pack_arena(per_frame)
+        arena_np, arena_layout = pack_arena(per_frame)
         frame_args.update(shadow_cams=shadow_cams, hide_3d=hide_3d)
         self.frame_arena = None
-        if arena_np is not None:
+        staged = None
+        if arena_np is None:
+            self.frame_args = with_frame_leaves(arena.upload_leaves(per_frame, self.device),
+                                                **frame_args)
+        elif mesh is None:
             arena_dev = arena.upload(arena_np, self.device)
             self.frame_arena = (arena_dev, arena_layout, frame_args)
             frame, self.frame_args = render_frame_arena(arena_dev, arena_layout, **frame_args)
         else:
-            self.frame_args = with_frame_leaves(arena.upload_leaves(per_frame, self.device),
-                                                **frame_args)
-            if mesh is not None:
-                from ..parallel import render_frame_sharded
+            from ..parallel import check_mesh
 
-                fa = {k: v for k, v in self.frame_args.items() if k != "refl_scale"}
-                frame = render_frame_sharded(mesh, **fa)
-            else:
-                frame = render_frame(**self.frame_args)
+            home = check_mesh((self.device,))[0]
+            leaves = {dev: unpack_arena(arena.upload(arena_np, dev), arena_layout)
+                      for dev in dict.fromkeys((home,) + mesh)}
+            self.frame_args = with_frame_leaves(leaves[home], **frame_args)
+            staged = {dev: staged_dicts(lv, **frame_args) for dev, lv in leaves.items()}
+        if mesh is not None:
+            from ..parallel import render_frame_sharded
+
+            fa = {k: v for k, v in self.frame_args.items() if k != "refl_scale"}
+            # each device's static state is placed once per scene and kept
+            # with the scene's cache entry
+            frame = render_frame_sharded(mesh, placed=cache.setdefault("placed", {}),
+                                         staged=staged, **fa)
+        elif arena_np is None:
+            frame = render_frame(**self.frame_args)
         if ss > 1:
             frame = ssaa_downsample(frame, ss)
         if not readback:

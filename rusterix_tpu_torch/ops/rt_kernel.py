@@ -318,22 +318,21 @@ def prepare_launch(scene: dict, fields: tuple, t_cap, sizes: dict):
     slist = torch.empty((nby * nbx, ncells), dtype=torch.int32, device=dev)
     route = prepare_route(ncells, nby * nbx)
     ptr = ctypes.c_void_p
-    lib = _cuda.library()
     head = (*(ptr(f.data_ptr()) for f in fields), ptr(scene["cbox"].data_ptr()),
             ctypes.c_float(float(t_cap)), ptr(boxes.data_ptr()), ptr(tnear.data_ptr()),
             ptr(slist.data_ptr()))
     scratch = None
     if route["route"] == "rank":
-        fn, args = lib.rx_rt_prepare, (*head, ncells)
+        entry, args = "rx_rt_prepare", (*head, ncells)
     elif route["route"] == "cluster":
-        fn, args = lib.rx_rt_prepare_cluster, (*head, ncells, route["cluster"])
+        entry, args = "rx_rt_prepare_cluster", (*head, ncells, route["cluster"])
     else:
         scratch = torch.empty(route["scratch"] // 4, dtype=torch.int32, device=dev)
-        fn, args = lib.rx_rt_prepare_large, (*head, ptr(scratch.data_ptr()),
-                                             ctypes.c_longlong(route["scratch"]), ncells)
+        entry, args = "rx_rt_prepare_large", (*head, ptr(scratch.data_ptr()),
+                                              ctypes.c_longlong(route["scratch"]), ncells)
     def launch():
         global prepare_launches, prepare_cluster_launches, prepare_large_launches
-        err = fn(*args, nby, nbx, height, width, ptr(torch.cuda.current_stream(dev).cuda_stream))
+        err = _cuda.on_device(dev, entry, *args, nby, nbx, height, width)
         if err != 0:
             raise RuntimeError(f"ray-intersect preparation kernel ({route['route']} route) "
                                f"launch failed: CUDA error {err} ({_cuda.error_string(err)})")
@@ -401,13 +400,12 @@ def _launch(prep, fields):
     t = torch.empty((height, width), dtype=torch.float32, device=dev)
     idx = torch.empty((height, width), dtype=torch.int32, device=dev)
     ptr = ctypes.c_void_p
-    err = _cuda.library().rx_rt_intersect(
-        ptr(prep["tab"].data_ptr()), ptr(prep["cbox"].data_ptr()),
+    err = _cuda.on_device(
+        dev, "rx_rt_intersect", ptr(prep["tab"].data_ptr()), ptr(prep["cbox"].data_ptr()),
         ptr(prep["tnear"].data_ptr()), ptr(prep["slist"].data_ptr()),
         ptr(prep["tcap"].data_ptr()), *(ptr(f.data_ptr()) for f in fields),
         ptr(t.data_ptr()), ptr(idx.data_ptr()),
         prep["ncells"], prep["nby"], prep["nbx"], height, width,
-        ptr(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"ray-intersect kernel launch failed: CUDA error {err} "

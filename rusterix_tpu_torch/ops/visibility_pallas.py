@@ -182,14 +182,13 @@ def prepare_launch(vis_planes, alive, bbox, width: int, height: int, y0: int = 0
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
     idx = torch.empty((height, width), dtype=torch.int32, device=dev)
     ptr = ctypes.c_void_p
-    lib = _cuda.library()
     call_args = (ptr(planes.data_ptr()), ptr(sboxes.data_ptr()), ptr(cboxes.data_ptr()),
                  ptr(z.data_ptr()), ptr(idx.data_ptr()), sboxes.shape[0], height, width, int(y0))
     keep = (planes, sboxes, cboxes)  # alive while the closure is
 
     def launch():
         global launches
-        err = lib.rx_visibility(*call_args, ptr(torch.cuda.current_stream(dev).cuda_stream))
+        err = _cuda.on_device(dev, "rx_visibility", *call_args)
         if err != 0:
             raise RuntimeError(
                 f"visibility kernel launch failed: CUDA error {err} ({_cuda.error_string(err)})")

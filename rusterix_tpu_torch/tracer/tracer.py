@@ -210,6 +210,9 @@ class Tracer:
         #: same either way
         self.use_aabb_skip = False
         self._cache_key = None
+        #: device -> the packed scene placed there (trace_sharded's other
+        #: devices), once per scene
+        self._placed = {}
         self._cache = None
         self._n_live_chunks = None
         self._has_tex = True
@@ -284,7 +287,21 @@ class Tracer:
                 },
             }
             self._cache_key = key
+            self._placed = {}
         return self._cache
+
+    def _cache_on(self, cache, device) -> dict:
+        """The packed scene on `device`: `cache` on the tracer's device,
+        else its copy there, placed once per scene and device."""
+        if device == self.device:
+            return cache
+        hit = self._placed.get(device)
+        if hit is None:
+            hit = {k: ({f: t.to(device) if torch.is_tensor(t) else t for f, t in v.items()}
+                       if k in ("d3", "mats", "boxes", "atlas") else v)
+                   for k, v in cache.items()}
+            self._placed[device] = hit
+        return hit
 
     def _lights_dev(self, cache) -> dict:
         """The pack's light rows with a flicker factor of 1, and "rows": the
@@ -312,11 +329,7 @@ class Tracer:
     def _frame(self, cache, camera, scene, width: int, height: int, seed: int, device,
                lights, sky_pre) -> torch.Tensor:
         """One sample, (H, W, 4) f32 linear, on `device`."""
-        if device != self.device:
-            cache = {k: (_to_device(v, device) if k in ("d3", "mats", "boxes") else v)
-                     for k, v in cache.items()}
-            cache["atlas"] = {k: (v.to(device) if torch.is_tensor(v) else v)
-                              for k, v in cache["atlas"].items()}
+        cache = self._cache_on(cache, device)
         pos, forward, right, up = self._camera_basis(camera)
         return _trace_frame(
             cache["d3"], cache["mats"], cache["boxes"], lights, cache["atlas"],
@@ -330,8 +343,10 @@ class Tracer:
     def trace_sharded(self, camera, scene, buffer: AccumBuffer,
                       tile_size: int, assets, mesh) -> None:
         """`len(mesh)` progressive samples in one call, one full-frame
-        sample per device of the mesh (parallel.make_mesh: a tuple of
-        torch devices); the samples axis is embarrassingly parallel (the
+        sample per device of the mesh (a tuple of torch devices:
+        parallel.card_mesh, a sample on each card, or parallel.make_mesh);
+        each device other than the tracer's holds its own copy of the
+        packed scene, placed once per scene (`_cache_on`); the samples axis is embarrassingly parallel (the
         reference fans its sample loop over rayon tiles the same way,
         src/tracer/trace.rs:105-190).
 

@@ -17,7 +17,11 @@ and the global route) against rt_prepare and in path B's frame, the minigame fra
 the path tracer's buffer against the CPU's, the frame through the per-frame
 arena against the per-leaf frame, the one host-to-device copy of path A's
 steady frame, frame_breakdown on the card, and the huge scene's reflection
-frame through B3's cluster preparation route.
+frame through B3's cluster preparation route; with two cards or more, each
+kernel on the last card while cuda:0 is current against the same launch on
+cuda:0, the frames over `card_mesh(2)` against the same slabs on one card
+and `trace_sharded` over the cards against sequential traces; on one card, a
+steady sharded frame without a host synchronisation.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
 jax, so they also run on a machine without it:
@@ -47,6 +51,7 @@ from rusterix_tpu_torch import (  # noqa: E402
     Scene,
     Texture,
 )
+from rusterix_tpu_torch import _cuda  # noqa: E402
 from rusterix_tpu_torch.models import CullMode, RenderSettings, Tile  # noqa: E402
 from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas  # noqa: E402
 from rusterix_tpu_torch.ops.matrices import look_at_rh, perspective_fov_rh_zo  # noqa: E402
@@ -1306,3 +1311,146 @@ def test_huge_reflection_frame_takes_the_cluster_route(cuda):
     fa = rast.frame_args
     per_leaf = render_frame(**dict(fa, lights=dict(fa["lights"]), uniforms=dict(fa["uniforms"])))
     assert np.array_equal(frame, per_leaf.cpu().numpy())
+
+
+# ------------------------------------------------- the mesh over the cards
+
+
+def _last_card():
+    """The machine's last CUDA card; skips where it has fewer than two."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two CUDA cards or more; the machine has {n}")
+    return torch.device("cuda", n - 1)
+
+
+def _prep_inputs(ncells, height, width, device):
+    """_spread_rays' scene and rays on `device` -> (pos, valid, ox..dz)."""
+    pos, valid, o, d = _spread_rays(19, ncells, height, width, 0.1)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (pos, valid, *o, *d)]
+
+
+# B3's preparation routes by cell count, with the limits they are sent by
+CARD_ROUTES = {"B3_rank": (300, {}), "B3_cluster": (5000, {"PREPARE_MAX_CELLS": 4}),
+               "B3_global": (5000, GLOBAL)}
+
+
+def _launch_on(kernel, device, monkeypatch):
+    """One launch of `kernel` on inputs on `device`, with cuda:0 the current
+    device -> its outputs on the CPU."""
+    torch.manual_seed(3)
+    with torch.cuda.device(0):
+        if kernel == "B1":
+            args, kwargs = _slab_mega_inputs(_map_args(333, 200), 70, 75, device)
+            out = megakernel.mega_render(*args, **kwargs)
+        elif kernel == "xla_fma":
+            a, b, c = (torch.randn(1 << 16).to(device) for _ in range(3))
+            out = (megakernel.lookup_fma_cuda(a, b, c),)
+        elif kernel == "B2":
+            fi = frame_inputs(**_map_args(333, 200))
+            ins = [t.to(device) for t in (fi["vis_s"], fi["alive_s"], fi["bbox_s"])]
+            out = visibility_pallas.visibility_pass_pallas(*ins, 333, 75, 70)
+        elif kernel == "B3_walk":
+            args = _prep_inputs(300, 16, 128, device)
+            out = rt_kernel.intersect_rays_pallas(*args, 25.0, 16, 128)
+        else:
+            ncells, limits = CARD_ROUTES[kernel]
+            for name, value in limits.items():
+                monkeypatch.setattr(rt_kernel, name, value)
+            route = rt_kernel.prepare_route(ncells)["route"]
+            assert route == kernel.split("_")[1]
+            prep = rt_kernel.rt_prepare_cuda(*_prep_inputs(ncells, 16, 128, device), 25.0, 16, 128)
+            assert prep["slist"].device == device
+            out = tuple(prep[k] for k in ("boxes", "tnear", "slist"))
+        assert torch.cuda.current_device() == 0
+        assert all(t.device == device for t in out)
+        torch.cuda.synchronize(device)
+    return [t.cpu() for t in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B1", "xla_fma", "B2", *CARD_ROUTES, "B3_walk"])
+def test_kernel_on_the_last_card_equals_the_first(cuda, monkeypatch, kernel):
+    """Each kernel launched on tensors on the machine's last card while
+    cuda:0 is the current device (the launch makes the tensors' card
+    current) gives the same bits as the same launch on cuda:0; the resource
+    queries answer alike on both cards."""
+    last = _last_card()
+    first = _launch_on(kernel, torch.device("cuda", 0), monkeypatch)
+    other = _launch_on(kernel, last, monkeypatch)
+    for a, b in zip(first, other):
+        assert torch.equal(a, b)
+    assert (_cuda.resources("rt_walk", device=last)
+            == _cuda.resources("rt_walk", device=torch.device("cuda", 0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", [build_map_scene, build_map_shadow_refl_scene],
+                         ids=["R", "S"])
+def test_frame_over_two_cards_equals_two_slabs_on_one(cuda, build):
+    """The map (R) and the shadowed GGX map with AO and sky light (S) at
+    256x128 through rasterize(mesh=card_mesh(2)): byte-equal to the same two
+    slabs on one card, twice (the second frame on the placed static state),
+    the frame on the first card, one B1 launch a slab."""
+    from rusterix_tpu_torch.parallel import card_mesh, make_mesh
+
+    _last_card()
+    rast, scene, assets = build(256, 128, device=torch.device("cuda", 0))
+    if build is build_map_shadow_refl_scene:
+        rast.set_ambient_occlusion(True).set_sky_light(True)
+    one = rast.rasterize(scene, 256, 128, 40, assets, mesh=make_mesh(2, "cuda:0"))
+    mesh = card_mesh(2)
+    for _ in range(2):
+        before = megakernel.launches
+        frame = rast.rasterize(scene, 256, 128, 40, assets, mesh=mesh, readback=False)
+        torch.cuda.synchronize()
+        assert megakernel.launches == before + 2
+        assert frame.device == mesh[0]
+        np.testing.assert_array_equal(frame.cpu().numpy(), one)
+
+
+@pytest.mark.cuda
+def test_trace_sharded_over_the_cards_equals_sequential_traces(cuda):
+    """trace_sharded over every card (one sample a card) leaves the buffer
+    that as many trace() calls leave, bit for bit, twice in a row."""
+    from rusterix_tpu_torch.parallel import card_mesh
+    from rusterix_tpu_torch.scenes import build_tracer_scene
+    from rusterix_tpu_torch.tracer import AccumBuffer, Tracer
+
+    _last_card()
+    mesh = card_mesh()
+    scene, cam, assets = build_tracer_scene()
+    tracer = Tracer(device=mesh[0])
+    one, seq = AccumBuffer(64, 48, device=mesh[0]), AccumBuffer(64, 48, device=mesh[0])
+    for _ in range(2):
+        tracer.trace_sharded(cam, scene, one, 64, assets, mesh)
+        for _ in mesh:
+            tracer.trace(cam, scene, seq, 64, assets)
+        assert np.array_equal(one.pixels, seq.pixels)
+    assert set(tracer._placed) == set(mesh[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", [build_map_scene, build_map_shadow_refl_scene],
+                         ids=["R", "S"])
+def test_steady_sharded_frame_makes_no_host_synchronisation(cuda, build):
+    """A steady frame of R and of S in 8 slabs on one card at 256x128 runs
+    under torch.cuda.set_sync_debug_mode("error") without a host
+    synchronisation (PERF.md names none that must stay)."""
+    from rusterix_tpu_torch.parallel import make_mesh
+
+    rast, scene, assets = build(256, 128, device=cuda)
+    if build is build_map_shadow_refl_scene:
+        rast.set_ambient_occlusion(True).set_sky_light(True)
+    mesh = make_mesh(8, cuda)
+    for _ in range(2):
+        rast.rasterize(scene, 256, 128, 40, assets, mesh=mesh, readback=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frame = rast.rasterize(scene, 256, 128, 40, assets, mesh=mesh, readback=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert frame.shape == (128, 256, 4)
