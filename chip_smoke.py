@@ -77,13 +77,20 @@ keys that spread) against rt_prepare and torch.sort, with their bound; GL,
 the global route at its own size (1080p rays over 131,072 cells, the limits
 as they stand) the same way; and the sweep, every preparation route at 32
 to 106,496 cells beside torch.sort; last, MC, the mesh over every card of
-the machine (card_mesh): with two cards or more, R and S through
-rasterize(mesh=card_mesh()) byte-equal to the same slabs on one card, Z's
-trace_sharded over the cards byte-equal to sequential traces, each kernel on
-the last card (cuda:0 current) against its plain version and beside cuda:0,
-and the steady frames' numbers (the frame median beside the same slabs on
-one card, each card's device ms and busy share, the wall against their sum,
-the copies from card to card); with one card it prints that it did not run
+the machine (card_mesh): with two cards or more, R, S, JA (J with AO:
+every feature of the JAX package's multichip feature frame), I, T8, V (at
+equal move times) and M through rasterize(mesh=card_mesh()) byte-equal to
+the same slabs on one card, two frames each, and to their single frames
+but in the tie class, each with a slab's share of its launches, its copies
+from card to card by class (mc_copy_classes) and no more host
+synchronisations than its single frame; Z's trace_sharded over the cards
+byte-equal to sequential traces, each kernel on the last card (cuda:0
+current) against its plain version and beside cuda:0 (B1 on R, S and JA,
+B2 on S and on T8's Morton order, the walk on S's and on a JA layer's
+reflection rays), and the steady frames' numbers (the frame median beside
+the same slabs on one card, each card's device ms and busy share, the wall
+against their sum, the copies from card to card, the host
+synchronisations by site); with one card it prints that it did not run
 and why. `python3 chip_smoke.py --phase MC` runs the build and MC alone.
 Every unsharded frame sends its per-frame leaves to the card in one copy
 (ops/arena.py): phase 4h counts the host-to-device copies of a steady
@@ -127,6 +134,7 @@ import subprocess
 import sys
 import time
 import types
+from unittest import mock
 
 import numpy as np
 import torch
@@ -245,6 +253,7 @@ N_FRAMES = {"N": 3}
 # ones (N's 158,773 device ops a frame take ~25 s a frame to read)
 N_PROF_LATER = 4
 N_PROF_2D = 3
+PROFILE_TRIES = 2  # report_profile profiles again, this many times in all, where records are lost
 N_PROF_N = 1
 # the shadowed paths: B1 equals its plain version bit for bit, and their
 # steady frames are counted after a first frame that bakes the maps
@@ -442,19 +451,39 @@ def is_kernel(name: str, symbol: str) -> bool:
         (symbol + "(", symbol + "<", f"_Z{len(symbol)}{symbol}"))
 
 
-def report_profile(label, prof, frame_ms, gpu, kernels: dict) -> dict:
-    """Print a frame's profile; -> {kernel: device ms per launch}. `kernels`
-    maps a key to the kernel's symbol, or to (symbol, launches per frame)
-    where a frame launches it more than once (the launch counters hold
-    those counts), so more records than that is an error; fewer means the
+def report_profile(label, fn, n: int, frame_ms, gpu, kernels: dict,
+                   tries: int = PROFILE_TRIES) -> dict:
+    """Profile `n` calls of `fn` (profile_calls), print the frame's profile;
+    -> {kernel: device ms per launch}. `kernels` maps a key to the kernel's
+    symbol, or to (symbol, launches per frame) where a frame launches it
+    more than once (the launch counters hold those counts), so more records
+    than that, or records under two names, is an error; fewer means the
     profiler lost records, and then the frame's device ms and ops are lower
-    bounds."""
+    bounds. The profiler can lose every record of a kernel late in a long
+    process: the calls are profiled again, up to `tries` times in all, and
+    a kernel still without a record gets None (its device time not
+    measured, a line says so; the launch counters, not the profiler, show
+    that the path launched it)."""
+    for _ in range(tries):
+        prof = profile_calls(fn, n)
+        missing = [] if prof is None else [
+            key for key, symbol in kernels.items()
+            if not any(is_kernel(name, symbol if isinstance(symbol, str) else symbol[0])
+                       for name in prof["by_name"])]
+        if prof is not None and not missing:
+            break
     if prof is None:
-        print(f"profiler, {label}: no device activity recorded; device time not measured")
+        print(f"profiler, {label}: no device activity recorded in {tries} tries; "
+              f"device time not measured")
         return {k: None for k in kernels}
     out, n, lost = {}, prof["calls"], False
     for key, symbol in kernels.items():
         symbol, per = symbol if isinstance(symbol, tuple) else (symbol, 1)
+        if key in missing:
+            print(f"profiler, {label}: no record of {symbol} in {tries} tries; its device "
+                  f"time not measured")
+            out[key], lost = None, True
+            continue
         seen = [(ms, c) for name, (ms, c) in prof["by_name"].items() if is_kernel(name, symbol)]
         if len(seen) != 1 or not 1 <= seen[0][1] <= n * per:
             raise SystemExit(f"profiler, {label}: expected {per} {symbol} launches per frame, "
@@ -464,7 +493,8 @@ def report_profile(label, prof, frame_ms, gpu, kernels: dict) -> dict:
     if lost:
         print(f"profiler, {label}: the profiler lost records of some launches; the frame's "
               f"device ms and ops below are lower bounds, each kernel's ms is per record kept")
-    each = ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
+    each = ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f} ms'}"
+                     for k, v in out.items())
     print(f"profiler, {label}: device {prof['device_ms']:.4f} ms per frame, "
           f"{prof['ops']:.1f} device ops per frame, busy share "
           f"{prof['device_ms'] / frame_ms:.4f} of the {frame_ms:.4f} ms frame median, "
@@ -618,6 +648,45 @@ def tie_pixels(mesh, d3, uniforms, atlas, width: int, height: int, has_blend: bo
     return torch.cat(out)
 
 
+def ray_tie_pixels(render, mesh, height: int):
+    """The pixels where a sharded frame's ray walks (B3: the reflections,
+    the sky light, each layer's reflections) may keep another triangle than
+    the single frame's -> (H, W) bool numpy: where a ray's closest hit ties
+    on t bit for bit between triangles of two cells, the walk keeps the one
+    its ray block visits first, and a slab's ray blocks, cut from its own
+    rows, can order the cells otherwise (the cross-cell ties of the JAX
+    package's ops/rt_kernel.py:48-52). Found as the rays whose hit differs
+    between the slabs' walks and the single frame's at an equal t.
+    `render(m)` renders the frame over mesh m (None: the single frame); the
+    single frame's walks and each slab's come in the same order."""
+    from rusterix_tpu_torch.ops import reflect
+
+    outs = {}
+    for label, m in (("single", None), ("sharded", mesh)):
+        got = []
+
+        def walk(*args, fn=reflect.intersect_rays_pallas, got=got):
+            got.append(fn(*args))
+            return got[-1]
+
+        with mock.patch.object(reflect, "intersect_rays_pallas", new=walk):
+            render(m)
+        outs[label] = got
+    k = len(outs["single"])
+    if len(outs["sharded"]) != k * len(mesh):
+        raise SystemExit(f"ray_tie_pixels: {len(outs['sharded'])} walks over {len(mesh)} slabs, "
+                         f"the single frame {k}")
+    dev = outs["single"][0][0].device if k else None
+    ties = np.zeros(0, bool)
+    for j in range(k):
+        t_w, i_w = outs["single"][j]
+        t_s, i_s = (torch.cat([outs["sharded"][s * k + j][f].to(dev) for s in range(len(mesh))])
+                    [:height] for f in (0, 1))
+        tie = ((t_s == t_w) & (i_s != i_w)).cpu().numpy()
+        ties = tie if j == 0 else ties | tie
+    return ties
+
+
 def bake_call(rast, shadow):
     """A function of no arguments that bakes the shadow maps of the frame
     `rast` last rendered, as its Rasterizer baked them (shadow: the port's
@@ -709,18 +778,20 @@ class HostCopies(TorchDispatchMode):
 def h2d_copies(fn) -> int:
     """The host-to-device copies one call of `fn` makes: the profiler's
     Memcpy HtoD records (pageable and pinned). Raises when the profiler
-    recorded no device activity (the count would not be measured)."""
+    recorded no device activity in PROFILE_TRIES calls (the count would not
+    be measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        raise SystemExit("h2d_copies: the profiler recorded no device activity")
-    return sum("HtoD" in e.name for e in events)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return sum("HtoD" in e.name for e in events)
+    raise SystemExit("h2d_copies: the profiler recorded no device activity")
 
 
 def arena_host_ms(rast) -> dict:
@@ -950,13 +1021,20 @@ def prep_device_ms(fn, kernels, calls: int = SWEEP_CALLS, split: dict = None) ->
     provided every kernel's records are a whole number a call. Where the
     profiler records nothing twice, or lost records of a library call (it
     does so late in a long process), the median of CUDA events around
-    single calls, and a line says so."""
+    single calls, and a line says so; likewise where it kept no record of
+    one of a route's kernels (a record of another kernel, or more records
+    than the route launches, still fails)."""
     for _ in range(2):
         prof = profile_calls(fn, calls)
         if prof is not None:
             break
+    if prof is not None and kernels is not None:
+        foreign = [n for n in prof["by_name"] if not any(is_kernel(n, k) for k in kernels)]
+        if foreign:
+            raise SystemExit(f"profiled {list(kernels)}: records {prof['by_name']}")
     if prof is None or (kernels is None and any(
-            c % calls for _ms, c in prof["by_name"].values())):
+            c % calls for _ms, c in prof["by_name"].values())) or (kernels is not None and any(
+            not any(is_kernel(name, symbol) for name in prof["by_name"]) for symbol in kernels)):
         ms = median(cuda_times(fn, 2 * calls))
         print(f"profiler recorded {'nothing' if prof is None else 'part'} of "
               f"{', '.join(kernels or ['a library call'])}: CUDA events instead, {ms:.4f} ms")
@@ -1186,7 +1264,7 @@ def huge_paths(gpu: str, phase) -> list:
         if refl:
             names.update(B2="visibility_kernel", B3="rt_kernel",
                          B3prepC="rt_prepare_cluster_kernel")
-        dev = report_profile(f"path {key} frame x{N_PROF_HG}", profile_calls(frame_fn, N_PROF_HG),
+        dev = report_profile(f"path {key} frame x{N_PROF_HG}", frame_fn, N_PROF_HG,
                              median(frame_t), gpu, names)
 
         # B1 on the band against its plain version
@@ -1435,7 +1513,7 @@ def engine_paths(gpu: str, phase) -> list:
           f"{summary(host)}")
     print(f"path X host-synced / device-only: {x_sync / x_dev:.4f}; fps {1e3 / x_sync:.2f} "
           f"host-synced, {1e3 / x_dev:.2f} device-only on {gpu}")
-    report_profile(f"path X minigame frame x6", profile_calls(x_frame, 6), x_dev, gpu,
+    report_profile(f"path X minigame frame x6", x_frame, 6, x_dev, gpu,
                    {"B1": "mega_kernel"})
     rx.server.stop()
     sw, sh = X_SMALL
@@ -1481,7 +1559,7 @@ def engine_paths(gpu: str, phase) -> list:
               f"buffer): trace() {summary(t_y)}, {1e3 / ms:.2f} samples/s, peak memory "
               f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before on {gpu}")
         report_profile(f"path Y tracer {yw}x{yh} trace() x3",
-                       profile_calls(lambda: tracer.trace(cam_y, scene_y, buf, 64, assets_y), 3),
+                       lambda: tracer.trace(cam_y, scene_y, buf, 64, assets_y), 3,
                        ms, gpu, {})
     yw, yh = Y_SMALL
     bufs = {}
@@ -1671,6 +1749,28 @@ def engine_paths(gpu: str, phase) -> list:
 # steady frames timed and profiled per path
 MC_FRAMES = 20
 MC_PROFILED = 5
+# the paths over the cards: key -> (scenes builder, the EXPECTED_LAUNCHES
+# entry and the slabs it counts: a slab's launches are its share). JA is J
+# with AO (every feature of the JAX package's multichip feature frame), I
+# the glazed map, T8 the split path, V the dynamic batches with casters, M
+# the cube and its 2D rectangle (800x600)
+MC_PATHS = {
+    "R": ("build_map_scene", "R", N_SLABS),
+    "S": ("build_map_shadow_refl_scene", "S", N_SLABS),
+    "JA": ("build_map_glass_refl_scene", "J", 1),
+    "I": ("build_map_glass_scene", "I8", N_SLABS),
+    "T8": ("build_map_runtime_shader_scene", "T8", N_SLABS),
+    "V": ("build_map_dynamic_scene", "V", 1),
+    "M": ("build_cube_scene", "M8", N_SLABS),
+}
+# pixels where the frame over n cards differs from the single frame, by
+# card count (the tool's machines have 1 or 4): every one of them is of a
+# tie class (tie_pixels, ray_tie_pixels); JA's and I's are I8's coplanar
+# z-ties at 4 slabs, and JA's one more a cross-cell ray tie
+MC_PINNED = {4: {"R": 0, "S": 0, "JA": 3101, "I": 3100, "T8": 0, "V": 0, "M": 0}}
+# frames timed and profiled where not MC_FRAMES and MC_PROFILED: the glazed
+# paths and V take 0.4-0.7 s a frame on one card
+MC_SLOW = {"JA": (5, 2), "I": (5, 2), "V": (5, 2)}
 
 
 def sync_cards(mesh):
@@ -1730,18 +1830,19 @@ def card_profile(fn, mesh, n: int) -> dict:
     return out
 
 
-def card_frame_numbers(key, fn, mesh, one_fn, gpus: str):
-    """Print path `key`'s steady frame over the cards: the frame median
-    (host wall, every card synchronized after each frame) beside the same
-    slabs on one card (`one_fn`), each card's device ms and busy share,
-    the wall against the sum of the cards' device ms, and the copies from
-    card to card a frame (where PyTorch dispatches them, and the profiler's
-    peer copy records)."""
+def card_frame_numbers(key, fn, mesh, one_fn, gpus: str, frames: int = MC_FRAMES,
+                       profiled: int = MC_PROFILED):
+    """Print path `key`'s steady frame over the cards: the frame median of
+    `frames` (host wall, every card synchronized after each frame) beside
+    the same slabs on one card (`one_fn`), each card's device ms and busy
+    share over `profiled` frames, the wall against the sum of the cards'
+    device ms, and the copies from card to card a frame (where PyTorch
+    dispatches them, and the profiler's peer copy records)."""
     def walled(f):
         f()
         sync_cards(mesh)
         out = []
-        for _ in range(MC_FRAMES):
+        for _ in range(frames):
             t0 = time.perf_counter()
             f()
             sync_cards(mesh)
@@ -1752,7 +1853,7 @@ def card_frame_numbers(key, fn, mesh, one_fn, gpus: str):
     wall = median(t_cards)
     print(f"MC path {key} over {len(mesh)} cards: frame {summary(t_cards)}; the same "
           f"{len(mesh)} slabs on cuda:0: {summary(t_one)}; cards: {gpus}")
-    prof = card_profile(fn, mesh, MC_PROFILED)
+    prof = card_profile(fn, mesh, profiled)
     if prof is None:
         print(f"MC path {key}: the profiler recorded no device activity; device ms not measured")
     else:
@@ -1799,30 +1900,77 @@ def on_card_beside_first(label, fn_on, last, plain):
                          "version or from cuda:0's")
 
 
+def mc_scene(key, device):
+    """MC path `key`'s scene on `device` -> (rast, scene, assets, width,
+    height, move): move(t) places V's dynamic batches for time t (None: the
+    next of the timed frames' walking times) and does nothing on the other
+    paths."""
+    from rusterix_tpu_torch import scenes
+
+    w, h = SIZES.get(key, (W, H))
+    rast, scene, assets = getattr(scenes, MC_PATHS[key][0])(w, h, device=device)
+    if key in ("S", "JA"):
+        rast.set_ambient_occlusion(True)
+    if key == "S":
+        rast.set_sky_light(True)
+    clock = iter(range(1 << 20))
+
+    def move(t=None):
+        if key == "V":
+            scenes.move_dynamic(scene, V_TIMES[2] + 0.02 * (next(clock) % 50) if t is None else t)
+
+    move(V_TIMES[0])
+    return rast, scene, assets, w, h, move
+
+
+def mc_copy_classes(key, fa, n: int) -> dict:
+    """The copies from card to card that a steady frame of MC path `key`
+    (frame_args `fa`) over `n` cards makes, by class: the planes' gather
+    (vis, attr, bbox, alive of every shard on every other card), the
+    frame's gather (every slab but the first to cuda:0), with AO the
+    pre-pass's z and hit gathered and the factor sent back, and on V the
+    dynamic packs and the composited shadow rows, which are new tensors
+    every frame and are placed anew on every other card (as the JAX package
+    moves them every frame)."""
+    out = {"planes": 4 * n * (n - 1), "frame rows": n - 1}
+    if fa["ao_taps"]:
+        out["AO z and hit"] = 2 * (n - 1)
+        out["AO factor"] = n - 1
+    if key == "V":
+        parts = [fa["d3"], fa["d2"]] + ([fa["d3_op"]] if fa["has_opacity"] else [])
+        fields = sum(isinstance(v, torch.Tensor) for part in parts for v in part.values())
+        out["dynamic packs and shadow rows"] = (fields + 1) * (n - 1)
+    return out
+
+
 def cards_phase(gpu: str, phase):
     """MC: the frame and the tracer over every card (card_mesh). With two
-    cards or more: R (A at W x H) and S (H with AO and sky light) through
-    rasterize(mesh=card_mesh()) byte-equal to the same slabs on one card
-    (and S to its single frame but in the tie class), Z's trace_sharded over
-    the cards byte-equal to sequential traces, each kernel on the last card
-    against its plain version and beside cuda:0, and the steady frames'
-    numbers. With one card it prints that it did not run and why."""
+    cards or more: the paths of MC_PATHS (R, A at W x H; S, H with AO and
+    sky light; JA, J with AO; I; T8, the split path; V, the dynamic batches
+    at equal move times; M, the cube and its 2D rectangle) through
+    rasterize(mesh=card_mesh()) byte-equal to the same slabs on one card,
+    two frames each, and to their single frames but in the tie class, their
+    launches a slab's share of their expected counts, their card-to-card
+    copies by class and their host synchronisations no more than the
+    single frame's; Z's trace_sharded over the cards byte-equal to
+    sequential traces; each kernel on the last card against its plain
+    version and beside cuda:0 (B1 on R, S and JA, B2 on S and on T8's Morton
+    order, B3's walk on S's and on a JA layer's reflection rays, the
+    preparation routes, xla_fma); and the steady frames' numbers. The
+    checks of the paths' frames are gathered and raised together at the end
+    of the phase. With one card it prints that it did not run and why."""
     phase("MC")
     n = torch.cuda.device_count()
     if n < 2:
         print(f"phase MC did not run: {n} card: {_run(['nvidia-smi', '-L'])}")
         return
-    from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas
+    from rusterix_tpu_torch import scenes
+    from rusterix_tpu_torch.ops import megakernel, reflect, rt_kernel, visibility_pallas
     from rusterix_tpu_torch.ops.raster import frame_inputs
     from rusterix_tpu_torch.ops.setup_pass import _fma
     from rusterix_tpu_torch.parallel import card_mesh, make_mesh, sharded_inputs
-    from rusterix_tpu_torch.scenes import (
-        build_map_scene,
-        build_map_shadow_refl_scene,
-        build_minigame,
-        minigame_tick,
-    )
     from rusterix_tpu_torch.tracer import AccumBuffer
+    from tools.sync_sites_torch import sync_sites
 
     mesh = card_mesh()
     first, last = mesh[0], mesh[-1]
@@ -1830,54 +1978,96 @@ def cards_phase(gpu: str, phase):
                            "--format=csv,noheader"]).splitlines())
     print(f"phase MC: {n} cards: {gpus}")
     one = make_mesh(n, first)
-    frames, fas = {}, {}
-    for key, build in (("R", build_map_scene), ("S", build_map_shadow_refl_scene)):
-        rast, scene, assets = build(W, H, device=first)
-        if key == "S":
-            rast.set_ambient_occlusion(True).set_sky_light(True)
-        single = rast.rasterize(scene, W, H, 40, assets)
-        on_one = rast.rasterize(scene, W, H, 40, assets, mesh=one)
-        for frame_no in (1, 2):
+    frames, fas, faults = {}, {}, []
+    for key, (_builder, counted, slabs) in MC_PATHS.items():
+        phase(f"MC {key}")
+        rast, scene, assets, w, h, move = mc_scene(key, first)
+        rast.rasterize(scene, w, h, 40, assets)  # bakes the maps (G-J, S, V)
+        want = {k: v * n // slabs for k, v in EXPECTED_LAUNCHES[counted].items()}
+        before = len(faults)
+        for frame_no, t in ((1, V_TIMES[1]), (2, V_TIMES[2])):
+            move(t)
+            single = rast.rasterize(scene, w, h, 40, assets)
+            on_one = rast.rasterize(scene, w, h, 40, assets, mesh=one)
             zero_counts()
-            over = rast.rasterize(scene, W, H, 40, assets, mesh=mesh)
+            over = rast.rasterize(scene, w, h, 40, assets, mesh=mesh)
             sync_cards(mesh)
             counts = read_counts()
-            want = {k: v * n // N_SLABS for k, v in EXPECTED_LAUNCHES[key].items()}
             if counts != want:
-                raise SystemExit(f"MC path {key} launched {counts}, expected {want}")
+                faults.append(f"MC path {key} launched {counts}, expected {want}")
             if not np.array_equal(over, on_one):
-                raise SystemExit(f"MC path {key}: the frame over {n} cards differs from the "
-                                 f"same {n} slabs on one card")
+                faults.append(f"MC path {key}: frame {frame_no} over {n} cards differs from the "
+                              f"same {n} slabs on one card at "
+                              f"{int((over != on_one).any(-1).sum())} px")
         differ = np.abs(over.astype(int) - single.astype(int)).max(-1) > 0
         ties = tie_pixels(mesh, **rast.frame_args).cpu().numpy()
-        print(f"MC path {key} ({n} slabs, one a card, {W}x{H}): frames 1 and 2 byte-equal to "
-              f"the same slabs on cuda:0, launches {counts}; px differing from the single frame "
-              f"{int(differ.sum())}, outside the tie class {int((differ & ~ties).sum())}")
-        if (differ & ~ties).any():
-            raise SystemExit(f"MC path {key}: the frame over the cards differs from the single "
-                             "frame outside the tie class")
-        ops = card_frame_numbers(
-            key, lambda r=rast, s=scene, a=assets: r.rasterize(s, W, H, 40, a, mesh=mesh,
-                                                               readback=False),
-            mesh, lambda r=rast, s=scene, a=assets: r.rasterize(s, W, H, 40, a, mesh=one,
-                                                                readback=False), gpus)
+        if rast.frame_args["refl_samples"] or rast.frame_args["sky_light"]:
+            ties = ties | ray_tie_pixels(
+                lambda m: rast.rasterize(scene, w, h, 40, assets, mesh=m, readback=False),
+                mesh, h)
+        pinned = MC_PINNED.get(n, {}).get(key)
+        print(f"MC path {key} ({n} slabs, one a card, {w}x{h}"
+              f"{', t = ' + str(V_TIMES[1]) + ' and ' + str(V_TIMES[2]) if key == 'V' else ''}): "
+              f"frames 1 and 2 against the same slabs on cuda:0 "
+              f"{'byte-equal' if len(faults) == before else 'see the faults'}, launches {counts} "
+              f"(expected {want}); px differing from the single frame {int(differ.sum())} "
+              f"(pinned {pinned}), outside the tie classes {int((differ & ~ties).sum())}")
+        if (differ & ~ties).any() or pinned not in (None, int(differ.sum())):
+            faults.append(f"MC path {key}: the frame over the cards differs from the single "
+                          "frame outside the tie classes, or on more or fewer pixels than pinned")
+        fa = rast.frame_args
+        frames_n, profiled = MC_SLOW.get(key, (MC_FRAMES, MC_PROFILED))
+
+        def over_fn(r=rast, s_=scene, a=assets, m=mesh, w=w, h=h, move=move):
+            move()
+            return r.rasterize(s_, w, h, 40, a, mesh=m, readback=False)
+
+        ops = card_frame_numbers(key, over_fn, mesh,
+                                 lambda f=over_fn: f(m=one), gpus, frames_n, profiled)
+        classes = mc_copy_classes(key, fa, n)
+        print(f"MC path {key}: the copies by class {classes}, {sum(classes.values())} in all")
+        if sum(ops.values()) != sum(classes.values()):
+            faults.append(f"MC path {key}: {sum(ops.values())} copies from card to card, "
+                          f"expected {classes}")
         if key == "R":
-            # the planes' gather (vis, attr, bbox, alive of every shard on
-            # every other card) and the frame's gather (every slab but the
-            # first to cuda:0), nothing else
-            planes = 4 * n * (n - 1)
             frame_rows = sum(c for (s_, d_, dt, sh), c in ops.items()
                              if dt == "uint8" and d_ == 0 and len(sh) == 3)
-            if sum(ops.values()) != planes + (n - 1) or frame_rows != n - 1:
-                raise SystemExit(f"MC path R: copies from card to card {dict(ops)}, expected "
-                                 f"{planes} of the planes and {n - 1} of the frame")
-        frames[key], fas[key] = over, {k: v for k, v in rast.frame_args.items()
-                                       if k != "refl_scale"}
+            if frame_rows != n - 1:
+                faults.append(f"MC path R: copies of the frame's rows {frame_rows}, expected "
+                              f"{n - 1}")
+        # host synchronisations of a steady frame, over the cards and single
+        syncs = {label: sync_sites(f) for label, f in (
+            ("over the cards", over_fn),
+            ("single", lambda r=rast, s_=scene, a=assets, w=w, h=h, move=move: (
+                move(), r.rasterize(s_, w, h, 40, a, readback=False))))}
+        for label, sites in syncs.items():
+            print(f"MC path {key}: {sum(sites.values())} host synchronisations of a steady frame "
+                  f"{label}" + "".join(f"\n  {c:4d}  {site}" for site, c in sites.most_common()))
+        if sum(syncs["over the cards"].values()) > sum(syncs["single"].values()):
+            faults.append(f"MC path {key}: the frame over the cards waits on the host more often "
+                          "than the single frame")
+        frames[key], fas[key] = over, {k: v for k, v in fa.items() if k != "refl_scale"}
+        if key == "JA":
+            # the walk's inputs on the last card: the opaque frame's reflection
+            # rays, then each layer's (compose_rows' order)
+            move()
+            with mock.patch.object(reflect, "intersect_rays_pallas",
+                                   wraps=reflect.intersect_rays_pallas) as walk:
+                rast.rasterize(scene, w, h, 40, assets, mesh=mesh, readback=False)
+            sync_cards(mesh)
+            on_last = [c.args for c in walk.call_args_list if c.args[0].device == last]
+            if len(on_last) != EXPECTED_LAUNCHES["J"]["B3"]:
+                faults.append(f"MC path JA: {len(on_last)} walks on {last}, expected "
+                              f"{EXPECTED_LAUNCHES['J']['B3']}")
+                ja_layer_rays = None
+            else:
+                ja_layer_rays = list(on_last[1])
+        del rast, scene, assets
 
     # Z: trace_sharded over the cards against sequential traces
     random.seed(7)
-    rx = build_minigame(first)
-    minigame_tick(rx)
+    rx = scenes.build_minigame(first)
+    scenes.minigame_tick(rx)
     zw, zh = rx.client.config.width, rx.client.config.height
     seq, shard = AccumBuffer(zw, zh, device=first), AccumBuffer(zw, zh, device=first)
     cam, scene_z = rx.client.camera_d3, rx.client.scene
@@ -1904,29 +2094,31 @@ def cards_phase(gpu: str, phase):
     rx.server.stop()
 
     # each kernel on the last card against its plain version, beside cuda:0
-    slab_r = sharded_inputs(mesh, **fas["R"])[-1]
-    slab_s = sharded_inputs(mesh, **fas["S"])[-1]
+    slab = {key: sharded_inputs(mesh, **fas[key])[-1] for key in ("R", "S", "JA", "T8")}
 
     def moved(ts, dev):
         return [t.to(dev) if isinstance(t, torch.Tensor) else t for t in ts]
 
-    for key, slab in (("R", slab_r), ("S", slab_s)):
-        a_, k_ = slab["mega_args"], slab["mega_kwargs"]
+    for key in ("R", "S", "JA"):
+        a_, k_ = slab[key]["mega_args"], slab[key]["mega_kwargs"]
 
         def b1_on(dev, a_=a_, k_=k_):
             a2, k2 = moved(a_, dev), dict(zip(k_, moved(k_.values(), dev)))
             return lambda: megakernel.mega_render(*a2, **k2)
 
         on_card_beside_first(
-            f"B1 (path {key}, slab {n - 1} of {n}, rows {slab['y0']}-"
-            f"{slab['y0'] + slab['rows'] - 1})", b1_on, last,
+            f"B1 (path {key}, slab {n - 1} of {n}, rows {slab[key]['y0']}-"
+            f"{slab[key]['y0'] + slab[key]['rows'] - 1})", b1_on, last,
             megakernel.mega_render_reference(*a_, **k_))
-    b2_in = (slab_s["vis_s"], slab_s["alive_s"], slab_s["bbox_s"], W, slab_s["rows"],
-             slab_s["y0"])
-    on_card_beside_first(
-        f"B2 (path S, slab {n - 1} of {n})",
-        lambda dev: (lambda i=moved(b2_in, dev): visibility_pallas.visibility_pass_pallas(*i)),
-        last, visibility_pallas.visibility_pass_pallas_reference(*b2_in))
+    for key, label in (("S", ""), ("T8", ", the Morton order")):
+        sl = slab[key]
+        b2_in = (sl["vis_s"], sl["alive_s"], sl["bbox_s"], W, sl["rows"], sl["y0"])
+        on_card_beside_first(
+            f"B2 (path {key}, slab {n - 1} of {n}{label})",
+            lambda dev, b2_in=b2_in: (lambda i=moved(b2_in, dev):
+                                      visibility_pallas.visibility_pass_pallas(*i)),
+            last, visibility_pallas.visibility_pass_pallas_reference(*b2_in))
+    slab_s = slab["S"]
     b3_in = list(reflection_kernel_inputs(types.SimpleNamespace(frame_args=fas["S"]),
                                           frame_inputs(**fas["S"]))["b3_in"])
     y0, rows = slab_s["y0"], min(slab_s["rows"], H - slab_s["y0"])
@@ -1936,6 +2128,13 @@ def cards_phase(gpu: str, phase):
         f"B3 walk and its preparation (path S's reflection rays, rows {y0}-{y0 + rows - 1})",
         lambda dev: (lambda i=moved(b3_in, dev): rt_kernel.intersect_rays_pallas(*i)),
         last, rt_kernel.intersect_rays_pallas_reference(*moved(b3_in, last)))
+    y0_ja = slab["JA"]["y0"]
+    if ja_layer_rays is not None:
+        on_card_beside_first(
+            f"B3 walk and its preparation (path JA's first layer's reflection rays, slab {n - 1} "
+            f"of {n}, rows {y0_ja}-{y0_ja + ja_layer_rays[9] - 1})",
+            lambda dev: (lambda i=moved(ja_layer_rays, dev): rt_kernel.intersect_rays_pallas(*i)),
+            last, rt_kernel.intersect_rays_pallas_reference(*ja_layer_rays))
     for route, limits in (("cluster", {"PREPARE_MAX_CELLS": 4}),
                           ("global", {"PREPARE_MAX_CELLS": 4, "CLUSTER_MAX_CELLS": 4})):
         with route_limits(**limits):
@@ -1958,6 +2157,8 @@ def cards_phase(gpu: str, phase):
     print(f"MC resources on {last} and {first}: {res}")
     if any(a != b for a, b in res.values()):
         raise SystemExit("MC: the cards report different resources for one kernel")
+    if faults:
+        raise SystemExit("MC: " + "; ".join(faults))
 
 
 def _cuda_resources(kernel, device) -> dict:
@@ -3062,12 +3263,11 @@ def main() -> int:
     n_prof = 10
     dev_a = report_profile(
         f"opaque rasterize(readback=False) x{n_prof}",
-        profile_calls(lambda: rast.rasterize(scene, W, H, 40, assets, readback=False), n_prof),
+        lambda: rast.rasterize(scene, W, H, 40, assets, readback=False), n_prof,
         frame_ms, gpu, {"B1": "mega_kernel"})
     dev_b = report_profile(
         f"reflection rasterize(readback=False) x{n_prof}",
-        profile_calls(lambda: rast_r.rasterize(scene_r, W, H, 40, assets_r, readback=False),
-                      n_prof),
+        lambda: rast_r.rasterize(scene_r, W, H, 40, assets_r, readback=False), n_prof,
         frame_r_ms, gpu, {"B1": "mega_kernel", "B2": "visibility_kernel", "B3": "rt_kernel",
                           "B3prep": "rt_prepare_kernel"})
 
@@ -3093,24 +3293,21 @@ def main() -> int:
                  else N_PROF_LATER)
         p_["dev"] = report_profile(
             f"path {key} rasterize(readback=False) x{n_key}",
-            profile_calls(frame_call(key), n_key),
+            frame_call(key), n_key,
             median(p_["frame_t"]), gpu, path_kernels[key])
     per_slab = {"B1": ("mega_kernel", N_SLABS)}
     dev_r = report_profile(
         f"path R rasterize(readback=False, mesh) x{N_PROF_LATER}",
-        profile_calls(lambda: rast.rasterize(scene, W, H, 40, assets, readback=False,
-                                             mesh=mesh), N_PROF_LATER),
-        median(frame_rs_t), gpu, per_slab)
+        lambda: rast.rasterize(scene, W, H, 40, assets, readback=False, mesh=mesh),
+        N_PROF_LATER, median(frame_rs_t), gpu, per_slab)
     dev_rg = report_profile(
         f"path Rg render_frame_sharded(light_spec=None) x{N_PROF_2D}",
-        profile_calls(lambda: render_frame_sharded(mesh, **dict(fa_r, light_spec=None)),
-                      N_PROF_2D),
+        lambda: render_frame_sharded(mesh, **dict(fa_r, light_spec=None)), N_PROF_2D,
         median(frame_rg_t), gpu, per_slab)
     dev_s = report_profile(
         f"path S rasterize(readback=False, mesh) x{N_PROF_2D}",
-        profile_calls(lambda: rast_s.rasterize(scene_s, W, H, 40, assets_s, readback=False,
-                                               mesh=mesh), N_PROF_2D),
-        median(frame_ss_t), gpu,
+        lambda: rast_s.rasterize(scene_s, W, H, 40, assets_s, readback=False, mesh=mesh),
+        N_PROF_2D, median(frame_ss_t), gpu,
         dict(per_slab, B2=("visibility_kernel", N_SLABS), B3=("rt_kernel", 2 * N_SLABS),
              B3prep=("rt_prepare_kernel", 2 * N_SLABS)))
 

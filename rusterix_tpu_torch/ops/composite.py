@@ -200,10 +200,22 @@ def _step_uv(k, uv, px, py):
     return u, v
 
 
+def d2_lists(tris, shaders: tuple = ()) -> tuple:
+    """The host lists d2_pass steps by, read from the 2D pack on its device
+    in one copy (one host wait) -> (the live triangles' indices in order,
+    each triangle's receives-light flag, each triangle's shader index, an
+    empty list without runtime shaders)."""
+    cols = [tris["valid"] > 0.5, tris["receives_light"] > 0.5]
+    if shaders:
+        cols.append(tris["shader"])
+    rows = torch.stack([c.to(torch.int32) for c in cols]).tolist()
+    return [i for i, v in enumerate(rows[0]) if v], rows[1], rows[2] if shaders else []
+
+
 def d2_pass(frame, tris, atlas, lights, uniforms, width: int, height: int,
             sample_mode: int = 0, preserve_transparency: bool = False,
             has_lights: bool = False, has_ambient: bool = False, shaders: tuple = (),
-            y0: int = 0):
+            y0: int = 0, lists: tuple = None):
     """Ordered 2D rasterization (reference rasterizer.rs:584-899; the JAX
     package's `d2_pass`) -> the updated (H, W, 4) f32 0..1 frame.
 
@@ -221,10 +233,10 @@ def d2_pass(frame, tris, atlas, lights, uniforms, width: int, height: int,
     alpha as opacity, the grid-space world position as hit point) and its
     colour, opaque, replaces the texel. The JAX package's scan runs every
     program at every step and keeps the one the triangle names; here only
-    that one runs, which gives the same bytes."""
-    live = torch.nonzero(tris["valid"] > 0.5).flatten().tolist()
-    lit = (tris["receives_light"] > 0.5).tolist()
-    shader_of = tris["shader"].tolist() if shaders else []
+    that one runs, which gives the same bytes. `lists`: d2_lists(tris,
+    shaders), when the caller has read them (a row-sharded frame reads them
+    once for its slabs)."""
+    live, lit, shader_of = lists or d2_lists(tris, shaders)
     if not live:
         return frame
     dev = frame.device
@@ -271,8 +283,11 @@ def d2_pass(frame, tris, atlas, lights, uniforms, width: int, height: int,
         e2 = (k[6] * px + k[7] * py) + k[8]
         cov = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (k[16] > 0.5)
         u, v = _step_uv(k, tris["uv"][i], px, py)
-        texel = resolve_texel(tris["kind"][i], tris["tex_slot"][i], tris["rgba"][i],
-                              tris["repeat"][i], u, v, atlas, anim, sample_mode,
+        # the triangle's fields as 1-element slices: a 0-d index tensor
+        # would make each table lookup wait for the card
+        one = slice(i, i + 1)
+        texel = resolve_texel(tris["kind"][one], tris["tex_slot"][one], tris["rgba"][one],
+                              tris["repeat"][one], u, v, atlas, anim, sample_mode,
                               default_alpha=0.0)
         si = int(shader_of[i]) if shaders else -1
         prog = shaders[si] if 0 <= si < len(shaders) else None

@@ -394,7 +394,8 @@ def compose_rows(fi, opaque, z_eff, pre, ao_img, d3, lights, atlas, uniforms, wi
                  sky_pre: dict = None, has_brush: bool = False, has_blend: bool = False,
                  d2=None, has_d2: bool = False, has_lights: bool = False,
                  has_ambient: bool = False, has_material: bool = False,
-                 has_matmap: bool = False, op_setup=None, shaders: tuple = (), **_inputs):
+                 has_matmap: bool = False, op_setup=None, shaders: tuple = (),
+                 d2_lists: tuple = None, **_inputs):
     """The passes after the opaque frame on the rows frame_inputs `fi`
     prepared (fi["y0"], fi["rows"] of the height-row frame) -> (rows, W, 4)
     uint8 tensor. opaque_rows' outputs `opaque` (B1's packed RGBA8, or the
@@ -402,7 +403,8 @@ def compose_rows(fi, opaque, z_eff, pre, ao_img, d3, lights, atlas, uniforms, wi
     where AO, reflections, the sky light or the split path need it, and
     the AO factor `ao_img` of these rows (or None). Takes render_frame's
     arguments (those of B1's preparation, `_inputs`, are frame_inputs');
-    `op_setup`: opacity_setup's result, when the caller has it. `shaders`
+    `op_setup`: opacity_setup's result, `d2_lists` composite.d2_lists' of
+    `d2`, when the caller has them. `shaders`
     (the pack's runtime shaders) reach every G-buffer, the opacity layers
     and the 2D pass."""
     y0, rows = fi["y0"], fi["rows"]
@@ -454,7 +456,7 @@ def compose_rows(fi, opaque, z_eff, pre, ao_img, d3, lights, atlas, uniforms, wi
     if has_d2:
         frame = d2_pass(frame, d2, atlas, lights, uniforms, width, rows, sample_mode,
                         preserve_transparency, has_lights=has_lights, has_ambient=has_ambient,
-                        shaders=shaders, y0=y0)
+                        shaders=shaders, y0=y0, lists=d2_lists)
     return frame_to_u8(frame)
 
 

@@ -53,6 +53,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.arena import Staged, leaf
+from ..ops.composite import d2_lists
 from ..ops.raster import (
     ambient_occlusion,
     compose_rows,
@@ -297,12 +298,15 @@ def render_frame_sharded(mesh, d3, d2, lights, atlas, uniforms, background, widt
                  has_lights=has_lights, has_d2=has_d2)
     slabs = sharded_inputs(mesh, d3, lights, atlas, uniforms, background, width, height,
                            d2=d2, placed=placed, staged=staged, **frame)
+    # the 2D pass's host lists, read once a frame from the pack on the
+    # first device (one host wait, as the single frame's)
+    lists = d2_lists(d2, settings.get("shaders", ())) if has_d2 else None
     out = []
     for fi in slabs:
         r = fi["local"]
         ao_img = fi["mega_kwargs"]["ao_img"]
         slab = dict(frame, d2=r["d2"], shadow_rows=r["shadow_rows"], d3_op=r["d3_op"],
-                    op_setup=r["op_setup"], sky_pre=r["sky_pre"])
+                    op_setup=r["op_setup"], sky_pre=r["sky_pre"], d2_lists=lists)
         opaque, z_eff = opaque_rows(fi, fi["pre"], ao_img, r["d3"], r["lights"], r["atlas"],
                                     r["uniforms"], width, height, **slab)
         out.append(compose_rows(fi, opaque, z_eff, fi["pre"], ao_img, r["d3"], r["lights"],

@@ -61,6 +61,10 @@ three edge functions are >= 0, one winding; earcut's floor triangles
 the floors take their steps but draw no pixel, in the JAX package as in
 the port: the frame shows the lit wall strips.
 
+`build_feature_scene` is the JAX package's multichip feature scene (its
+tests/test_multichip.py): every feature of its sharded feature frame on a
+floor, a wall, a blocker and a glass pane.
+
 `build_minigame` is the engine loop's world (the JAX package's
 tests/test_minigame.py `build_engine`, the reference's
 examples/minigame.rs): a 15-unit walled room with a point light, a player
@@ -400,6 +404,56 @@ def build_map_glass_refl_scene(width: int, height: int, device=None):
     rast, scene, assets = build_map_glass_scene(width, height, device=device)
     rast.set_brdf("ggx").set_reflections(1)
     return rast, scene, assets
+
+
+def build_feature_scene(width: int, height: int, device=None):
+    """-> (Rasterizer, scene, assets): the JAX package's multichip feature
+    scene (tests/test_multichip.py: a floor, a wall and a blocker under a
+    point light and the sun; shadow maps with transmittance through a pane,
+    AO, GGX, one reflection ray a pixel with shadowed hits, sky light,
+    exp^2 fog and depth-peeled layers), with the pane as a static opacity
+    batch of a chunk."""
+    from .builders.chunk import Chunk
+    from .models.render_settings import RenderSettings
+    from .ops.raster import Rasterizer
+
+    floor = (Batch3D.from_box(-3, -1.3, -3, 6, 0.2, 6)
+             .set_source(PixelSource.pixel((60, 60, 70, 255))).with_computed_normals())
+    wall = (Batch3D.from_box(-2.5, -1.1, -2.7, 5.0, 2.8, 0.2)
+            .set_source(PixelSource.pixel((220, 220, 220, 255))).with_computed_normals())
+    blocker = (Batch3D.from_box(-0.6, -0.8, -1.3, 1.2, 1.4, 0.2)
+               .set_source(PixelSource.pixel((90, 60, 60, 255))).with_computed_normals())
+    scene = Scene.from_static([], [floor, wall, blocker])
+    pane_v = np.array([[0.8, -1.0, -0.5, 1], [1.6, -1.0, -0.5, 1],
+                       [1.6, 0.6, -0.5, 1], [0.8, 0.6, -0.5, 1]], np.float32)
+    pane_t = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    pane_uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    chunk = Chunk()
+    chunk.batches3d_opacity = [Batch3D.new(pane_v, pane_t, pane_uv).set_cull_mode(CullMode.Off)
+                               .set_source(PixelSource.pixel((120, 180, 220, 140)))]
+    scene.chunks[(0, 0)] = chunk
+    scene.set_lights([Light(LightType.Point).with_position([0.0, 0.6, 1.8])
+                      .with_intensity(1.8).with_range(0.5, 30.0).compile()])
+    cam = D3OrbitCamera()
+    cam.azimuth = 0.4
+    cam.set_parameter_f32("distance", 5.0)
+    rast = Rasterizer.setup(None, cam.view_matrix(), cam.projection_matrix(width, height),
+                            device=device)
+    rast.ambient((0.2, 0.2, 0.25, 1.0)).background((70, 90, 120, 255))
+    rast.sun_dir = np.array([0.3, -1.0, 0.2], np.float32)
+    rast.day_factor = 0.7
+    rast.set_brdf("ggx")
+    rast.set_shadows(True, res=64, sun_res=64)
+    rast.set_sky_light(True)
+    rast.set_ambient_occlusion(True)
+    rs = RenderSettings()
+    rs.fog_density = 0.05
+    rs.ao_samples = 4.0
+    rs.ao_radius = 0.6
+    rs.reflection_samples = 1.0
+    rast.apply_render_settings(rs)
+    rast.set_reflections(1)
+    return rast, scene, Assets.default()
 
 
 #: the bench's wood shader (bench.py WOOD_SHADER, the reference's

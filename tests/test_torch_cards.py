@@ -3,10 +3,14 @@
 - `card_mesh(n)` gives the first n cards of the machine or raises (CUDA's
   count monkeypatched), and `check_mesh` refuses a card past the count;
 - each device's static state (the padded pack and its shards, the atlas,
-  the 2D pack, the shadow rows, the background's rows) is placed once per
-  scene: two frames over `make_mesh(4, "cpu")` share the same tensors, a
-  new scene revision or a moved shadow caster replaces them, and the frames
-  stay byte-equal to the single frame and to a frame placed anew;
+  the 2D pack, the shadow rows, the background's rows; with glass the
+  opacity pack, under the render graph's sky its parameters) is placed
+  once per scene: two frames over `make_mesh(4, "cpu")` share the same
+  tensors, a new scene revision or a moved shadow caster replaces them,
+  and the frames stay byte-equal to the single frame and to a frame
+  placed anew; the packs a frame's dynamic batches are concatenated into,
+  and the shadow rows its casters are composited into, are placed anew
+  every frame;
 - the frame's per-frame leaves reach each device in one arena upload, and a
   slab's B1 parameter pack is the frame's with its row offset written on
   the device, bit for bit;
@@ -163,6 +167,64 @@ def test_moved_caster_replaces_the_placed_shadow_rows():
     rebaked = rows.clone()
     slabs = sharded_inputs(mesh, placed=store, **dict(fa, shadow_rows=rebaked))
     assert store[key][1] is rebaked and slabs[1]["local"]["shadow_rows"] is rebaked
+
+
+def _role(key) -> str:
+    """A placed store key's role: "d3", "atlas", "d2", "d3_op", "sky_pre",
+    "shadow_rows" or "background"."""
+    return key[0][0] if isinstance(key[0], tuple) else key[0]
+
+
+def test_glass_and_sky_state_is_placed_once_per_scene():
+    """The feature scene under the render graph's sky (opacity batches, sky
+    parameters, shadow maps) in 4 slabs: the opacity pack, the sky's
+    parameters and the 2D pack are placed on the first frame and the second
+    frame reads the same tensors; both frames equal the single frame."""
+    from rusterix_tpu_torch.scenes import build_feature_scene
+    from rusterix_tpu_torch.shapefx import ShapeFXGraph
+
+    rast, scene, assets = build_feature_scene(W, H, device="cpu")
+    rast.render_graph = ShapeFXGraph.default_render_graph(with_sky=True, with_fog=True)
+    rast.set_shadows(True, res=8, sun_res=16)
+    single = rast.rasterize(scene, W, H, 40, assets)
+    fa = rast.frame_args
+    assert fa["has_opacity"] and fa["has_sky"] and fa["shadow_spec"] is not None
+    first = rast.rasterize(scene, W, H, 40, assets, mesh=MESH4)
+    kept = _static_tensors(_placed(rast))
+    roles = {_role(k) for k in kept}
+    assert {"d3_op", "sky_pre", "d2", "shadow_rows"} <= roles
+    second = rast.rasterize(scene, W, H, 40, assets, mesh=MESH4)
+    now = _static_tensors(_placed(rast))
+    assert now.keys() == kept.keys() and all(now[k] is v for k, v in kept.items())
+    np.testing.assert_array_equal(first, single)
+    np.testing.assert_array_equal(second, single)
+
+
+def test_dynamic_packs_are_placed_anew_every_frame():
+    """V's scene (the shadowed map with dynamic billboards, casters and a
+    2D rectangle) in 4 slabs over two frames at two move times: the packs
+    concatenated with the frame's dynamic batches and the shadow rows the
+    casters are composited into are placed anew every frame (new tensors
+    every frame, as the JAX package moves them every frame); the atlas and
+    the background's rows are kept. The frame equals the single frame."""
+    from rusterix_tpu_torch.scenes import build_map_dynamic_scene, move_dynamic
+
+    rast, scene, assets = build_map_dynamic_scene(W, H, device="cpu")
+    rast.set_shadows(True, res=4, sun_res=8)
+    stores = []
+    for t in (0.5, 1.0):
+        move_dynamic(scene, t)
+        frame = rast.rasterize(scene, W, H, 40, assets, mesh=MESH4)
+        stores.append(_static_tensors(_placed(rast)))
+    single = rast.rasterize(scene, W, H, 40, assets)
+    np.testing.assert_array_equal(frame, single)
+    first, second = stores
+    assert first.keys() == second.keys()
+    for key, value in second.items():
+        anew = _role(key) in ("d3", "d3_op", "d2", "shadow_rows")
+        assert (value is not first[key]) == anew, key
+    assert {_role(k) for k in second} == {"d3", "d3_op", "d2", "shadow_rows", "atlas",
+                                           "background"}
 
 
 @pytest.fixture(scope="module")

@@ -19,9 +19,10 @@ arena against the per-leaf frame, the one host-to-device copy of path A's
 steady frame, frame_breakdown on the card, and the huge scene's reflection
 frame through B3's cluster preparation route; with two cards or more, each
 kernel on the last card while cuda:0 is current against the same launch on
-cuda:0, the frames over `card_mesh(2)` against the same slabs on one card
-and `trace_sharded` over the cards against sequential traces; on one card, a
-steady sharded frame without a host synchronisation.
+cuda:0, the frames of the sharded paths (R, S, the feature scene JA, I,
+T8, V, M) over `card_mesh(2)` against the same slabs on one card and
+`trace_sharded` over the cards against sequential traces; on one card, a
+steady sharded frame of R, S, JA, I and T8 without a host synchronisation.
 
 These tests need a GPU and skip with a reason elsewhere. They import no
 jax, so they also run on a machine without it:
@@ -1385,27 +1386,67 @@ def test_kernel_on_the_last_card_equals_the_first(cuda, monkeypatch, kernel):
             == _cuda.resources("rt_walk", device=torch.device("cuda", 0)))
 
 
+#: the sharded paths at 256x128: the scene (scenes.py), and the launches of
+#: B1, B2 and B3's walk a slab. R the map, S the shadowed GGX map with AO and
+#: sky light, JA the feature scene (shadows with transmittance, AO, GGX,
+#: reflections on the opaque frame and each of its 4 layers, sky light,
+#: fog), I the glazed map under the sky, T8 the split path, V the dynamic
+#: batches with casters, M the cube with its 2D rectangle
+SHARDED_PATHS = {
+    "R": ("build_map_scene", (1, 0, 0)),
+    "S": ("build_map_shadow_refl_scene", (1, 1, 2)),
+    "JA": ("build_feature_scene", (1, 1, 6)),
+    "I": ("build_map_glass_scene", (1, 0, 0)),
+    "T8": ("build_map_runtime_shader_scene", (0, 1, 0)),
+    "V": ("build_map_dynamic_scene", (1, 0, 0)),
+    "M": ("build_cube_scene", (1, 0, 0)),
+}
+
+
+def _sharded_path(key, device):
+    """SHARDED_PATHS' scene `key` at 256x128 on `device` -> (rast, scene,
+    assets, move): move(t) places V's dynamic batches for time t."""
+    from rusterix_tpu_torch import scenes
+
+    rast, scene, assets = getattr(scenes, SHARDED_PATHS[key][0])(256, 128, device=device)
+    if key == "S":
+        rast.set_ambient_occlusion(True).set_sky_light(True)
+
+    def move(t):
+        if key == "V":
+            scenes.move_dynamic(scene, t)
+
+    move(0.0)
+    return rast, scene, assets, move
+
+
+def _launches():
+    return (megakernel.launches, visibility_pallas.launches, rt_kernel.launches)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("build", [build_map_scene, build_map_shadow_refl_scene],
-                         ids=["R", "S"])
-def test_frame_over_two_cards_equals_two_slabs_on_one(cuda, build):
-    """The map (R) and the shadowed GGX map with AO and sky light (S) at
-    256x128 through rasterize(mesh=card_mesh(2)): byte-equal to the same two
-    slabs on one card, twice (the second frame on the placed static state),
-    the frame on the first card, one B1 launch a slab."""
+@pytest.mark.parametrize("key", list(SHARDED_PATHS))
+def test_frame_over_two_cards_equals_two_slabs_on_one(cuda, key):
+    """Each sharded path at 256x128 through rasterize(mesh=card_mesh(2)):
+    byte-equal to the same two slabs on one card, twice (the second frame on
+    the placed static state; V's two frames at two move times, each against
+    the slabs on one card at the same time), the frame on the first card,
+    its kernels launched once a slab (B3's walk once a slab and ray set)."""
     from rusterix_tpu_torch.parallel import card_mesh, make_mesh
 
     _last_card()
-    rast, scene, assets = build(256, 128, device=torch.device("cuda", 0))
-    if build is build_map_shadow_refl_scene:
-        rast.set_ambient_occlusion(True).set_sky_light(True)
-    one = rast.rasterize(scene, 256, 128, 40, assets, mesh=make_mesh(2, "cuda:0"))
+    rast, scene, assets, move = _sharded_path(key, torch.device("cuda", 0))
     mesh = card_mesh(2)
-    for _ in range(2):
-        before = megakernel.launches
+    for t in (0.5, 1.0):
+        move(t)
+        one = rast.rasterize(scene, 256, 128, 40, assets, mesh=make_mesh(2, "cuda:0"))
+        torch.cuda.synchronize()
+        before = _launches()
         frame = rast.rasterize(scene, 256, 128, 40, assets, mesh=mesh, readback=False)
         torch.cuda.synchronize()
-        assert megakernel.launches == before + 2
+        after = _launches()
+        assert tuple(a - b for a, b in zip(after, before)) == tuple(
+            2 * c for c in SHARDED_PATHS[key][1])
         assert frame.device == mesh[0]
         np.testing.assert_array_equal(frame.cpu().numpy(), one)
 
@@ -1432,17 +1473,16 @@ def test_trace_sharded_over_the_cards_equals_sequential_traces(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("build", [build_map_scene, build_map_shadow_refl_scene],
-                         ids=["R", "S"])
-def test_steady_sharded_frame_makes_no_host_synchronisation(cuda, build):
-    """A steady frame of R and of S in 8 slabs on one card at 256x128 runs
-    under torch.cuda.set_sync_debug_mode("error") without a host
-    synchronisation (PERF.md names none that must stay)."""
+@pytest.mark.parametrize("key", ["R", "S", "JA", "I", "T8"])
+def test_steady_sharded_frame_makes_no_host_synchronisation(cuda, key):
+    """A steady frame of each sharded path but V and M in 8 slabs on one
+    card at 256x128 runs under torch.cuda.set_sync_debug_mode("error")
+    without a host synchronisation. V and M wait once a frame, as their
+    single frames do: the 2D pass reads its pack's lists of live triangles,
+    their light flags and shaders (composite.d2_lists; PERF.md)."""
     from rusterix_tpu_torch.parallel import make_mesh
 
-    rast, scene, assets = build(256, 128, device=cuda)
-    if build is build_map_shadow_refl_scene:
-        rast.set_ambient_occlusion(True).set_sky_light(True)
+    rast, scene, assets, _move = _sharded_path(key, cuda)
     mesh = make_mesh(8, cuda)
     for _ in range(2):
         rast.rasterize(scene, 256, 128, 40, assets, mesh=mesh, readback=False)

@@ -125,6 +125,10 @@ def test_moving_light_rebakes():
     follows); an unmoved light reuses it."""
     from rusterix_tpu_torch.ops import raster
 
+    # the cache is cleared wholesale past 8 entries: start it empty, so
+    # that the bakes of tests run earlier in the process cannot evict this
+    # test's first bake when its second one is added
+    raster._SHADOW_CACHE.clear()
     scene, assets = _scene(), Assets.default()
     r = _port_rast(_rast(use_pallas=True)).set_shadows(True, res=64)
     a = r.rasterize(scene, W, H, 32, assets)

@@ -48,24 +48,13 @@ import jax.numpy as jnp  # noqa: E402
 from rusterix_tpu.ops.shadow import NO_OCCLUDER  # noqa: E402
 from rusterix_tpu.parallel.mesh import make_mesh as jax_make_mesh  # noqa: E402
 from rusterix_tpu.parallel.mesh import render_frame_sharded as jax_sharded  # noqa: E402
-from rusterix_tpu_torch import Rasterizer  # noqa: E402
-from rusterix_tpu_torch.builders.chunk import Chunk  # noqa: E402
-from rusterix_tpu_torch.models import (  # noqa: E402
-    Assets,
-    Batch3D,
-    CullMode,
-    D3OrbitCamera,
-    Light,
-    LightType,
-    PixelSource,
-    Scene,
-)
-from rusterix_tpu_torch.models.render_settings import RenderSettings  # noqa: E402
+from rusterix_tpu_torch.models import Assets  # noqa: E402
 from rusterix_tpu_torch.ops.raster import frame_inputs, visibility_prepass  # noqa: E402
 from rusterix_tpu_torch.ops.scene_pack import PackedScene  # noqa: E402
 from chip_smoke import tie_pixels  # noqa: E402
 from rusterix_tpu_torch.parallel import make_mesh, render_frame_sharded  # noqa: E402
 from rusterix_tpu_torch.scenes import (  # noqa: E402
+    build_feature_scene,
     build_map_2d_scene,
     build_map_blend_refl_scene,
     build_map_material_scene,
@@ -92,42 +81,8 @@ PINNED_XLA = 526
 
 def _feature_scene(device="cpu"):
     """tests/test_multichip.py's feature scene with the pane in a chunk's
-    opacity batches -> (rast, scene)."""
-    floor = (Batch3D.from_box(-3, -1.3, -3, 6, 0.2, 6)
-             .set_source(PixelSource.pixel((60, 60, 70, 255))).with_computed_normals())
-    wall = (Batch3D.from_box(-2.5, -1.1, -2.7, 5.0, 2.8, 0.2)
-            .set_source(PixelSource.pixel((220, 220, 220, 255))).with_computed_normals())
-    blocker = (Batch3D.from_box(-0.6, -0.8, -1.3, 1.2, 1.4, 0.2)
-               .set_source(PixelSource.pixel((90, 60, 60, 255))).with_computed_normals())
-    scene = Scene.from_static([], [floor, wall, blocker])
-    pane_v = np.array([[0.8, -1.0, -0.5, 1], [1.6, -1.0, -0.5, 1],
-                       [1.6, 0.6, -0.5, 1], [0.8, 0.6, -0.5, 1]], np.float32)
-    pane_t = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-    pane_uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
-    chunk = Chunk()
-    chunk.batches3d_opacity = [Batch3D.new(pane_v, pane_t, pane_uv).set_cull_mode(CullMode.Off)
-                               .set_source(PixelSource.pixel((120, 180, 220, 140)))]
-    scene.chunks[(0, 0)] = chunk
-    scene.set_lights([Light(LightType.Point).with_position([0.0, 0.6, 1.8])
-                      .with_intensity(1.8).with_range(0.5, 30.0).compile()])
-    cam = D3OrbitCamera()
-    cam.azimuth = 0.4
-    cam.set_parameter_f32("distance", 5.0)
-    rast = Rasterizer.setup(None, cam.view_matrix(), cam.projection_matrix(W, H), device=device)
-    rast.ambient((0.2, 0.2, 0.25, 1.0)).background((70, 90, 120, 255))
-    rast.sun_dir = np.array([0.3, -1.0, 0.2], np.float32)
-    rast.day_factor = 0.7
-    rast.set_brdf("ggx")
-    rast.set_shadows(True, res=64, sun_res=64)
-    rast.set_sky_light(True)
-    rast.set_ambient_occlusion(True)
-    rs = RenderSettings()
-    rs.fog_density = 0.05
-    rs.ao_samples = 4.0
-    rs.ao_radius = 0.6
-    rs.reflection_samples = 1.0
-    rast.apply_render_settings(rs)
-    rast.set_reflections(1)
+    opacity batches (scenes.build_feature_scene) -> (rast, scene)."""
+    rast, scene, _assets = build_feature_scene(W, H, device=device)
     return rast, scene
 
 

@@ -1,17 +1,23 @@
 """The host synchronisations of one steady sharded frame of the port, by
-the Python line that made each one.
+the Python line that made each one, beside those of the same path's single
+frame.
 
-    python tools/sync_sites_torch.py [--cards] [--size 1920x1080] [--paths R,S]
+    python tools/sync_sites_torch.py [--cards] [--size WxH] [--paths R,S,JA,I,T8,V,M]
 
-Path R is the opaque map (scenes.build_map_scene), path S the shadowed GGX
-reflection map with ambient occlusion and sky light
-(scenes.build_map_shadow_refl_scene), both rendered through
+The paths are chip_smoke.py's MC paths (chip_smoke.MC_PATHS, built by
+chip_smoke.mc_scene): R the opaque map (scenes.build_map_scene), S the
+shadowed GGX reflection map with ambient occlusion and sky light, JA the
+glazed map with GGX reflections and AO, I the glazed map, T8 the map under a
+runtime floor shader (the split path), V the shadowed map with dynamic
+billboards, casters and a dynamic 2D rectangle (moved before every frame),
+M the bench's cube with its 2D rectangle (800x600). Each renders through
 `Rasterizer.rasterize(mesh=...)` over eight slabs of one card
 (`make_mesh(8, "cuda")`), or with `--cards` over every card of the machine
-(`card_mesh()`). Two frames are rendered first; the third runs under
-`torch.cuda.set_sync_debug_mode("warn")`, and every warning it raises is
-printed with the port's innermost frame of its stack (file:line and the
-source line), counted by site. Needs a GPU.
+(`card_mesh()`), and without a mesh. Two frames are rendered first; the
+third runs under `torch.cuda.set_sync_debug_mode("warn")`, and every
+warning it raises is printed with the port's innermost frame of its stack
+(file:line and the source line), counted by site. `--size` sets the size
+of every path (default: each path's own, 1920x1080 but M). Needs a GPU.
 """
 
 from __future__ import annotations
@@ -72,31 +78,31 @@ def sync_sites(fn) -> collections.Counter:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cards", action="store_true", help="one slab a card (card_mesh())")
-    ap.add_argument("--size", default="1920x1080")
-    ap.add_argument("--paths", default="R,S")
+    ap.add_argument("--size", default=None)
+    ap.add_argument("--paths", default="R,S,JA,I,T8,V,M")
     a = ap.parse_args()
-    import torch
+    import chip_smoke
+    from rusterix_tpu_torch import parallel
 
-    from rusterix_tpu_torch import parallel, scenes
-
-    w, h = (int(v) for v in a.size.split("x"))
+    if a.size:
+        size = tuple(int(v) for v in a.size.split("x"))
+        chip_smoke.SIZES = {k: size for k in chip_smoke.MC_PATHS}
     mesh = parallel.card_mesh() if a.cards else parallel.make_mesh(8, "cuda")
-    builds = {"R": scenes.build_map_scene, "S": scenes.build_map_shadow_refl_scene}
     for key in a.paths.split(","):
-        rast, scene, assets = builds[key](w, h, device=mesh[0])
-        if key == "S":
-            rast.set_ambient_occlusion(True).set_sky_light(True)
+        rast, scene, assets, w, h, move = chip_smoke.mc_scene(key, mesh[0])
+        for label, m in (("single frame", None),
+                         (f"{len(mesh)} slabs on {len(set(mesh))} device(s)", mesh)):
+            def frame(m=m):
+                move()
+                return rast.rasterize(scene, w, h, 40, assets, mesh=m, readback=False)
 
-        def frame():
-            return rast.rasterize(scene, w, h, 40, assets, mesh=mesh, readback=False)
-
-        frame()
-        frame()
-        sites = sync_sites(frame)
-        print(f"path {key}, {len(mesh)} slabs on {len(set(mesh))} device(s), {w}x{h}: "
-              f"{sum(sites.values())} synchronisations at {len(sites)} sites", flush=True)
-        for site, n in sites.most_common():
-            print(f"  {n:4d}  {site}")
+            frame()
+            frame()
+            sites = sync_sites(frame)
+            print(f"path {key}, {label}, {w}x{h}: {sum(sites.values())} synchronisations at "
+                  f"{len(sites)} sites", flush=True)
+            for site, n in sites.most_common():
+                print(f"  {n:4d}  {site}")
     return 0
 
 
