@@ -716,24 +716,25 @@ def opaque_maps(spec):
 
 # X: the minigame loop (bench.py's minigame cell): frames after a warm-up,
 # the size, and the small size whose CUDA frame is held to the CPU frame
-def _counters() -> dict:
-    from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas
-
-    return {"B1": (megakernel, "launches"), "B2": (visibility_pallas, "launches"),
-            "B3": (rt_kernel, "launches"), "B3prep": (rt_kernel, "prepare_launches"),
-            "B3prepC": (rt_kernel, "prepare_cluster_launches"),
-            "B3prepL": (rt_kernel, "prepare_large_launches")}
+#: each kernel's launch counter in profiling.counters
+LAUNCH_COUNTERS = {"B1": "b1.launch", "B2": "b2.launch", "B3": "b3.walk_launch",
+                   "B3prep": "b3.prepare.rank", "B3prepC": "b3.prepare.cluster",
+                   "B3prepL": "b3.prepare.global"}
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    for mod, name in _counters().values():
-        setattr(mod, name, 0)
+    from rusterix_tpu_torch.profiling import counters
+
+    for name in LAUNCH_COUNTERS.values():
+        counters[name] = 0
 
 
 def read_counts() -> dict:
     """Every kernel's launch count since zero_counts."""
-    return {k: getattr(mod, name) for k, (mod, name) in _counters().items()}
+    from rusterix_tpu_torch.profiling import counters
+
+    return {k: counters[name] for k, name in LAUNCH_COUNTERS.items()}
 
 
 def host_copies(fn) -> tuple:
@@ -902,16 +903,17 @@ def check_route(key: str, r: dict):
 def arena_route(fn) -> dict:
     """A steady call of `fn` -> its host-to-device copies (host_copies: the
     count and the ops that made them) and how its frame reached the device: arena uploads, frames uploaded leaf by
-    leaf and trees the arena refused (ops/arena.py's counters). `fn` runs
+    leaf and trees the arena refused (profiling.counters' `arena.*`). `fn` runs
     once before the counted call: the scene cache holds one scene a
     process, so a path's frame after another path's packs its scene
     again."""
-    from rusterix_tpu_torch.ops import arena
+    from rusterix_tpu_torch.profiling import counters
 
+    names = ("arena.upload", "arena.leaf_frame", "arena.refusal")
     fn()
-    before = (arena.uploads, arena.leaf_frames, arena.refusals)
+    before = [counters[n] for n in names]
     copies, ops = host_copies(fn)
-    after = (arena.uploads, arena.leaf_frames, arena.refusals)
+    after = [counters[n] for n in names]
     up, leaf, refused = (a - b for a, b in zip(after, before))
     return {"copies": copies, "ops": ops, "arena_uploads": up, "leaf_frames": leaf,
             "refusals": refused}

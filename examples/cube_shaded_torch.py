@@ -19,7 +19,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rusterix_tpu_torch.ops import megakernel  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 from rusterix_tpu_torch.scenes import build_cube_shaded_scene  # noqa: E402
 
 WIDTH, HEIGHT = 800, 600
@@ -35,7 +35,7 @@ def main():
     t0 = time.time()
     frame = rast.rasterize(scene, WIDTH, HEIGHT, 64, assets)  # packs and bakes
     first = time.time() - t0
-    before = megakernel.launches
+    before = counters["b1.launch"]
     n = 20
     t0 = time.time()
     for _ in range(n):
@@ -47,7 +47,7 @@ def main():
     Image.fromarray(frame, "RGBA").save(opts.out)
     print(f"cube_shaded: first frame (with the shader bake) {first * 1000:.2f} ms, then "
           f"{dt * 1000:.2f} ms/frame at {WIDTH}x{HEIGHT} (host wall, with readback), "
-          f"megakernel launches {megakernel.launches - before} on {rast.device}, "
+          f"megakernel launches {counters["b1.launch"] - before} on {rast.device}, "
           f"has_material {rast.frame_args['has_material']}, saved {opts.out}")
 
 

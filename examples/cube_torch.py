@@ -37,7 +37,7 @@ from rusterix_tpu_torch import (  # noqa: E402
     Tile,
     VGrayGradientShader,
 )
-from rusterix_tpu_torch.ops import megakernel  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 
 WIDTH, HEIGHT = 640, 480
 
@@ -69,7 +69,7 @@ def main():
     camera = D3OrbitCamera()
     camera.set_parameter_f32("distance", 1.5)
 
-    before = megakernel.launches
+    before = counters["b1.launch"]
     frame, rast = None, None
     t0 = time.time()
     n = 30
@@ -89,7 +89,7 @@ def main():
 
     Image.fromarray(frame, "RGBA").save(opts.out)
     print(f"cube: {dt * 1000:.2f} ms/frame at {WIDTH}x{HEIGHT} (host wall, with readback), "
-          f"megakernel launches {megakernel.launches - before} on {rast.device}, "
+          f"megakernel launches {counters["b1.launch"] - before} on {rast.device}, "
           f"2D pass {rast.frame_args['has_d2']}, saved {opts.out}")
 
 

@@ -23,7 +23,7 @@ from rusterix_tpu_torch import (  # noqa: E402
     Texture,
 )
 from rusterix_tpu_torch.builders import D3Builder, MapScript  # noqa: E402
-from rusterix_tpu_torch.ops import megakernel  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 from rusterix_tpu_torch.shapefx import ShapeFXGraph  # noqa: E402
 
 WORLD = """
@@ -74,7 +74,7 @@ def main():
     )
     rast.render_graph = ShapeFXGraph.default_render_graph(with_sky=True)
     rast.hour = 14.0
-    before = megakernel.launches
+    before = counters["b1.launch"]
     frame = rast.rasterize(scene, WIDTH, HEIGHT, 64, assets)
 
     from PIL import Image
@@ -82,7 +82,7 @@ def main():
     Image.fromarray(frame, "RGBA").save(opts.out)
     tris = sum(len(b.indices) for b in scene.all_d3_batches())
     print(f"map: {tris} triangles, sun_dir={rast.sun_dir}, megakernel launches "
-          f"{megakernel.launches - before} on {rast.device}, saved {opts.out}")
+          f"{counters["b1.launch"] - before} on {rast.device}, saved {opts.out}")
 
 
 if __name__ == "__main__":

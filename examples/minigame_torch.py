@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 
 from rusterix_tpu_torch import Rusterix, Texture  # noqa: E402
-from rusterix_tpu_torch.ops import megakernel  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 
 WORLD_RXM = """
 set("sky_tex", "sky")
@@ -128,7 +128,7 @@ def main():
     # walk forward for a second, then stop
     rx.local_player_event("key_down", "w")
     frame = None
-    before = megakernel.launches
+    before = counters["b1.launch"]
     t0 = time.time()
     frames = 30
     for i in range(frames):
@@ -142,7 +142,7 @@ def main():
         frame = rx.draw_game(640, 400, ambient=[0.35, 0.35, 0.4, 1.0])
     dt = (time.time() - t0) / frames
     print(f"minigame: {dt * 1000:.1f} ms/frame ({1 / dt:.1f} fps incl. host loop and "
-          f"readback) on {opts.device}, megakernel launches {megakernel.launches - before}")
+          f"readback) on {opts.device}, megakernel launches {counters["b1.launch"] - before}")
 
     inst = rx.server.instances[0]
     player = inst.find_entity(rx.client.player_id)

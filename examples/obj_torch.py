@@ -30,7 +30,7 @@ from rusterix_tpu_torch import (  # noqa: E402
     VGrayGradientShader,
     Wavefront,
 )
-from rusterix_tpu_torch.ops import megakernel  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 
 WIDTH, HEIGHT = 640, 480
 
@@ -89,14 +89,14 @@ def main():
     opts = ap.parse_args()
 
     rast, scene, assets = build(opts.device)
-    before = megakernel.launches
+    before = counters["b1.launch"]
     frame = rast.rasterize(scene, WIDTH, HEIGHT, 64, assets)
 
     from PIL import Image
 
     Image.fromarray(frame, "RGBA").save(opts.out)
     tris = sum(len(b.indices) for b in scene.all_d3_batches())
-    print(f"obj: {tris} triangles, megakernel launches {megakernel.launches - before} on "
+    print(f"obj: {tris} triangles, megakernel launches {counters["b1.launch"] - before} on "
           f"{rast.device}, saved {opts.out}")
 
 

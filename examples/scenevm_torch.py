@@ -28,7 +28,7 @@ from rusterix_tpu_torch import (  # noqa: E402
     Texture,
 )
 from rusterix_tpu_torch.builders import D3Builder, MapScript  # noqa: E402
-from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 
 WORLD = """
 set_default("wall_tex", "brick")
@@ -98,14 +98,14 @@ def main():
     opts = ap.parse_args()
 
     rast, scene, assets = build(opts.device)
-    before = (megakernel.launches, visibility_pallas.launches, rt_kernel.launches)
+    before = (counters["b1.launch"], counters["b2.launch"], counters["b3.walk_launch"])
     frame = rast.rasterize(scene, WIDTH, HEIGHT, 40, assets)
 
     from PIL import Image
 
     Image.fromarray(frame, "RGBA").save(opts.out)
     tris = sum(len(b.indices) for b in scene.all_d3_batches())
-    after = (megakernel.launches, visibility_pallas.launches, rt_kernel.launches)
+    after = (counters["b1.launch"], counters["b2.launch"], counters["b3.walk_launch"])
     b1, b2, b3 = (a - b for a, b in zip(after, before))
     print(f"scenevm: {tris} triangles, shadows+AO+GGX+reflections on {rast.device} "
           f"(B1 {b1}, B2 {b2}, B3 {b3} launches), saved {opts.out}")

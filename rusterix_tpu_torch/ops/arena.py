@@ -8,8 +8,9 @@ queued, so every mid-frame upload is also a host-device sync point.
 `pack_arena` flattens the tree of 4-byte numpy leaves into one uint32
 buffer plus a layout (offsets, shapes, dtypes and the tree's structure);
 `upload` sends it to the card in one non-blocking copy from a pinned
-staging buffer, and `unpack_arena` views the leaves back out of the device
-buffer (`narrow`, a same-width `view(dtype)` and `reshape`: no copy).
+staging buffer (counted in profiling's `arena.upload`), and `unpack_arena`
+views the leaves back out of the device buffer (`narrow`, a same-width
+`view(dtype)` and `reshape`: no copy).
 
 `Staged` carries a host dict (the lights, the uniforms) together with the
 device views of its leaves: item access still gives the numpy leaf, which
@@ -28,17 +29,10 @@ import numpy as np
 import torch
 
 from ..device import NP_DTYPES
+from ..profiling import count, wait
 
 #: layout: (tuple[(offset_words, shape, dtype_name)], treedef)
 Layout = Tuple[tuple, Any]
-
-#: host-to-device copies of arenas (one a frame that goes through the arena)
-uploads = 0
-#: trees that pack_arena refused (a leaf not 4 bytes wide, or a tensor):
-#: their frames take the per-leaf route
-refusals = 0
-#: frames uploaded leaf by leaf (upload_leaves): the mesh path and refusals
-leaf_frames = 0
 
 _TORCH_DTYPES = {"float32": torch.float32, "int32": torch.int32, "uint32": torch.uint32}
 
@@ -95,8 +89,7 @@ def pack_arena(tree) -> Tuple[Optional[np.ndarray], Optional[Layout]]:
     """Flatten `tree`'s numpy leaves into one uint32 buffer -> (buffer,
     layout), or (None, None) when a leaf is not 4 bytes wide or is already
     a tensor (its bits would have to come back from the device); the caller
-    then uploads leaf by leaf, and the refusal is counted."""
-    global refusals
+    then uploads leaf by leaf, and the refusal is counted (`arena.refusal`)."""
     leaves, treedef = tree_flatten(tree)
 
     cached = _PACK_CACHE.get(treedef)
@@ -121,11 +114,11 @@ def pack_arena(tree) -> Tuple[Optional[np.ndarray], Optional[Layout]]:
     arrs = []
     for x in leaves:
         if isinstance(x, torch.Tensor):
-            refusals += 1
+            count("arena.refusal")
             return None, None
         a = np.asarray(x)
         if a.dtype.itemsize != 4:
-            refusals += 1
+            count("arena.refusal")
             return None, None
         arrs.append(a)
 
@@ -174,17 +167,19 @@ _STAGING: dict = {}
 def upload(arena_np: np.ndarray, device) -> torch.Tensor:
     """The arena on `device` as an int32 tensor, in one host-to-device copy.
     On CUDA the words go through a pinned staging buffer and a non-blocking
-    copy on the current stream; on the CPU the tensor shares the buffer."""
-    global uploads
+    copy on the current stream; on the CPU the tensor shares the buffer.
+    The host waits (`wait("staging")`) only where the copy that last read
+    the staging buffer is still queued."""
     words = arena_np.view(np.int32)
-    uploads += 1
+    count("arena.upload")
     if device.type != "cuda":
         return torch.from_numpy(words)
     st = _STAGING.setdefault(device, _Staging())
     i = st.turn
     st.turn ^= 1
-    if st.events[i] is not None:
-        st.events[i].synchronize()
+    if st.events[i] is not None and not st.events[i].query():
+        with wait("staging"):
+            st.events[i].synchronize()
     buf = st.bufs[i]
     n = words.size
     if buf is None or buf.numel() < n:
@@ -207,9 +202,8 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 def upload_leaves(tree, device):
     """The per-leaf route (the JAX package's batched device_put): every
     numpy leaf of `tree` copied to `device` on its own -> the same tree of
-    tensors. Counted in `leaf_frames`."""
-    global leaf_frames
-    leaf_frames += 1
+    tensors. Counted in `arena.leaf_frame`."""
+    count("arena.leaf_frame")
     leaves, treedef = tree_flatten(tree)
     return tree_unflatten(treedef, [_to_device(np.asarray(x), device) for x in leaves])
 

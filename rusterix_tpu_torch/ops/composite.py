@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profiling import span, wait
 from .arena import leaf
 from .setup_pass import _fma
 from .shade import (
@@ -208,7 +209,9 @@ def d2_lists(tris, shaders: tuple = ()) -> tuple:
     cols = [tris["valid"] > 0.5, tris["receives_light"] > 0.5]
     if shaders:
         cols.append(tris["shader"])
-    rows = torch.stack([c.to(torch.int32) for c in cols]).tolist()
+    rows = torch.stack([c.to(torch.int32) for c in cols])
+    with wait("d2_lists"):
+        rows = rows.tolist()
     return [i for i, v in enumerate(rows[0]) if v], rows[1], rows[2] if shaders else []
 
 
@@ -253,62 +256,64 @@ def d2_pass(frame, tris, atlas, lights, uniforms, width: int, height: int,
     world_x = _div((px - 0.5) - float(trans[0]), scale)
     world_y = _div((py - 0.5) - float(trans[1]), scale)
 
-    if has_lights:
-        lt = lights_to_torch(lights, dev)
-        world3 = torch.stack([world_x, torch.zeros_like(world_x), world_y], dim=-1)
-        rad = light_radiance(lt, world3, None, d2=True)  # (H, W, L, 3)
-        if "seg_a" in uniforms:
-            lp2 = torch.stack([lt["position"][:, 0], lt["position"][:, 2]], dim=-1)
-            needs_vis = ~((lt["type"] == LT_AMBIENT) | (lt["type"] == LT_AMBIENT_DAYLIGHT))
-            blocked = _blocked_lights(world_x, world_y, lp2, uniforms)
-            rad = torch.where((blocked & needs_vis)[..., None], 0.0, rad)
-        # the sum over lights in order, as XLA's CPU reduction takes it
-        acc_lights = rad[..., 0, :]
-        for li in range(1, rad.shape[-2]):
-            acc_lights = acc_lights + rad[..., li, :]
-    else:
-        acc_lights = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
-    amb = _uniform(uniforms, "ambient", dev)[:3]
-    if has_ambient:
-        # with an ambient every 2D batch is lit (rasterizer.rs:799-803)
-        acc = torch.clamp(acc_lights + amb, 0.0, 1.0)
-    else:
-        acc = torch.clamp(acc_lights, 0.0, 1.0)
+    with span("d2.lights"):
+        if has_lights:
+            lt = lights_to_torch(lights, dev)
+            world3 = torch.stack([world_x, torch.zeros_like(world_x), world_y], dim=-1)
+            rad = light_radiance(lt, world3, None, d2=True)  # (H, W, L, 3)
+            if "seg_a" in uniforms:
+                lp2 = torch.stack([lt["position"][:, 0], lt["position"][:, 2]], dim=-1)
+                needs_vis = ~((lt["type"] == LT_AMBIENT) | (lt["type"] == LT_AMBIENT_DAYLIGHT))
+                blocked = _blocked_lights(world_x, world_y, lp2, uniforms)
+                rad = torch.where((blocked & needs_vis)[..., None], 0.0, rad)
+            # the sum over lights in order, as XLA's CPU reduction takes it
+            acc_lights = rad[..., 0, :]
+            for li in range(1, rad.shape[-2]):
+                acc_lights = acc_lights + rad[..., li, :]
+        else:
+            acc_lights = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
+        amb = _uniform(uniforms, "ambient", dev)[:3]
+        if has_ambient:
+            # with an ambient every 2D batch is lit (rasterizer.rs:799-803)
+            acc = torch.clamp(acc_lights + amb, 0.0, 1.0)
+        else:
+            acc = torch.clamp(acc_lights, 0.0, 1.0)
 
     anim = uniforms["anim_frame"]
-    for i in live:
-        k = consts[i]
-        e0 = (k[0] * px + k[1] * py) + k[2]
-        e1 = (k[3] * px + k[4] * py) + k[5]
-        e2 = (k[6] * px + k[7] * py) + k[8]
-        cov = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (k[16] > 0.5)
-        u, v = _step_uv(k, tris["uv"][i], px, py)
-        # the triangle's fields as 1-element slices: a 0-d index tensor
-        # would make each table lookup wait for the card
-        one = slice(i, i + 1)
-        texel = resolve_texel(tris["kind"][one], tris["tex_slot"][one], tris["rgba"][one],
-                              tris["repeat"][one], u, v, atlas, anim, sample_mode,
-                              default_alpha=0.0)
-        si = int(shader_of[i]) if shaders else -1
-        prog = shaders[si] if 0 <= si < len(shaders) else None
-        if prog is not None and prog.shade_index:
-            zeros = torch.zeros_like(u)
-            state = shader_state(u, v, texel[..., :3], zeros + 0.5, zeros, zeros,
-                                 texel[..., 3], zeros,
-                                 torch.stack([world_x, world_y, zeros], dim=-1), uniforms)
-            rgb_s = torch.broadcast_to(prog.shade(state, uniforms.get("palette"))["color"],
-                                       texel[..., :3].shape)
-            texel = torch.cat([rgb_s, torch.ones_like(texel[..., 3:4])], dim=-1)
-        # u8-space light modulation with truncation (rasterizer.rs:871-876)
-        if has_ambient or (has_lights and lit[i]):
-            rgb = torch.floor(torch.floor(texel[..., :3] * 255.0 + 0.5) * acc) * (1.0 / 255.0)
-        else:
-            rgb = texel[..., :3]
-        a = texel[..., 3:4]
-        opaque = torch.floor(torch.clamp(a, 0.0, 1.0) * 255.0 + 0.5) >= 255.0
-        blended_rgb = _fma(rgb, a, frame[..., :3] * (1.0 - a))
-        blended_a = torch.maximum(frame[..., 3:4], a) if preserve_transparency else 1.0
-        new = torch.cat([torch.where(opaque, rgb, blended_rgb),
-                         torch.where(opaque, a, blended_a)], dim=-1)
-        frame = torch.where(cov[..., None], new, frame)
+    with span("d2.steps"):
+        for i in live:
+            k = consts[i]
+            e0 = (k[0] * px + k[1] * py) + k[2]
+            e1 = (k[3] * px + k[4] * py) + k[5]
+            e2 = (k[6] * px + k[7] * py) + k[8]
+            cov = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (k[16] > 0.5)
+            u, v = _step_uv(k, tris["uv"][i], px, py)
+            # the triangle's fields as 1-element slices: a 0-d index tensor
+            # would make each table lookup wait for the card
+            one = slice(i, i + 1)
+            texel = resolve_texel(tris["kind"][one], tris["tex_slot"][one], tris["rgba"][one],
+                                  tris["repeat"][one], u, v, atlas, anim, sample_mode,
+                                  default_alpha=0.0)
+            si = int(shader_of[i]) if shaders else -1
+            prog = shaders[si] if 0 <= si < len(shaders) else None
+            if prog is not None and prog.shade_index:
+                zeros = torch.zeros_like(u)
+                state = shader_state(u, v, texel[..., :3], zeros + 0.5, zeros, zeros,
+                                     texel[..., 3], zeros,
+                                     torch.stack([world_x, world_y, zeros], dim=-1), uniforms)
+                rgb_s = torch.broadcast_to(prog.shade(state, uniforms.get("palette"))["color"],
+                                           texel[..., :3].shape)
+                texel = torch.cat([rgb_s, torch.ones_like(texel[..., 3:4])], dim=-1)
+            # u8-space light modulation with truncation (rasterizer.rs:871-876)
+            if has_ambient or (has_lights and lit[i]):
+                rgb = torch.floor(torch.floor(texel[..., :3] * 255.0 + 0.5) * acc) * (1.0 / 255.0)
+            else:
+                rgb = texel[..., :3]
+            a = texel[..., 3:4]
+            opaque = torch.floor(torch.clamp(a, 0.0, 1.0) * 255.0 + 0.5) >= 255.0
+            blended_rgb = _fma(rgb, a, frame[..., :3] * (1.0 - a))
+            blended_a = torch.maximum(frame[..., 3:4], a) if preserve_transparency else 1.0
+            new = torch.cat([torch.where(opaque, rgb, blended_rgb),
+                             torch.where(opaque, a, blended_a)], dim=-1)
+            frame = torch.where(cov[..., None], new, frame)
     return frame

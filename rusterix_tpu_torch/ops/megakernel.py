@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import device_scalar, device_table
+from ..profiling import count
 from .arena import staged_pack
 from .scene_pack import SRC_PIXEL, SRC_TEXTURE
 from .setup_pass import _fma
@@ -54,8 +55,6 @@ from .visibility_pallas import (
 )
 
 N_PARAMS = 80
-#: launches of the CUDA kernel (one per mega_render call on CUDA tensors)
-launches = 0
 #: shared memory one block may use on the card (H100: 227 KB)
 SMEM_PER_BLOCK = 232448
 
@@ -591,12 +590,11 @@ def prepare_launch(vis_planes, alive, bbox, attr, atlas_u32, bg_u32, params,
     keep = (planes, attr, sboxes, cboxes, inputs, llist, ao_img, shadow, lshadow)
 
     def launch():
-        global launches
         err = _cuda.on_device(dev, "rx_mega_render", *call_args)
         if err != 0:
             raise RuntimeError(
                 f"megakernel launch failed: CUDA error {err} ({_cuda.error_string(err)})")
-        launches += 1
+        count("b1.launch")
         return rgba, zeff
 
     launch.keep = keep

@@ -64,6 +64,7 @@ from .. import native
 from ..device import resolve_device
 from ..models import Assets, SampleMode, pack_lights
 from ..models.blend import RenderMode
+from ..profiling import count, span, wait
 from ..utils.color import hash_u32, linear_to_srgb_fast, srgb_to_linear_fast
 from .megakernel import (
     light_param_rows,
@@ -406,7 +407,9 @@ def compose_rows(fi, opaque, z_eff, pre, ao_img, d3, lights, atlas, uniforms, wi
     `op_setup`: opacity_setup's result, `d2_lists` composite.d2_lists' of
     `d2`, when the caller has them. `shaders`
     (the pack's runtime shaders) reach every G-buffer, the opacity layers
-    and the 2D pass."""
+    and the 2D pass. Under profiling's tracing each pass is a span:
+    `reflect` (the opaque frame's, and each opacity layer's under `peel`),
+    `sky_light`, `sky`, `brush`, `peel` and `d2`."""
     y0, rows = fi["y0"], fi["rows"]
     later = has_sky or has_opacity or has_d2 or has_brush or refl_samples or sky_light
     if fi["split"]:
@@ -421,42 +424,49 @@ def compose_rows(fi, opaque, z_eff, pre, ao_img, d3, lights, atlas, uniforms, wi
     g_args = {"has_blend": has_blend, "has_material": has_material, "has_matmap": has_matmap,
               "shaders": shaders, "y0": y0, "full_height": height}
     if refl_samples:
-        refl, rmask = reflection_pass_scaled(
-            *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms, width, rows,
-            sample_mode, refl_samples, scale=refl_scale, shadow=shadow, **g_args)
-        frame = apply_reflections(frame, refl, rmask, tonemap=tonemap)
+        with span("reflect"):
+            refl, rmask = reflection_pass_scaled(
+                *pre, fi["attr"], fi["tri_id"], d3, atlas, lights, uniforms, width, rows,
+                sample_mode, refl_samples, scale=refl_scale, shadow=shadow, **g_args)
+            frame = apply_reflections(frame, refl, rmask, tonemap=tonemap)
     if sky_light:
-        sky_term, sky_mask = sky_light_pass(
-            *pre, fi["attr"], fi["tri_id"], d3, atlas, uniforms, width, rows, sample_mode,
-            **g_args)
-        if ao_img is not None:
-            sky_term = sky_term * ao_img[..., None]
-        frame = apply_reflections(frame, sky_term, sky_mask, tonemap=tonemap)
+        with span("sky_light"):
+            sky_term, sky_mask = sky_light_pass(
+                *pre, fi["attr"], fi["tri_id"], d3, atlas, uniforms, width, rows, sample_mode,
+                **g_args)
+            if ao_img is not None:
+                sky_term = sky_term * ao_img[..., None]
+            frame = apply_reflections(frame, sky_term, sky_mask, tonemap=tonemap)
     if has_sky:
-        frame = sky_miss_pass(frame, z_eff, sky_pre, uniforms, width, height, y0)
+        with span("sky"):
+            frame = sky_miss_pass(frame, z_eff, sky_pre, uniforms, width, height, y0)
     if has_brush:
-        frame = brush_preview_pass(frame, z_eff, uniforms, width, height, y0)
+        with span("brush"):
+            frame = brush_preview_pass(frame, z_eff, uniforms, width, height, y0)
     if has_opacity:
         reflect_layer = None
         if refl_samples:
             def reflect_layer(z_o, idx_o, hit_o, attr_o, tri_id_o, color_o):
-                refl_o, rmask_o = reflection_pass_scaled(
-                    z_o, idx_o, hit_o, attr_o, tri_id_o, d3_op, atlas, lights, uniforms,
-                    width, rows, sample_mode, refl_samples, scale=refl_scale, shadow=shadow,
-                    scene_d3=d3, **g_args)
-                # the layer colour is display-encoded with the fast sRGB
-                # pair (_shade_opacity) whatever the frame's tonemap is
-                return apply_reflections(color_o, refl_o, rmask_o, tonemap=False)
+                with span("reflect"):
+                    refl_o, rmask_o = reflection_pass_scaled(
+                        z_o, idx_o, hit_o, attr_o, tri_id_o, d3_op, atlas, lights, uniforms,
+                        width, rows, sample_mode, refl_samples, scale=refl_scale,
+                        shadow=shadow, scene_d3=d3, **g_args)
+                    # the layer colour is display-encoded with the fast sRGB
+                    # pair (_shade_opacity) whatever the frame's tonemap is
+                    return apply_reflections(color_o, refl_o, rmask_o, tonemap=False)
 
-        layers = opacity_layers(d3_op, atlas, uniforms, width, height, sample_mode,
-                                transparency_layers, reflect_layer, y0=y0, rows=rows,
-                                setup=op_setup, shaders=shaders)
-        for color_o, zeff_o in reversed(layers):
-            frame = blend_opacity(frame, z_eff, color_o, zeff_o, preserve_transparency)
+        with span("peel"):
+            layers = opacity_layers(d3_op, atlas, uniforms, width, height, sample_mode,
+                                    transparency_layers, reflect_layer, y0=y0, rows=rows,
+                                    setup=op_setup, shaders=shaders)
+            for color_o, zeff_o in reversed(layers):
+                frame = blend_opacity(frame, z_eff, color_o, zeff_o, preserve_transparency)
     if has_d2:
-        frame = d2_pass(frame, d2, atlas, lights, uniforms, width, rows, sample_mode,
-                        preserve_transparency, has_lights=has_lights, has_ambient=has_ambient,
-                        shaders=shaders, y0=y0, lists=d2_lists)
+        with span("d2"):
+            frame = d2_pass(frame, d2, atlas, lights, uniforms, width, rows, sample_mode,
+                            preserve_transparency, has_lights=has_lights,
+                            has_ambient=has_ambient, shaders=shaders, y0=y0, lists=d2_lists)
     return frame_to_u8(frame)
 
 
@@ -487,13 +497,22 @@ def render_frame(d3, lights, atlas, uniforms, background, width: int, height: in
     batches), `has_material` and `has_matmap` (baked shader materials)
     reach B1 and every G-buffer. `settings`: the keyword arguments of
     frame_inputs (B1's preparation) and compose_rows (the passes after it);
-    the Rasterizer's frame_args hold every one."""
-    fi = frame_inputs(d3, lights, atlas, uniforms, background, width, height, **settings)
-    pre = visibility_prepass(fi, width, height) if needs_prepass(**settings) else None
+    the Rasterizer's frame_args hold every one. Under profiling's tracing
+    the passes are spans: `setup` (frame_inputs), `b2`, `ao`, `b1`
+    (opaque_rows) and compose_rows' spans."""
+    with span("setup"):
+        fi = frame_inputs(d3, lights, atlas, uniforms, background, width, height, **settings)
+    pre = ao_img = None
+    if needs_prepass(**settings):
+        with span("b2"):
+            pre = visibility_prepass(fi, width, height)
     ao_taps = settings.get("ao_taps")
-    ao_img = ambient_occlusion(pre, uniforms, height, ao_taps) if ao_taps else None
-    opaque, z_eff = opaque_rows(fi, pre, ao_img, d3, lights, atlas, uniforms, width, height,
-                                **settings)
+    if ao_taps:
+        with span("ao"):
+            ao_img = ambient_occlusion(pre, uniforms, height, ao_taps)
+    with span("b1"):
+        opaque, z_eff = opaque_rows(fi, pre, ao_img, d3, lights, atlas, uniforms, width,
+                                    height, **settings)
     return compose_rows(fi, opaque, z_eff, pre, ao_img, d3, lights, atlas, uniforms, width,
                         height, **settings)
 
@@ -556,7 +575,8 @@ def render_frame_arena(arena_dev, arena_layout, **frame):
     `frame`: with_frame_leaves' arguments (render_frame's, with the static
     packs and the host lights and uniforms). -> (the (H, W, 4) uint8
     frame, the render_frame arguments it was rendered with)."""
-    args = with_frame_leaves(unpack_arena(arena_dev, arena_layout), **frame)
+    with span("leaves"):
+        args = with_frame_leaves(unpack_arena(arena_dev, arena_layout), **frame)
     return render_frame(**args), args
 
 
@@ -1120,7 +1140,19 @@ class Rasterizer:
         packs on the device; with shadows and dynamic casters their depth is
         composited into the cached maps. Runtime shaders (the pack's
         runtime_shaders: shaders that read their inputs and cannot bake)
-        take the split path (render_frame), with a mesh as without."""
+        take the split path (render_frame), with a mesh as without.
+
+        Each call counts profiling's `frame`. With profiling's tracing on,
+        the call is the span `frame` and its layers are spans under it:
+        `scene_cache` (on a miss), `dynamic`, `frame_state`, `arena`,
+        `render` (with render_frame_arena's and render_frame's spans),
+        `ssaa`, `readback` and `lines`."""
+        count("frame")
+        with span("frame"):
+            return self._rasterize(scene, width, height, assets, packed, readback, mesh)
+
+    def _rasterize(self, scene, width, height, assets, packed, readback, mesh):
+        """rasterize's frame, each layer in its span."""
         if assets is None:
             assets = Assets.default()
         self.hash_anim = hash_u32(scene.animation_frame & 0xFFFFFFFF)
@@ -1140,18 +1172,18 @@ class Rasterizer:
         key = (scene._cache_uid, scene.revision, assets._cache_uid, str(self.device))
         cache = _SCENE_CACHE.get(key)
         if cache is None or packed is not None:
-            if packed is None:
-                packed = PackedScene.from_scene(scene, assets, static_only=True,
-                                                device=self.device)
-            cache = {"packed": packed, **packed_to_torch(packed, self.device)}
-            _SCENE_CACHE.clear()  # one live packed scene per process is enough
-            _SCENE_CACHE[key] = cache
+            with span("scene_cache"):
+                if packed is None:
+                    packed = PackedScene.from_scene(scene, assets, static_only=True,
+                                                    device=self.device)
+                cache = {"packed": packed, **packed_to_torch(packed, self.device)}
+                _SCENE_CACHE.clear()  # one live packed scene per process is enough
+                _SCENE_CACHE[key] = cache
         packed = cache["packed"]
         if mesh is not None:
             from ..parallel import check_mesh
 
             mesh = check_mesh(mesh)
-        d3, d3_op, d2 = cache["d3"], cache["d3_op"], cache["d2"]
 
         # dynamic batches: packed every frame on the host into stable
         # capacities; they ride the frame's one upload and are appended to the
@@ -1161,13 +1193,89 @@ class Rasterizer:
         dyn = (None, None, None)
         dyn_lines = None
         if has_dyn:
-            from .scene_pack import pack_dynamic, stable_dynamic_caps
+            with span("dynamic"):
+                from .scene_pack import pack_dynamic, stable_dynamic_caps
 
-            caps = stable_dynamic_caps(scene, cache.get("dyn_caps"))
-            cache["dyn_caps"] = caps
-            p3, p3op, p2, dyn_lines = pack_dynamic(scene, packed.atlas_index, *caps)
-            dyn = tuple({k: np.ascontiguousarray(getattr(part, k)) for k in static}
-                        for part, static in ((p3, d3), (p3op, d3_op), (p2, d2)))
+                caps = stable_dynamic_caps(scene, cache.get("dyn_caps"))
+                cache["dyn_caps"] = caps
+                p3, p3op, p2, dyn_lines = pack_dynamic(scene, packed.atlas_index, *caps)
+                dyn = tuple({k: np.ascontiguousarray(getattr(part, k)) for k in static}
+                            for part, static in ((p3, cache["d3"]), (p3op, cache["d3_op"]),
+                                                 (p2, cache["d2"])))
+        with span("frame_state"):
+            frame_args, per_frame = self._frame_state(
+                scene, cache, key, width, height, ss, (has_sky, has_fog, sky_pre), has_dyn, dyn)
+
+        # the per-frame tree: the dynamic packs, the lights, the uniforms and
+        # the packs B1 derives from them, in one host-to-device copy (ops/
+        # arena.py), a copy to each device of a mesh; a tree the arena
+        # refuses uploads leaf by leaf, as the JAX package's do
+        self.frame_arena = None
+        with span("arena"):
+            arena_np, arena_layout = pack_arena(per_frame)
+            if arena_np is None:
+                uploaded = arena.upload_leaves(per_frame, self.device)
+            elif mesh is None:
+                uploaded = arena.upload(arena_np, self.device)
+            else:
+                from ..parallel import check_mesh
+
+                home = check_mesh((self.device,))[0]
+                uploaded = {dev: unpack_arena(arena.upload(arena_np, dev), arena_layout)
+                            for dev in dict.fromkeys((home,) + mesh)}
+        with span("render"):
+            staged = None
+            if arena_np is None:
+                with span("leaves"):
+                    self.frame_args = with_frame_leaves(uploaded, **frame_args)
+            elif mesh is None:
+                self.frame_arena = (uploaded, arena_layout, frame_args)
+                frame, self.frame_args = render_frame_arena(uploaded, arena_layout, **frame_args)
+            else:
+                self.frame_args = with_frame_leaves(uploaded[home], **frame_args)
+                staged = {dev: staged_dicts(lv, **frame_args) for dev, lv in uploaded.items()}
+            if mesh is not None:
+                from ..parallel import render_frame_sharded
+
+                fa = {k: v for k, v in self.frame_args.items() if k != "refl_scale"}
+                # each device's static state is placed once per scene and kept
+                # with the scene's cache entry
+                frame = render_frame_sharded(mesh, placed=cache.setdefault("placed", {}),
+                                             staged=staged, **fa)
+            elif arena_np is None:
+                frame = render_frame(**self.frame_args)
+        if ss > 1:
+            with span("ssaa"):
+                frame = ssaa_downsample(frame, ss)
+        if not readback:
+            return frame
+        with span("readback"), wait("readback"):
+            out = frame.cpu().numpy()
+
+        line_sets = [packed.d2_lines] + ([dyn_lines] if dyn_lines is not None else [])
+        line_sets = [ls for ls in line_sets if len(ls.segments)]
+        if line_sets:
+            with span("lines"):
+                segs = np.concatenate([ls.segments for ls in line_sets])
+                colors = np.concatenate([ls.colors for ls in line_sets])
+                ones = np.ones((len(segs), 1), np.float32)
+                p0 = np.concatenate([segs[:, 0:2], ones], axis=1) @ self.proj2d.T
+                p1 = np.concatenate([segs[:, 2:4], ones], axis=1) @ self.proj2d.T
+                projected = np.concatenate([p0[:, :2], p1[:, :2]], axis=1)
+                out = out.copy()
+                draw_lines_bresenham(out, projected, colors)
+        return out
+
+    def _frame_state(self, scene, cache, key, width: int, height: int, ss: int, hooks: tuple,
+                     has_dyn: bool, dyn: tuple) -> tuple:
+        """The frame's lights, uniforms, background, shadow maps and render
+        settings at the (supersampled) size -> (render_frame_arena's
+        arguments but the per-frame leaves, the per-frame tree: the dynamic
+        packs `dyn`, the lights, the uniforms and the packs B1 derives from
+        them). `hooks`: _render_graph_hooks' (has_sky, has_fog, sky_pre)."""
+        has_sky, has_fog, sky_pre = hooks
+        packed = cache["packed"]
+        d3, d3_op, d2 = cache["d3"], cache["d3_op"], cache["d2"]
         hide_3d = not self.render_mode.d3_active
         if hide_3d:
             d3 = dict(d3, valid=torch.zeros_like(d3["valid"]))
@@ -1262,60 +1370,11 @@ class Rasterizer:
             has_lights=len(live_lights) > 0,
             has_ambient=self.ambient_color is not None,
         )
-        # the per-frame tree: the dynamic packs, the lights, the uniforms and
-        # the packs B1 derives from them, in one host-to-device copy (ops/
-        # arena.py), a copy to each device of a mesh; a tree the arena
-        # refuses uploads leaf by leaf, as the JAX package's do
+        # the packs B1 derives from the lights and uniforms ride with them
         derived = {"light_params": light_param_rows(lights),
                    "occ_params": occ_param_rows(uniforms)}
         if not packed.runtime_shaders:
             derived["mega_params"] = mega_param_row(
                 uniforms, width, height, cache["atlas"]["w"], has_fog, 0, shadow_params)
-        per_frame = (*dyn, lights, uniforms, derived)
-        arena_np, arena_layout = pack_arena(per_frame)
         frame_args.update(shadow_cams=shadow_cams, hide_3d=hide_3d)
-        self.frame_arena = None
-        staged = None
-        if arena_np is None:
-            self.frame_args = with_frame_leaves(arena.upload_leaves(per_frame, self.device),
-                                                **frame_args)
-        elif mesh is None:
-            arena_dev = arena.upload(arena_np, self.device)
-            self.frame_arena = (arena_dev, arena_layout, frame_args)
-            frame, self.frame_args = render_frame_arena(arena_dev, arena_layout, **frame_args)
-        else:
-            from ..parallel import check_mesh
-
-            home = check_mesh((self.device,))[0]
-            leaves = {dev: unpack_arena(arena.upload(arena_np, dev), arena_layout)
-                      for dev in dict.fromkeys((home,) + mesh)}
-            self.frame_args = with_frame_leaves(leaves[home], **frame_args)
-            staged = {dev: staged_dicts(lv, **frame_args) for dev, lv in leaves.items()}
-        if mesh is not None:
-            from ..parallel import render_frame_sharded
-
-            fa = {k: v for k, v in self.frame_args.items() if k != "refl_scale"}
-            # each device's static state is placed once per scene and kept
-            # with the scene's cache entry
-            frame = render_frame_sharded(mesh, placed=cache.setdefault("placed", {}),
-                                         staged=staged, **fa)
-        elif arena_np is None:
-            frame = render_frame(**self.frame_args)
-        if ss > 1:
-            frame = ssaa_downsample(frame, ss)
-        if not readback:
-            return frame
-        out = frame.cpu().numpy()
-
-        line_sets = [packed.d2_lines] + ([dyn_lines] if dyn_lines is not None else [])
-        line_sets = [ls for ls in line_sets if len(ls.segments)]
-        if line_sets:
-            segs = np.concatenate([ls.segments for ls in line_sets])
-            colors = np.concatenate([ls.colors for ls in line_sets])
-            ones = np.ones((len(segs), 1), np.float32)
-            p0 = np.concatenate([segs[:, 0:2], ones], axis=1) @ self.proj2d.T
-            p1 = np.concatenate([segs[:, 2:4], ones], axis=1) @ self.proj2d.T
-            projected = np.concatenate([p0[:, :2], p1[:, :2]], axis=1)
-            out = out.copy()
-            draw_lines_bresenham(out, projected, colors)
-        return out
+        return frame_args, (*dyn, lights, uniforms, derived)

@@ -38,6 +38,7 @@ import os
 import torch
 
 from ..device import device_scalar
+from ..profiling import count, span
 
 #: the tuning knobs' defaults: pack slots per spatial cell, and the ray-block
 #: tile (rows x columns)
@@ -106,16 +107,6 @@ GLOBAL_TILE = 4096
 GLOBAL_ROW_WORDS = 4 * 256 + 2 + 4
 GLOBAL_LOOK_WORDS = 256
 GLOBAL_SMEM_STATIC = 18560
-
-#: launches of the walk kernel (one per intersect_rays_pallas call on CUDA
-#: tensors)
-launches = 0
-#: launches of each preparation route (one per intersect_rays_pallas call on
-#: CUDA tensors): rt_prepare_kernel, rt_prepare_cluster_kernel and the global
-#: route (its kernels counted once a call)
-prepare_launches = 0
-prepare_cluster_launches = 0
-prepare_large_launches = 0
 
 
 def prepare_route(ncells: int, nblocks: int = 1) -> dict:
@@ -331,17 +322,12 @@ def prepare_launch(scene: dict, fields: tuple, t_cap, sizes: dict):
         entry, args = "rx_rt_prepare_large", (*head, ptr(scratch.data_ptr()),
                                               ctypes.c_longlong(route["scratch"]), ncells)
     def launch():
-        global prepare_launches, prepare_cluster_launches, prepare_large_launches
         err = _cuda.on_device(dev, entry, *args, nby, nbx, height, width)
         if err != 0:
             raise RuntimeError(f"ray-intersect preparation kernel ({route['route']} route) "
                                f"launch failed: CUDA error {err} ({_cuda.error_string(err)})")
-        if route["route"] == "rank":
-            prepare_launches += 1
-        elif route["route"] == "cluster":
-            prepare_cluster_launches += 1
-        else:
-            prepare_large_launches += 1
+        # a call of the route's kernels: b3.prepare.rank, .cluster or .global
+        count("b3.prepare." + route["route"])
         return boxes, tnear, slist
 
     launch.keep = (scene["cbox"], fields, scratch)  # alive while the closure is
@@ -383,14 +369,15 @@ def intersect_rays_pallas(pos, valid, ox, oy, oz, dx, dy, dz, t_cap,
         return intersect_rays_pallas_reference(
             pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height, width
         )
-    prep = rt_prepare_cuda(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height, width)
-    return _launch(prep, _ray_fields(ox, oy, oz, dx, dy, dz))
+    with span("b3.prepare"):
+        prep = rt_prepare_cuda(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height, width)
+    with span("b3.walk"):
+        return _launch(prep, _ray_fields(ox, oy, oz, dx, dy, dz))
 
 
 def _launch(prep, fields):
     """The walk kernel on a preparation (rt_prepare's or rt_prepare_cuda's)
     and the six contiguous (H, W) ray fields."""
-    global launches
     from .. import _cuda
 
     if prep["cell"] != RT_CELL:
@@ -410,7 +397,7 @@ def _launch(prep, fields):
     if err != 0:
         raise RuntimeError(f"ray-intersect kernel launch failed: CUDA error {err} "
                            f"({_cuda.error_string(err)})")
-    launches += 1
+    count("b3.walk_launch")
     return t, idx
 
 
@@ -425,8 +412,10 @@ def intersect_rays_pallas_reference(pos, valid, ox, oy, oz, dx, dy, dz, t_cap,
     the ray-cell slab tests (visited cells x rays per block), and
     "ray_triangle", the Möller-Trumbore tests (cells whose slab gate
     passed x rays per block x triangles per cell)."""
-    return _walk(rt_prepare(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height, width),
-                 return_work)
+    with span("b3.prepare"):
+        prep = rt_prepare(pos, valid, ox, oy, oz, dx, dy, dz, t_cap, height, width)
+    with span("b3.walk"):
+        return _walk(prep, return_work)
 
 
 def _walk(prep, return_work: bool = False):

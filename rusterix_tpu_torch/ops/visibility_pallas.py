@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from ..device import device_table
+from ..profiling import count
 from .visibility import DEAD_PLANE, visibility_pass
 
 TILE_H = 64
@@ -26,10 +27,6 @@ CHUNK = 4
 SUPER = 32  # chunks per super
 GROUP = CHUNK * SUPER  # candidate slots per super-chunk
 EMPTY_BOX = (1e9, 1e9, -1e9, -1e9)
-
-#: launches of the CUDA kernel (one per visibility_pass_pallas call on CUDA
-#: tensors)
-launches = 0
 
 
 def _group_boxes(bbox, group: int):
@@ -187,12 +184,11 @@ def prepare_launch(vis_planes, alive, bbox, width: int, height: int, y0: int = 0
     keep = (planes, sboxes, cboxes)  # alive while the closure is
 
     def launch():
-        global launches
         err = _cuda.on_device(dev, "rx_visibility", *call_args)
         if err != 0:
             raise RuntimeError(
                 f"visibility kernel launch failed: CUDA error {err} ({_cuda.error_string(err)})")
-        launches += 1
+        count("b2.launch")
         return z, idx
 
     launch.keep = keep

@@ -21,6 +21,7 @@ import rusterix_tpu_torch as trt  # noqa: E402
 from rusterix_tpu.ops.arena import pack_arena as jax_pack_arena  # noqa: E402
 from rusterix_tpu_torch.ops import arena  # noqa: E402
 from rusterix_tpu_torch.ops.raster import render_frame  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 from rusterix_tpu_torch.scenes import build_map_ao_scene, build_map_scene  # noqa: E402
 
 W, H = 96, 72
@@ -73,9 +74,9 @@ def test_pack_unpack_round_trip_is_bit_equal():
 @pytest.mark.parametrize("leaf", [np.zeros(3, np.bool_), np.zeros(3, np.float64),
                                   torch.zeros(3)], ids=["bool", "f64", "tensor"])
 def test_pack_refuses_leaves_that_are_not_host_words(leaf):
-    before = arena.refusals
+    before = counters["arena.refusal"]
     assert arena.pack_arena({"x": np.zeros(2, np.float32), "y": leaf}) == (None, None)
-    assert arena.refusals == before + 1
+    assert counters["arena.refusal"] == before + 1
 
 
 def _per_frame(rast):
@@ -128,9 +129,9 @@ def dyn_frames():
     jr.use_pallas = True  # the megakernel path, in interpret mode here
     want = jr.rasterize(_dyn_scene(jrt), W, H, 32, jrt.Assets.default())
     tr = _dyn_rasterizer(trt, device="cpu")
-    uploads = arena.uploads
+    uploads = counters["arena.upload"]
     got = tr.rasterize(_dyn_scene(trt), W, H, 32, trt.Assets.default())
-    assert arena.uploads == uploads + 1
+    assert counters["arena.upload"] == uploads + 1
     return want, got, tr
 
 

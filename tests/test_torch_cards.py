@@ -38,6 +38,7 @@ torch = pytest.importorskip("torch")
 from rusterix_tpu_torch import _cuda  # noqa: E402
 from rusterix_tpu_torch.ops import arena, raster  # noqa: E402
 from rusterix_tpu_torch.ops.megakernel import mega_param_row, pack_mega_params  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 from rusterix_tpu_torch.parallel import (  # noqa: E402
     card_mesh,
     check_mesh,
@@ -118,10 +119,11 @@ def test_static_state_is_placed_once_per_scene():
     a new store."""
     rast, scene, assets = build_map_scene(W, H, device="cpu")
     single = rast.rasterize(scene, W, H, 40, assets)
-    uploads, leaf_frames = arena.uploads, arena.leaf_frames
+    uploads, leaf_frames = counters["arena.upload"], counters["arena.leaf_frame"]
     first = rast.rasterize(scene, W, H, 40, assets, mesh=MESH4)
     # the per-frame leaves: one arena upload a device (one device here)
-    assert (arena.uploads - uploads, arena.leaf_frames - leaf_frames) == (1, 0)
+    assert (counters["arena.upload"] - uploads,
+            counters["arena.leaf_frame"] - leaf_frames) == (1, 0)
     store = _placed(rast)
     kept = _static_tensors(store)
     assert {k[0] if isinstance(k[0], str) else k[0][0] for k in kept} == {

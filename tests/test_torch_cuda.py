@@ -56,6 +56,7 @@ from rusterix_tpu_torch import _cuda  # noqa: E402
 from rusterix_tpu_torch.models import CullMode, RenderSettings, Tile  # noqa: E402
 from rusterix_tpu_torch.ops import megakernel, rt_kernel, visibility_pallas  # noqa: E402
 from rusterix_tpu_torch.ops.matrices import look_at_rh, perspective_fov_rh_zo  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 from rusterix_tpu_torch.ops.raster import (  # noqa: E402
     ambient_occlusion,
     frame_inputs,
@@ -175,11 +176,11 @@ def _to(args, kwargs, device):
 @pytest.mark.parametrize("lights,sun,sample_mode,fog,source", CASES)
 def test_kernel_matches_plain_version(cuda, lights, sun, sample_mode, fog, source):
     args, kwargs = _to(*_box_frame_inputs(lights, sun, sample_mode, fog, source), cuda)
-    before = megakernel.launches
+    before = counters["b1.launch"]
     rgba, z = megakernel.mega_render(*args, **kwargs)
     ref_rgba, ref_z = megakernel.mega_render_reference(*args, **kwargs)
     torch.cuda.synchronize()
-    assert megakernel.launches == before + 1
+    assert counters["b1.launch"] == before + 1
     assert torch.equal(z, ref_z)
     diff = (megakernel.unpack_frame_u32(rgba).int() - megakernel.unpack_frame_u32(ref_rgba).int())
     assert int(diff.abs().max()) <= 1
@@ -281,12 +282,12 @@ def _random_candidates(seed, n, width, height):
 def test_visibility_kernel_matches_plain_version(cuda, width, height):
     """B2 on random triangles, at sizes off the 64x128 tile grid."""
     vis, alive, bbox = (t.to(cuda) for t in _random_candidates(3, 700, width, height))
-    before = visibility_pallas.launches
+    before = counters["b2.launch"]
     z, idx, hit = visibility_pallas.visibility_pass_pallas(vis, alive, bbox, width, height)
     z_p, idx_p, hit_p = visibility_pallas.visibility_pass_pallas_reference(
         vis, alive, bbox, width, height)
     torch.cuda.synchronize()
-    assert visibility_pallas.launches == before + 1
+    assert counters["b2.launch"] == before + 1
     assert torch.equal(idx, idx_p) and torch.equal(hit, hit_p)
     assert torch.equal(z, z_p)
     assert int(hit.sum()) > width * height // 20
@@ -324,11 +325,12 @@ def test_ray_intersect_kernel_matches_plain_version(cuda, tcount, height, width,
     pos, valid, o, d = _random_rays(11, tcount, height, width, parked)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
             for a in (pos, valid, *o, *d)]
-    before = (rt_kernel.launches, rt_kernel.prepare_launches)
+    before = (counters["b3.walk_launch"], counters["b3.prepare.rank"])
     t, idx = rt_kernel.intersect_rays_pallas(*args, 25.0, height, width)
     t_p, idx_p = rt_kernel.intersect_rays_pallas_reference(*args, 25.0, height, width)
     torch.cuda.synchronize()
-    assert (rt_kernel.launches, rt_kernel.prepare_launches) == (before[0] + 1, before[1] + 1)
+    assert (counters["b3.walk_launch"], counters["b3.prepare.rank"]) == (before[0] + 1,
+                                                                         before[1] + 1)
     assert torch.equal(idx, idx_p)
     assert torch.equal(t, t_p)
     assert int((idx >= 0).sum()) > 0
@@ -350,11 +352,11 @@ def test_preparation_kernel_matches_rt_prepare(cuda, monkeypatch, tcount, height
     d[2, height - 1, width - 1] = np.nan
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
             for a in (pos, valid, *o, *d)]
-    before = rt_kernel.prepare_launches
+    before = counters["b3.prepare.rank"]
     prep = rt_kernel.rt_prepare_cuda(*args, 25.0, height, width)
     ref = rt_kernel.rt_prepare(*args, 25.0, height, width)
     torch.cuda.synchronize()
-    assert rt_kernel.prepare_launches == before + 1
+    assert counters["b3.prepare.rank"] == before + 1
     for key in ("boxes", "tnear", "slist", "tab", "cbox", "tcap"):
         assert torch.equal(prep[key], ref[key]), key
     assert bool((prep["tnear"] < 3e37).any())
@@ -371,13 +373,14 @@ def test_large_scene_prepares_through_the_kernel(cuda, monkeypatch, ncells):
     pos, valid, o, d = _random_rays(17, tcount, height, width)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
             for a in (pos, valid, *o, *d)]
-    before = (rt_kernel.launches, rt_kernel.prepare_launches)
+    before = (counters["b3.walk_launch"], counters["b3.prepare.rank"])
     prep = rt_kernel.rt_prepare_cuda(*args, 25.0, height, width)
     ref = rt_kernel.rt_prepare(*args, 25.0, height, width)
     t, idx = rt_kernel.intersect_rays_pallas(*args, 25.0, height, width)
     t_p, idx_p = rt_kernel.intersect_rays_pallas_reference(*args, 25.0, height, width)
     torch.cuda.synchronize()
-    assert (rt_kernel.launches, rt_kernel.prepare_launches) == (before[0] + 1, before[1] + 2)
+    assert (counters["b3.walk_launch"], counters["b3.prepare.rank"]) == (before[0] + 1,
+                                                                         before[1] + 2)
     for key in ("boxes", "tnear", "slist"):
         assert torch.equal(prep[key], ref[key]), key
     assert torch.equal(idx, idx_p) and torch.equal(t, t_p)
@@ -432,11 +435,11 @@ def test_cuda_reflection_frame_matches_cpu_frame(cuda):
     """The map with the sun, GGX and one reflection ray per pixel, through
     Rasterizer on the card (B1, B2, B3) and on the CPU (plain versions)."""
     frames = []
-    counts = (megakernel.launches, visibility_pallas.launches, rt_kernel.launches)
+    counts = (counters["b1.launch"], counters["b2.launch"], counters["b3.walk_launch"])
     for device in (cuda, "cpu"):
         rast, scene, assets = build_map_refl_scene(192, 96, device=device)
         frames.append(rast.rasterize(scene, 192, 96, 40, assets).astype(np.int32))
-    after = (megakernel.launches, visibility_pallas.launches, rt_kernel.launches)
+    after = (counters["b1.launch"], counters["b2.launch"], counters["b3.walk_launch"])
     assert all(b > a for a, b in zip(counts, after))
     assert np.abs(frames[0] - frames[1]).max() <= 1
 
@@ -454,12 +457,12 @@ def test_ao_kernel_matches_plain_version(cuda, case):
     rng = np.random.default_rng(len(case) + width)
     ao = torch.from_numpy(rng.uniform(0.2, 1.0, (height, width)).astype(np.float32))
     args, kwargs = _to(args, dict(kwargs, ao_img=ao), cuda)
-    before = megakernel.launches
+    before = counters["b1.launch"]
     rgba, z = megakernel.mega_render(*args, **kwargs)
     ref_rgba, ref_z = megakernel.mega_render_reference(*args, **kwargs)
     plain, _ = megakernel.mega_render(*args, **dict(kwargs, ao_img=None))
     torch.cuda.synchronize()
-    assert megakernel.launches == before + 2
+    assert counters["b1.launch"] == before + 2
     assert torch.equal(z, ref_z)
     diff = (megakernel.unpack_frame_u32(rgba).int() - megakernel.unpack_frame_u32(ref_rgba).int())
     assert int(diff.abs().max()) <= 1
@@ -944,10 +947,10 @@ def test_sharded_cube_matches_single_cube_on_the_card(cuda, n):
 
     rast, scene, assets = build_cube_scene(800, 600, device=cuda)
     single = rast.rasterize(scene, 800, 600, 40, assets)
-    before = megakernel.launches
+    before = counters["b1.launch"]
     sharded = rast.rasterize(scene, 800, 600, 40, assets, mesh=make_mesh(n, cuda))
     torch.cuda.synchronize()
-    assert megakernel.launches == before + n
+    assert counters["b1.launch"] == before + n
     np.testing.assert_array_equal(sharded, single)
 
 
@@ -964,13 +967,13 @@ def test_visibility_kernel_on_the_morton_order_matches_plain_version(cuda, width
     rast.rasterize(scene, width, height, 40, assets)
     fi = frame_inputs(**rast.frame_args)
     assert fi["split"] and fi["mega_args"] is None
-    before = visibility_pallas.launches
+    before = counters["b2.launch"]
     z, idx, hit = visibility_pallas.visibility_pass_pallas(
         fi["vis_s"], fi["alive_s"], fi["bbox_s"], width, height)
     zp, idxp, _hp = visibility_pallas.visibility_pass_pallas_reference(
         fi["vis_s"], fi["alive_s"], fi["bbox_s"], width, height)
     torch.cuda.synchronize()
-    assert visibility_pallas.launches == before + 1
+    assert counters["b2.launch"] == before + 1
     assert torch.equal(z, zp) and torch.equal(idx, idxp)
     assert int(hit.sum()) > width * height // 10
 
@@ -991,10 +994,10 @@ def test_cuda_split_and_dynamic_frames_match_cpu_frames(cuda, path):
         rast, scene, assets = build(256, 128, device=dev)
         if rast.shadow_settings is not None:
             rast.set_shadows(True, res=32, sun_res=64)
-        b1 = megakernel.launches
+        b1 = counters["b1.launch"]
         frames.append(rast.rasterize(scene, 256, 128, 40, assets).astype(np.int32))
         if dev is cuda:
-            assert (megakernel.launches > b1) == (path == "dynamic")
+            assert (counters["b1.launch"] > b1) == (path == "dynamic")
     assert np.abs(frames[0] - frames[1]).max() <= 1
     assert (frames[0][..., 3] > 0).sum() > 256 * 128 // 10
 
@@ -1123,12 +1126,12 @@ def test_large_preparation_route_matches_rt_prepare(cuda, monkeypatch, keys, nce
         valid[:] = 0.0
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
             for a in (pos, valid, *o, *d)]
-    counters = ("prepare_launches", "prepare_cluster_launches", "prepare_large_launches")
-    before = [getattr(rt_kernel, c) for c in counters]
+    routes = ("b3.prepare.rank", "b3.prepare.cluster", "b3.prepare.global")
+    before = [counters[c] for c in routes]
     prep = rt_kernel.rt_prepare_cuda(*args, 25.0, height, width)
     ref = rt_kernel.rt_prepare(*args, 25.0, height, width)
     torch.cuda.synchronize()
-    after = [getattr(rt_kernel, c) for c in counters]
+    after = [counters[c] for c in routes]
     k = 1 if route["route"] == "cluster" else 2
     assert [a - b for a, b in zip(after, before)] == [int(i == k) for i in range(3)]
     nb = -(-height // 8) * -(-width // 128)
@@ -1165,15 +1168,15 @@ def test_reflection_frame_through_the_large_preparation_route(cuda, monkeypatch)
     lowered too (rt_prepare_large_kernel). Every frame byte-equal to the
     first."""
     frames = []
-    counters = ("prepare_launches", "prepare_cluster_launches", "prepare_large_launches")
+    routes = ("b3.prepare.rank", "b3.prepare.cluster", "b3.prepare.global")
     for k, limits in enumerate(({}, {"PREPARE_MAX_CELLS": 4},
                                 {"PREPARE_MAX_CELLS": 4, "CLUSTER_MAX_CELLS": 4})):
         for name, value in limits.items():
             monkeypatch.setattr(rt_kernel, name, value)
         rast, scene, assets = build_map_refl_scene(256, 128, device=cuda)
-        before = [getattr(rt_kernel, c) for c in counters]
+        before = [counters[c] for c in routes]
         frames.append(rast.rasterize(scene, 256, 128, 40, assets))
-        ran = [getattr(rt_kernel, c) > b for c, b in zip(counters, before)]
+        ran = [counters[c] > b for c, b in zip(routes, before)]
         assert ran == [i == k for i in range(3)]
     assert np.array_equal(frames[0], frames[1]) and np.array_equal(frames[0], frames[2])
     assert (frames[0][..., 3] > 0).sum() > 256 * 128 // 10
@@ -1195,12 +1198,12 @@ def test_minigame_frame_on_cuda_matches_cpu(cuda):
         rx.local_player_event("key_down", "w")
         for _ in range(4):
             minigame_tick(rx)
-        b1 = megakernel.launches
+        b1 = counters["b1.launch"]
         frames.append(rx.draw_scene(rx.assets.maps["world"], 160, 120,
                                     ambient=[0.4, 0.4, 0.4, 1.0]))
         rx.server.stop()
         if dev is cuda:
-            assert megakernel.launches == b1 + 1
+            assert counters["b1.launch"] == b1 + 1
     assert np.array_equal(frames[0], frames[1])
     assert (frames[0][..., 3] == 255).sum() > 5000
 
@@ -1254,13 +1257,12 @@ def test_arena_frame_equals_the_per_leaf_frame_on_the_card(cuda, build):
     """rasterize's frame through the arena (one pinned, non-blocking copy of
     the per-frame leaves, viewed back out on the card) against render_frame
     over the stashed arguments with every leaf uploaded on its own: equal."""
-    from rusterix_tpu_torch.ops import arena
     from rusterix_tpu_torch.ops.raster import render_frame
 
     rast, scene, assets = build(640, 360, device=cuda)
-    before = arena.uploads
+    before = counters["arena.upload"]
     frames = [rast.rasterize(scene, 640, 360, 40, assets) for _ in range(3)]
-    assert arena.uploads == before + 3 and rast.frame_arena is not None
+    assert counters["arena.upload"] == before + 3 and rast.frame_arena is not None
     fa = rast.frame_args
     per_leaf = render_frame(**dict(fa, lights=dict(fa["lights"]),
                                    uniforms=dict(fa["uniforms"]))).cpu().numpy()
@@ -1303,12 +1305,12 @@ def test_huge_reflection_frame_takes_the_cluster_route(cuda):
     scene, cam, assets = build_huge_scene()
     rast = huge_rasterizer(cam, 640, 360, cuda).set_brdf("ggx").set_reflections(1)
     rast.rasterize(scene, 640, 360, 40, assets, readback=False)
-    rt_kernel.launches = rt_kernel.prepare_launches = 0
-    rt_kernel.prepare_cluster_launches = rt_kernel.prepare_large_launches = 0
+    for c in ("b3.walk_launch", "b3.prepare.rank", "b3.prepare.cluster", "b3.prepare.global"):
+        counters[c] = 0
     frame = rast.rasterize(scene, 640, 360, 40, assets)
     assert rast.frame_args["d3"]["pos"].shape[0] // rt_kernel.RT_CELL == 2048
-    assert (rt_kernel.launches, rt_kernel.prepare_launches, rt_kernel.prepare_cluster_launches,
-            rt_kernel.prepare_large_launches) == (1, 0, 1, 0)
+    assert (counters["b3.walk_launch"], counters["b3.prepare.rank"],
+            counters["b3.prepare.cluster"], counters["b3.prepare.global"]) == (1, 0, 1, 0)
     fa = rast.frame_args
     per_leaf = render_frame(**dict(fa, lights=dict(fa["lights"]), uniforms=dict(fa["uniforms"])))
     assert np.array_equal(frame, per_leaf.cpu().numpy())
@@ -1421,7 +1423,7 @@ def _sharded_path(key, device):
 
 
 def _launches():
-    return (megakernel.launches, visibility_pallas.launches, rt_kernel.launches)
+    return (counters["b1.launch"], counters["b2.launch"], counters["b3.walk_launch"])
 
 
 @pytest.mark.cuda

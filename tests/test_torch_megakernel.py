@@ -38,6 +38,7 @@ from rusterix_tpu.ops.scene_pack import PackedScene  # noqa: E402
 from rusterix_tpu.ops.setup_pass import setup_pass as jax_setup_pass  # noqa: E402
 from rusterix_tpu_torch.ops import megakernel as tm  # noqa: E402
 from rusterix_tpu_torch.ops import visibility_pallas as tv  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -300,10 +301,10 @@ def test_stage_cut_on_cpu_tensors_takes_the_plain_version():
 def test_cpu_tensors_take_the_plain_version():
     args, kwargs = _box_inputs("point")
     targs, tkw = _torch_args(args, kwargs)
-    before = tm.launches
+    before = counters["b1.launch"]
     rgba, z = tm.mega_render(*targs, W, H, **tkw)
     ref = tm.mega_render_reference(*targs, W, H, **tkw)
-    assert tm.launches == before
+    assert counters["b1.launch"] == before
     assert torch.equal(rgba, ref[0]) and torch.equal(z, ref[1])
 
 
@@ -321,11 +322,11 @@ def test_has_blend_on_cpu_tensors_takes_the_plain_version():
                      torch.tensor([[0.1, 0.8, 0.3, 1.0]]).expand(n, 4),
                      torch.zeros((n, 8))], dim=1)
     targs[3] = torch.cat([table, ext], dim=1)
-    before = tm.launches
+    before = counters["b1.launch"]
     rgba, z = tm.mega_render(*targs, W, H, **dict(tkw, has_blend=True))
     ref = tm.mega_render_reference(*targs, W, H, **dict(tkw, has_blend=True))
     plain = tm.mega_render_reference(*targs, W, H, **tkw)
-    assert tm.launches == before
+    assert counters["b1.launch"] == before
     assert torch.equal(rgba, ref[0]) and torch.equal(z, ref[1]) and torch.equal(z, plain[1])
     texel = tm.mega_render_reference(*targs, W, H, **dict(tkw, has_blend=True, stage_cut=2))[0]
     covered = (z < 1.0).numpy()
@@ -361,11 +362,11 @@ def test_has_material_on_cpu_tensors_takes_the_plain_version():
     table = targs[3]
     n = table.shape[0]
     targs[3] = torch.cat([table, torch.tensor([[0.2, 1.0, 0.0, 0.0]]).expand(n, 4)], dim=1)
-    before = tm.launches
+    before = counters["b1.launch"]
     rgba, z = tm.mega_render(*targs, W, H, **dict(tkw, has_material=True))
     ref = tm.mega_render_reference(*targs, W, H, **dict(tkw, has_material=True))
     plain = tm.mega_render_reference(*targs, W, H, **tkw)
-    assert tm.launches == before
+    assert counters["b1.launch"] == before
     assert torch.equal(rgba, ref[0]) and torch.equal(z, ref[1]) and torch.equal(z, plain[1])
     covered = int((z < 1.0).sum())
     assert covered > 1000 and int((rgba != plain[0]).sum()) > covered // 2

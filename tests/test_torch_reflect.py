@@ -34,6 +34,7 @@ from rusterix_tpu_torch.ops import reflect as tr  # noqa: E402
 from rusterix_tpu_torch.ops import rt_kernel as trt  # noqa: E402
 from rusterix_tpu_torch.ops import shade as ts  # noqa: E402
 from rusterix_tpu_torch.ops.raster import packed_to_torch  # noqa: E402
+from rusterix_tpu_torch.profiling import counters  # noqa: E402
 from rusterix_tpu_torch.ops.visibility_pallas import (  # noqa: E402
     visibility_pass_pallas_reference,
 )
@@ -395,13 +396,12 @@ def test_preparation_kernel_refuses_scenes_past_its_shared_memory():
     tcount = 64 * (trt.PREPARE_MAX_CELLS + 1)
     pos = torch.zeros((1, 3, 4)).expand(tcount, 3, 4)
     rays = [torch.zeros((8, 128)) for _ in range(6)]
-    counters = ("launches", "prepare_launches", "prepare_cluster_launches",
-                "prepare_large_launches")
-    before = [getattr(trt, c) for c in counters]
+    names = ("b3.walk_launch", "b3.prepare.rank", "b3.prepare.cluster", "b3.prepare.global")
+    before = [counters[c] for c in names]
     prep = trt.rt_prepare(pos, torch.zeros(tcount), *rays, 10.0, 8, 128)
     assert prep["ncells"] == trt.PREPARE_MAX_CELLS + 1
     assert prep["tnear"].shape == (1, trt.PREPARE_MAX_CELLS + 1)
     t, idx = trt.intersect_rays_pallas(pos, torch.zeros(tcount), *rays, 10.0, 8, 128)
     # CPU tensors: the plain version
-    assert [getattr(trt, c) for c in counters] == before
+    assert [counters[c] for c in names] == before
     assert t.shape == (8, 128) and int((idx >= 0).sum()) == 0

@@ -34,6 +34,7 @@ def main(argv=None) -> int:
 
     from rusterix_tpu_torch import _cuda
     from rusterix_tpu_torch.ops import rt_kernel
+    from rusterix_tpu_torch.profiling import counters
     from rusterix_tpu_torch.scenes import build_map_refl_scene
 
     w, h = 1920, 1080
@@ -51,8 +52,9 @@ def main(argv=None) -> int:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    rt_kernel.launches = rt_kernel.prepare_launches = 0
-    rt_kernel.prepare_cluster_launches = rt_kernel.prepare_large_launches = 0
+    routes = ("b3.prepare.rank", "b3.prepare.cluster", "b3.prepare.global")
+    for name in ("b3.walk_launch",) + routes:
+        counters[name] = 0
     frame = rast.rasterize(scene, w, h, 40, assets)
     ms = statistics.median(times)
     if args.out:
@@ -63,9 +65,8 @@ def main(argv=None) -> int:
         "cell": rt_kernel.RT_CELL, "bh": rt_kernel.RT_BH, "bw": rt_kernel.RT_BW,
         "build_dir": os.path.relpath(_cuda.BUILD_DIR, os.path.dirname(_cuda._PKG)),
         "first_frame_s": first_s, "ms": ms, "fps": 1e3 / ms,
-        "walk_launches": rt_kernel.launches,
-        "prepare_launches": [rt_kernel.prepare_launches, rt_kernel.prepare_cluster_launches,
-                             rt_kernel.prepare_large_launches],
+        "walk_launches": counters["b3.walk_launch"],
+        "prepare_launches": [counters[name] for name in routes],
         "frame_sha256": hashlib.sha256(frame.tobytes()).hexdigest(),
         "device": torch.cuda.get_device_name(0),
     }))
